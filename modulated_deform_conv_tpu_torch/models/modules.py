@@ -1,0 +1,161 @@
+"""Module layer: the four 2D deformable-conv modules as `torch.nn.Module`s.
+
+Counterparts of the JAX package's flax modules (models/modules.py):
+
+explicit-offset modules (forward takes x + offset [+ mask]):
+  DeformConv2d, ModulatedDeformConv2d
+"Pack" modules (learn the offset / mask predictor convs internally):
+  DeformConv2dPack, ModulatedDeformConv2dPack
+
+Parameters are `weight`, `bias`, `conv_offset.*` and `conv_mask.*`, laid
+out OIHW like the flax modules' (models/torch_compat.py carries them over).
+Initialization follows the flax modules:
+
+* weight ~ U(-s, s) with s = 1/sqrt(C_in * prod(kernel)); bias = 0;
+* the Pack predictor convs use the same uniform init with zero bias.  They
+  are not zero-initialized and the mask gets no sigmoid by default; the
+  opt-in flags `zero_init_offset=True` (which zeroes conv_mask as well) and
+  `sigmoid_mask=True` give the usual DCN practice.
+
+Constructors take `device=` (default "cuda") and `dtype=`; nothing is moved
+to another device silently.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence, Union
+
+import torch
+from torch import nn
+
+from ..ops import api as ops_api
+from ..utils.config import ntuple
+
+IntOrSeq = Union[int, Sequence[int]]
+
+
+def _fan_in_uniform_(t: torch.Tensor, fan_in: int) -> None:
+    stdv = 1.0 / math.sqrt(fan_in)
+    with torch.no_grad():
+        t.uniform_(-stdv, stdv)
+
+
+class _DeformConvBase(nn.Module):
+    """Shared plumbing for the modules."""
+    _ndim = 2
+    _modulated = False
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: IntOrSeq, stride: IntOrSeq = 1,
+                 padding: IntOrSeq = 0, dilation: IntOrSeq = 1,
+                 groups: int = 1, deformable_groups: int = 1,
+                 bias: bool = False, in_step: int = 64, impl: str = "auto",
+                 offset_bound: Optional[float] = None, *, device="cuda",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if in_channels % groups:
+            raise ValueError("in_channels not divisible by groups")
+        if out_channels % groups:
+            raise ValueError("out_channels not divisible by groups")
+        if in_channels % deformable_groups:
+            raise ValueError("in_channels not divisible by deformable_groups")
+        nd = self._ndim
+        self.in_channels, self.out_channels = in_channels, out_channels
+        self.kernel_size = ntuple(kernel_size, nd)
+        self.stride = ntuple(stride, nd)
+        self.padding = ntuple(padding, nd)
+        self.dilation = ntuple(dilation, nd)
+        self.groups, self.deformable_groups = groups, deformable_groups
+        self.in_step, self.impl = in_step, impl
+        # Bounded-offset contract enabling the shift-blend kernel; None
+        # keeps the general kernel.
+        self.offset_bound = offset_bound
+        self.weight = nn.Parameter(torch.empty(
+            (out_channels, in_channels // groups) + self.kernel_size,
+            device=device, dtype=dtype))
+        if bias:
+            self.bias = nn.Parameter(torch.zeros(out_channels, device=device,
+                                                 dtype=dtype))
+        else:
+            self.register_parameter("bias", None)
+        _fan_in_uniform_(self.weight,
+                         in_channels * math.prod(self.kernel_size))
+
+    def _conv(self, x, offset, mask):
+        kwargs = dict(stride=self.stride, padding=self.padding,
+                      dilation=self.dilation, groups=self.groups,
+                      deformable_groups=self.deformable_groups,
+                      in_step=self.in_step, impl=self.impl,
+                      offset_bound=self.offset_bound)
+        if self._modulated:
+            return ops_api.modulated_deform_conv2d(x, offset, mask,
+                                                   self.weight, self.bias,
+                                                   **kwargs)
+        return ops_api.deform_conv2d(x, offset, self.weight, self.bias,
+                                     **kwargs)
+
+
+class DeformConv2d(_DeformConvBase):
+    """Explicit-offset DCNv1 2D."""
+
+    def forward(self, x, offset):
+        return self._conv(x, offset, None)
+
+
+class ModulatedDeformConv2d(_DeformConvBase):
+    """Explicit-offset DCNv2 2D."""
+    _modulated = True
+
+    def forward(self, x, offset, mask):
+        return self._conv(x, offset, mask)
+
+
+class _PackBase(_DeformConvBase):
+    """Pack variant: offset (and mask) come from predictor convs applied to
+    x, sharing the main conv's stride / padding / dilation so they live on
+    the output grid.  The predictors are ordinary convolutions (F.conv2d),
+    as the JAX package computes them outside its kernels."""
+
+    def __init__(self, *args, zero_init_offset: bool = False,
+                 sigmoid_mask: bool = False, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.sigmoid_mask = sigmoid_mask
+        K = math.prod(self.kernel_size)
+        factory = dict(device=self.weight.device, dtype=self.weight.dtype)
+        self.conv_offset = self._predictor(
+            self.deformable_groups * self._ndim * K, zero_init_offset,
+            factory)
+        if self._modulated:
+            self.conv_mask = self._predictor(self.deformable_groups * K,
+                                             zero_init_offset, factory)
+
+    def _predictor(self, out_ch: int, zero_init: bool, factory) -> nn.Conv2d:
+        conv = nn.Conv2d(self.in_channels, out_ch, self.kernel_size,
+                         stride=self.stride, padding=self.padding,
+                         dilation=self.dilation, bias=True, **factory)
+        with torch.no_grad():
+            if zero_init:
+                conv.weight.zero_()
+            else:
+                _fan_in_uniform_(conv.weight, self.in_channels
+                                 * math.prod(self.kernel_size))
+            conv.bias.zero_()
+        return conv
+
+    def forward(self, x):
+        offset = self.conv_offset(x)
+        if self._modulated:
+            mask = self.conv_mask(x)
+            if self.sigmoid_mask:
+                mask = torch.sigmoid(mask)
+            return self._conv(x, offset, mask)
+        return self._conv(x, offset, None)
+
+
+class DeformConv2dPack(_PackBase):
+    """Learned-offset DCNv1 2D."""
+
+
+class ModulatedDeformConv2dPack(_PackBase):
+    """Learned offset + mask DCNv2 2D."""
+    _modulated = True

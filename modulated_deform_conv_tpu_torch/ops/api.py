@@ -1,0 +1,147 @@
+"""Public functional API: the four deformable-convolution ops.
+
+Signatures follow the JAX package's ops/api.py: positional (input, offset,
+[mask,] weight, bias), then stride / padding / dilation / groups /
+deformable_groups / in_step, then the keywords `impl`, `precision`,
+`offset_bound` and `debug_check_bounds`.  Layout is NCHW / NCDHW.  Every
+op runs on the device of its input tensors.  `impl` selects the path:
+
+* "torch"      - plain PyTorch (ops/core.py), 2D and 3D, CPU and card,
+                 differentiable through autograd;
+* "cuda"       - the hand-written kernels (ops/cuda/), raising where none
+                 takes the config; CPU tensors run the kernels' plain
+                 versions;
+* "shiftblend" - the bounded-offset kernel only;
+* "auto"       - a kernel on CUDA tensors wherever one takes the config,
+                 else "torch".
+
+`offset_bound` declares |offset| <= bound and enables the shift-blend
+kernel, which drops the corners of offsets beyond it.
+
+Dtype policy: fp32 and bf16 run natively; on the kernel paths fp16 (and,
+in these kernels, bf16) is upcast to fp32 and the result cast back; fp64
+raises NotImplementedError on "cuda" / "shiftblend" and takes "torch" under
+"auto".  Sampling coordinates always accumulate in >= fp32.
+
+The kernels' backward lands with the next slice of the port: on the kernel
+paths a backward raises NotImplementedError; use impl="torch" to train.
+"""
+from __future__ import annotations
+
+import warnings
+from typing import Optional
+
+import torch
+
+from ..utils.config import DeformConvSpec
+from . import core
+from .cuda import PRECISIONS, maybe_cuda
+
+_IMPLS = ("auto", "torch", "cuda", "shiftblend")
+
+
+def _dispatch(x, offset, mask, weight, bias, spec: DeformConvSpec, impl: str,
+              precision: str = "tensorfloat32", offset_bound=None,
+              gate_bounds=None, debug_check_bounds: bool = False):
+    if impl not in _IMPLS:
+        raise ValueError(f"impl must be one of {_IMPLS}, got {impl!r}")
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got "
+                         f"{precision!r}")
+    if debug_check_bounds and offset_bound is not None:
+        # Opt-in guard for the bounded-offset contract; reading the check
+        # synchronises with the device.
+        from .cuda.shiftblend import offsets_within_bound
+        if not bool(offsets_within_bound(offset, offset_bound)):
+            warnings.warn(
+                "modulated_deform_conv_tpu_torch: max |offset| = "
+                f"{float(offset.abs().max())} exceeds the declared "
+                f"offset_bound = {offset_bound}; out-of-bound tap "
+                "contributions are dropped (bounded-offset contract)",
+                stacklevel=3)
+    spec.validate(x.shape, offset.shape, weight.shape,
+                  None if mask is None else mask.shape,
+                  None if bias is None else bias.shape)
+    if impl != "torch":
+        out = maybe_cuda(x, offset, mask, weight, bias, spec,
+                         require=impl in ("cuda", "shiftblend"),
+                         precision=precision, offset_bound=offset_bound,
+                         impl=impl, gate_bounds=gate_bounds)
+        if out is not None:
+            return out
+    return core.deform_conv_nd(x, offset, mask, weight, bias, spec,
+                               precision=precision, gate_bounds=gate_bounds)
+
+
+def deform_conv2d(input: torch.Tensor, offset: torch.Tensor,
+                  weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                  stride=1, padding=0, dilation=1, groups: int = 1,
+                  deformable_groups: int = 1, in_step: int = 64, *,
+                  impl: str = "auto", precision: str = "tensorfloat32",
+                  offset_bound=None,
+                  debug_check_bounds: bool = False) -> torch.Tensor:
+    """DCNv1 2D forward.
+
+    input (B, C, H, W); offset (B, dg*2*kh*kw, OH, OW); weight
+    (O, C/g, kh, kw); bias (O,) or None.  Returns (B, O, OH, OW)."""
+    spec = DeformConvSpec.make(2, weight.shape[2:], stride, padding, dilation,
+                               groups, deformable_groups, in_step,
+                               modulated=False)
+    return _dispatch(input, offset, None, weight, bias, spec, impl,
+                     precision, offset_bound=offset_bound,
+                     debug_check_bounds=debug_check_bounds)
+
+
+def modulated_deform_conv2d(input: torch.Tensor, offset: torch.Tensor,
+                            mask: torch.Tensor, weight: torch.Tensor,
+                            bias: Optional[torch.Tensor] = None, stride=1,
+                            padding=0, dilation=1, groups: int = 1,
+                            deformable_groups: int = 1, in_step: int = 64,
+                            *, impl: str = "auto",
+                            precision: str = "tensorfloat32",
+                            offset_bound=None,
+                            debug_check_bounds: bool = False) -> torch.Tensor:
+    """DCNv2 2D forward.  mask (B, dg*kh*kw, OH, OW)."""
+    spec = DeformConvSpec.make(2, weight.shape[2:], stride, padding, dilation,
+                               groups, deformable_groups, in_step,
+                               modulated=True)
+    return _dispatch(input, offset, mask, weight, bias, spec, impl,
+                     precision, offset_bound=offset_bound,
+                     debug_check_bounds=debug_check_bounds)
+
+
+def deform_conv3d(input: torch.Tensor, offset: torch.Tensor,
+                  weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                  stride=1, padding=0, dilation=1, groups: int = 1,
+                  deformable_groups: int = 1, in_step: int = 64, *,
+                  impl: str = "auto", precision: str = "tensorfloat32",
+                  offset_bound=None,
+                  debug_check_bounds: bool = False) -> torch.Tensor:
+    """3D deformable conv.
+
+    input (B, C, H, W, L); offset (B, dg*3*kh*kw*kl, OH, OW, OL);
+    weight (O, C/g, kh, kw, kl)."""
+    spec = DeformConvSpec.make(3, weight.shape[2:], stride, padding, dilation,
+                               groups, deformable_groups, in_step,
+                               modulated=False)
+    return _dispatch(input, offset, None, weight, bias, spec, impl,
+                     precision, offset_bound=offset_bound,
+                     debug_check_bounds=debug_check_bounds)
+
+
+def modulated_deform_conv3d(input: torch.Tensor, offset: torch.Tensor,
+                            mask: torch.Tensor, weight: torch.Tensor,
+                            bias: Optional[torch.Tensor] = None, stride=1,
+                            padding=0, dilation=1, groups: int = 1,
+                            deformable_groups: int = 1, in_step: int = 64,
+                            *, impl: str = "auto",
+                            precision: str = "tensorfloat32",
+                            offset_bound=None,
+                            debug_check_bounds: bool = False) -> torch.Tensor:
+    """Modulated 3D deformable conv.  mask (B, dg*kh*kw*kl, OH, OW, OL)."""
+    spec = DeformConvSpec.make(3, weight.shape[2:], stride, padding, dilation,
+                               groups, deformable_groups, in_step,
+                               modulated=True)
+    return _dispatch(input, offset, mask, weight, bias, spec, impl,
+                     precision, offset_bound=offset_bound,
+                     debug_check_bounds=debug_check_bounds)

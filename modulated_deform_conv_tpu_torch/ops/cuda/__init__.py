@@ -1,0 +1,80 @@
+"""Hand-written CUDA kernels for the deformable-convolution hot path.
+
+`maybe_cuda` is the dispatch hook of ops/api.py, the counterpart of the JAX
+package's `maybe_pallas`: it returns a kernel's result when a kernel takes
+the configuration, or None to take the plain PyTorch path (ops/core.py).
+On CUDA tensors, "auto" takes a kernel wherever the JAX package takes a
+Pallas kernel on its accelerator; on CPU tensors it takes the plain path,
+as JAX's "auto" takes XLA off the TPU.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+from ...utils.config import DeformConvSpec
+from . import gathermm, shiftblend
+from .lib import PRECISIONS  # noqa: F401  (public)
+
+# Shift-blend when C/dg <= this, gathermm above.  Measured on v5e, not yet
+# on the H100: the TPU's VPU-sweep vs MXU balance set it.
+SB_CROSSOVER_CG = 128
+
+
+def _prefer_shiftblend(x, spec: DeformConvSpec) -> bool:
+    """Dispatch policy between two eligible kernels: shift-blend for narrow
+    channel slabs.  (The JAX package's 3D rule, planar gathermm for wide
+    3D bounds, arrives with the 3D kernels.)"""
+    return x.shape[1] // spec.deformable_groups <= SB_CROSSOVER_CG
+
+
+def select_kernel(x, spec: DeformConvSpec, offset_bound=None
+                  ) -> Tuple[Optional[str], Optional[str]]:
+    """("shiftblend" | "gathermm", None) for the kernel the config takes on
+    a CUDA tensor, or (None, reason) when neither takes it."""
+    sb_reason = shiftblend.ineligible_reason(x, spec, offset_bound)
+    reason = gathermm.ineligible_reason(x, spec)
+    if sb_reason is None and (reason is not None
+                              or _prefer_shiftblend(x, spec)):
+        return "shiftblend", None
+    if reason is None:
+        return "gathermm", None
+    return None, reason + (f"; shiftblend: {sb_reason}" if sb_reason else "")
+
+
+def maybe_cuda(x, offset, mask, weight, bias, spec: DeformConvSpec,
+               require: bool = False, precision: str = "tensorfloat32",
+               offset_bound=None, impl: str = "auto", gate_bounds=None):
+    """Return a kernel's output, or None for the plain PyTorch path.
+
+    With require=True (impl="cuda" / "shiftblend") raises instead of
+    falling back when no kernel takes the config.  3D configs and
+    `gate_bounds` that would take a kernel raise: their kernels are not
+    ported yet, and the plain path would hide that."""
+    if impl == "shiftblend":
+        reason = shiftblend.ineligible_reason(x, spec, offset_bound)
+        if reason is not None:
+            raise NotImplementedError(
+                f"shiftblend path unavailable: {reason}")
+        name = "shiftblend"
+    else:
+        if not require and not x.is_cuda:
+            return None
+        name, reason = select_kernel(x, spec, offset_bound)
+        if name is None:
+            if require:
+                raise NotImplementedError(
+                    f"cuda path unavailable for this config: {reason}")
+            return None
+    if spec.ndim == 3:
+        raise NotImplementedError(
+            f"the 3D {name} kernel is not ported yet (the 3D slice of the "
+            "port); pass impl='torch'")
+    if gate_bounds is not None:
+        raise NotImplementedError(
+            "gate_bounds on the kernel path is not ported yet (the sharding "
+            "slice of the port); pass impl='torch'")
+    if name == "shiftblend":
+        return shiftblend.deform_conv_shift(x, offset, mask, weight, bias,
+                                            spec, precision, offset_bound)
+    return gathermm.deform_conv_fused(x, offset, mask, weight, bias, spec,
+                                      precision)

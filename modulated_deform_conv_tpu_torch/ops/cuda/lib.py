@@ -1,0 +1,145 @@
+"""Build, load and launch the port's CUDA kernels.
+
+Each `csrc/<name>.cu` has a plain C interface.  It is compiled at first use
+by `nvcc` into `build/lib<name>-<hash>.so` at the repository root (the hash
+covers the sources and flags, so an edited source builds anew) and loaded
+with ctypes.  `build()` starts one `nvcc` per source, all at once.  Nothing
+here runs at import: the package imports on machines without CUDA.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+from typing import Dict, Iterable, Optional
+
+import torch
+
+CSRC = pathlib.Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build"
+KERNELS = ("gathermm_fwd", "shiftblend_fwd")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+
+# Precision modes as the kernels number them (csrc/deform_tile.cuh).
+PRECISION_CODES = {"float32": 0, "tensorfloat32": 1, "bfloat16": 2}
+PRECISIONS = tuple(PRECISION_CODES)
+
+_FUNCS: Dict[str, object] = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def _lib_path(name: str) -> pathlib.Path:
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def build(names: Iterable[str] = KERNELS, verbose: bool = False) -> Dict[str, str]:
+    """Compile the named kernels that are not built yet, one `nvcc` each,
+    all started together.  Returns nvcc's output per kernel built (with
+    `verbose`, ptxas's register and shared-memory report); raises if any
+    build fails."""
+    jobs = []
+    for name in names:
+        out = _lib_path(name)
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+               "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        jobs.append((name, tmp, out, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, errors = {}, []
+    for name, tmp, out, proc in jobs:
+        logs[name] = proc.communicate()[0]
+        if proc.returncode:
+            errors.append(f"nvcc failed for {name} (exit {proc.returncode}):\n"
+                          f"{logs[name]}")
+        else:
+            os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return logs
+
+
+def kernel(name: str):
+    """The C entry point `name` of `csrc/<name>.cu`, built if needed."""
+    fn = _FUNCS.get(name)
+    if fn is None:
+        path = _lib_path(name)
+        if not path.exists():
+            build([name])
+        fn = getattr(ctypes.CDLL(str(path)), name)
+        fn.restype = ctypes.c_int
+        _FUNCS[name] = fn
+    return fn
+
+
+def check_inputs(name: str, x, offset, mask, weight, bias, spec) -> None:
+    """Raise unless the kernel can take these tensors as they are: 2D,
+    float32, contiguous, all on x's CUDA device, shapes per `spec`."""
+    if not x.is_cuda:
+        raise ValueError(f"{name}: the kernel takes CUDA tensors, got "
+                         f"{x.device}")
+    if spec.ndim != 2:
+        raise NotImplementedError(f"{name}: only the 2D kernel is ported")
+    spec.validate(x.shape, offset.shape, weight.shape,
+                  None if mask is None else mask.shape,
+                  None if bias is None else bias.shape)
+    for label, t in (("input", x), ("offset", offset), ("mask", mask),
+                     ("weight", weight), ("bias", bias)):
+        if t is None:
+            continue
+        if t.device != x.device:
+            raise ValueError(f"{name}: {label} on {t.device}, input on "
+                             f"{x.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: {label} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {label} must be contiguous")
+
+
+def as_f32(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """The kernels' input form: float32 and contiguous (a no-op if so)."""
+    return None if t is None else t.to(torch.float32).contiguous()
+
+
+def grouped_weight(weight: torch.Tensor, groups: int) -> torch.Tensor:
+    """(O, C/g, *k) -> (g, C/g*K, O/g): the kernels' weight layout, each
+    (channel, tap) row holding the group's output channels contiguously."""
+    O = weight.shape[0]
+    return (weight.reshape(groups, O // groups, -1).transpose(1, 2)
+            .contiguous())
+
+
+def launch(name: str, x: torch.Tensor, tensors, ints) -> None:
+    """Launch kernel `name` on x's device and current stream: the C entry
+    takes the tensors' pointers, the ints, then the stream.  Raise with the
+    CUDA error if the launch was refused."""
+    fn = kernel(name)
+    # Every pointer and the stream as c_void_p: an undeclared argument
+    # would pass as a 32-bit int and cut the pointer.
+    fn.argtypes = ([ctypes.c_void_p] * len(tensors)
+                   + [ctypes.c_int] * len(ints) + [ctypes.c_void_p])
+    ptrs = [None if t is None else t.data_ptr() for t in tensors]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(*ptrs, *ints, stream)
+    if err:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                           f"{err}")

@@ -1,0 +1,116 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked `cuda`: each test skips without an NVIDIA GPU.  This file imports no
+JAX, so it runs where only PyTorch is installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py -q
+
+(`--noconftest` because tests/conftest.py configures JAX.)  Limits per
+precision mode, as max|kernel - plain| / max|plain|: float32 1e-5,
+tensorfloat32 5e-3, bfloat16 2e-2.
+"""
+import numpy as np
+import pytest
+import torch
+
+import modulated_deform_conv_tpu_torch as mdt
+from modulated_deform_conv_tpu_torch.ops import api
+from modulated_deform_conv_tpu_torch.ops.cuda import gathermm as gm
+from modulated_deform_conv_tpu_torch.ops.cuda import shiftblend as sb
+from modulated_deform_conv_tpu_torch.utils.config import DeformConvSpec
+
+pytestmark = pytest.mark.cuda
+
+LIMITS = {"float32": 1e-5, "tensorfloat32": 5e-3, "bfloat16": 2e-2}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run on the card, see the module "
+                    "docstring)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _case(dev, B, C, O, S, k, stride, pad, dil, g, dg, modulated, bias,
+          offscale, seed=0):
+    rng = np.random.default_rng(seed)
+    spec = DeformConvSpec.make(2, k, stride, pad, dil, g, dg,
+                               modulated=modulated)
+    OS = spec.out_sizes(S)
+    K = spec.tap_count
+    arrs = [rng.standard_normal((B, C) + S),
+            rng.uniform(-offscale, offscale, (B, dg * 2 * K) + OS),
+            rng.uniform(0, 1, (B, dg * K) + OS) if modulated else None,
+            rng.standard_normal((O, C // g) + spec.kernel) * 0.1,
+            rng.standard_normal((O,)) if bias else None]
+    return spec, [None if a is None else
+                  torch.tensor(a, dtype=torch.float32, device=dev)
+                  for a in arrs]
+
+
+def _rel(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+# (B, C, O, S, k, stride, pad, dil, g, dg, modulated, bias, offscale)
+GENERAL = [
+    (2, 16, 24, (15, 9), 3, 1, 1, 1, 2, 2, True, True, 3.0),
+    (1, 12, 70, (11, 13), 3, 2, 1, 1, 1, 3, False, True, 8.0),
+    (2, 8, 8, (10, 10), (3, 1), 1, (2, 0), (2, 1), 2, 4, True, False, 1.0),
+    (1, 256, 64, (9, 9), 5, 1, 2, 1, 4, 4, True, True, 2.0),
+]
+BOUNDED = [
+    (2, 16, 24, (15, 9), 3, 1, 1, 1, 2, 2, True, True, 3.0, 1.0),
+    (1, 32, 70, (12, 17), 3, 1, 2, 2, 1, 2, False, True, 4.0, 1.5),
+    (2, 256, 64, (9, 9), 5, 1, 2, 1, 4, 4, True, True, 2.0, 2.0),
+]
+
+
+@pytest.mark.parametrize("precision", list(LIMITS))
+@pytest.mark.parametrize("case", GENERAL)
+def test_gathermm_kernel_matches_plain(dev, case, precision):
+    spec, args = _case(dev, *case)
+    gm.gathermm_fwd.launches = 0
+    got = gm.gathermm_fwd(*args, spec, precision)
+    assert gm.gathermm_fwd.launches == 1
+    want = gm.gathermm_fwd_reference(*args, spec, precision)
+    assert _rel(got, want) <= LIMITS[precision]
+
+
+@pytest.mark.parametrize("precision", list(LIMITS))
+@pytest.mark.parametrize("case", BOUNDED)
+def test_shiftblend_kernel_matches_plain(dev, case, precision):
+    spec, args = _case(dev, *case[:-1])
+    sb.shiftblend_fwd.launches = 0
+    got = sb.shiftblend_fwd(*args, spec, precision, case[-1])
+    assert sb.shiftblend_fwd.launches == 1
+    want = sb.shiftblend_fwd_reference(*args, spec, precision, case[-1])
+    assert _rel(got, want) <= LIMITS[precision]
+
+
+def test_auto_dispatch_and_raises(dev):
+    spec, (x, off, mask, w, b) = _case(dev, *GENERAL[0])
+    sb.shiftblend_fwd.launches = gm.gathermm_fwd.launches = 0
+    with torch.no_grad():
+        out = mdt.modulated_deform_conv2d(x, off, mask, w, b, 1, 1, 1, 2, 2,
+                                          offset_bound=3.0)
+        mdt.modulated_deform_conv2d(x, off, mask, w, b, 1, 1, 1, 2, 2)
+    assert (sb.shiftblend_fwd.launches, gm.gathermm_fwd.launches) == (1, 1)
+    ref = mdt.modulated_deform_conv2d(x, off, mask, w, b, 1, 1, 1, 2, 2,
+                                      impl="torch")
+    assert _rel(out, ref) <= LIMITS["tensorfloat32"]
+    x.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="slice 2"):
+        mdt.modulated_deform_conv2d(x, off, mask, w, b, 1, 1, 1, 2,
+                                    2).sum().backward()
+    with pytest.raises(NotImplementedError, match="gate_bounds"):
+        api._dispatch(x, off, mask, w, b, spec, "auto",
+                      gate_bounds=((-1.0, 15.0), (-1.0, 9.0)))
+    with pytest.raises(ValueError, match="cpu"):
+        gm.gathermm_fwd(x.detach(), off.cpu(), mask, w, b, spec)
+    x3 = torch.ones((1, 8, 4, 4, 4), device=dev)
+    with pytest.raises(NotImplementedError, match="3D"):
+        mdt.deform_conv3d(x3, torch.zeros((1, 81, 4, 4, 4), device=dev),
+                          torch.ones((8, 8, 3, 3, 3), device=dev), None, 1, 1)

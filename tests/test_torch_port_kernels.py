@@ -1,0 +1,208 @@
+"""The port's kernel modules (ops/cuda/) against the JAX package's kernels.
+
+On the CPU each kernel wrapper runs its plain PyTorch version; these tests
+hold those plain versions against the JAX Pallas kernels in interpret mode
+(at tests/test_smoke.py sizes), and the port's dispatch against JAX's.  The
+CUDA kernels themselves are held against the plain versions on the card by
+chip_smoke.py and tests/test_torch_port_cuda.py.  Tolerance: 2e-5.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import modulated_deform_conv_tpu as jmdc
+from modulated_deform_conv_tpu.ops import pallas as jpl
+from modulated_deform_conv_tpu.ops.pallas import gathermm as jgm
+from modulated_deform_conv_tpu.ops.pallas import shiftblend as jsb
+from modulated_deform_conv_tpu.utils.config import DeformConvSpec as JSpec
+
+import modulated_deform_conv_tpu_torch as mdt
+from modulated_deform_conv_tpu_torch.ops import api, core
+from modulated_deform_conv_tpu_torch.ops.cuda import gathermm as gm
+from modulated_deform_conv_tpu_torch.ops.cuda import select_kernel
+from modulated_deform_conv_tpu_torch.ops.cuda import shiftblend as sb
+from modulated_deform_conv_tpu_torch.utils.config import DeformConvSpec
+
+
+def _inputs(seed, B, C, S, k, dg, modulated, offscale, g=1, O=None):
+    rng = np.random.default_rng(seed)
+    O = O or C
+    spec = DeformConvSpec.make(2, k, 1, k // 2, 1, g, dg, modulated=modulated)
+    OS = spec.out_sizes(S)
+    K = spec.tap_count
+    arrs = [rng.standard_normal((B, C) + S),
+            rng.uniform(-offscale, offscale, (B, dg * 2 * K) + OS),
+            rng.uniform(0, 1, (B, dg * K) + OS) if modulated else None,
+            rng.standard_normal((O, C // g, k, k)) * 0.1,
+            rng.standard_normal((O,))]
+    return spec, [None if a is None else a.astype(np.float32) for a in arrs]
+
+
+def _jspec(spec):
+    return JSpec.make(spec.ndim, spec.kernel, spec.stride, spec.padding,
+                      spec.dilation, spec.groups, spec.deformable_groups,
+                      spec.in_step, spec.modulated)
+
+
+def _t(arrs, dtype=torch.float32):
+    return [None if a is None else torch.tensor(a, dtype=dtype) for a in arrs]
+
+
+def _j(arrs):
+    return [None if a is None else jnp.asarray(a) for a in arrs]
+
+
+@pytest.mark.parametrize("bound,modulated,drops", [
+    (1.0, True, True),       # integer bound: W = 2b+1, corners beyond drop
+    (0.6, False, False),     # fractional bound, all offsets inside it
+])
+def test_shiftblend_reference_matches_pallas(bound, modulated, drops):
+    """shiftblend_fwd_reference against the interpret-mode Pallas kernel,
+    including the bounded contract's per-axis corner drops: at off = b+0.5
+    one corner of the axis survives with weight 0.5, at off = 5 none."""
+    spec, arrs = _inputs(0, 1, 8, (6, 7), 3, 1, modulated, 0.9 * bound)
+    x, off, mask, w, bias = arrs
+    if drops:
+        off[0, 8, 2, 3] = bound + 0.5      # tap 4, axis 0: high corner drops
+        off[0, 9, 3, 3] = -(bound + 0.5)   # tap 4, axis 1: low corner drops
+        off[0, 0, 1, 1] = 5.0              # tap 0, axis 0: both drop
+        off[0, 3, 4, 5] = bound + 0.5      # tap 1, axis 1
+        off[0, 16, 5, 6] = -5.0            # tap 8, axis 0
+    got = sb.shiftblend_fwd(*_t([x, off, mask, w, bias]), spec, "float32",
+                            bound)
+    jx, joff, jm, jw, jb = _j([x, off, mask, w, bias])
+    want = jax.jit(lambda *a: jsb.shift_conv_fwd_only(
+        *a, _jspec(spec), "float32", bound))(jx, joff, jm, jw, jb)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+    if drops:
+        # The dropped corners matter: the general op (no window) differs.
+        full = core._deform_conv_nd(*_t([x, off, mask, w, bias]), spec)
+        assert not torch.allclose(got, full, rtol=1e-3, atol=1e-3)
+
+
+def test_gathermm_reference_matches_pallas():
+    spec, arrs = _inputs(1, 1, 8, (6, 7), 3, 1, True, 2.5)
+    x, off, mask, w, bias = arrs
+    got = gm.gathermm_fwd(*_t(arrs), spec, "float32")
+    want = jax.jit(lambda *a: jmdc.modulated_deform_conv2d(
+        *a, stride=1, padding=1, impl="pallas", precision="float32"))(
+        *_j(arrs))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+
+
+def test_bf16_mode_rounds_operands():
+    """precision="bfloat16": the plain versions round columns and weights to
+    bf16 and accumulate in fp32, within bf16 error of the fp32 result."""
+    spec, arrs = _inputs(2, 2, 16, (5, 6), 3, 2, True, 1.5)
+    t = _t(arrs)
+    ref = gm.gathermm_fwd(*t, spec, "float32")
+    for out in (gm.gathermm_fwd(*t, spec, "bfloat16"),
+                sb.shiftblend_fwd(*t, spec, "bfloat16", 2.0)):
+        assert not torch.equal(out, ref)
+        torch.testing.assert_close(out, ref, rtol=2e-2, atol=2e-2)
+
+
+# (B, C, S, k, stride, pad, g, dg, bound, dtype)
+DISPATCH = [
+    (8, 256, (56, 56), 3, 1, 1, 4, 4, 2.0, "float32"),    # bench cfg2
+    (8, 256, (56, 56), 3, 1, 1, 4, 4, None, "float32"),
+    (2, 512, (14, 14), 3, 1, 1, 1, 1, 2.0, "float32"),    # C/dg > 256
+    (2, 384, (14, 14), 3, 1, 1, 2, 2, 1.0, "bfloat16"),   # above crossover
+    (2, 64, (12, 12), 3, 2, 1, 1, 2, 2.0, "float32"),     # stride 2
+    (2, 64, (12, 12), 3, 1, 0, 1, 2, 2.0, "float16"),     # OS != S
+    (2, 24, (12, 12), 3, 1, 1, 1, 2, 2.0, "float32"),     # C/dg % 8 != 0
+    (2, 32, (12, 12), 3, 1, 1, 4, 2, 2.0, "float32"),     # dg % g != 0
+    (2, 32, (12, 12), 5, 1, 2, 2, 2, 0.5, "float16"),
+    (1, 8, (3, 4, 5), 1, 1, 0, 1, 1, 1.0, "float32"),     # 3D, k=1
+]
+
+
+@pytest.mark.parametrize("case", DISPATCH)
+def test_dispatch_matches_jax(case):
+    """The kernel the port takes on a CUDA tensor is the one JAX's
+    maybe_pallas takes on its TPU, and the shift-blend reasons agree.
+    (Configs chosen away from JAX's TPU-only VMEM and unroll rules, and its
+    MXU rule C/dg >= 8, which the CUDA kernel does not need.)"""
+    B, C, S, k, stride, pad, g, dg, bound, dtype = case
+    nd = len(S)
+    spec = DeformConvSpec.make(nd, k, stride, pad, 1, g, dg, modulated=True)
+    js = _jspec(spec)
+    xj = jax.ShapeDtypeStruct((B, C) + S, jnp.dtype(dtype))
+    sb_reason_j = jsb.ineligible_reason(xj, js, bound)
+    reason_j = jgm.ineligible_reason(xj, js)
+    want = None
+    if sb_reason_j is None:
+        plan = jsb.SBPlan(js, B, C, S, js.out_sizes(S), bound)
+        if reason_j is not None or jpl._prefer_shiftblend(xj, js, plan):
+            want = "shiftblend"
+    if want is None and reason_j is None:
+        want = "gathermm"
+    xt = torch.empty((B, C) + S, dtype=getattr(torch, dtype), device="meta")
+    assert select_kernel(xt, spec, bound)[0] == want
+    assert sb.ineligible_reason(xt, spec, bound) == sb_reason_j
+    assert (gm.ineligible_reason(xt, spec) is None) == (reason_j is None)
+
+
+def test_offsets_within_bound_matches_jax():
+    rng = np.random.default_rng(3)
+    off = rng.uniform(-1.2, 1.2, (1, 36, 4, 4)).astype(np.float32)
+    off[0, 1::2] *= 0.5                       # axis 1 stays within 0.6
+    for bound in (1.3, 1.0, (1.3, 0.6), (1.0, 0.7), (1.3, 0.5)):
+        got = bool(sb.offsets_within_bound(torch.from_numpy(off), bound))
+        assert got == bool(jsb.offsets_within_bound(jnp.asarray(off), bound))
+
+
+def test_fp16_upcast_and_fp64_policy():
+    spec, arrs = _inputs(4, 1, 8, (5, 5), 3, 1, True, 0.8)
+    x, off, mask, w, bias = _t(arrs)
+    args = (1, 1, 1, 1, 1)
+    ref = core.deform_conv_nd(x, off, mask, w, bias, spec)
+    for impl, kw in (("cuda", {}), ("shiftblend", {"offset_bound": 1.0})):
+        out = mdt.modulated_deform_conv2d(
+            *_t(arrs, torch.float16), *args, impl=impl, **kw)
+        assert out.dtype == torch.float16
+        torch.testing.assert_close(out.float(), ref, rtol=5e-3, atol=5e-3)
+    x64 = _t(arrs, torch.float64)
+    for impl, kw in (("cuda", {}), ("shiftblend", {"offset_bound": 1.0})):
+        with pytest.raises(NotImplementedError, match="dtype"):
+            mdt.modulated_deform_conv2d(*x64, *args, impl=impl, **kw)
+    out = mdt.modulated_deform_conv2d(*x64, *args, impl="auto",
+                                      offset_bound=1.0)
+    assert out.dtype == torch.float64
+    torch.testing.assert_close(out.float(), ref, rtol=2e-5, atol=2e-5)
+
+
+def test_kernel_path_raises_where_not_ported():
+    spec, arrs = _inputs(5, 1, 8, (5, 5), 3, 1, True, 0.8)
+    x, off, mask, w, bias = _t(arrs)
+    x.requires_grad_(True)
+    out = mdt.modulated_deform_conv2d(x, off, mask, w, bias, 1, 1,
+                                      impl="cuda")
+    with pytest.raises(NotImplementedError, match="slice 2"):
+        out.sum().backward()
+    with pytest.raises(NotImplementedError, match="gate_bounds"):
+        api._dispatch(x, off, mask, w, bias, spec, "cuda",
+                      gate_bounds=((-1.0, 5.0), (-1.0, 5.0)))
+    x3 = torch.ones((1, 8, 3, 3, 3))
+    off3 = torch.zeros((1, 81, 3, 3, 3))
+    w3 = torch.ones((8, 8, 3, 3, 3))
+    with pytest.raises(NotImplementedError, match="3D"):
+        mdt.deform_conv3d(x3, off3, w3, None, 1, 1, impl="cuda")
+    with pytest.raises(NotImplementedError, match="shiftblend"):
+        mdt.deform_conv2d(x.detach(), off, w, None, 1, 1, impl="shiftblend")
+    # CPU tensors under "auto" take the plain path, 3D included.
+    assert mdt.deform_conv3d(x3, off3, w3, None, 1, 1).shape == (1, 8, 3, 3,
+                                                                  3)
+
+
+def test_debug_check_bounds_warns():
+    spec, arrs = _inputs(6, 1, 8, (5, 5), 3, 1, True, 0.8)
+    x, off, mask, w, bias = _t(arrs)
+    off[0, 0, 0, 0] = 3.0
+    with pytest.warns(UserWarning, match="offset_bound"):
+        mdt.modulated_deform_conv2d(x, off, mask, w, bias, 1, 1,
+                                    offset_bound=1.0, debug_check_bounds=True)
