@@ -1,15 +1,26 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch / CUDA port on one NVIDIA GPU.
 
-Drives the port's main path, the DCNv2 2D forward at the bench's config 2
-(B=8, 256->256 channels, 56x56, 3x3, stride 1, pad 1, groups =
-deformable_groups = 4, bias, offsets from U[-2, 2]), through the entry
-points a user calls: `modulated_deform_conv2d` with and without
-`offset_bound=2.0`, and `ModulatedDeformConv2dPack`.  It builds both
-kernels from `modulated_deform_conv_tpu_torch/csrc/`, checks that the path
-launched them, holds each kernel against its plain PyTorch version in
-every precision mode, times them with CUDA events, and prints one JSON
-line per kernel table and a last line {"ok": true, "device": {...}}.
+Drives the port's three main paths through the entry points a user calls:
+
+1. inference: the DCNv2 2D forward at the bench's config 2 (B=8, 256->256
+   channels, 56x56, 3x3, stride 1, pad 1, groups = deformable_groups = 4,
+   bias, offsets from U[-2, 2]), `modulated_deform_conv2d` with and
+   without `offset_bound=2.0`, and `ModulatedDeformConv2dPack`;
+2. the training step of bench.py at config 2: gradients of sum(out^2) with
+   respect to all five inputs, with and without the bound;
+3. DCNResNet-50 at width 64, 1000 classes, B=8, 224x224, trained for a
+   few AdamW steps by the in-package trainer.
+
+It builds the four kernels (shift-blend and gather, forward and backward)
+from `modulated_deform_conv_tpu_torch/csrc/`, checks with the launch
+counters that each path went through its kernels, holds each kernel
+against its plain PyTorch version in every precision mode (at config 2,
+on small edge cases, and on the inputs and output cotangents that all 13
+DCN layers of DCNResNet-50 saw at its first and last step), checks that the
+backward is bitwise deterministic, times kernels and steps with CUDA
+events, and prints the kernel table as one JSON line and a last line
+{"ok": true, "device": {...}}.
 
 Run from the repository root:  python3 chip_smoke.py
 It exits nonzero, and prints no result, without a CUDA device or without
@@ -37,6 +48,15 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"float32": 67e12, "tensorfloat32": 495e12, "bfloat16": 989e12}
 MAIN_PRECISION = "tensorfloat32"   # the ops' default mode
 TIMED_ITERS = 20
+# DCNResNet training phase: depth 50 at its published width, B=8, 224x224.
+RESNET = dict(width=64, classes=1000, batch=8, size=224, steps=6)
+DCN_LAYERS = 13   # c3-c5 bottlenecks of depth 50: 4 + 6 + 3
+REPLACES = {
+    "shiftblend_fwd": "modulated_deform_conv_tpu/ops/pallas/shiftblend.py:627",
+    "gathermm_fwd": "modulated_deform_conv_tpu/ops/pallas/gathermm.py:1162",
+    "shiftblend_bwd": "modulated_deform_conv_tpu/ops/pallas/shiftblend.py:970",
+    "gathermm_bwd": "modulated_deform_conv_tpu/ops/pallas/gathermm.py:1292",
+}
 
 
 class SmokeFailure(Exception):
@@ -89,20 +109,25 @@ def cfg2_inputs(torch, dev):
 
 def small_cases(torch, dev):
     """Small configs with ragged tiles, offsets far beyond the bound (partial
-    and full corner drops) and far outside the image, no mask / no bias,
-    stride and dilation, and deformable groups straddling conv groups."""
+    and full corner drops) and far outside the image, all-zero offsets (the
+    integer grid), no mask / no bias, stride and dilation, and deformable
+    groups straddling conv groups; each with a cotangent for the
+    backward."""
     from modulated_deform_conv_tpu_torch.utils.config import DeformConvSpec
     rng = np.random.default_rng(1)
     cases = []
     # name, kernel, (B, C, O, H, W, k, stride, pad, dil, g, dg), modulated,
     # bias, offset scale, bound
     table = [
-        ("shiftblend_fwd", (2, 32, 48, 13, 11, 3, 1, 1, 1, 2, 4), True, True, 4.0, 1.5),
-        ("shiftblend_fwd", (1, 16, 16, 9, 9, 3, 1, 2, 2, 1, 2), False, False, 5.0, 2.0),
-        ("shiftblend_fwd", (2, 64, 80, 10, 19, 5, 1, 2, 1, 2, 2), True, True, 3.0, 2.5),
-        ("gathermm_fwd", (2, 32, 48, 13, 11, 3, 2, 1, 1, 1, 4), True, True, 6.0, None),
-        ("gathermm_fwd", (1, 12, 8, 9, 7, 3, 1, 2, 2, 2, 3), False, False, 2.0, None),
-        ("gathermm_fwd", (2, 64, 130, 20, 17, 3, 1, 1, 1, 2, 1), True, False, 1.5, None),
+        ("shiftblend", (2, 32, 48, 13, 11, 3, 1, 1, 1, 2, 4), True, True, 4.0, 1.5),
+        ("shiftblend", (1, 16, 16, 9, 9, 3, 1, 2, 2, 1, 2), False, False, 5.0, 2.0),
+        ("shiftblend", (2, 64, 80, 10, 19, 5, 1, 2, 1, 2, 2), True, True, 3.0, 2.5),
+        ("shiftblend", (2, 32, 32, 12, 12, 3, 1, 1, 1, 1, 1), True, True, 0.0, 2.0),
+        ("gathermm", (2, 32, 48, 13, 11, 3, 2, 1, 1, 1, 4), True, True, 6.0, None),
+        ("gathermm", (1, 12, 8, 9, 7, 3, 1, 2, 2, 2, 3), False, False, 2.0, None),
+        ("gathermm", (2, 64, 130, 20, 17, 3, 1, 1, 1, 2, 1), True, False, 1.5, None),
+        ("gathermm", (2, 16, 16, 9, 7, 3, 1, 1, 1, 1, 2), True, True, 40.0, None),
+        ("gathermm", (2, 32, 32, 12, 12, 3, 2, 1, 1, 1, 1), True, True, 0.0, None),
     ]
     for name, (b, c, o, h, w_, k, s, p, d, g, dg), modulated, with_bias, scale, bound in table:
         spec = DeformConvSpec.make(2, k, s, p, d, g, dg, modulated=modulated)
@@ -114,8 +139,52 @@ def small_cases(torch, dev):
         mask = t(rng.uniform(0, 1, (b, dg * K, oh, ow))) if modulated else None
         wt = t(rng.standard_normal((o, c // g, k, k)) * 0.1)
         bias = t(rng.standard_normal((o,))) if with_bias else None
-        cases.append((name, spec, (x, off, mask, wt, bias), bound))
+        gout = t(rng.standard_normal((b, o, oh, ow)))
+        cases.append((name, spec, (x, off, mask, wt, bias), gout, bound))
     return cases
+
+
+def grad_rel_errs(got, want):
+    """Per-gradient relative error of a backward kernel against its plain
+    version (None where the gradient does not exist)."""
+    return {n: None if r is None else rel_err(g, r)
+            for n, g, r in zip(("x", "offset", "mask", "weight"), got, want)}
+
+
+def max_abs(got, want):
+    return max(float((g - r).abs().max()) for g, r in zip(got, want)
+               if r is not None)
+
+
+def device_time_by_kernel(fn, calls=3):
+    """Device time per call of each CUDA kernel that `calls` runs of fn()
+    launch, in ms, from torch.profiler; {} if the trace holds no device
+    time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    times = {}
+    for e in prof.key_averages():
+        if (e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                and not e.is_user_annotation):   # annotations double-count
+            times[e.key] = e.self_device_time_total / 1e3 / calls
+    return times
+
+
+def print_breakdown(label, times, top=8):
+    if not times:
+        print(f"{label}: device time not measured (the trace held none)")
+        return
+    total = sum(times.values())
+    print(f"{label}: {total:.4f} ms of device time per call")
+    for key, ms in sorted(times.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"  {ms:9.4f} ms {100 * ms / total:5.1f}%  {key[:90]}")
 
 
 def main() -> int:
@@ -126,6 +195,8 @@ def main() -> int:
     sys.path.insert(0, HERE)
     try:
         import modulated_deform_conv_tpu_torch as mdt
+        from modulated_deform_conv_tpu_torch.examples.train_dcn_resnet import (
+            train, train_step)
         from modulated_deform_conv_tpu_torch.ops.cuda import gathermm as gm
         from modulated_deform_conv_tpu_torch.ops.cuda import lib
         from modulated_deform_conv_tpu_torch.ops.cuda import shiftblend as sb
@@ -148,8 +219,15 @@ def main() -> int:
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     dev = torch.device("cuda")
-    kernels = {"shiftblend_fwd": (sb.shiftblend_fwd, sb.shiftblend_fwd_reference),
-               "gathermm_fwd": (gm.gathermm_fwd, gm.gathermm_fwd_reference)}
+    # family -> (forward, its plain version, backward, its plain version)
+    families = {"shiftblend": (sb.shiftblend_fwd, sb.shiftblend_fwd_reference,
+                               sb.shiftblend_bwd, sb.shiftblend_bwd_reference),
+                "gathermm": (gm.gathermm_fwd, gm.gathermm_fwd_reference,
+                             gm.gathermm_bwd, gm.gathermm_bwd_reference)}
+    kernels = {}
+    for fam, (fwd, fwd_ref, bwd, bwd_ref) in families.items():
+        kernels[f"{fam}_fwd"] = (fwd, fwd_ref)
+        kernels[f"{fam}_bwd"] = (bwd, bwd_ref)
 
     def reset():
         for fn, _ in kernels.values():
@@ -158,7 +236,7 @@ def main() -> int:
     def counts():
         return {n: fn.launches for n, (fn, _) in kernels.items()}
 
-    # Phase 2: build both kernels from the sources, in parallel.
+    # Phase 2: build the four kernels from the sources, in parallel.
     t0 = time.time()
     logs = lib.build(lib.KERNELS, verbose=True)
     print(f"build: {time.time() - t0:.1f} s for {sorted(logs) or 'nothing (cached)'}")
@@ -167,53 +245,110 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    # Phase 3: the main path at config 2, through the functional op.
     x, off, mask, w, bias = cfg2_inputs(torch, dev)
     spec = DeformConvSpec.make(2, KS, 1, 1, 1, G, DG, modulated=True)
+    extra = {"shiftblend": (BOUND,), "gathermm": ()}
+    results = {n: {"rel_err": {}} for n in kernels}
 
-    def op(**kw):
-        return mdt.modulated_deform_conv2d(x, off, mask, w, bias, 1, 1, 1, G,
-                                           DG, **kw)
+    def op(*ins, **kw):
+        return mdt.modulated_deform_conv2d(*ins, 1, 1, 1, G, DG, **kw)
 
+    # Phase 3: main path 1, the forward at config 2 through the public op.
     with torch.no_grad():
         reset()
-        out_bounded = op(impl="auto", offset_bound=BOUND)
-        out_general = op(impl="auto")
+        out_bounded = op(x, off, mask, w, bias, impl="auto", offset_bound=BOUND)
+        out_general = op(x, off, mask, w, bias, impl="auto")
         torch.cuda.synchronize()
-        main_launches = counts()
-        print(f"main path launches: {main_launches}")
-        for n, c in main_launches.items():
-            check(c >= 1, f"{n} was not launched on the main path")
-        ref = op(impl="torch")
+        fwd_launches = counts()
+        print(f"forward path launches: {fwd_launches}")
+        for n in ("shiftblend_fwd", "gathermm_fwd"):
+            check(fwd_launches[n] >= 1, f"{n} was not launched on the forward path")
+        ref = op(x, off, mask, w, bias, impl="torch")
         for label, out in (("bounded", out_bounded), ("general", out_general)):
             check(out.shape == (B, O, H, W), f"{label} output shape {tuple(out.shape)}")
             check(bool(torch.isfinite(out).all()), f"{label} output not finite")
             e = rel_err(out, ref)
-            print(f"main path {label} vs impl='torch': rel err {e:.3e}")
-            check(e <= LIMITS[MAIN_PRECISION], f"main path {label} disagrees: {e:.3e}")
+            print(f"forward path {label} vs impl='torch': rel err {e:.3e}")
+            check(e <= LIMITS[MAIN_PRECISION], f"forward path {label} disagrees: {e:.3e}")
+        del out_bounded, out_general
 
-        # Phase 4: each kernel against its plain version, every mode.
-        results = {n: {"rel_err": {}} for n in kernels}
-        extra = {"shiftblend_fwd": (BOUND,), "gathermm_fwd": ()}
-        for name, (fn, ref_fn) in kernels.items():
+    # Phase 4: main path 2, the training step of bench.py at config 2:
+    # grads of sum(out^2) in all five inputs, through impl="auto".
+    leaves = [t.detach().clone().requires_grad_(True) for t in (x, off, mask, w, bias)]
+
+    def cfg2_step(**kw):
+        out = op(*leaves, **kw)
+        return torch.autograd.grad((out * out).sum(), leaves)
+
+    step_launches, step_grads = {}, {}
+    for label, kw, fam in (("bounded", dict(offset_bound=BOUND), "shiftblend"),
+                           ("general", {}, "gathermm")):
+        reset()
+        step_grads[label] = cfg2_step(impl="auto", **kw)
+        torch.cuda.synchronize()
+        launched = counts()
+        print(f"training-step path {label} launches: {launched}")
+        for n in (f"{fam}_fwd", f"{fam}_bwd"):
+            check(launched[n] == 1, f"{n} was not launched once on the {label} training step")
+            step_launches[n] = launched[n]
+    g_ref = cfg2_step(impl="torch")
+    names5 = ("x", "offset", "mask", "weight", "bias")
+    for label, kw in (("bounded", dict(offset_bound=BOUND)), ("general", {})):
+        grads = step_grads[label]
+        errs = {n: rel_err(g, r) for n, g, r in zip(names5, grads, g_ref)}
+        print(f"training step {label} vs impl='torch': "
+              + " ".join(f"{n} {e:.3e}" for n, e in errs.items()))
+        for n, e in errs.items():
+            check(bool(torch.isfinite(grads[names5.index(n)]).all()), f"{label} grad_{n} not finite")
+            check(e <= LIMITS[MAIN_PRECISION], f"training step {label} grad_{n} disagrees: {e:.3e}")
+        again = cfg2_step(impl="auto", **kw)
+        check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+              f"training step {label}: two backward runs differ")
+        print(f"training step {label}: two backward runs bitwise equal")
+    del step_grads, grads, again, g_ref
+
+    with torch.no_grad():
+        # Phase 5: each kernel against its plain version, every mode, at
+        # config 2 and on the small cases.
+        gout = torch.from_numpy(np.random.default_rng(2).standard_normal(
+            (B, O, H, W)).astype(np.float32)).to(dev)
+        for fam, (fwd, fwd_ref, bwd, bwd_ref) in families.items():
             for prec, limit in LIMITS.items():
-                got = fn(x, off, mask, w, bias, spec, prec, *extra[name])
-                want = ref_fn(x, off, mask, w, bias, spec, prec, *extra[name])
+                args = (x, off, mask, w, bias, spec, prec, *extra[fam])
+                got, want = fwd(*args), fwd_ref(*args)
                 e = rel_err(got, want)
-                results[name]["rel_err"][prec] = e
+                results[f"{fam}_fwd"]["rel_err"][prec] = e
                 if prec == MAIN_PRECISION:
-                    results[name]["max_abs_err"] = float((got - want).abs().max())
-                print(f"{name} cfg2 {prec}: rel err {e:.3e} (limit {limit:g})")
-                check(e <= limit, f"{name} {prec} disagrees with its plain version")
+                    results[f"{fam}_fwd"]["max_abs_err"] = float((got - want).abs().max())
+                print(f"{fam}_fwd cfg2 {prec}: rel err {e:.3e} (limit {limit:g})")
+                check(e <= limit, f"{fam}_fwd {prec} disagrees with its plain version")
                 del got, want
-        for name, sspec, args, bound in small_cases(torch, dev):
-            fn, ref_fn = kernels[name]
+                bargs = (x, off, mask, w, gout, spec, prec, *extra[fam])
+                got, want = bwd(*bargs), bwd_ref(*bargs)
+                errs = grad_rel_errs(got, want)
+                results[f"{fam}_bwd"]["rel_err"][prec] = errs
+                if prec == MAIN_PRECISION:
+                    results[f"{fam}_bwd"]["max_abs_err"] = max_abs(got, want)
+                print(f"{fam}_bwd cfg2 {prec}: "
+                      + " ".join(f"{n} {e:.3e}" for n, e in errs.items()) + f" (limit {limit:g})")
+                for n, e in errs.items():
+                    check(e <= limit, f"{fam}_bwd {prec} grad_{n} disagrees: {e:.3e}")
+                del got, want
+        for fam, sspec, args, sgout, bound in small_cases(torch, dev):
+            fwd, fwd_ref, bwd, bwd_ref = families[fam]
             ext = (bound,) if bound is not None else ()
+            xs, offs, masks, ws, _ = args
             for prec, limit in LIMITS.items():
-                e = rel_err(fn(*args, sspec, prec, *ext), ref_fn(*args, sspec, prec, *ext))
-                check(e <= limit, f"{name} small case {sspec} {prec}: rel err {e:.3e}")
-            print(f"{name} small case k={sspec.kernel} s={sspec.stride} d={sspec.dilation} "
-                  f"g={sspec.groups} dg={sspec.deformable_groups} bound={bound}: ok")
+                e = rel_err(fwd(*args, sspec, prec, *ext), fwd_ref(*args, sspec, prec, *ext))
+                check(e <= limit, f"{fam}_fwd small case {sspec} {prec}: rel err {e:.3e}")
+                bargs = (xs, offs, masks, ws, sgout, sspec, prec, *ext)
+                for n, e in grad_rel_errs(bwd(*bargs), bwd_ref(*bargs)).items():
+                    if e is not None:
+                        check(e <= limit, f"{fam}_bwd small case {sspec} {prec} grad_{n}: "
+                              f"rel err {e:.3e}")
+            print(f"{fam} small case k={sspec.kernel} s={sspec.stride} d={sspec.dilation} "
+                  f"g={sspec.groups} dg={sspec.deformable_groups} bound={bound} "
+                  f"max|off|={float(offs.abs().max()):.1f} mask={masks is not None}: fwd + bwd ok")
         # bf16 input through the entry point: upcast, result in bf16.
         xb = x.to(torch.bfloat16)
         yb = mdt.modulated_deform_conv2d(xb, off, mask, w, bias, 1, 1, 1, G, DG,
@@ -223,7 +358,7 @@ def main() -> int:
         print(f"bf16 input through impl='cuda': rel err {e:.3e} vs fp32 reference")
         check(e <= LIMITS["bfloat16"], "bf16 input disagrees")
 
-        # Phase 5: the Pack module at config 2, with and without the bound.
+        # Phase 6: the Pack module at config 2, with and without the bound.
         torch.manual_seed(0)
         for bound, want_kernel in ((BOUND, "shiftblend_fwd"), (None, "gathermm_fwd")):
             mod = mdt.ModulatedDeformConv2dPack(
@@ -245,39 +380,157 @@ def main() -> int:
                   f"max|offset| {float(p_off.abs().max()):.3f}")
             check(e <= LIMITS[MAIN_PRECISION], f"Pack (bound={bound}) disagrees")
 
-        # Phase 6: times at config 2, in the main path's precision mode.
+        # Phase 7: times at config 2, in the main path's precision mode.
         K = KS * KS
-        n_bytes = 4 * (x.numel() + off.numel() + mask.numel() + w.numel()
-                       + bias.numel() + B * O * H * W)
-        n_ops = 2 * B * H * W * O * (C // G) * K
-        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-        t_ops = n_ops / PEAK_OPS[MAIN_PRECISION] * 1e3
-        bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
-        print(f"cfg2 work: {n_bytes / 1e6:.2f} MB, {n_ops / 1e9:.3f} GFLOP; bound "
-              f"{bound_ms * 1e3:.2f} us by {bound_by} (fp32 FMA rate: "
-              f"{n_ops / PEAK_OPS['float32'] * 1e6:.1f} us)")
-        dense_ms = time_ms(lambda: torch.nn.functional.conv2d(x, w, bias, 1, 1, 1, G))
-        for name, (fn, ref_fn) in kernels.items():
-            args = (x, off, mask, w, bias, spec, MAIN_PRECISION, *extra[name])
-            ms = time_ms(lambda: fn(*args))
-            plain_ms = time_ms(lambda: ref_fn(*args))
-            results[name].update(ms=ms, plain_ms=plain_ms)
-            print(f"{name}: {ms:.4f} ms (plain {plain_ms:.3f} ms, dense conv anchor "
-                  f"{dense_ms:.4f} ms, bound {bound_ms:.4f} ms)")
+        f32 = 4
+        in_bytes = f32 * (x.numel() + off.numel() + mask.numel() + w.numel())
+        gemm_ops = 2 * B * H * W * O * (C // G) * K
+        work = {  # bytes each input read once and each output written once
+            "fwd": (in_bytes + f32 * (bias.numel() + B * O * H * W), gemm_ops),
+            "bwd": (2 * in_bytes + f32 * gout.numel(), 2 * gemm_ops)}
+        bounds = {}
+        for kind, (n_bytes, n_ops) in work.items():
+            t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+            t_ops = n_ops / PEAK_OPS[MAIN_PRECISION] * 1e3
+            bounds[kind] = max((t_bytes, "bytes"), (t_ops, "operations"))
+            print(f"cfg2 {kind} work: {n_bytes / 1e6:.2f} MB, {n_ops / 1e9:.3f} GFLOP; bound "
+                  f"{bounds[kind][0] * 1e3:.2f} us by {bounds[kind][1]} (fp32 FMA rate: "
+                  f"{n_ops / PEAK_OPS['float32'] * 1e6:.1f} us)")
+        anchors = {
+            "fwd": time_ms(lambda: torch.nn.functional.conv2d(x, w, bias, 1, 1, 1, G)),
+            "bwd": time_ms(lambda: torch.ops.aten.convolution_backward(
+                gout, x, w, None, [1, 1], [1, 1], [1, 1], False, [0, 0], G,
+                [True, True, False]))}
+        for fam, (fwd, fwd_ref, bwd, bwd_ref) in families.items():
+            for kind, fn, ref_fn, fifth in (("fwd", fwd, fwd_ref, bias),
+                                            ("bwd", bwd, bwd_ref, gout)):
+                name = f"{fam}_{kind}"
+                args = (x, off, mask, w, fifth, spec, MAIN_PRECISION, *extra[fam])
+                ms = time_ms(lambda: fn(*args))
+                plain_ms = time_ms(lambda: ref_fn(*args))
+                results[name].update(ms=ms, plain_ms=plain_ms)
+                print(f"{name}: {ms:.4f} ms (plain {plain_ms:.3f} ms, dense conv {kind} "
+                      f"anchor {anchors[kind]:.4f} ms, bound {bounds[kind][0]:.4f} ms)")
+    steps = {}
+    for label, kw in (("bounded", dict(impl="auto", offset_bound=BOUND)),
+                      ("general", dict(impl="auto")), ("plain", dict(impl="torch"))):
+        steps[label] = time_ms(lambda: cfg2_step(**kw))
+        print(f"cfg2 training step (fwd + bwd of sum(out^2), five grads) {label}: "
+              f"{steps[label]:.4f} ms")
+    # Where the device time of the backward goes, kernel by kernel.
+    with torch.no_grad():
+        for fam, (_, _, bwd, _) in families.items():
+            args = (x, off, mask, w, gout, spec, MAIN_PRECISION, *extra[fam])
+            print_breakdown(f"{fam}_bwd cfg2 profile", device_time_by_kernel(lambda: bwd(*args)))
+    del leaves
 
-    # Phase 7: the kernel table.
-    replaces = {"shiftblend_fwd": "modulated_deform_conv_tpu/ops/pallas/shiftblend.py:627",
-                "gathermm_fwd": "modulated_deform_conv_tpu/ops/pallas/gathermm.py:1162"}
-    table = [{"name": n, "route": "cuda",
-              "source": f"modulated_deform_conv_tpu_torch/csrc/{n}.cu",
-              "replaces": replaces[n], "launches": main_launches[n],
-              "max_abs_err": results[n]["max_abs_err"], "ms": results[n]["ms"],
-              "plain_ms": results[n]["plain_ms"], "bound_ms": bound_ms,
-              "bound_by": bound_by, "library_ms": None,
-              "dense_conv_anchor_ms": dense_ms,
-              "rel_err": results[n]["rel_err"], "precision": MAIN_PRECISION}
-             for n in kernels]
-    print(json.dumps({"kernels": table}))
+    # Phase 8: main path 3, DCNResNet-50 trained on the card by the
+    # in-package trainer.  Hooks on its 13 DCN layers record, at the first
+    # step (zero-init offsets: every tap on the integer grid) and the last,
+    # each layer's inputs and output cotangent; recording launches nothing.
+    r = RESNET
+    check_steps = (0, r["steps"] - 1)
+    recorded, hooks, at = [], [], {"step": None}
+
+    def record(name):
+        def hook(mod, inputs, out):
+            if at["step"] not in check_steps:
+                return
+            xin = inputs[0]
+            with torch.no_grad():
+                p_mask = mod.conv_mask(xin)
+                ins = (xin, mod.conv_offset(xin),
+                       torch.sigmoid(p_mask) if mod.sigmoid_mask else p_mask, mod.weight)
+            rec = {"step": at["step"], "name": name, "spec": DeformConvSpec.make(
+                2, mod.kernel_size, mod.stride, mod.padding, mod.dilation, mod.groups,
+                mod.deformable_groups, modulated=True),
+                "ins": [t.detach().clone(memory_format=torch.contiguous_format) for t in ins]}
+            out.register_hook(lambda g: rec.update(
+                gout=g.detach().clone(memory_format=torch.contiguous_format)))
+            recorded.append(rec)
+        return hook
+
+    def on_step(step, model):
+        at["step"] = step
+        if step == 0:
+            hooks.extend(m.register_forward_hook(record(n)) for n, m in model.named_modules()
+                         if isinstance(m, mdt.ModulatedDeformConv2dPack))
+
+    reset()
+    res = train(steps=r["steps"], batch=r["batch"], width=r["width"],
+                classes=r["classes"], size=r["size"], device="cuda",
+                log=lambda s: print(f"  {s}"), on_step=on_step)
+    torch.cuda.synchronize()
+    net_launches = counts()
+    for h in hooks:
+        h.remove()
+    print(f"DCNResNet-50 launches over {r['steps']} steps: {net_launches}")
+    for n in ("gathermm_fwd", "gathermm_bwd"):
+        check(net_launches[n] == DCN_LAYERS * r["steps"],
+              f"{n}: {net_launches[n]} launches, want {DCN_LAYERS} per step")
+    check(all(np.isfinite(res["losses"])), "DCNResNet loss not finite")
+    step_ms = statistics.median(res["step_s"][1:]) * 1e3
+    print(f"DCNResNet-50 width {r['width']} B={r['batch']} {r['size']}x{r['size']}: "
+          f"loss {res['losses'][0]:.4f} -> {res['losses'][-1]:.4f}, step {step_ms:.2f} ms "
+          f"(median of steps 2-{r['steps']}; first {res['step_s'][0] * 1e3:.1f} ms)")
+
+    # The general kernels against their plain versions on the recorded
+    # inputs of every DCN layer, every mode.
+    check(len(recorded) == DCN_LAYERS * len(check_steps)
+          and all("gout" in rec for rec in recorded),
+          f"recorded {len(recorded)} DCN layer calls, want {DCN_LAYERS} x {len(check_steps)}")
+    with torch.no_grad():
+        for rec in recorded:
+            xs, offs, masks, ws = rec["ins"]
+            sspec, max_off = rec["spec"], float(offs.abs().max())
+            if rec["step"] == 0:
+                check(max_off == 0.0, f"{rec['name']}: first-step offsets not zero")
+            worst = {}
+            for prec, limit in LIMITS.items():
+                args = (xs, offs, masks, ws, None, sspec, prec)
+                errs = {"out": rel_err(gm.gathermm_fwd(*args), gm.gathermm_fwd_reference(*args))}
+                bargs = (xs, offs, masks, ws, rec["gout"], sspec, prec)
+                errs.update(grad_rel_errs(gm.gathermm_bwd(*bargs),
+                                          gm.gathermm_bwd_reference(*bargs)))
+                for n, e in errs.items():
+                    check(e <= limit, f"DCNResNet step {rec['step']} {rec['name']} {prec} "
+                          f"{'out' if n == 'out' else 'grad_' + n}: rel err {e:.3e}")
+                worst[prec] = max(errs.values())
+            print(f"DCNResNet step {rec['step']} {rec['name']} x {tuple(xs.shape)} "
+                  f"stride {sspec.stride[0]} max|off| {max_off:.3g}: gathermm fwd + bwd vs "
+                  "plain, worst rel err " + " ".join(f"{p} {e:.2e}" for p, e in worst.items()))
+    del recorded
+
+    # Where the device time of one of the trainer's own steps goes.
+    x_net, y_net = res["batch"]
+    prof = device_time_by_kernel(
+        lambda: train_step(res["model"], res["optimizer"], x_net, y_net))
+    print_breakdown("DCNResNet-50 step profile", prof, top=12)
+    ours = ("gathermm_fwd_kernel", "gcols_kernel", "ranges_kernel", "gx_kernel",
+            "goff_kernel", "gw_kernel", "fold_kernel")
+    dcn_ms = sum(ms for k, ms in prof.items() if any(o in k for o in ours))
+    if prof:
+        print(f"DCNResNet-50 step: the port's DCN kernels {dcn_ms:.3f} ms of "
+              f"{sum(prof.values()):.3f} ms device time")
+    del res, x_net, y_net
+
+    # Phase 9: the kernel table.
+    table = []
+    for n in kernels:
+        kind = n.rsplit("_", 1)[1]
+        table.append({
+            "name": n, "route": "cuda",
+            "source": f"modulated_deform_conv_tpu_torch/csrc/{n}.cu",
+            "replaces": REPLACES[n],
+            "launches": (fwd_launches if kind == "fwd" else step_launches)[n],
+            "max_abs_err": results[n]["max_abs_err"], "ms": results[n]["ms"],
+            "plain_ms": results[n]["plain_ms"], "bound_ms": bounds[kind][0],
+            "bound_by": bounds[kind][1], "library_ms": None,
+            f"dense_conv_{kind}_anchor_ms": anchors[kind],
+            "rel_err": results[n]["rel_err"], "precision": MAIN_PRECISION,
+            "resnet_launches": net_launches[n]})
+    print(json.dumps({"kernels": table, "cfg2_train_step_ms": steps,
+                      "dcn_resnet50_step_ms": step_ms}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

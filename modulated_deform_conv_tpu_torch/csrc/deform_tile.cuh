@@ -1,4 +1,5 @@
-// Pieces shared by the two forward kernels (gathermm_fwd.cu, shiftblend_fwd.cu).
+// Pieces shared by the forward kernels (gathermm_fwd.cu, shiftblend_fwd.cu);
+// the backward kernels (deform_bwd.cuh) use the corner rules and tile_fma.
 //
 // Both kernels have one shape.  A block owns a tile of kTP output positions x
 // kTO output channels of ONE conv group.  It walks the input channels of that
@@ -33,32 +34,31 @@ __device__ __forceinline__ float operand(float v, int precision) {
   return precision == kBFloat16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
 }
 
-// Corner weights of one tap at one output position.
+// The four bilinear corners of one tap at one output position.
 //   pos = base + off per axis, in fp32 like the reference;
-//   the whole tap is zero unless -1 < pos < S on both axes;
-//   a corner outside the image contributes zero;
+//   the whole tap is closed unless -1 < pos < S on both axes (the gate);
+//   a corner outside the image is dropped;
 //   with `windowed`, the bounded-offset contract also drops, per axis, the
 //   corner c unless lo <= floor(pos) - base + c <= lo + win - 1.
-// w[2*cy + cx] weighs corner (y0 + cy, x0 + cx); the mask is folded in.
-struct TapWeights {
+// keep bit 2*cy + cx says whether corner (y0 + cy, x0 + cx) is kept.
+struct TapCorners {
   int y0, x0;
-  float4 w;
+  float ry, rx;  // pos - floor(pos) per axis
+  int keep;      // 0 when the gate is closed
 };
 
-__device__ __forceinline__ TapWeights tap_weights(
-    int base_y, int base_x, float off_y, float off_x, float m, int H, int W,
+__device__ __forceinline__ TapCorners tap_corners(
+    int base_y, int base_x, float off_y, float off_x, int H, int W,
     bool windowed, int lo_y, int win_y, int lo_x, int win_x) {
-  TapWeights t;
-  t.y0 = 0;
-  t.x0 = 0;
-  t.w = make_float4(0.f, 0.f, 0.f, 0.f);
+  TapCorners t{0, 0, 0.f, 0.f, 0};
   const float py = static_cast<float>(base_y) + off_y;
   const float px = static_cast<float>(base_x) + off_x;
   if (!(py > -1.f && py < static_cast<float>(H) && px > -1.f &&
         px < static_cast<float>(W)))
     return t;
   const float fy = floorf(py), fx = floorf(px);
-  const float ry = py - fy, rx = px - fx;
+  t.ry = py - fy;
+  t.rx = px - fx;
   t.y0 = static_cast<int>(fy);
   t.x0 = static_cast<int>(fx);
   bool ky[2], kx[2];
@@ -73,13 +73,67 @@ __device__ __forceinline__ TapWeights tap_weights(
       kx[c] = kx[c] && rel_x >= lo_x && rel_x <= lo_x + win_x - 1;
     }
   }
-  const float wy[2] = {1.f - ry, ry};
-  const float wx[2] = {1.f - rx, rx};
-  t.w.x = ky[0] && kx[0] ? wy[0] * wx[0] * m : 0.f;
-  t.w.y = ky[0] && kx[1] ? wy[0] * wx[1] * m : 0.f;
-  t.w.z = ky[1] && kx[0] ? wy[1] * wx[0] * m : 0.f;
-  t.w.w = ky[1] && kx[1] ? wy[1] * wx[1] * m : 0.f;
+  t.keep = (ky[0] && kx[0]) | (ky[0] && kx[1]) << 1 | (ky[1] && kx[0]) << 2 |
+           (ky[1] && kx[1]) << 3;
   return t;
+}
+
+// Corner weights of one tap at one output position: w[2*cy + cx] weighs
+// corner (y0 + cy, x0 + cx), zero where the corner is dropped; the mask is
+// folded in.
+struct TapWeights {
+  int y0, x0;
+  float4 w;
+};
+
+__device__ __forceinline__ TapWeights tap_weights(
+    int base_y, int base_x, float off_y, float off_x, float m, int H, int W,
+    bool windowed, int lo_y, int win_y, int lo_x, int win_x) {
+  const TapCorners c = tap_corners(base_y, base_x, off_y, off_x, H, W,
+                                   windowed, lo_y, win_y, lo_x, win_x);
+  const float wy0 = 1.f - c.ry, wx0 = 1.f - c.rx;
+  TapWeights t;
+  t.y0 = c.y0;
+  t.x0 = c.x0;
+  t.w.x = c.keep & 1 ? wy0 * wx0 * m : 0.f;
+  t.w.y = c.keep & 2 ? wy0 * c.rx * m : 0.f;
+  t.w.z = c.keep & 4 ? c.ry * wx0 * m : 0.f;
+  t.w.w = c.keep & 8 ? c.ry * c.rx * m : 0.f;
+  return t;
+}
+
+// The corner weights without the mask, and their derivatives with respect
+// to the sampling position, per axis and per corner.  The gate carries no
+// derivative, and a dropped corner (outside the image, or outside the
+// window) is zero in value and in derivative.  Since ry = pos - floor(pos)
+// and floor is locally constant from the right, d(ry)/d(pos) = 1 holds at
+// an integer position too: the derivative there is the exact
+// right-derivative.  The mask stays out, so that
+// grad_mask = sum_c gcol * (unmasked sampled value) is exact where it is 0.
+struct TapGrad {
+  int y0, x0, keep;
+  float4 w, dy, dx;
+};
+
+__device__ __forceinline__ TapGrad tap_grad(
+    int base_y, int base_x, float off_y, float off_x, int H, int W,
+    bool windowed, int lo_y, int win_y, int lo_x, int win_x) {
+  const TapCorners c = tap_corners(base_y, base_x, off_y, off_x, H, W,
+                                   windowed, lo_y, win_y, lo_x, win_x);
+  const float wy[2] = {1.f - c.ry, c.ry}, dwy[2] = {-1.f, 1.f};
+  const float wx[2] = {1.f - c.rx, c.rx}, dwx[2] = {-1.f, 1.f};
+  float w[4], dy[4], dx[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const bool k = c.keep >> i & 1;
+    const int cy = i >> 1, cx = i & 1;
+    w[i] = k ? wy[cy] * wx[cx] : 0.f;
+    dy[i] = k ? dwy[cy] * wx[cx] : 0.f;
+    dx[i] = k ? wy[cy] * dwx[cx] : 0.f;
+  }
+  return TapGrad{c.y0, c.x0, c.keep, make_float4(w[0], w[1], w[2], w[3]),
+                 make_float4(dy[0], dy[1], dy[2], dy[3]),
+                 make_float4(dx[0], dx[1], dx[2], dx[3])};
 }
 
 // One column value: the four weighted corners around src[i0], with row
@@ -109,7 +163,9 @@ __device__ __forceinline__ void load_weights(float* __restrict__ wS,
   }
 }
 
-// acc[i][j] += sum_r wS[r][ty*4 + i] * colsS[r][tx*4 + j].
+// acc[i][j] += sum_r wS[r][ty*4 + i] * colsS[r][tx*4 + j], the rows of colsS
+// kColsStride floats apart and those of wS kWStrideT (multiples of 4).
+template <int kColsStride = kTP, int kWStrideT = kWStride>
 __device__ __forceinline__ void tile_fma(const float* __restrict__ colsS,
                                          const float* __restrict__ wS, int rows,
                                          float (&acc)[4][4]) {
@@ -118,8 +174,8 @@ __device__ __forceinline__ void tile_fma(const float* __restrict__ colsS,
   const float* wp = wS + ty * 4;
 #pragma unroll 4
   for (int r = 0; r < rows; ++r) {
-    const float4 a = *reinterpret_cast<const float4*>(wp + r * kWStride);
-    const float4 b = *reinterpret_cast<const float4*>(cp + r * kTP);
+    const float4 a = *reinterpret_cast<const float4*>(wp + r * kWStrideT);
+    const float4 b = *reinterpret_cast<const float4*>(cp + r * kColsStride);
     const float av[4] = {a.x, a.y, a.z, a.w};
     const float bv[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll

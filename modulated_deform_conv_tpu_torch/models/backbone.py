@@ -1,0 +1,136 @@
+"""DCN backbone: ResNet bottleneck stages with DCNv2 in c3-c5.
+
+Counterparts of the JAX package's flax classes in models/backbone.py
+(`ConvBN`, `DCNBottleneck`, `DCNStage`, `DCNResNet`): the classic "DCN in
+ResNet stages 3-5" recipe of the DCN papers, NCHW throughout.  The 3x3 conv
+of every c3-c5 bottleneck is a `ModulatedDeformConv2dPack` with zero-init
+offset / mask predictors and a sigmoid mask.  Without `offset_bound` the
+general gather kernels run forward and backward on CUDA tensors, at
+stride 2 in the first block of each stage as well.
+
+Two defaults differ between the frameworks and are pinned here to flax's:
+GroupNorm eps is 1e-6 (torch: 1e-5), and the stem's max pool pads with
+-inf (what `MaxPool2d` does).  models/torch_compat.py carries flax
+parameters over; submodule names follow flax's where flax names them
+(`stem`, `c2`..`c5`, `block<i>`, `dcn`, `conv2`, `proj`, `fc`).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .modules import ModulatedDeformConv2dPack
+
+
+class ConvBN(nn.Module):
+    """kxk conv (no bias, pad k//2) + GroupNorm(min(32, C)) + optional
+    ReLU."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: int = 1,
+                 stride: int = 1, relu: bool = True, *, device="cuda",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        factory = dict(device=device, dtype=dtype)
+        self.conv = nn.Conv2d(in_channels, out_channels, kernel, stride,
+                              kernel // 2, bias=False, **factory)
+        self.norm = nn.GroupNorm(min(32, out_channels), out_channels,
+                                 eps=1e-6, **factory)
+        self.relu = relu
+
+    def forward(self, x):
+        y = self.norm(self.conv(x))
+        return F.relu(y) if self.relu else y
+
+
+class DCNBottleneck(nn.Module):
+    """ResNet bottleneck whose 3x3 conv is a DCNv2 Pack module (zero-init
+    offsets + sigmoid mask), or a plain 3x3 ConvBN when
+    `deformable=False`."""
+
+    def __init__(self, in_channels: int, channels: int, out_channels: int,
+                 deformable_groups: int = 1, stride: int = 1,
+                 deformable: bool = True, impl: str = "auto", *,
+                 device="cuda", dtype: torch.dtype = torch.float32):
+        super().__init__()
+        factory = dict(device=device, dtype=dtype)
+        self.conv1 = ConvBN(in_channels, channels, 1, **factory)
+        if deformable:
+            self.dcn = ModulatedDeformConv2dPack(
+                channels, channels, 3, stride=stride, padding=1,
+                deformable_groups=deformable_groups, impl=impl,
+                zero_init_offset=True, sigmoid_mask=True, **factory)
+        else:
+            self.conv2 = ConvBN(channels, channels, 3, stride, **factory)
+        self.conv3 = ConvBN(channels, out_channels, 1, relu=False, **factory)
+        self.proj = (ConvBN(in_channels, out_channels, 1, stride, relu=False,
+                            **factory)
+                     if in_channels != out_channels or stride != 1 else None)
+
+    def forward(self, x):
+        y = self.conv1(x)
+        y = self.dcn(y) if hasattr(self, "dcn") else self.conv2(y)
+        y = self.conv3(F.relu(y))
+        identity = x if self.proj is None else self.proj(x)
+        return F.relu(y + identity)
+
+
+class DCNStage(nn.Sequential):
+    """`blocks` bottlenecks (one ResNet stage), the first with `stride`,
+    named block0, block1, ..."""
+
+    def __init__(self, blocks: int, in_channels: int, channels: int,
+                 out_channels: int, deformable_groups: int = 1,
+                 stride: int = 1, deformable: bool = True,
+                 impl: str = "auto", *, device="cuda",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        for i in range(blocks):
+            self.add_module(f"block{i}", DCNBottleneck(
+                in_channels if i == 0 else out_channels, channels,
+                out_channels, deformable_groups, stride if i == 0 else 1,
+                deformable, impl, device=device, dtype=dtype))
+
+
+class DCNResNet(nn.Module):
+    """ResNet with DCNv2 in stages c3-c5 (Dai et al. 2017 §4.1; Zhu et al.
+    2018 §5.1).  depth 50 / 101 / 152 -> blocks (3, 4, 6, 3) /
+    (3, 4, 23, 3) / (3, 8, 36, 3).  NCHW in, class logits out, or the
+    (c2, c3, c4, c5) features with `features_only=True`."""
+
+    BLOCKS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
+
+    def __init__(self, num_classes: int = 1000, depth: int = 50,
+                 deformable_groups: int = 1, width: int = 64,
+                 features_only: bool = False, impl: str = "auto", *,
+                 device="cuda", dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if depth not in self.BLOCKS:
+            raise ValueError(f"depth must be one of {sorted(self.BLOCKS)}, "
+                             f"got {depth}")
+        factory = dict(device=device, dtype=dtype)
+        w = width
+        self.features_only = features_only
+        # stem: 7x7/2 conv + 3x3/2 max pool
+        self.stem = ConvBN(3, w, 7, 2, **factory)
+        self.pool = nn.MaxPool2d(3, 2, 1)
+        cin = w
+        for i, n in enumerate(self.BLOCKS[depth]):
+            cout = w * 4 * 2 ** i
+            self.add_module(f"c{i + 2}", DCNStage(
+                n, cin, w * 2 ** i, cout, deformable_groups,
+                stride=1 if i == 0 else 2, deformable=i >= 1, impl=impl,
+                **factory))
+            cin = cout
+        self.fc = None if features_only else nn.Linear(cin, num_classes,
+                                                       **factory)
+
+    def forward(self, x):
+        y = self.pool(self.stem(x))
+        feats = []
+        for stage in (self.c2, self.c3, self.c4, self.c5):
+            y = stage(y)
+            feats.append(y)
+        if self.features_only:
+            return tuple(feats)
+        return self.fc(y.mean((2, 3)))

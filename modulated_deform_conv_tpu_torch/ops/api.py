@@ -23,8 +23,11 @@ in these kernels, bf16) is upcast to fp32 and the result cast back; fp64
 raises NotImplementedError on "cuda" / "shiftblend" and takes "torch" under
 "auto".  Sampling coordinates always accumulate in >= fp32.
 
-The kernels' backward lands with the next slice of the port: on the kernel
-paths a backward raises NotImplementedError; use impl="torch" to train.
+Every path is differentiable in x, offset, mask, weight and bias.  On the
+kernel paths the backward is a kernel too (shift-blend's or the general
+gather's), summed in a fixed order: two backward runs give the same bits,
+which the plain path's `torch.gather` backward (an atomic scatter on CUDA)
+does not promise.
 """
 from __future__ import annotations
 

@@ -184,6 +184,23 @@ def _deform_conv_nd(x, offset, mask, weight, bias, spec: DeformConvSpec,
     return out.movedim(-1, 1)                                 # (B, O, *OS)
 
 
+def conv_vjp(x, offset, mask, weight, grad_out, spec: DeformConvSpec,
+             precision: str = "tensorfloat32", corner_window=None):
+    """(grad_x, grad_offset, grad_mask, grad_weight) of the bias-free
+    `_deform_conv_nd` at these inputs for the cotangent `grad_out`, by
+    autograd; grad_mask is None without a mask.  The kernels' backward
+    wrappers use it as their plain version (bias is added outside them)."""
+    with torch.enable_grad():
+        ins = [None if t is None else t.detach().requires_grad_(True)
+               for t in (x, offset, mask, weight)]
+        out = _deform_conv_nd(ins[0], ins[1], ins[2], ins[3], None, spec,
+                              precision=precision,
+                              corner_window=corner_window)
+        live = [t for t in ins if t is not None]
+        grads = iter(torch.autograd.grad(out, live, grad_out))
+    return tuple(None if t is None else next(grads) for t in ins)
+
+
 def _remat(fn, *tensors):
     """Run `fn` under activation checkpointing when autograd will need it:
     the chunk's columns are recomputed in the backward instead of saved."""

@@ -20,7 +20,7 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build"
-KERNELS = ("gathermm_fwd", "shiftblend_fwd")
+KERNELS = ("gathermm_fwd", "shiftblend_fwd", "gathermm_bwd", "shiftblend_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -114,6 +114,18 @@ def check_inputs(name: str, x, offset, mask, weight, bias, spec) -> None:
             raise ValueError(f"{name}: {label} must be contiguous")
 
 
+def check_grad_out(name: str, grad_out, x, shape) -> None:
+    """Raise unless the backward's cotangent is float32, contiguous, of
+    the output's shape and on x's device."""
+    if (tuple(grad_out.shape) != tuple(shape) or grad_out.device != x.device
+            or grad_out.dtype != torch.float32
+            or not grad_out.is_contiguous()):
+        raise ValueError(f"{name}: grad_out must be a contiguous float32 "
+                         f"{tuple(shape)} tensor on {x.device}, got "
+                         f"{grad_out.dtype} {tuple(grad_out.shape)} on "
+                         f"{grad_out.device}")
+
+
 def as_f32(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     """The kernels' input form: float32 and contiguous (a no-op if so)."""
     return None if t is None else t.to(torch.float32).contiguous()
@@ -125,6 +137,51 @@ def grouped_weight(weight: torch.Tensor, groups: int) -> torch.Tensor:
     O = weight.shape[0]
     return (weight.reshape(groups, O // groups, -1).transpose(1, 2)
             .contiguous())
+
+
+def tap_major_weight(weight: torch.Tensor, groups: int) -> torch.Tensor:
+    """(O, C/g, *k) -> (g, O/g, K, C/g): the backward kernels' weight
+    layout, each output channel's (tap, channel) rows tap-major."""
+    O, Cg = weight.shape[:2]
+    return (weight.reshape(groups, O // groups, Cg, -1).transpose(2, 3)
+            .contiguous())
+
+
+def ungrouped_weight(wt: torch.Tensor, weight_shape) -> torch.Tensor:
+    """Inverse of `grouped_weight`: (g, C/g*K, O/g) -> (O, C/g, *k)."""
+    return wt.transpose(1, 2).reshape(weight_shape)
+
+
+def grad_weight_splits(spec, B: int, C: int, O: int, P: int) -> int:
+    """How many splits of the (batch, position) axis the backward kernels
+    sum grad_weight partials over (csrc/deform_bwd.cuh::launch_gw): enough
+    blocks to fill the card, at least 512 positions a split.  It depends
+    on the shapes only, so the summation order does too."""
+    rows = C // spec.groups * spec.tap_count
+    Og = O // spec.groups
+    blocks = -(-rows // 64) * -(-Og // 64) * spec.groups
+    return max(1, min(-(-(B * P) // 512), 1024 // blocks))
+
+
+def bwd_buffers(x, offset, mask, weight, spec, P: int, needs):
+    """Outputs (None where not wanted) and scratch of a backward kernel:
+    grad_x, grad_offset, grad_mask, grad_weight in the kernels' weight
+    layout, the gcols buffer (B, K, P, C), the grad_weight partials, and
+    their split count."""
+    want_x, want_off, want_mask, want_w = needs
+    B, C = x.shape[:2]
+    O, g, K = weight.shape[0], spec.groups, spec.tap_count
+    empty = lambda *shape: torch.empty(shape, dtype=torch.float32,  # noqa: E731
+                                       device=x.device)
+    splits = grad_weight_splits(spec, B, C, O, P)
+    gx = torch.empty_like(x) if want_x else None
+    goff = torch.empty_like(offset) if want_off else None
+    gmask = torch.empty_like(mask) if want_mask and mask is not None else None
+    gwt = empty(g, C // g * K, O // g) if want_w else None
+    gcols = (empty(B, K, P, C) if gx is not None or goff is not None
+             or gmask is not None else None)
+    part = empty(splits, g, C // g * K, O // g) if want_w else None
+    return gx, goff, gmask, gwt, gcols, part, splits
 
 
 def launch(name: str, x: torch.Tensor, tensors, ints) -> None:

@@ -1,17 +1,20 @@
-"""Bounded-offset forward kernel: `shiftblend_fwd` (csrc/shiftblend_fwd.cu).
+"""Bounded-offset kernels: `shiftblend_fwd` (csrc/shiftblend_fwd.cu) and
+`shiftblend_bwd` (csrc/shiftblend_bwd.cu).
 
-Counterpart of the JAX package's `ops/pallas/shiftblend.py` forward
-(`deform_conv_shift`, kernel `_fwd_kernel_cols`), for stride-1,
-size-preserving configs under the bounded-offset contract |offset| <= b.
+Counterparts of the JAX package's `ops/pallas/shiftblend.py` unrolled pair
+(`deform_conv_shift`, kernels `_fwd_kernel_cols` and `_bwd_kernel`, joined
+by the custom VJP `shift_conv`), for stride-1, size-preserving configs
+under the bounded-offset contract |offset| <= b.
 
 The contract drops corners per axis: with (lo, W) = `_axis_window(b)`,
 corner c of a tap on axis d is kept only if
 lo <= floor(pos_d) - anchor_d + c <= lo + W - 1.  Offsets beyond the bound
 therefore lose their corners (all of them past b + 1), like taps outside
-the image lose theirs.  `offsets_within_bound` checks the contract.
+the image lose theirs, in value and in gradient.  `offsets_within_bound`
+checks the contract.
 
-`shiftblend_fwd` launches the kernel on CUDA tensors and runs
-`shiftblend_fwd_reference`, its plain PyTorch version, on CPU tensors only.
+Each wrapper launches its kernel on CUDA tensors and runs its plain PyTorch
+version (`*_reference`) on CPU tensors only.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ...utils.config import DeformConvSpec
 from .. import core
@@ -171,16 +175,79 @@ def shiftblend_fwd(x, offset, mask, weight, bias, spec: DeformConvSpec,
 shiftblend_fwd.launches = 0
 
 
+def shiftblend_bwd_reference(x, offset, mask, weight, grad_out,
+                             spec: DeformConvSpec, precision: str,
+                             offset_bound):
+    """Plain PyTorch version of the backward kernel: autograd through
+    `shiftblend_fwd_reference` without bias, so dropped corners carry no
+    gradient.  Returns (grad_x, grad_offset, grad_mask or None,
+    grad_weight)."""
+    return core.conv_vjp(x, offset, mask, weight, grad_out, spec, precision,
+                         corner_window=corner_windows(spec, offset_bound))
+
+
+def shiftblend_bwd(x, offset, mask, weight, grad_out, spec: DeformConvSpec,
+                   precision: str, offset_bound, needs=(True,) * 4):
+    """Bounded-offset DCN backward without the bias: (grad_x, grad_offset,
+    grad_mask, grad_weight), float32, each None where `needs` says it is
+    not wanted (grad_mask also without a mask).
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel or
+    raise.  Inputs: float32, contiguous, on one device."""
+    if x.device.type == "cpu":
+        grads = shiftblend_bwd_reference(x, offset, mask, weight, grad_out,
+                                         spec, precision, offset_bound)
+        return tuple(g if n else None for g, n in zip(grads, needs))
+    lib.check_inputs("shiftblend_bwd", x, offset, mask, weight, None, spec)
+    reason = ineligible_reason(x, spec, offset_bound)
+    if reason is not None:
+        raise NotImplementedError(f"shiftblend_bwd: {reason}")
+    (lo_y, win_y), (lo_x, win_x) = windows = corner_windows(spec,
+                                                            offset_bound)
+    ry, rx = _halo(spec, windows)
+    B, C, H, W = x.shape
+    O = weight.shape[0]
+    lib.check_grad_out("shiftblend_bwd", grad_out, x, (B, O, H, W))
+    gx, goff, gmask, gwt, gcols, part, splits = lib.bwd_buffers(
+        x, offset, mask, weight, spec, H * W, needs)
+    wk = lib.tap_major_weight(weight, spec.groups)
+    lib.launch("shiftblend_bwd", x, (
+        x, offset, mask, wk, grad_out, gcols, part, gx, goff, gmask, gwt), (
+        B, C, H, W, O, spec.groups, spec.deformable_groups, *spec.kernel,
+        *spec.padding, *spec.dilation, lo_y, win_y, lo_x, win_x, ry, rx,
+        splits, lib.PRECISION_CODES[precision]))
+    shiftblend_bwd.launches += 1
+    gw = None if gwt is None else lib.ungrouped_weight(gwt, weight.shape)
+    return gx, goff, gmask, gw
+
+
+shiftblend_bwd.launches = 0
+
+
 class _ShiftblendFwd(torch.autograd.Function):
+    """The bounded-offset op without its dtype casts: forward and backward
+    kernels.  x, offset, mask and weight are saved; the columns are
+    recomputed in the backward, never saved."""
+
     @staticmethod
     def forward(ctx, x, offset, mask, weight, bias, spec, precision,
                 offset_bound):
+        ctx.save_for_backward(x, offset, mask, weight)
+        ctx.spec, ctx.precision, ctx.offset_bound = (spec, precision,
+                                                     offset_bound)
         return shiftblend_fwd(x, offset, mask, weight, bias, spec, precision,
                               offset_bound)
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, grad_out):
-        raise NotImplementedError("backward kernel lands with slice 2")
+        x, offset, mask, weight = ctx.saved_tensors
+        needs = ctx.needs_input_grad
+        gx, goff, gmask, gw = shiftblend_bwd(
+            x, offset, mask, weight, grad_out.contiguous(), ctx.spec,
+            ctx.precision, ctx.offset_bound, needs[:4])
+        gb = grad_out.sum((0, 2, 3)) if needs[4] else None
+        return gx, goff, gmask, gw, gb, None, None, None
 
 
 def deform_conv_shift(x, offset, mask, weight, bias, spec: DeformConvSpec,
@@ -188,8 +255,9 @@ def deform_conv_shift(x, offset, mask, weight, bias, spec: DeformConvSpec,
                       offset_bound=2.0) -> torch.Tensor:
     """Full shift-blend deformable conv with bias (dispatch entry).
 
-    bf16 and fp16 inputs are upcast to fp32 for the kernel, as the JAX
-    kernel does; the result has x's dtype."""
+    bf16 and fp16 inputs are upcast to fp32 for the kernels, as the JAX
+    kernel does; the result has x's dtype, and so do the gradients of each
+    input."""
     reason = ineligible_reason(x, spec, offset_bound)
     if reason is not None:
         raise NotImplementedError(f"shiftblend: {reason}")

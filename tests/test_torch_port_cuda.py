@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
-Marked `cuda`: each test skips without an NVIDIA GPU.  This file imports no
-JAX, so it runs where only PyTorch is installed:
+Forward and backward kernels.  Marked `cuda`: each test skips without an
+NVIDIA GPU.  This file imports no JAX, so it runs where only PyTorch is
+installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py -q
 
@@ -90,6 +91,59 @@ def test_shiftblend_kernel_matches_plain(dev, case, precision):
     assert _rel(got, want) <= LIMITS[precision]
 
 
+def _grad_out(spec, x, w, seed=1):
+    B = x.shape[0]
+    OS = spec.out_sizes(x.shape[2:])
+    rng = np.random.default_rng(seed)
+    return torch.tensor(rng.standard_normal((B, w.shape[0]) + OS),
+                        dtype=torch.float32, device=x.device)
+
+
+def _check_grads(got, want, limit):
+    for name, g, r in zip(("x", "offset", "mask", "weight"), got, want):
+        if r is None:
+            assert g is None, name
+            continue
+        assert g.shape == r.shape and bool(torch.isfinite(g).all()), name
+        assert _rel(g, r) <= limit, (name, _rel(g, r))
+
+
+@pytest.mark.parametrize("precision", list(LIMITS))
+@pytest.mark.parametrize("case", GENERAL)
+def test_gathermm_bwd_kernel_matches_plain(dev, case, precision):
+    spec, (x, off, mask, w, _) = _case(dev, *case)
+    gout = _grad_out(spec, x, w)
+    gm.gathermm_bwd.launches = 0
+    got = gm.gathermm_bwd(x, off, mask, w, gout, spec, precision)
+    assert gm.gathermm_bwd.launches == 1
+    want = gm.gathermm_bwd_reference(x, off, mask, w, gout, spec, precision)
+    _check_grads(got, want, LIMITS[precision])
+
+
+@pytest.mark.parametrize("precision", list(LIMITS))
+@pytest.mark.parametrize("case", BOUNDED)
+def test_shiftblend_bwd_kernel_matches_plain(dev, case, precision):
+    spec, (x, off, mask, w, _) = _case(dev, *case[:-1])
+    gout = _grad_out(spec, x, w)
+    sb.shiftblend_bwd.launches = 0
+    got = sb.shiftblend_bwd(x, off, mask, w, gout, spec, precision, case[-1])
+    assert sb.shiftblend_bwd.launches == 1
+    want = sb.shiftblend_bwd_reference(x, off, mask, w, gout, spec,
+                                       precision, case[-1])
+    _check_grads(got, want, LIMITS[precision])
+
+
+def test_backward_bitwise_deterministic(dev):
+    """Two backward runs of each kernel give the same bits (no atomics)."""
+    spec, (x, off, mask, w, _) = _case(dev, *GENERAL[3])
+    gout = _grad_out(spec, x, w)
+    runs = [gm.gathermm_bwd(x, off, mask, w, gout, spec) for _ in range(2)]
+    runs += [sb.shiftblend_bwd(x, off, mask, w, gout, spec, "tensorfloat32",
+                               2.0) for _ in range(2)]
+    for a, b in ((runs[0], runs[1]), (runs[2], runs[3])):
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
 def test_auto_dispatch_and_raises(dev):
     spec, (x, off, mask, w, b) = _case(dev, *GENERAL[0])
     sb.shiftblend_fwd.launches = gm.gathermm_fwd.launches = 0
@@ -101,10 +155,22 @@ def test_auto_dispatch_and_raises(dev):
     ref = mdt.modulated_deform_conv2d(x, off, mask, w, b, 1, 1, 1, 2, 2,
                                       impl="torch")
     assert _rel(out, ref) <= LIMITS["tensorfloat32"]
+    # The backward runs through the kernels and matches autograd of the
+    # plain path, for all five inputs.
+    for bound, kernel in ((3.0, sb.shiftblend_bwd), (None, gm.gathermm_bwd)):
+        grads = []
+        for impl in ("auto", "torch"):
+            ins = [t.clone().requires_grad_(True) for t in (x, off, mask, w,
+                                                            b)]
+            kernel.launches = 0
+            y = mdt.modulated_deform_conv2d(*ins, 1, 1, 1, 2, 2, impl=impl,
+                                            offset_bound=bound)
+            (y * y).sum().backward()
+            assert kernel.launches == (impl == "auto")
+            grads.append([t.grad for t in ins])
+        for g, r in zip(*grads):
+            assert _rel(g, r) <= LIMITS["tensorfloat32"]
     x.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        mdt.modulated_deform_conv2d(x, off, mask, w, b, 1, 1, 1, 2,
-                                    2).sum().backward()
     with pytest.raises(NotImplementedError, match="gate_bounds"):
         api._dispatch(x, off, mask, w, b, spec, "auto",
                       gate_bounds=((-1.0, 15.0), (-1.0, 9.0)))
