@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch / CUDA port on one NVIDIA GPU.
 
-Drives the port's three main paths through the entry points a user calls:
+Drives the port's main paths through the entry points a user calls:
 
 1. inference: the DCNv2 2D forward at the bench's config 2 (B=8, 256->256
    channels, 56x56, 3x3, stride 1, pad 1, groups = deformable_groups = 4,
@@ -10,15 +10,24 @@ Drives the port's three main paths through the entry points a user calls:
 2. the training step of bench.py at config 2: gradients of sum(out^2) with
    respect to all five inputs, with and without the bound;
 3. DCNResNet-50 at width 64, 1000 classes, B=8, 224x224, trained for a
-   few AdamW steps by the in-package trainer.
+   few AdamW steps by the in-package trainer;
+4. the 3D ops at BASELINE configs 3 (`deform_conv3d`, B=2, 64 ch,
+   16x32x32) and 4 (`modulated_deform_conv3d`, B=4, 128 ch, 32x64x64,
+   in_step=2), both with `offset_bound=2.0`: the forward and the training
+   step (gradients of sum(out^2) in every input), through the 3D gather
+   pair and the 3D shift-blend pair respectively;
+5. DCNVideoNet at its published defaults (width 32, blocks (1, 1, 1), 400
+   classes) on B=8 clips of 16x112x112, trained for a few AdamW steps by
+   the in-package trainer.
 
-It builds the four kernels (shift-blend and gather, forward and backward)
-from `modulated_deform_conv_tpu_torch/csrc/`, checks with the launch
-counters that each path went through its kernels, holds each kernel
-against its plain PyTorch version in every precision mode (at config 2,
-on small edge cases, and on the inputs and output cotangents that all 13
-DCN layers of DCNResNet-50 saw at its first and last step), checks that the
-backward is bitwise deterministic, times kernels and steps with CUDA
+It builds the eight kernels (shift-blend and gather, forward and backward,
+2D and 3D) from `modulated_deform_conv_tpu_torch/csrc/`, checks with the
+launch counters that each path went through its kernels, holds each
+kernel against its plain PyTorch version in every precision mode (at
+configs 2, 3 and 4, on small edge cases, and on the inputs and output
+cotangents that the DCN layers of both networks saw at their first and
+last step), checks that the backward is bitwise deterministic, times
+kernels, cuDNN's dense convolution as an anchor and steps with CUDA
 events, and prints the kernel table as one JSON line and a last line
 {"ok": true, "device": {...}}.
 
@@ -27,6 +36,7 @@ It exits nonzero, and prints no result, without a CUDA device or without
 the package beside it.  Imports nothing of JAX.
 """
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -56,7 +66,36 @@ REPLACES = {
     "gathermm_fwd": "modulated_deform_conv_tpu/ops/pallas/gathermm.py:1162",
     "shiftblend_bwd": "modulated_deform_conv_tpu/ops/pallas/shiftblend.py:970",
     "gathermm_bwd": "modulated_deform_conv_tpu/ops/pallas/gathermm.py:1292",
+    "shiftblend3d_fwd": "modulated_deform_conv_tpu/ops/pallas/shiftblend.py:719",
+    "gathermm3d_fwd": "modulated_deform_conv_tpu/ops/pallas/gathermm.py:1162",
+    "shiftblend3d_bwd": "modulated_deform_conv_tpu/ops/pallas/shiftblend.py:1126",
+    "gathermm3d_bwd": "modulated_deform_conv_tpu/ops/pallas/gathermm.py:1292",
 }
+# BASELINE configs 3 and 4 (benchmarks/suite.py:58-63): 3x3x3, stride 1,
+# pad 1, g = dg = 1, no bias, offsets U[-2, 2] passed with offset_bound=2.
+# The JAX package's dispatch sends config 3 to planar gathermm and config 4
+# to shift-blend; the port's "auto" takes the same kernels.
+CFG3D = {
+    "cfg3": dict(op="deform_conv3d", B=2, C=64, S=(16, 32, 32), in_step=64,
+                 family="gathermm3d"),
+    "cfg4": dict(op="modulated_deform_conv3d", B=4, C=128, S=(32, 64, 64),
+                 in_step=2, family="shiftblend3d"),
+}
+BOUND3D = 2.0
+# The plain versions hold every sample's columns and, in the backward,
+# autograd's eight saved corner values at once (1.8 GB each per sample at
+# config 4): at config 4 the kernels are held against them, and timed
+# beside them, at B=1 with the config's other shapes.
+PLAIN_BATCH = {"cfg3": 2, "cfg4": 1}
+# (iters, per_sample, warmup) of time_ms for kernels and plain versions.
+TIMING3D = {"cfg3": {"kernel": (20, 10, 3), "plain": (5, 2, 1)},
+            "cfg4": {"kernel": (5, 2, 1), "plain": (2, 1, 1)}}
+# DCNVideoNet at its published defaults (width 32, blocks (1, 1, 1), 400
+# classes) on B=8 Kinetics-size clips of 16 x 112 x 112; its two DCN layers
+# (s1b0: 64 ch at 16x56x56, s2b0: 128 ch at 16x28x28) run the 3D gather
+# pair.
+VIDEO = dict(width=32, classes=400, batch=8, frames=16, size=112, steps=4)
+VIDEO_DCN_LAYERS = 2
 
 
 class SmokeFailure(Exception):
@@ -187,6 +226,420 @@ def print_breakdown(label, times, top=8):
         print(f"  {ms:9.4f} ms {100 * ms / total:5.1f}%  {key[:90]}")
 
 
+def train_recorded(torch, train, pack_cls, spec_cls, steps, **train_kw):
+    """Train on the card with the in-package trainer while hooks on every
+    `pack_cls` layer record, at the first step (zero-init offsets: every tap
+    on the integer grid) and the last, the layer's inputs and output
+    cotangent; recording launches nothing.  Returns the trainer's result and
+    the records."""
+    check_steps = (0, steps - 1)
+    recorded, hooks, at = [], [], {"step": None}
+
+    def record(name):
+        def hook(mod, inputs, out):
+            if at["step"] not in check_steps:
+                return
+            xin = inputs[0]
+            with torch.no_grad():
+                p_mask = mod.conv_mask(xin)
+                ins = (xin, mod.conv_offset(xin),
+                       torch.sigmoid(p_mask) if mod.sigmoid_mask else p_mask, mod.weight)
+            rec = {"step": at["step"], "name": name, "spec": spec_cls.make(
+                mod._ndim, mod.kernel_size, mod.stride, mod.padding, mod.dilation, mod.groups,
+                mod.deformable_groups, mod.in_step, modulated=True),
+                "ins": [t.detach().clone(memory_format=torch.contiguous_format) for t in ins]}
+            out.register_hook(lambda g: rec.update(
+                gout=g.detach().clone(memory_format=torch.contiguous_format)))
+            recorded.append(rec)
+        return hook
+
+    def on_step(step, model):
+        at["step"] = step
+        if step == 0:
+            hooks.extend(m.register_forward_hook(record(n)) for n, m in model.named_modules()
+                         if isinstance(m, pack_cls))
+
+    res = train(steps=steps, device="cuda", log=lambda s: print(f"  {s}"), on_step=on_step,
+                **train_kw)
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    return res, recorded
+
+
+def check_recorded(torch, recorded, layers, pair, label):
+    """Hold a kernel pair against its plain versions, every mode, on the
+    recorded inputs and cotangents of every DCN layer."""
+    fwd, fwd_ref, bwd, bwd_ref = pair
+    check(len(recorded) == 2 * layers and all("gout" in rec for rec in recorded),
+          f"{label}: recorded {len(recorded)} DCN layer calls, want {layers} x 2")
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        for rec in recorded:
+            xs, offs, masks, ws = rec["ins"]
+            gout = rec["gout"]
+            sspec, max_off = rec["spec"], float(offs.abs().max())
+            if rec["step"] == 0:
+                check(max_off == 0.0, f"{label} {rec['name']}: first-step offsets not zero")
+            worst = {}
+            for prec, limit in LIMITS.items():
+                args = (xs, offs, masks, ws, None, sspec, prec)
+                errs = {"out": rel_err(fwd(*args), fwd_ref(*args))}
+                bargs = (xs, offs, masks, ws, gout, sspec, prec)
+                errs.update(grad_rel_errs(bwd(*bargs), bwd_ref(*bargs)))
+                for n, e in errs.items():
+                    check(e <= limit, f"{label} step {rec['step']} {rec['name']} {prec} "
+                          f"{'out' if n == 'out' else 'grad_' + n}: rel err {e:.3e}")
+                worst[prec] = max(errs.values())
+            print(f"{label} step {rec['step']} {rec['name']} x {tuple(xs.shape)} "
+                  f"stride {sspec.stride[0]} max|off| {max_off:.3g}: {fwd.__name__} + bwd vs "
+                  "plain, worst rel err " + " ".join(f"{p} {e:.2e}" for p, e in worst.items()))
+    print(f"{label} layer checks: peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+
+DCN_KERNELS = ("gathermm_fwd_kernel", "gathermm3d_fwd_kernel", "gcols_kernel", "ranges_kernel",
+               "boxes3_kernel", "gx_kernel", "gx3_kernel", "goff_kernel", "goff3_kernel",
+               "gw_kernel", "gw3_kernel", "fold_kernel")
+
+
+def profile_train_step(res, train_step, label):
+    """Where the device time of one of the trainer's own steps goes."""
+    x, y = res["batch"]
+    prof = device_time_by_kernel(lambda: train_step(res["model"], res["optimizer"], x, y))
+    print_breakdown(f"{label} step profile", prof, top=12)
+    if prof:
+        dcn_ms = sum(ms for k, ms in prof.items() if any(o in k for o in DCN_KERNELS))
+        print(f"{label} step: the port's DCN kernels {dcn_ms:.3f} ms of "
+              f"{sum(prof.values()):.3f} ms device time")
+
+
+def cfg3d_inputs(torch, dev, name):
+    """A 3D config's spec and inputs (x, offset, mask or None, weight, bias
+    None) as benchmarks/suite.py builds them, from numpy seed 0."""
+    from modulated_deform_conv_tpu_torch.utils.config import DeformConvSpec
+    c = CFG3D[name]
+    modulated = c["op"].startswith("modulated")
+    B, C, S, K = c["B"], c["C"], c["S"], 27
+    rng = np.random.default_rng(0)
+    f32 = np.float32
+    x = rng.standard_normal((B, C) + S).astype(f32)
+    off = rng.uniform(-2, 2, (B, 3 * K) + S).astype(f32)
+    mask = rng.uniform(0, 1, (B, K) + S).astype(f32) if modulated else None
+    w = (rng.standard_normal((C, C, 3, 3, 3)) * 0.05).astype(f32)
+    spec = DeformConvSpec.make(3, 3, 1, 1, 1, 1, 1, c["in_step"], modulated)
+    return spec, tuple(None if a is None else torch.from_numpy(a).to(dev)
+                       for a in (x, off, mask, w, None))
+
+
+def op3d(mdt, name, ins, **kw):
+    """The config's public op (deform_conv3d or modulated_deform_conv3d)."""
+    c = CFG3D[name]
+    x, off, mask, w, bias = ins
+    args = (x, off) + (() if mask is None else (mask,)) + (w, bias)
+    return getattr(mdt, c["op"])(*args, 1, 1, 1, 1, 1, c["in_step"], **kw)
+
+
+def refill(ins, leaves):
+    it = iter(leaves)
+    return tuple(None if t is None else next(it) for t in ins)
+
+
+def small_cases3(torch, dev):
+    """Small 3D configs with ragged 4 x 4 x 4 bricks, offsets beyond the
+    bound and far outside the volume, all-zero offsets, no mask / no bias,
+    stride 2, deformable groups straddling conv groups, dg > 1 with
+    groups > 1, and 2 x 2 x 2 taps at bound 0.5 (at most 640 pairs); each
+    with a cotangent for the backward."""
+    from modulated_deform_conv_tpu_torch.utils.config import DeformConvSpec
+    rng = np.random.default_rng(1)
+    # family, (B, C, O, S, k, stride, pad, dil, g, dg), modulated, bias,
+    # offset scale, bound
+    table = [
+        ("shiftblend3d", (2, 16, 24, (5, 64, 6), 3, 1, 1, 1, 2, 2), True, True, 2.5, 2.0),
+        ("shiftblend3d", (1, 16, 16, (6, 8, 16), 3, 1, 2, 2, 1, 2), False, False, 3.0, 1.0),
+        ("shiftblend3d", (2, 32, 32, (4, 9, 7), 2, 1, 1, 2, 1, 1), True, True, 0.45, 0.5),
+        ("shiftblend3d", (2, 16, 16, (5, 8, 16), 3, 1, 1, 1, 1, 1), True, True, 0.0, 2.0),
+        ("shiftblend3d", (1, 32, 48, (5, 16, 8), 3, 1, 1, 1, 2, 4), True, True, 1.5, 1.5),
+        ("gathermm3d", (2, 16, 24, (5, 7, 6), 3, 1, 1, 1, 2, 2), True, True, 3.0, None),
+        ("gathermm3d", (1, 12, 8, (7, 9, 8), 3, 2, 1, 1, 1, 3), False, False, 2.0, None),
+        ("gathermm3d", (2, 16, 16, (5, 6, 7), 3, 1, 1, 1, 1, 2), True, True, 40.0, None),
+        ("gathermm3d", (2, 32, 32, (6, 6, 6), 3, 2, 1, 1, 1, 1), True, True, 0.0, None),
+        ("gathermm3d", (1, 12, 10, (4, 5, 6), (3, 1, 3), 1, (1, 0, 1), 1, 2, 3), True, False,
+         2.5, None),
+    ]
+    cases = []
+    for fam, (b, c, o, S, k, s, p, d, g, dg), modulated, with_bias, scale, bound in table:
+        spec = DeformConvSpec.make(3, k, s, p, d, g, dg, modulated=modulated)
+        OS, K = spec.out_sizes(S), spec.tap_count
+        t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)  # noqa: E731
+        x = t(rng.standard_normal((b, c) + S))
+        off = t(rng.uniform(-scale, scale, (b, dg * 3 * K) + OS))
+        mask = t(rng.uniform(0, 1, (b, dg * K) + OS)) if modulated else None
+        wt = t(rng.standard_normal((o, c // g) + spec.kernel) * 0.1)
+        bias = t(rng.standard_normal((o,))) if with_bias else None
+        gout = t(rng.standard_normal((b, o) + OS))
+        cases.append((fam, spec, (x, off, mask, wt, bias), gout, bound))
+    return cases
+
+
+def work(ins, out_numel, spec):
+    """(bytes, operations) of one forward and one backward: each input read
+    once and each output written once (the backward reads the inputs and
+    gout and writes a gradient of each input), and the products, 2 B P O
+    C/g K each (the backward has two)."""
+    x, off, mask, w, bias = ins
+    f32 = 4
+    in_bytes = f32 * sum(t.numel() for t in (x, off, mask, w) if t is not None)
+    ops = 2 * out_numel * (x.shape[1] // spec.groups) * spec.tap_count
+    out_bytes = f32 * out_numel
+    return {"fwd": (in_bytes + out_bytes + (0 if bias is None else f32 * bias.numel()), ops),
+            "bwd": (2 * in_bytes + out_bytes, 2 * ops)}
+
+
+def bound_of(n_bytes, n_ops):
+    """The least time on the card (ms) and what sets it, at the main
+    precision's peak rate."""
+    return max((n_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+               (n_ops / PEAK_OPS[MAIN_PRECISION] * 1e3, "operations"))
+
+
+def far(got, ref, frac=1e-3):
+    """How many elements of got miss ref by more than frac of max|ref|."""
+    return int(((got - ref).abs() > frac * ref.abs().max()).sum())
+
+
+def on_bound(torch, off, spec, bound):
+    """How many fp32 sampling positions floor to exactly anchor + bound, where
+    the bounded contract's derivative is one-sided (stride 1, dg = 1)."""
+    S = off.shape[2:]
+    taps = torch.cartesian_prod(*[torch.arange(k) for k in spec.kernel])  # (K, 3)
+    off = off.reshape(off.shape[0], spec.tap_count, 3, *S)
+    n = 0
+    for a in range(3):
+        shape = [1, 1, 1, 1, 1]
+        shape[2 + a] = S[a]
+        coord = torch.arange(S[a], device=off.device).reshape(shape)
+        tap = (taps[:, a] * spec.dilation[a] - spec.padding[a]).to(off.device)
+        base = (coord + tap.reshape(1, -1, 1, 1, 1)).float()
+        n += int(((torch.floor(base + off[:, :, a]) - base) == bound).sum())
+    return n
+
+
+def plain_grads_by_sample(torch, ins, spec, pair, *extra):
+    """Gradients of sum(out^2) in x, offset, mask (when given) and weight by
+    a kernel pair's plain versions, unchunked, one sample at a time so that
+    they fit the card: grad_x, grad_offset and grad_mask belong to one
+    sample each, grad_weight is the sum of the samples' parts."""
+    fwd_ref, bwd_ref = pair[1], pair[3]
+    x, off, mask, w, _ = ins
+    parts = []
+    for b in range(x.shape[0]):
+        one = tuple(None if t is None else t[b:b + 1] for t in (x, off, mask))
+        out = fwd_ref(*one, w, None, spec, MAIN_PRECISION, *extra)
+        parts.append(bwd_ref(*one, w, 2 * out, spec, MAIN_PRECISION, *extra))
+        del out
+    grads = [None if parts[0][i] is None else torch.cat([p[i] for p in parts])
+             for i in range(3)]
+    grads.append(sum(p[3] for p in parts))
+    return tuple(g for g in grads if g is not None)
+
+
+def run_3d(torch, mdt, families3d, reset, counts, dev):
+    """Phases 9-12: BASELINE configs 3 and 4 through the public 3D ops
+    (forward and training step, launch counters, agreement with
+    impl='torch', bitwise-equal repeated backwards), both 3D kernel pairs
+    against their plain versions in every mode at both configs and on small
+    cases, and the times.  Returns the table rows of the 3D kernels (each
+    pair's at its own config), the training-step times and both pairs'
+    kernel times at both configs."""
+    rows, steps, cross = {}, {}, {}
+    for name, c in CFG3D.items():
+        spec, ins = cfg3d_inputs(torch, dev, name)
+        fam = c["family"]
+        B, O = ins[0].shape[0], ins[3].shape[0]
+        OS = spec.out_sizes(ins[0].shape[2:])
+        zero = {n: 0 for n in counts()}
+        # Phase 9: the forward and the training step through the public op.
+        with torch.no_grad():
+            reset()
+            out = op3d(mdt, name, ins, impl="auto", offset_bound=BOUND3D)
+            torch.cuda.synchronize()
+            fwd_launches = counts()
+            check(fwd_launches == {**zero, f"{fam}_fwd": 1},
+                  f"{name} forward did not run through {fam}_fwd alone: {fwd_launches}")
+            torch.cuda.reset_peak_memory_stats()
+            ref = op3d(mdt, name, ins, impl="torch")
+            e = rel_err(out, ref)
+            print(f"{name} forward path launches {fwd_launches}; vs impl='torch' rel err {e:.3e} "
+                  f"(plain path peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB)")
+            check(out.shape == (B, O) + OS and bool(torch.isfinite(out).all()),
+                  f"{name} output {tuple(out.shape)} bad")
+            check(e <= LIMITS[MAIN_PRECISION], f"{name} forward disagrees: {e:.3e}")
+            del out, ref
+        pb = PLAIN_BATCH[name]
+        leaves = [t.detach().clone().requires_grad_(True) for t in ins if t is not None]
+        names = [n for n, t in zip(("x", "offset", "mask", "weight"), ins) if t is not None]
+
+        def step(**kw):
+            out = op3d(mdt, name, refill(ins, leaves), **kw)
+            return torch.autograd.grad((out * out).sum(), leaves)
+
+        reset()
+        grads = step(impl="auto", offset_bound=BOUND3D)
+        torch.cuda.synchronize()
+        step_launches = counts()
+        check(step_launches == {**zero, f"{fam}_fwd": 1, f"{fam}_bwd": 1},
+              f"{name} training step did not run through the {fam} pair alone: {step_launches}")
+        if fam == "gathermm3d":
+            g_ref, against = step(impl="torch"), "impl='torch'"
+        else:
+            # The bounded pair is held against its own plain version, which
+            # keeps the bounded contract's window: where an fp32 position
+            # lands exactly on anchor + bound (7 samples in config 4's
+            # inputs) the window makes the offset derivative one-sided, and
+            # impl='torch' (no window) takes the other side.  Sample by
+            # sample, because the plain version holds a sample's columns at
+            # once.
+            g_ref = plain_grads_by_sample(torch, ins, spec, families3d[fam], BOUND3D)
+            against = "its plain version"
+            g_path = step(impl="torch")
+            print(f"{name} training step vs impl='torch': " + " ".join(
+                f"{n} {rel_err(g, r):.3e} ({far(g, r)} elements off by > 1e-3 of max)"
+                for n, g, r in zip(names, grads, g_path))
+                + f"; offsets equal to the bound: {int((ins[1] == BOUND3D).sum())}, "
+                f"positions on anchor + bound: {on_bound(torch, ins[1], spec, BOUND3D)}")
+            del g_path
+        errs = {n: rel_err(g, r) for n, g, r in zip(names, grads, g_ref)}
+        print(f"{name} training step launches {step_launches}; vs {against}: "
+              + " ".join(f"{n} {e:.3e}" for n, e in errs.items()))
+        for (n, e), g in zip(errs.items(), grads):
+            check(bool(torch.isfinite(g).all()), f"{name} grad_{n} not finite")
+            check(e <= LIMITS[MAIN_PRECISION], f"{name} training step grad_{n} disagrees: {e:.3e}")
+        again = step(impl="auto", offset_bound=BOUND3D)
+        check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+              f"{name} training step: two backward runs differ")
+        print(f"{name} training step: two backward runs bitwise equal")
+        del grads, again, g_ref
+        it_k, it_p = TIMING3D[name]["kernel"], TIMING3D[name]["plain"]
+        steps[name] = {"auto": time_ms(lambda: step(impl="auto", offset_bound=BOUND3D), *it_k),
+                       "plain": time_ms(lambda: step(impl="torch"), *it_p)}
+        print(f"{name} training step (fwd + bwd of sum(out^2), {len(leaves)} grads): "
+              f"{steps[name]['auto']:.4f} ms through {fam}, {steps[name]['plain']:.4f} ms plain")
+        del leaves
+
+        with torch.no_grad():
+            # Phase 10: both 3D pairs against their plain versions, every
+            # mode, at the config (config 4 at B=1).
+            cut = tuple(None if t is None or i > 2 else t[:pb].contiguous()
+                        for i, t in enumerate(ins))[:3] + ins[3:]
+            gout = torch.from_numpy(np.random.default_rng(2).standard_normal(
+                (B, O) + OS).astype(np.float32)).to(dev)
+            torch.cuda.reset_peak_memory_stats()
+            for f, (fwd, fwd_ref, bwd, bwd_ref) in families3d.items():
+                rel = {}
+                for prec, limit in LIMITS.items():
+                    args = (*cut, spec, prec, BOUND3D)[:7 if f == "gathermm3d" else 8]
+                    got, want = fwd(*args), fwd_ref(*args)
+                    rel[prec] = {"out": rel_err(got, want)}
+                    if f == fam and prec == MAIN_PRECISION:
+                        rows[f"{f}_fwd"] = {"max_abs_err": float((got - want).abs().max())}
+                    del got, want
+                    bargs = (*cut[:4], gout[:pb], *args[5:])
+                    got, want = bwd(*bargs), bwd_ref(*bargs)
+                    rel[prec].update(grad_rel_errs(got, want))
+                    if f == fam and prec == MAIN_PRECISION:
+                        rows[f"{f}_bwd"] = {"max_abs_err": max_abs(got, want)}
+                    del got, want
+                    for n, e in rel[prec].items():
+                        if e is not None:
+                            check(e <= limit, f"{f} {name} B={pb} {prec} {n}: rel err {e:.3e}")
+                    print(f"{f} {name} B={pb} {prec}: " + " ".join(
+                        f"{n} {e:.3e}" for n, e in rel[prec].items() if e is not None)
+                        + f" (limit {limit:g})")
+                if f == fam:
+                    for kind in ("fwd", "bwd"):
+                        rows[f"{f}_{kind}"]["rel_err"] = {
+                            p: {n: e for n, e in r.items() if (n == "out") == (kind == "fwd")}
+                            for p, r in rel.items()}
+            print(f"{name} B={pb}: plain versions' peak memory "
+                  f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+            # Phase 11: times in the main path's mode.  Both pairs at the
+            # config's own batch (cross), the config's own pair and its
+            # plain versions at the plain batch (the table row), and cuDNN's
+            # dense conv3d at both batches as the anchor.
+            cross[name] = {}
+            for f, (fwd, fwd_ref, bwd, bwd_ref) in families3d.items():
+                args = (*ins, spec, MAIN_PRECISION, BOUND3D)[:7 if f == "gathermm3d" else 8]
+                bargs = (*ins[:4], gout, *args[5:])
+                cross[name][f"{f}_fwd"] = time_ms(lambda: fwd(*args), *it_k)
+                cross[name][f"{f}_bwd"] = time_ms(lambda: bwd(*bargs), *it_k)
+                print_breakdown(f"{f}_bwd {name} B={B} profile",
+                                device_time_by_kernel(lambda: bwd(*bargs), calls=2))
+            anchors3d = {}
+            for nb in sorted({pb, B}):
+                xa, wa, ga = ins[0][:nb], ins[3], gout[:nb]
+                anchors3d[nb] = {
+                    "fwd": time_ms(lambda: torch.nn.functional.conv3d(xa, wa, None, 1, 1), *it_k),
+                    "bwd": time_ms(lambda: torch.ops.aten.convolution_backward(
+                        ga, xa, wa, None, [1] * 3, [1] * 3, [1] * 3, False, [0] * 3, 1,
+                        [True, True, False]), *it_k)}
+            print(f"{name} both pairs at B={B}: " + " ".join(
+                f"{n} {ms:.4f} ms" for n, ms in cross[name].items())
+                + f"; dense conv3d anchors {anchors3d}")
+            fwd, fwd_ref, bwd, bwd_ref = families3d[fam]
+            args = (*cut, spec, MAIN_PRECISION, BOUND3D)[:7 if fam == "gathermm3d" else 8]
+            bargs = (*cut[:4], gout[:pb], *args[5:])
+            own = {"fwd": (fwd, fwd_ref, args), "bwd": (bwd, bwd_ref, bargs)}
+            w_pb, w_full = work(cut, pb * O * math.prod(OS), spec), work(ins, gout.numel(), spec)
+            for kind, (fn, ref_fn, a) in own.items():
+                n = f"{fam}_{kind}"
+                ms = (cross[name][n] if pb == B else time_ms(lambda: fn(*a), *it_k))
+                plain_ms = time_ms(lambda: ref_fn(*a), *it_p)
+                bound_ms, bound_by = bound_of(*w_pb[kind])
+                rows[n].update(
+                    launches=(fwd_launches if kind == "fwd" else step_launches)[n], ms=ms,
+                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                    at=f"{name} B={pb}")
+                rows[n][f"dense_conv_{kind}_anchor_ms"] = anchors3d[pb][kind]
+                if pb != B:
+                    rows[n].update({f"ms_{name}_B{B}": cross[name][n],
+                                    f"bound_ms_{name}_B{B}": bound_of(*w_full[kind])[0],
+                                    f"dense_conv_{kind}_anchor_ms_{name}_B{B}":
+                                        anchors3d[B][kind]})
+                print(f"{n} {name} B={pb}: {ms:.4f} ms (plain {plain_ms:.3f} ms, dense conv3d "
+                      f"{kind} anchor {anchors3d[pb][kind]:.4f} ms, bound {bound_ms:.4f} ms by "
+                      f"{bound_by}; work {w_pb[kind][0] / 1e6:.1f} MB, "
+                      f"{w_pb[kind][1] / 1e9:.2f} GFLOP)")
+            del gout, cut
+        del ins
+        torch.cuda.empty_cache()
+
+    # Phase 12: both 3D pairs on the small cases, every mode.
+    with torch.no_grad():
+        for fam, sspec, args, sgout, bound in small_cases3(torch, dev):
+            fwd, fwd_ref, bwd, bwd_ref = families3d[fam]
+            ext = () if bound is None else (bound,)
+            xs, offs, masks, ws, _ = args
+            for prec, limit in LIMITS.items():
+                e = rel_err(fwd(*args, sspec, prec, *ext), fwd_ref(*args, sspec, prec, *ext))
+                check(e <= limit, f"{fam}_fwd small case {sspec} {prec}: rel err {e:.3e}")
+                bargs = (xs, offs, masks, ws, sgout, sspec, prec, *ext)
+                got, want = bwd(*bargs), bwd_ref(*bargs)
+                for n, e in grad_rel_errs(got, want).items():
+                    if e is not None:
+                        check(e <= limit, f"{fam}_bwd small case {sspec} {prec} grad_{n}: "
+                              f"rel err {e:.3e}")
+                again = bwd(*bargs)
+                check(all(torch.equal(a, b) for a, b in zip(got, again) if a is not None),
+                      f"{fam}_bwd small case {sspec}: two runs differ")
+            print(f"{fam} small case S={tuple(xs.shape[2:])} k={sspec.kernel} s={sspec.stride} "
+                  f"d={sspec.dilation} g={sspec.groups} dg={sspec.deformable_groups} "
+                  f"bound={bound} max|off|={float(offs.abs().max()):.2f} mask={masks is not None}: "
+                  "fwd + bwd ok, backward bitwise repeatable")
+    return {"rows": rows, "steps": steps, "cross": cross}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -224,8 +677,12 @@ def main() -> int:
                                sb.shiftblend_bwd, sb.shiftblend_bwd_reference),
                 "gathermm": (gm.gathermm_fwd, gm.gathermm_fwd_reference,
                              gm.gathermm_bwd, gm.gathermm_bwd_reference)}
+    families3d = {"shiftblend3d": (sb.shiftblend3d_fwd, sb.shiftblend3d_fwd_reference,
+                                   sb.shiftblend3d_bwd, sb.shiftblend3d_bwd_reference),
+                  "gathermm3d": (gm.gathermm3d_fwd, gm.gathermm3d_fwd_reference,
+                                 gm.gathermm3d_bwd, gm.gathermm3d_bwd_reference)}
     kernels = {}
-    for fam, (fwd, fwd_ref, bwd, bwd_ref) in families.items():
+    for fam, (fwd, fwd_ref, bwd, bwd_ref) in {**families, **families3d}.items():
         kernels[f"{fam}_fwd"] = (fwd, fwd_ref)
         kernels[f"{fam}_bwd"] = (bwd, bwd_ref)
 
@@ -236,7 +693,7 @@ def main() -> int:
     def counts():
         return {n: fn.launches for n, (fn, _) in kernels.items()}
 
-    # Phase 2: build the four kernels from the sources, in parallel.
+    # Phase 2: build the eight kernels from the sources, in parallel.
     t0 = time.time()
     logs = lib.build(lib.KERNELS, verbose=True)
     print(f"build: {time.time() - t0:.1f} s for {sorted(logs) or 'nothing (cached)'}")
@@ -429,108 +886,79 @@ def main() -> int:
     # step (zero-init offsets: every tap on the integer grid) and the last,
     # each layer's inputs and output cotangent; recording launches nothing.
     r = RESNET
-    check_steps = (0, r["steps"] - 1)
-    recorded, hooks, at = [], [], {"step": None}
-
-    def record(name):
-        def hook(mod, inputs, out):
-            if at["step"] not in check_steps:
-                return
-            xin = inputs[0]
-            with torch.no_grad():
-                p_mask = mod.conv_mask(xin)
-                ins = (xin, mod.conv_offset(xin),
-                       torch.sigmoid(p_mask) if mod.sigmoid_mask else p_mask, mod.weight)
-            rec = {"step": at["step"], "name": name, "spec": DeformConvSpec.make(
-                2, mod.kernel_size, mod.stride, mod.padding, mod.dilation, mod.groups,
-                mod.deformable_groups, modulated=True),
-                "ins": [t.detach().clone(memory_format=torch.contiguous_format) for t in ins]}
-            out.register_hook(lambda g: rec.update(
-                gout=g.detach().clone(memory_format=torch.contiguous_format)))
-            recorded.append(rec)
-        return hook
-
-    def on_step(step, model):
-        at["step"] = step
-        if step == 0:
-            hooks.extend(m.register_forward_hook(record(n)) for n, m in model.named_modules()
-                         if isinstance(m, mdt.ModulatedDeformConv2dPack))
-
     reset()
-    res = train(steps=r["steps"], batch=r["batch"], width=r["width"],
-                classes=r["classes"], size=r["size"], device="cuda",
-                log=lambda s: print(f"  {s}"), on_step=on_step)
-    torch.cuda.synchronize()
+    res, recorded = train_recorded(
+        torch, train, mdt.ModulatedDeformConv2dPack, DeformConvSpec, r["steps"],
+        batch=r["batch"], width=r["width"], classes=r["classes"], size=r["size"])
     net_launches = counts()
-    for h in hooks:
-        h.remove()
     print(f"DCNResNet-50 launches over {r['steps']} steps: {net_launches}")
-    for n in ("gathermm_fwd", "gathermm_bwd"):
-        check(net_launches[n] == DCN_LAYERS * r["steps"],
-              f"{n}: {net_launches[n]} launches, want {DCN_LAYERS} per step")
+    for n in kernels:
+        want = DCN_LAYERS * r["steps"] if n in ("gathermm_fwd", "gathermm_bwd") else 0
+        check(net_launches[n] == want, f"{n}: {net_launches[n]} launches, want {want}")
     check(all(np.isfinite(res["losses"])), "DCNResNet loss not finite")
     step_ms = statistics.median(res["step_s"][1:]) * 1e3
     print(f"DCNResNet-50 width {r['width']} B={r['batch']} {r['size']}x{r['size']}: "
           f"loss {res['losses'][0]:.4f} -> {res['losses'][-1]:.4f}, step {step_ms:.2f} ms "
           f"(median of steps 2-{r['steps']}; first {res['step_s'][0] * 1e3:.1f} ms)")
-
     # The general kernels against their plain versions on the recorded
     # inputs of every DCN layer, every mode.
-    check(len(recorded) == DCN_LAYERS * len(check_steps)
-          and all("gout" in rec for rec in recorded),
-          f"recorded {len(recorded)} DCN layer calls, want {DCN_LAYERS} x {len(check_steps)}")
-    with torch.no_grad():
-        for rec in recorded:
-            xs, offs, masks, ws = rec["ins"]
-            sspec, max_off = rec["spec"], float(offs.abs().max())
-            if rec["step"] == 0:
-                check(max_off == 0.0, f"{rec['name']}: first-step offsets not zero")
-            worst = {}
-            for prec, limit in LIMITS.items():
-                args = (xs, offs, masks, ws, None, sspec, prec)
-                errs = {"out": rel_err(gm.gathermm_fwd(*args), gm.gathermm_fwd_reference(*args))}
-                bargs = (xs, offs, masks, ws, rec["gout"], sspec, prec)
-                errs.update(grad_rel_errs(gm.gathermm_bwd(*bargs),
-                                          gm.gathermm_bwd_reference(*bargs)))
-                for n, e in errs.items():
-                    check(e <= limit, f"DCNResNet step {rec['step']} {rec['name']} {prec} "
-                          f"{'out' if n == 'out' else 'grad_' + n}: rel err {e:.3e}")
-                worst[prec] = max(errs.values())
-            print(f"DCNResNet step {rec['step']} {rec['name']} x {tuple(xs.shape)} "
-                  f"stride {sspec.stride[0]} max|off| {max_off:.3g}: gathermm fwd + bwd vs "
-                  "plain, worst rel err " + " ".join(f"{p} {e:.2e}" for p, e in worst.items()))
+    check_recorded(torch, recorded, DCN_LAYERS, families["gathermm"], "DCNResNet")
     del recorded
+    profile_train_step(res, train_step, "DCNResNet-50")
+    del res
 
-    # Where the device time of one of the trainer's own steps goes.
-    x_net, y_net = res["batch"]
-    prof = device_time_by_kernel(
-        lambda: train_step(res["model"], res["optimizer"], x_net, y_net))
-    print_breakdown("DCNResNet-50 step profile", prof, top=12)
-    ours = ("gathermm_fwd_kernel", "gcols_kernel", "ranges_kernel", "gx_kernel",
-            "goff_kernel", "gw_kernel", "fold_kernel")
-    dcn_ms = sum(ms for k, ms in prof.items() if any(o in k for o in ours))
-    if prof:
-        print(f"DCNResNet-50 step: the port's DCN kernels {dcn_ms:.3f} ms of "
-              f"{sum(prof.values()):.3f} ms device time")
-    del res, x_net, y_net
+    # Phases 9-12: the 3D paths, BASELINE configs 3 and 4 and DCNVideoNet.
+    torch.cuda.empty_cache()
+    r3 = run_3d(torch, mdt, families3d, reset, counts, dev)
+    torch.cuda.empty_cache()
+    v = VIDEO
+    reset()
+    res, recorded = train_recorded(
+        torch, train, mdt.ModulatedDeformConv3dPack, DeformConvSpec, v["steps"],
+        batch=v["batch"], width=v["width"], classes=v["classes"], size=v["size"],
+        arch="video", frames=v["frames"])
+    video_launches = counts()
+    print(f"DCNVideoNet launches over {v['steps']} steps: {video_launches}")
+    for n in kernels:
+        want = VIDEO_DCN_LAYERS * v["steps"] if n in ("gathermm3d_fwd", "gathermm3d_bwd") else 0
+        check(video_launches[n] == want, f"{n}: {video_launches[n]} launches, want {want}")
+    check(all(np.isfinite(res["losses"])) and res["losses"][-1] < res["losses"][0],
+          f"DCNVideoNet loss did not fall: {res['losses']}")
+    video_ms = statistics.median(res["step_s"][1:]) * 1e3
+    print(f"DCNVideoNet width {v['width']} {v['classes']} classes B={v['batch']} "
+          f"{v['frames']}x{v['size']}x{v['size']}: loss {res['losses'][0]:.4f} -> "
+          f"{res['losses'][-1]:.4f}, step {video_ms:.2f} ms (median of steps 2-{v['steps']}; "
+          f"first {res['step_s'][0] * 1e3:.1f} ms)")
+    check_recorded(torch, recorded, VIDEO_DCN_LAYERS, families3d["gathermm3d"], "DCNVideoNet")
+    del recorded
+    profile_train_step(res, train_step, "DCNVideoNet")
+    del res
 
-    # Phase 9: the kernel table.
+    # Phase 13: the kernel table.
     table = []
     for n in kernels:
         kind = n.rsplit("_", 1)[1]
+        if n in r3["rows"]:
+            row = r3["rows"][n]
+        else:
+            row = dict(launches=(fwd_launches if kind == "fwd" else step_launches)[n],
+                       max_abs_err=results[n]["max_abs_err"], ms=results[n]["ms"],
+                       plain_ms=results[n]["plain_ms"], bound_ms=bounds[kind][0],
+                       bound_by=bounds[kind][1], at="cfg2 B=8",
+                       rel_err=results[n]["rel_err"])
+            row[f"dense_conv_{kind}_anchor_ms"] = anchors[kind]
         table.append({
             "name": n, "route": "cuda",
             "source": f"modulated_deform_conv_tpu_torch/csrc/{n}.cu",
-            "replaces": REPLACES[n],
-            "launches": (fwd_launches if kind == "fwd" else step_launches)[n],
-            "max_abs_err": results[n]["max_abs_err"], "ms": results[n]["ms"],
-            "plain_ms": results[n]["plain_ms"], "bound_ms": bounds[kind][0],
-            "bound_by": bounds[kind][1], "library_ms": None,
-            f"dense_conv_{kind}_anchor_ms": anchors[kind],
-            "rel_err": results[n]["rel_err"], "precision": MAIN_PRECISION,
-            "resnet_launches": net_launches[n]})
+            "replaces": REPLACES[n], "launches": row.pop("launches"),
+            "max_abs_err": row.pop("max_abs_err"), "ms": row.pop("ms"),
+            "plain_ms": row.pop("plain_ms"), "bound_ms": row.pop("bound_ms"),
+            "bound_by": row.pop("bound_by"), "library_ms": None, **row,
+            "precision": MAIN_PRECISION, "resnet_launches": net_launches[n],
+            "videonet_launches": video_launches[n]})
     print(json.dumps({"kernels": table, "cfg2_train_step_ms": steps,
-                      "dcn_resnet50_step_ms": step_ms}))
+                      "dcn_resnet50_step_ms": step_ms, "train_step3d_ms": r3["steps"],
+                      "both_kernels3d_ms": r3["cross"], "dcn_videonet_step_ms": video_ms}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,192 @@
+// The 3D corner rules: trilinear counterparts of deform_tile.cuh's
+// tap_corners / tap_weights / tap_grad / blend, used by the four 3D kernels
+// (shiftblend3d_*.cu, gathermm3d_*.cu).  The 2D kernels do not include this
+// header.  The GEMM pieces (tile_fma, load_weights, operand) and the block
+// shape (kTP positions x kTO output channels, kThreads threads) are
+// deform_tile.cuh's.
+#pragma once
+
+#include "deform_tile.cuh"
+
+namespace mdc {
+
+// Geometry of one 3D call, passed by value to every 3D kernel.  Axis order
+// is (z, y, x) = the input's (D, H, W); (lo, win) per axis is the
+// bounded-offset window when `windowed`.
+struct Geo3 {
+  int B, C, D, H, W, O, OD, OH, OW, groups, dg;
+  int kd, kh, kw, sd, sh, sw, pd, ph, pw, dd, dh, dw;
+  int windowed, lo_z, win_z, lo_y, win_y, lo_x, win_x;
+  int precision;
+};
+
+__host__ __device__ inline int taps3(const Geo3& g) { return g.kd * g.kh * g.kw; }
+__host__ __device__ inline int out_size3(const Geo3& g) { return g.OD * g.OH * g.OW; }
+
+// The eight trilinear corners of one tap at one output position.
+//   pos = base + off per axis, in fp32 like the reference;
+//   the whole tap is closed unless -1 < pos < S on all three axes (the gate);
+//   a corner outside the volume is dropped;
+//   with `windowed`, the bounded-offset contract also drops, per axis, the
+//   corner c unless lo <= floor(pos) - base + c <= lo + win - 1.
+// keep bit 4*cz + 2*cy + cx says whether corner (z0+cz, y0+cy, x0+cx) is kept.
+struct TapCorners3 {
+  int z0, y0, x0;
+  float rz, ry, rx;  // pos - floor(pos) per axis
+  int keep;          // 0 when the gate is closed
+};
+
+__device__ __forceinline__ bool axis_keeps(float fl, int base, int c, int S, bool windowed, int lo, int win) {
+  const int i = static_cast<int>(fl) + c;
+  bool k = i >= 0 && i <= S - 1;
+  if (windowed) {
+    const float rel = fl - static_cast<float>(base) + c;
+    k = k && rel >= lo && rel <= lo + win - 1;
+  }
+  return k;
+}
+
+__device__ __forceinline__ TapCorners3 tap_corners3(const Geo3& g, int bz, int by, int bx, float off_z, float off_y,
+                                                    float off_x) {
+  TapCorners3 t{0, 0, 0, 0.f, 0.f, 0.f, 0};
+  const float pz = static_cast<float>(bz) + off_z;
+  const float py = static_cast<float>(by) + off_y;
+  const float px = static_cast<float>(bx) + off_x;
+  if (!(pz > -1.f && pz < static_cast<float>(g.D) && py > -1.f && py < static_cast<float>(g.H) && px > -1.f &&
+        px < static_cast<float>(g.W)))
+    return t;
+  const float fz = floorf(pz), fy = floorf(py), fx = floorf(px);
+  t.rz = pz - fz;
+  t.ry = py - fy;
+  t.rx = px - fx;
+  t.z0 = static_cast<int>(fz);
+  t.y0 = static_cast<int>(fy);
+  t.x0 = static_cast<int>(fx);
+  const bool w = g.windowed != 0;
+  bool kz[2], ky[2], kx[2];
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    kz[c] = axis_keeps(fz, bz, c, g.D, w, g.lo_z, g.win_z);
+    ky[c] = axis_keeps(fy, by, c, g.H, w, g.lo_y, g.win_y);
+    kx[c] = axis_keeps(fx, bx, c, g.W, w, g.lo_x, g.win_x);
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) t.keep |= (kz[i >> 2] && ky[(i >> 1) & 1] && kx[i & 1]) << i;
+  return t;
+}
+
+// Offset and mask of tap k at output position p (flat over OD x OH x OW) of
+// deformable group d, and the tap's sampling base.  Offset channels are
+// d * 3K + 3k + axis, axis 0 = z.
+struct TapAt3 {
+  int bz, by, bx;
+  float oz, oy, ox, m;
+};
+
+__device__ __forceinline__ TapAt3 tap_at3(const Geo3& g, const float* __restrict__ offset,
+                                          const float* __restrict__ mask, int b, int d, int k, int p) {
+  const int K = taps3(g), P = out_size3(g);
+  const int ozp = p / (g.OH * g.OW), oyp = (p / g.OW) % g.OH, oxp = p % g.OW;
+  const int kz = k / (g.kh * g.kw), ky = (k / g.kw) % g.kh, kx = k % g.kw;
+  const size_t oidx = (static_cast<size_t>(b) * g.dg * 3 * K + static_cast<size_t>(d) * 3 * K + 3 * k) * P + p;
+  TapAt3 t;
+  t.bz = ozp * g.sd - g.pd + kz * g.dd;
+  t.by = oyp * g.sh - g.ph + ky * g.dh;
+  t.bx = oxp * g.sw - g.pw + kx * g.dw;
+  t.oz = offset[oidx];
+  t.oy = offset[oidx + P];
+  t.ox = offset[oidx + 2 * static_cast<size_t>(P)];
+  t.m = mask ? mask[(static_cast<size_t>(b) * g.dg * K + static_cast<size_t>(d) * K + k) * P + p] : 1.f;
+  return t;
+}
+
+// Corner weights of one tap at one output position, the mask folded in:
+// lo weighs the four corners of plane z0 ((y0, x0), (y0, x0+1), (y0+1, x0),
+// (y0+1, x0+1)), hi those of plane z0 + 1; zero where the corner is dropped.
+struct TapWeights3 {
+  int z0, y0, x0;
+  float4 lo, hi;
+};
+
+__device__ __forceinline__ TapWeights3 weights3_at(const Geo3& g, const float* __restrict__ offset,
+                                                   const float* __restrict__ mask, int b, int d, int k, int p) {
+  const TapAt3 a = tap_at3(g, offset, mask, b, d, k, p);
+  const TapCorners3 c = tap_corners3(g, a.bz, a.by, a.bx, a.oz, a.oy, a.ox);
+  const float wz[2] = {1.f - c.rz, c.rz}, wy[2] = {1.f - c.ry, c.ry}, wx[2] = {1.f - c.rx, c.rx};
+  float w[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) w[i] = c.keep >> i & 1 ? wz[i >> 2] * wy[(i >> 1) & 1] * wx[i & 1] * a.m : 0.f;
+  return TapWeights3{c.z0, c.y0, c.x0, make_float4(w[0], w[1], w[2], w[3]), make_float4(w[4], w[5], w[6], w[7])};
+}
+
+// The corner weights without the mask, and their derivatives with respect
+// to the sampling position per axis, as tap_grad in 2D: the gate carries no
+// derivative, a dropped corner is zero in value and derivative, and at an
+// integer position the derivative is the exact right-derivative.  m is the
+// tap's mask (1 without one), kept apart so that grad_mask is exact at 0.
+struct TapGrad3 {
+  int z0, y0, x0, keep;
+  float m;
+  float w[8], dz[8], dy[8], dx[8];
+};
+
+__device__ __forceinline__ TapGrad3 grad3_at(const Geo3& g, const float* __restrict__ offset,
+                                             const float* __restrict__ mask, int b, int d, int k, int p) {
+  const TapAt3 a = tap_at3(g, offset, mask, b, d, k, p);
+  const TapCorners3 c = tap_corners3(g, a.bz, a.by, a.bx, a.oz, a.oy, a.ox);
+  const float wz[2] = {1.f - c.rz, c.rz}, wy[2] = {1.f - c.ry, c.ry}, wx[2] = {1.f - c.rx, c.rx};
+  const float dw[2] = {-1.f, 1.f};
+  TapGrad3 t;
+  t.z0 = c.z0;
+  t.y0 = c.y0;
+  t.x0 = c.x0;
+  t.keep = c.keep;
+  t.m = a.m;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const bool kept = c.keep >> i & 1;
+    const int cz = i >> 2, cy = (i >> 1) & 1, cx = i & 1;
+    t.w[i] = kept ? wz[cz] * wy[cy] * wx[cx] : 0.f;
+    t.dz[i] = kept ? dw[cz] * wy[cy] * wx[cx] : 0.f;
+    t.dy[i] = kept ? wz[cz] * dw[cy] * wx[cx] : 0.f;
+    t.dx[i] = kept ? wz[cz] * wy[cy] * dw[cx] : 0.f;
+  }
+  return t;
+}
+
+// Flat offset of corner i from the low corner, for row pitch py and plane
+// pitch pz.
+__device__ __forceinline__ int corner_step3(int i, int py, int pz) {
+  return (i >> 2) * pz + ((i >> 1) & 1) * py + (i & 1);
+}
+
+// One column value: the eight weighted corners around src[i0].  A corner
+// with weight 0 is not read, so its address may lie outside the source.
+__device__ __forceinline__ float blend3(const float* __restrict__ src, int i0, int py, int pz, float4 lo,
+                                        float4 hi) {
+  float v = 0.f;
+  if (lo.x != 0.f) v += lo.x * src[i0];
+  if (lo.y != 0.f) v += lo.y * src[i0 + 1];
+  if (lo.z != 0.f) v += lo.z * src[i0 + py];
+  if (lo.w != 0.f) v += lo.w * src[i0 + py + 1];
+  if (hi.x != 0.f) v += hi.x * src[i0 + pz];
+  if (hi.y != 0.f) v += hi.y * src[i0 + pz + 1];
+  if (hi.z != 0.f) v += hi.z * src[i0 + pz + py];
+  if (hi.w != 0.f) v += hi.w * src[i0 + pz + py + 1];
+  return v;
+}
+
+// Shared memory of a 3D forward block, in floats: column tile, weight tile,
+// corner table (two float4 of weights + one int index per (tap, position)),
+// then `extra`.
+__host__ __device__ inline size_t smem3_floats(int rows_cap, int K, size_t extra) {
+  return static_cast<size_t>(rows_cap) * kTP + static_cast<size_t>(rows_cap) * kWStride +
+         static_cast<size_t>(K) * kTP * 9 + extra;
+}
+
+// A 4 x 4 x 4 brick of positions: the 3D kernels' tile of kTP positions.
+constexpr int kBrick = 4;
+
+__host__ __device__ inline int bricks(int n) { return (n + kBrick - 1) / kBrick; }
+
+}  // namespace mdc

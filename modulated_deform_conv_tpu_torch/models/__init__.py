@@ -1,10 +1,15 @@
-from .backbone import ConvBN, DCNBottleneck, DCNResNet, DCNStage
-from .modules import (DeformConv2d, DeformConv2dPack, ModulatedDeformConv2d,
-                      ModulatedDeformConv2dPack)
+from .backbone import (ConvBN, ConvBN3d, DCN3dBottleneck, DCNBottleneck,
+                       DCNResNet, DCNStage, DCNVideoNet)
+from .modules import (DeformConv2d, DeformConv2dPack, DeformConv3d,
+                      DeformConv3dPack, ModulatedDeformConv2d,
+                      ModulatedDeformConv2dPack, ModulatedDeformConv3d,
+                      ModulatedDeformConv3dPack)
 from .torch_compat import flax_to_state_dict, load_flax_params
 
 __all__ = [
     "DeformConv2d", "ModulatedDeformConv2d", "DeformConv2dPack",
-    "ModulatedDeformConv2dPack", "ConvBN", "DCNBottleneck", "DCNStage",
-    "DCNResNet", "flax_to_state_dict", "load_flax_params",
+    "ModulatedDeformConv2dPack", "DeformConv3d", "ModulatedDeformConv3d",
+    "DeformConv3dPack", "ModulatedDeformConv3dPack", "ConvBN",
+    "DCNBottleneck", "DCNStage", "DCNResNet", "ConvBN3d", "DCN3dBottleneck",
+    "DCNVideoNet", "flax_to_state_dict", "load_flax_params",
 ]

@@ -1,18 +1,24 @@
-"""DCN backbone: ResNet bottleneck stages with DCNv2 in c3-c5.
+"""DCN backbones: ResNet bottleneck stages with DCNv2 in c3-c5, and the
+small video network with 3D DCNv2 in its deeper stages.
 
 Counterparts of the JAX package's flax classes in models/backbone.py
-(`ConvBN`, `DCNBottleneck`, `DCNStage`, `DCNResNet`): the classic "DCN in
-ResNet stages 3-5" recipe of the DCN papers, NCHW throughout.  The 3x3 conv
-of every c3-c5 bottleneck is a `ModulatedDeformConv2dPack` with zero-init
-offset / mask predictors and a sigmoid mask.  Without `offset_bound` the
-general gather kernels run forward and backward on CUDA tensors, at
-stride 2 in the first block of each stage as well.
+(`ConvBN`, `DCNBottleneck`, `DCNStage`, `DCNResNet`; `ConvBN3d`,
+`DCN3dBottleneck`, `DCNVideoNet`): the classic "DCN in ResNet stages 3-5"
+recipe of the DCN papers, NCHW throughout, and its video analog, NCTHW.
+The 3x3 conv of every c3-c5 bottleneck is a `ModulatedDeformConv2dPack`
+(the 3x3x3 conv of every video bottleneck past the first stage a
+`ModulatedDeformConv3dPack`) with zero-init offset / mask predictors and a
+sigmoid mask.  Without `offset_bound` the general gather kernels run
+forward and backward on CUDA tensors, at stride 2 in the first block of
+each ResNet stage as well.
 
-Two defaults differ between the frameworks and are pinned here to flax's:
-GroupNorm eps is 1e-6 (torch: 1e-5), and the stem's max pool pads with
--inf (what `MaxPool2d` does).  models/torch_compat.py carries flax
+Defaults that differ between the frameworks are pinned here to flax's:
+GroupNorm eps is 1e-6 (torch: 1e-5); the ResNet stem's max pool pads with
+-inf (what `MaxPool2d` does); the video net pools (1, 2, 2) with padding
+VALID (`MaxPool3d` without padding).  models/torch_compat.py carries flax
 parameters over; submodule names follow flax's where flax names them
-(`stem`, `c2`..`c5`, `block<i>`, `dcn`, `conv2`, `proj`, `fc`).
+(`stem`, `c2`..`c5`, `block<i>`, `s<i>b<j>`, `dcn`, `conv2`, `proj`,
+`fc`).
 """
 from __future__ import annotations
 
@@ -20,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .modules import ModulatedDeformConv2dPack
+from .modules import ModulatedDeformConv2dPack, ModulatedDeformConv3dPack
 
 
 class ConvBN(nn.Module):
@@ -134,3 +140,92 @@ class DCNResNet(nn.Module):
         if self.features_only:
             return tuple(feats)
         return self.fc(y.mean((2, 3)))
+
+
+class ConvBN3d(nn.Module):
+    """1x1x1 or 3x3x3 conv (no bias, pad k//2) + GroupNorm(min(32, C)) +
+    optional ReLU, NCTHW."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: int = 1,
+                 stride: int = 1, relu: bool = True, *, device="cuda",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        factory = dict(device=device, dtype=dtype)
+        self.conv = nn.Conv3d(in_channels, out_channels, kernel, stride,
+                              kernel // 2, bias=False, **factory)
+        self.norm = nn.GroupNorm(min(32, out_channels), out_channels,
+                                 eps=1e-6, **factory)
+        self.relu = relu
+
+    def forward(self, x):
+        y = self.norm(self.conv(x))
+        return F.relu(y) if self.relu else y
+
+
+class DCN3dBottleneck(nn.Module):
+    """3D bottleneck whose 3x3x3 conv is a modulated 3D DCN Pack module
+    (zero-init offsets + sigmoid mask), or a plain 3x3x3 ConvBN3d when
+    `deformable=False`; stride 1."""
+
+    def __init__(self, in_channels: int, channels: int, out_channels: int,
+                 deformable_groups: int = 1, deformable: bool = True,
+                 impl: str = "auto", *, device="cuda",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        factory = dict(device=device, dtype=dtype)
+        self.conv1 = ConvBN3d(in_channels, channels, 1, **factory)
+        if deformable:
+            self.dcn = ModulatedDeformConv3dPack(
+                channels, channels, 3, padding=1,
+                deformable_groups=deformable_groups, impl=impl,
+                zero_init_offset=True, sigmoid_mask=True, **factory)
+        else:
+            self.conv2 = ConvBN3d(channels, channels, 3, **factory)
+        self.conv3 = ConvBN3d(channels, out_channels, 1, relu=False,
+                              **factory)
+        self.proj = (ConvBN3d(in_channels, out_channels, 1, relu=False,
+                              **factory)
+                     if in_channels != out_channels else None)
+
+    def forward(self, x):
+        y = self.conv1(x)
+        y = self.dcn(y) if hasattr(self, "dcn") else self.conv2(y)
+        y = self.conv3(F.relu(y))
+        identity = x if self.proj is None else self.proj(x)
+        return F.relu(y + identity)
+
+
+class DCNVideoNet(nn.Module):
+    """Small video-classification backbone with deformable 3D convs in
+    every stage but the first: a 3x3x3 stem of `width` channels, then per
+    stage i `blocks[i]` bottlenecks of width * 2**i channels (out: twice
+    that), named s<i>b<j>, a (1, 2, 2) max pool between stages, the mean
+    over (T, H, W) and `fc`.  NCTHW in (T = frames), class logits out."""
+
+    def __init__(self, num_classes: int = 400, width: int = 32,
+                 blocks=(1, 1, 1), deformable_groups: int = 1,
+                 impl: str = "auto", *, device="cuda",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        factory = dict(device=device, dtype=dtype)
+        self.blocks = tuple(blocks)
+        self.stem = ConvBN3d(3, width, 3, **factory)
+        self.pool = nn.MaxPool3d((1, 2, 2), (1, 2, 2))
+        cin = width
+        for i, n in enumerate(self.blocks):
+            cout = width * 2 * 2 ** i
+            for j in range(n):
+                self.add_module(f"s{i}b{j}", DCN3dBottleneck(
+                    cin, width * 2 ** i, cout, deformable_groups,
+                    deformable=i >= 1, impl=impl, **factory))
+                cin = cout
+        self.fc = nn.Linear(cin, num_classes, **factory)
+
+    def forward(self, x):
+        y = self.stem(x)
+        for i, n in enumerate(self.blocks):
+            for j in range(n):
+                y = getattr(self, f"s{i}b{j}")(y)
+            if i < len(self.blocks) - 1:
+                y = self.pool(y)
+        return self.fc(y.mean((2, 3, 4)))

@@ -1,14 +1,16 @@
-"""Module layer: the four 2D deformable-conv modules as `torch.nn.Module`s.
+"""Module layer: the eight deformable-conv modules as `torch.nn.Module`s.
 
 Counterparts of the JAX package's flax modules (models/modules.py):
 
 explicit-offset modules (forward takes x + offset [+ mask]):
-  DeformConv2d, ModulatedDeformConv2d
+  DeformConv2d, ModulatedDeformConv2d, DeformConv3d, ModulatedDeformConv3d
 "Pack" modules (learn the offset / mask predictor convs internally):
-  DeformConv2dPack, ModulatedDeformConv2dPack
+  DeformConv2dPack, ModulatedDeformConv2dPack, DeformConv3dPack,
+  ModulatedDeformConv3dPack
 
 Parameters are `weight`, `bias`, `conv_offset.*` and `conv_mask.*`, laid
-out OIHW like the flax modules' (models/torch_compat.py carries them over).
+out OIHW / OIDHW like the flax modules' (models/torch_compat.py carries
+them over).
 Initialization follows the flax modules:
 
 * weight ~ U(-s, s) with s = 1/sqrt(C_in * prod(kernel)); bias = 0;
@@ -88,11 +90,12 @@ class _DeformConvBase(nn.Module):
                       in_step=self.in_step, impl=self.impl,
                       offset_bound=self.offset_bound)
         if self._modulated:
-            return ops_api.modulated_deform_conv2d(x, offset, mask,
-                                                   self.weight, self.bias,
-                                                   **kwargs)
-        return ops_api.deform_conv2d(x, offset, self.weight, self.bias,
-                                     **kwargs)
+            op = (ops_api.modulated_deform_conv2d if self._ndim == 2
+                  else ops_api.modulated_deform_conv3d)
+            return op(x, offset, mask, self.weight, self.bias, **kwargs)
+        op = (ops_api.deform_conv2d if self._ndim == 2
+              else ops_api.deform_conv3d)
+        return op(x, offset, self.weight, self.bias, **kwargs)
 
 
 class DeformConv2d(_DeformConvBase):
@@ -110,11 +113,28 @@ class ModulatedDeformConv2d(_DeformConvBase):
         return self._conv(x, offset, mask)
 
 
+class DeformConv3d(_DeformConvBase):
+    """Explicit-offset DCNv1 3D."""
+    _ndim = 3
+
+    def forward(self, x, offset):
+        return self._conv(x, offset, None)
+
+
+class ModulatedDeformConv3d(_DeformConvBase):
+    """Explicit-offset DCNv2 3D."""
+    _ndim = 3
+    _modulated = True
+
+    def forward(self, x, offset, mask):
+        return self._conv(x, offset, mask)
+
+
 class _PackBase(_DeformConvBase):
     """Pack variant: offset (and mask) come from predictor convs applied to
     x, sharing the main conv's stride / padding / dilation so they live on
-    the output grid.  The predictors are ordinary convolutions (F.conv2d),
-    as the JAX package computes them outside its kernels."""
+    the output grid.  The predictors are ordinary convolutions (nn.Conv2d /
+    nn.Conv3d), as the JAX package computes them outside its kernels."""
 
     def __init__(self, *args, zero_init_offset: bool = False,
                  sigmoid_mask: bool = False, **kwargs):
@@ -129,10 +149,11 @@ class _PackBase(_DeformConvBase):
             self.conv_mask = self._predictor(self.deformable_groups * K,
                                              zero_init_offset, factory)
 
-    def _predictor(self, out_ch: int, zero_init: bool, factory) -> nn.Conv2d:
-        conv = nn.Conv2d(self.in_channels, out_ch, self.kernel_size,
-                         stride=self.stride, padding=self.padding,
-                         dilation=self.dilation, bias=True, **factory)
+    def _predictor(self, out_ch: int, zero_init: bool, factory) -> nn.Module:
+        conv_cls = nn.Conv2d if self._ndim == 2 else nn.Conv3d
+        conv = conv_cls(self.in_channels, out_ch, self.kernel_size,
+                        stride=self.stride, padding=self.padding,
+                        dilation=self.dilation, bias=True, **factory)
         with torch.no_grad():
             if zero_init:
                 conv.weight.zero_()
@@ -158,4 +179,15 @@ class DeformConv2dPack(_PackBase):
 
 class ModulatedDeformConv2dPack(_PackBase):
     """Learned offset + mask DCNv2 2D."""
+    _modulated = True
+
+
+class DeformConv3dPack(_PackBase):
+    """Learned-offset DCNv1 3D."""
+    _ndim = 3
+
+
+class ModulatedDeformConv3dPack(_PackBase):
+    """Learned offset + mask DCNv2 3D."""
+    _ndim = 3
     _modulated = True

@@ -7,13 +7,15 @@ Two kinds of flax trees are taken:
   {...}}}``, whose leaves map one to one onto the state_dict entries
   ``weight``, ``bias``, ``conv_offset.weight`` ... of the port's module of
   the same name (both OIHW: renaming only);
-* a `DCNResNet` (models/backbone.py) and its parts.  Flax names some
-  submodules itself (``ConvBN_0``, ``ConvBN_1``, ``Conv_0``,
-  ``GroupNorm_0``); they become the port's ``conv1``, ``conv3``, ``conv``
-  and ``norm``, and the names flax was given (``stem``, ``c3``,
-  ``block0``, ``dcn``, ``conv2``, ``proj``, ``fc``) stay.  An ``nn.Conv``
-  kernel goes from HWIO to OIHW, an ``nn.Dense`` kernel from (in, out) to
-  (out, in), and a GroupNorm ``scale`` becomes ``weight``.
+* a `DCNResNet` or `DCNVideoNet` (models/backbone.py) and its parts.
+  Flax names some submodules itself (``ConvBN_0``, ``ConvBN_1``,
+  ``ConvBN3d_0``, ``ConvBN3d_1``, ``Conv_0``, ``GroupNorm_0``); they become
+  the port's ``conv1``, ``conv3``, ``conv1``, ``conv3``, ``conv`` and
+  ``norm``, and the names flax was given (``stem``, ``c3``, ``block0``,
+  ``s1b0``, ``dcn``, ``conv2``, ``proj``, ``fc``) stay.  An ``nn.Conv``
+  kernel goes from (*spatial, in, out) to (out, in, *spatial) (HWIO to
+  OIHW, DHWIO to OIDHW), an ``nn.Dense`` kernel from (in, out) to (out,
+  in), and a GroupNorm ``scale`` becomes ``weight``.
 
 Leaves may be numpy arrays or anything `numpy.asarray` takes (jax arrays
 included); jax itself is never imported here.
@@ -26,8 +28,8 @@ import numpy as np
 import torch
 from torch import nn
 
-_RENAME = {"ConvBN_0": "conv1", "ConvBN_1": "conv3", "Conv_0": "conv",
-           "GroupNorm_0": "norm"}
+_RENAME = {"ConvBN_0": "conv1", "ConvBN_1": "conv3", "ConvBN3d_0": "conv1",
+           "ConvBN3d_1": "conv3", "Conv_0": "conv", "GroupNorm_0": "norm"}
 
 
 def _leaves(tree: Mapping[str, Any], path: Tuple[str, ...] = ()
@@ -43,8 +45,11 @@ def _convert(path: Tuple[str, ...], val) -> Tuple[str, np.ndarray]:
     *mods, leaf = path
     arr = np.array(val, copy=True)
     if leaf == "kernel":
-        # nn.Conv: HWIO -> OIHW; nn.Dense: (in, out) -> (out, in).
-        arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+        # nn.Conv: (*spatial, in, out) -> (out, in, *spatial);
+        # nn.Dense: (in, out) -> (out, in).
+        n = arr.ndim
+        arr = (arr.transpose(n - 1, n - 2, *range(n - 2)) if n > 2
+               else arr.T)
         leaf = "weight"
     elif leaf == "scale":
         leaf = "weight"

@@ -20,7 +20,9 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build"
-KERNELS = ("gathermm_fwd", "shiftblend_fwd", "gathermm_bwd", "shiftblend_bwd")
+KERNELS = ("gathermm_fwd", "shiftblend_fwd", "gathermm_bwd", "shiftblend_bwd",
+           "gathermm3d_fwd", "shiftblend3d_fwd", "gathermm3d_bwd",
+           "shiftblend3d_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -91,13 +93,16 @@ def kernel(name: str):
 
 
 def check_inputs(name: str, x, offset, mask, weight, bias, spec) -> None:
-    """Raise unless the kernel can take these tensors as they are: 2D,
-    float32, contiguous, all on x's CUDA device, shapes per `spec`."""
+    """Raise unless the kernel can take these tensors as they are: of the
+    kernel's rank (the `*3d_*` kernels 3D, the others 2D), float32,
+    contiguous, all on x's CUDA device, shapes per `spec`."""
     if not x.is_cuda:
         raise ValueError(f"{name}: the kernel takes CUDA tensors, got "
                          f"{x.device}")
-    if spec.ndim != 2:
-        raise NotImplementedError(f"{name}: only the 2D kernel is ported")
+    ndim = 3 if "3d_" in name else 2
+    if spec.ndim != ndim:
+        raise NotImplementedError(f"{name}: takes {ndim}D configs, got "
+                                  f"{spec.ndim}D")
     spec.validate(x.shape, offset.shape, weight.shape,
                   None if mask is None else mask.shape,
                   None if bias is None else bias.shape)
@@ -163,11 +168,12 @@ def grad_weight_splits(spec, B: int, C: int, O: int, P: int) -> int:
     return max(1, min(-(-(B * P) // 512), 1024 // blocks))
 
 
-def bwd_buffers(x, offset, mask, weight, spec, P: int, needs):
+def bwd_buffers(x, offset, mask, weight, spec, P: int, needs,
+                b_step: Optional[int] = None):
     """Outputs (None where not wanted) and scratch of a backward kernel:
     grad_x, grad_offset, grad_mask, grad_weight in the kernels' weight
-    layout, the gcols buffer (B, K, P, C), the grad_weight partials, and
-    their split count."""
+    layout, the gcols buffer (b_step, K, P, C) (b_step defaults to the
+    batch), the grad_weight partials, and their split count."""
     want_x, want_off, want_mask, want_w = needs
     B, C = x.shape[:2]
     O, g, K = weight.shape[0], spec.groups, spec.tap_count
@@ -178,7 +184,7 @@ def bwd_buffers(x, offset, mask, weight, spec, P: int, needs):
     goff = torch.empty_like(offset) if want_off else None
     gmask = torch.empty_like(mask) if want_mask and mask is not None else None
     gwt = empty(g, C // g * K, O // g) if want_w else None
-    gcols = (empty(B, K, P, C) if gx is not None or goff is not None
+    gcols = (empty(b_step or B, K, P, C) if gx is not None or goff is not None
              or gmask is not None else None)
     part = empty(splits, g, C // g * K, O // g) if want_w else None
     return gx, goff, gmask, gwt, gcols, part, splits

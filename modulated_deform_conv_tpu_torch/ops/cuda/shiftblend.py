@@ -1,10 +1,15 @@
-"""Bounded-offset kernels: `shiftblend_fwd` (csrc/shiftblend_fwd.cu) and
-`shiftblend_bwd` (csrc/shiftblend_bwd.cu).
+"""Bounded-offset kernels: `shiftblend_fwd` / `shiftblend_bwd` (2D,
+csrc/shiftblend_fwd.cu, csrc/shiftblend_bwd.cu) and `shiftblend3d_fwd` /
+`shiftblend3d_bwd` (3D, csrc/shiftblend3d_*.cu).
 
-Counterparts of the JAX package's `ops/pallas/shiftblend.py` unrolled pair
-(`deform_conv_shift`, kernels `_fwd_kernel_cols` and `_bwd_kernel`, joined
-by the custom VJP `shift_conv`), for stride-1, size-preserving configs
-under the bounded-offset contract |offset| <= b.
+Counterparts of the JAX package's `ops/pallas/shiftblend.py`
+(`deform_conv_shift`, joined by the custom VJP `shift_conv`): in 2D its
+unrolled pair `_fwd_kernel_cols` / `_bwd_kernel`, in 3D its loop pair
+`_fwd_kernel_loop` / `_bwd_kernel_loop` (and the unrolled pair where a 3D
+window has at most 640 (tap, window) pairs, and the lead-chunked mode where
+a volume outgrows VMEM: all compute one function, which the 3D kernels
+compute in one launch), for stride-1, size-preserving configs under the
+bounded-offset contract |offset| <= b.
 
 The contract drops corners per axis: with (lo, W) = `_axis_window(b)`,
 corner c of a tap on axis d is kept only if
@@ -14,25 +19,38 @@ the image lose theirs, in value and in gradient.  `offsets_within_bound`
 checks the contract.
 
 Each wrapper launches its kernel on CUDA tensors and runs its plain PyTorch
-version (`*_reference`) on CPU tensors only.
+version (`*_reference`, one for both ranks) on CPU tensors only.
 """
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
 
-from ...utils.config import DeformConvSpec
+from ...utils.config import DeformConvSpec, effective_step
 from .. import core
 from . import lib
 
-# Shared-memory layout of csrc/shiftblend_fwd.cu, in floats: column and
-# weight tiles of rows_cap rows, the corner table, and an 8-channel
-# halo-extended 8 x 8 x tile.
-_TILE, _CHUNK, _ROWS, _TP, _WSTRIDE = 8, 8, 128, 64, 68
+# Shared-memory layout of the forward kernels, in floats: column and
+# weight tiles of rows_cap rows, the corner table (_TABLE floats per (tap,
+# position)), and a chunk of _CHUNK channels of the halo-extended output
+# tile: 8 x 8 in 2D (csrc/shiftblend_fwd.cu), a 4 x 4 x 4 brick in 3D
+# (csrc/shiftblend3d_fwd.cu); both tiles are 64 positions.
+_TILE = {2: (8, 8), 3: (4, 4, 4)}
+_CHUNK = {2: 8, 3: 4}
+_TABLE = {2: 5, 3: 9}
+_ROWS, _TP, _WSTRIDE = 128, 64, 68
 _MAX_SMEM_FLOATS = 227 * 1024 // 4
+# The JAX package's 3D loop-path rule (shiftblend.py:341-343): past this
+# many (tap, window) pairs its kernels roll the leading window axis, which
+# needs a plane stride that is a multiple of 128 (a TPU lane tiling, kept so
+# that both packages take the same path), and its shift set stays within
+# 4096 distinct shifts (:347).
+_UNROLL_PAIRS = 640
+_MAX_SHIFTS = 4096
 
 
 def _axis_window(b: float) -> Tuple[int, int]:
@@ -72,10 +90,31 @@ def _halo(spec: DeformConvSpec, windows) -> Tuple[int, ...]:
 
 
 def _smem_floats(spec: DeformConvSpec, halo) -> int:
-    K = spec.tap_count
-    rows = min(_CHUNK * K, _ROWS)
-    return (rows * (_TP + _WSTRIDE) + K * _TP * 5
-            + _CHUNK * math.prod(_TILE + 2 * r for r in halo))
+    nd, K = spec.ndim, spec.tap_count
+    rows = min(_CHUNK[nd] * K, _ROWS)
+    return (rows * (_TP + _WSTRIDE) + K * _TP * _TABLE[nd]
+            + _CHUNK[nd] * math.prod(t + 2 * r
+                                     for t, r in zip(_TILE[nd], halo)))
+
+
+def _loop_path_reason(spec: DeformConvSpec, S, windows) -> Optional[str]:
+    """The JAX package's 3D rules on the window: more than 640 (tap,
+    window) pairs need a plane stride that is a multiple of 128, and the
+    distinct flat shifts stay within 4096 (SBPlan.ineligible_reason)."""
+    plane = S[1] * S[2]
+    if (spec.tap_count * math.prod(w for _, w in windows) > _UNROLL_PAIRS
+            and plane % 128):
+        return ("window too large to unroll and the plane stride is not "
+                "128-aligned for the rolled-loop kernel")
+    qstride = (plane, S[2], 1)
+    anchors = itertools.product(*[
+        sorted({i * dl - p + lo + dy for i in range(k) for dy in range(w)})
+        for k, dl, p, (lo, w) in zip(spec.kernel, spec.dilation,
+                                     spec.padding, windows)])
+    if len({sum(a * q for a, q in zip(av, qstride))
+            for av in anchors}) > _MAX_SHIFTS:
+        return "offset_bound window too large (shift set explodes)"
+    return None
 
 
 def ineligible_reason(x: torch.Tensor, spec: DeformConvSpec,
@@ -84,8 +123,10 @@ def ineligible_reason(x: torch.Tensor, spec: DeformConvSpec,
 
     The semantic rules of the JAX package's `SBPlan.ineligible_reason`
     (stride 1, output size == input size, C/dg % 8 == 0, C/dg <= 256,
-    dg % groups == 0), so both packages pick the same path for the same
-    config, plus this kernel's own shared-memory limit on the halo tile."""
+    dg % groups == 0; in 3D also its loop-path and shift-set rules), so
+    both packages pick the same path for the same config, plus this
+    kernel's own shared-memory limit on the halo tile.  Its VMEM residency
+    and residual budgets are the TPU's and have no counterpart here."""
     if offset_bound is None:
         return "no offset_bound provided (shiftblend needs bounded offsets)"
     if spec.ndim not in (2, 3):
@@ -108,6 +149,10 @@ def ineligible_reason(x: torch.Tensor, spec: DeformConvSpec,
     if spec.deformable_groups % spec.groups:
         return "deformable_groups must be a multiple of groups"
     windows = corner_windows(spec, offset_bound)
+    if spec.ndim == 3:
+        reason = _loop_path_reason(spec, S, windows)
+        if reason is not None:
+            return reason
     if _smem_floats(spec, _halo(spec, windows)) > _MAX_SMEM_FLOATS:
         return ("offset_bound window too large for the shared-memory halo "
                 "tile")
@@ -144,35 +189,64 @@ def shiftblend_fwd_reference(x, offset, mask, weight, bias,
         corner_window=corner_windows(spec, offset_bound))
 
 
+def _geometry(x, weight, spec: DeformConvSpec, offset_bound):
+    """The kernels' leading int arguments: B, C, *S, O, groups, dg,
+    *kernel, *padding, *dilation, (lo, win) per axis, halo reach per axis."""
+    windows = corner_windows(spec, offset_bound)
+    return (*x.shape, weight.shape[0], spec.groups, spec.deformable_groups,
+            *spec.kernel, *spec.padding, *spec.dilation,
+            *(v for w in windows for v in w), *_halo(spec, windows))
+
+
+def _fwd(name, x, offset, mask, weight, bias, spec, precision, offset_bound):
+    lib.check_inputs(name, x, offset, mask, weight, bias, spec)
+    reason = ineligible_reason(x, spec, offset_bound)
+    if reason is not None:
+        raise NotImplementedError(f"{name}: {reason}")
+    out = torch.empty((x.shape[0], weight.shape[0]) + tuple(x.shape[2:]),
+                      dtype=torch.float32, device=x.device)
+    wt = lib.grouped_weight(weight, spec.groups)
+    lib.launch(name, x, (x, offset, mask, wt, bias, out), (
+        *_geometry(x, weight, spec, offset_bound),
+        lib.PRECISION_CODES[precision]))
+    return out
+
+
 def shiftblend_fwd(x, offset, mask, weight, bias, spec: DeformConvSpec,
                    precision: str, offset_bound) -> torch.Tensor:
-    """Bounded-offset DCN forward, (B, O, H, W) float32.
+    """Bounded-offset 2D DCN forward, (B, O, H, W) float32.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel or
     raise.  Inputs: float32, contiguous, on one device."""
     if x.device.type == "cpu":
         return shiftblend_fwd_reference(x, offset, mask, weight, bias, spec,
                                         precision, offset_bound)
-    lib.check_inputs("shiftblend_fwd", x, offset, mask, weight, bias, spec)
-    reason = ineligible_reason(x, spec, offset_bound)
-    if reason is not None:
-        raise NotImplementedError(f"shiftblend_fwd: {reason}")
-    (lo_y, win_y), (lo_x, win_x) = windows = corner_windows(spec,
-                                                            offset_bound)
-    ry, rx = _halo(spec, windows)
-    B, C, H, W = x.shape
-    O = weight.shape[0]
-    out = torch.empty((B, O, H, W), dtype=torch.float32, device=x.device)
-    wt = lib.grouped_weight(weight, spec.groups)
-    lib.launch("shiftblend_fwd", x, (x, offset, mask, wt, bias, out), (
-        B, C, H, W, O, spec.groups, spec.deformable_groups, *spec.kernel,
-        *spec.padding, *spec.dilation, lo_y, win_y, lo_x, win_x, ry, rx,
-        lib.PRECISION_CODES[precision]))
+    out = _fwd("shiftblend_fwd", x, offset, mask, weight, bias, spec,
+               precision, offset_bound)
     shiftblend_fwd.launches += 1
     return out
 
 
 shiftblend_fwd.launches = 0
+
+
+def shiftblend3d_fwd(x, offset, mask, weight, bias, spec: DeformConvSpec,
+                     precision: str, offset_bound) -> torch.Tensor:
+    """Bounded-offset 3D DCN forward, (B, O, D, H, W) float32, the whole
+    volume in one launch.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel or
+    raise.  Inputs: float32, contiguous, on one device."""
+    if x.device.type == "cpu":
+        return shiftblend3d_fwd_reference(x, offset, mask, weight, bias, spec,
+                                          precision, offset_bound)
+    out = _fwd("shiftblend3d_fwd", x, offset, mask, weight, bias, spec,
+               precision, offset_bound)
+    shiftblend3d_fwd.launches += 1
+    return out
+
+
+shiftblend3d_fwd.launches = 0
 
 
 def shiftblend_bwd_reference(x, offset, mask, weight, grad_out,
@@ -186,11 +260,41 @@ def shiftblend_bwd_reference(x, offset, mask, weight, grad_out,
                          corner_window=corner_windows(spec, offset_bound))
 
 
+# The plain versions take either rank.
+shiftblend3d_fwd_reference = shiftblend_fwd_reference
+shiftblend3d_bwd_reference = shiftblend_bwd_reference
+
+
+def _bwd(name, x, offset, mask, weight, grad_out, spec, precision,
+         offset_bound, needs):
+    lib.check_inputs(name, x, offset, mask, weight, None, spec)
+    reason = ineligible_reason(x, spec, offset_bound)
+    if reason is not None:
+        raise NotImplementedError(f"{name}: {reason}")
+    B, P = x.shape[0], math.prod(x.shape[2:])
+    lib.check_grad_out(name, grad_out, x,
+                       (B, weight.shape[0]) + tuple(x.shape[2:]))
+    # The 3D kernel runs gcols and the gradients read from it in batch
+    # chunks of gcd(B, in_step): a memory knob that does not change the
+    # result, since each of those gradients belongs to one sample.
+    b_step = effective_step(B, spec.in_step) if spec.ndim == 3 else None
+    gx, goff, gmask, gwt, gcols, part, splits = lib.bwd_buffers(
+        x, offset, mask, weight, spec, P, needs, b_step)
+    wk = lib.tap_major_weight(weight, spec.groups)
+    lib.launch(name, x, (
+        x, offset, mask, wk, grad_out, gcols, part, gx, goff, gmask, gwt), (
+        *_geometry(x, weight, spec, offset_bound),
+        *(() if b_step is None else (b_step,)), splits,
+        lib.PRECISION_CODES[precision]))
+    gw = None if gwt is None else lib.ungrouped_weight(gwt, weight.shape)
+    return gx, goff, gmask, gw
+
+
 def shiftblend_bwd(x, offset, mask, weight, grad_out, spec: DeformConvSpec,
                    precision: str, offset_bound, needs=(True,) * 4):
-    """Bounded-offset DCN backward without the bias: (grad_x, grad_offset,
-    grad_mask, grad_weight), float32, each None where `needs` says it is
-    not wanted (grad_mask also without a mask).
+    """Bounded-offset 2D DCN backward without the bias: (grad_x,
+    grad_offset, grad_mask, grad_weight), float32, each None where `needs`
+    says it is not wanted (grad_mask also without a mask).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel or
     raise.  Inputs: float32, contiguous, on one device."""
@@ -198,36 +302,39 @@ def shiftblend_bwd(x, offset, mask, weight, grad_out, spec: DeformConvSpec,
         grads = shiftblend_bwd_reference(x, offset, mask, weight, grad_out,
                                          spec, precision, offset_bound)
         return tuple(g if n else None for g, n in zip(grads, needs))
-    lib.check_inputs("shiftblend_bwd", x, offset, mask, weight, None, spec)
-    reason = ineligible_reason(x, spec, offset_bound)
-    if reason is not None:
-        raise NotImplementedError(f"shiftblend_bwd: {reason}")
-    (lo_y, win_y), (lo_x, win_x) = windows = corner_windows(spec,
-                                                            offset_bound)
-    ry, rx = _halo(spec, windows)
-    B, C, H, W = x.shape
-    O = weight.shape[0]
-    lib.check_grad_out("shiftblend_bwd", grad_out, x, (B, O, H, W))
-    gx, goff, gmask, gwt, gcols, part, splits = lib.bwd_buffers(
-        x, offset, mask, weight, spec, H * W, needs)
-    wk = lib.tap_major_weight(weight, spec.groups)
-    lib.launch("shiftblend_bwd", x, (
-        x, offset, mask, wk, grad_out, gcols, part, gx, goff, gmask, gwt), (
-        B, C, H, W, O, spec.groups, spec.deformable_groups, *spec.kernel,
-        *spec.padding, *spec.dilation, lo_y, win_y, lo_x, win_x, ry, rx,
-        splits, lib.PRECISION_CODES[precision]))
+    grads = _bwd("shiftblend_bwd", x, offset, mask, weight, grad_out, spec,
+                 precision, offset_bound, needs)
     shiftblend_bwd.launches += 1
-    gw = None if gwt is None else lib.ungrouped_weight(gwt, weight.shape)
-    return gx, goff, gmask, gw
+    return grads
 
 
 shiftblend_bwd.launches = 0
 
 
+def shiftblend3d_bwd(x, offset, mask, weight, grad_out, spec: DeformConvSpec,
+                     precision: str, offset_bound, needs=(True,) * 4):
+    """Bounded-offset 3D DCN backward without the bias, as
+    `shiftblend_bwd`.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel or
+    raise.  Inputs: float32, contiguous, on one device."""
+    if x.device.type == "cpu":
+        grads = shiftblend3d_bwd_reference(x, offset, mask, weight, grad_out,
+                                           spec, precision, offset_bound)
+        return tuple(g if n else None for g, n in zip(grads, needs))
+    grads = _bwd("shiftblend3d_bwd", x, offset, mask, weight, grad_out, spec,
+                 precision, offset_bound, needs)
+    shiftblend3d_bwd.launches += 1
+    return grads
+
+
+shiftblend3d_bwd.launches = 0
+
+
 class _ShiftblendFwd(torch.autograd.Function):
-    """The bounded-offset op without its dtype casts: forward and backward
-    kernels.  x, offset, mask and weight are saved; the columns are
-    recomputed in the backward, never saved."""
+    """The bounded-offset op without its dtype casts: the forward and
+    backward kernels of the config's rank.  x, offset, mask and weight are
+    saved; the columns are recomputed in the backward, never saved."""
 
     @staticmethod
     def forward(ctx, x, offset, mask, weight, bias, spec, precision,
@@ -235,18 +342,21 @@ class _ShiftblendFwd(torch.autograd.Function):
         ctx.save_for_backward(x, offset, mask, weight)
         ctx.spec, ctx.precision, ctx.offset_bound = (spec, precision,
                                                      offset_bound)
-        return shiftblend_fwd(x, offset, mask, weight, bias, spec, precision,
-                              offset_bound)
+        fwd = shiftblend_fwd if spec.ndim == 2 else shiftblend3d_fwd
+        return fwd(x, offset, mask, weight, bias, spec, precision,
+                   offset_bound)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, grad_out):
         x, offset, mask, weight = ctx.saved_tensors
         needs = ctx.needs_input_grad
-        gx, goff, gmask, gw = shiftblend_bwd(
+        bwd = shiftblend_bwd if ctx.spec.ndim == 2 else shiftblend3d_bwd
+        gx, goff, gmask, gw = bwd(
             x, offset, mask, weight, grad_out.contiguous(), ctx.spec,
             ctx.precision, ctx.offset_bound, needs[:4])
-        gb = grad_out.sum((0, 2, 3)) if needs[4] else None
+        gb = (grad_out.sum((0,) + tuple(range(2, grad_out.ndim)))
+              if needs[4] else None)
         return gx, goff, gmask, gw, gb, None, None, None
 
 

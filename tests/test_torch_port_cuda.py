@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
-Forward and backward kernels.  Marked `cuda`: each test skips without an
-NVIDIA GPU.  This file imports no JAX, so it runs where only PyTorch is
-installed:
+Forward and backward kernels, 2D and 3D.  Marked `cuda`: each test skips
+without an NVIDIA GPU.  This file imports no JAX, so it runs where only
+PyTorch is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py -q
 
@@ -37,12 +37,13 @@ def dev():
 def _case(dev, B, C, O, S, k, stride, pad, dil, g, dg, modulated, bias,
           offscale, seed=0):
     rng = np.random.default_rng(seed)
-    spec = DeformConvSpec.make(2, k, stride, pad, dil, g, dg,
+    nd = len(S)
+    spec = DeformConvSpec.make(nd, k, stride, pad, dil, g, dg,
                                modulated=modulated)
     OS = spec.out_sizes(S)
     K = spec.tap_count
     arrs = [rng.standard_normal((B, C) + S),
-            rng.uniform(-offscale, offscale, (B, dg * 2 * K) + OS),
+            rng.uniform(-offscale, offscale, (B, dg * nd * K) + OS),
             rng.uniform(0, 1, (B, dg * K) + OS) if modulated else None,
             rng.standard_normal((O, C // g) + spec.kernel) * 0.1,
             rng.standard_normal((O,)) if bias else None]
@@ -176,7 +177,84 @@ def test_auto_dispatch_and_raises(dev):
                       gate_bounds=((-1.0, 15.0), (-1.0, 9.0)))
     with pytest.raises(ValueError, match="cpu"):
         gm.gathermm_fwd(x.detach(), off.cpu(), mask, w, b, spec)
+    # A 3D call launches the 3D kernel.
     x3 = torch.ones((1, 8, 4, 4, 4), device=dev)
-    with pytest.raises(NotImplementedError, match="3D"):
+    gm.gathermm3d_fwd.launches = 0
+    with torch.no_grad():
         mdt.deform_conv3d(x3, torch.zeros((1, 81, 4, 4, 4), device=dev),
                           torch.ones((8, 8, 3, 3, 3), device=dev), None, 1, 1)
+    assert gm.gathermm3d_fwd.launches == 1
+
+
+# 3D: (B, C, O, S, k, stride, pad, dil, g, dg, modulated, bias, offscale),
+# ragged 4 x 4 x 4 bricks, offsets far outside the volume, stride 2, no
+# mask / bias, and deformable groups straddling conv groups.
+GENERAL3D = [
+    (2, 16, 24, (5, 7, 6), 3, 1, 1, 1, 2, 2, True, True, 3.0),
+    (1, 12, 8, (7, 9, 8), 3, 2, 1, 1, 1, 3, False, False, 2.0),
+    (2, 16, 16, (5, 6, 7), 3, 1, 1, 1, 1, 2, True, True, 40.0),
+    (1, 12, 10, (4, 5, 6), (3, 1, 3), 1, (1, 0, 1), 1, 2, 3, True, False,
+     2.5),
+]
+# ... plus the bound: beyond it, the loop path's 128-aligned planes, 2 x 2 x
+# 2 taps at 0.5 (at most 640 pairs), and dg > 1 with groups > 1.
+BOUNDED3D = [
+    (2, 16, 24, (5, 64, 6), 3, 1, 1, 1, 2, 2, True, True, 2.5, 2.0),
+    (1, 16, 16, (6, 8, 16), 3, 1, 2, 2, 1, 2, False, False, 3.0, 1.0),
+    (2, 32, 32, (4, 9, 7), 2, 1, 1, 2, 1, 1, True, True, 0.45, 0.5),
+    (1, 32, 48, (5, 16, 8), 3, 1, 1, 1, 2, 4, True, True, 1.5, 1.5),
+]
+
+
+@pytest.mark.parametrize("precision", list(LIMITS))
+@pytest.mark.parametrize("case", GENERAL3D)
+def test_gathermm3d_kernels_match_plain(dev, case, precision):
+    spec, (x, off, mask, w, b) = _case(dev, *case)
+    gout = _grad_out(spec, x, w)
+    gm.gathermm3d_fwd.launches = gm.gathermm3d_bwd.launches = 0
+    got = gm.gathermm3d_fwd(x, off, mask, w, b, spec, precision)
+    grads = gm.gathermm3d_bwd(x, off, mask, w, gout, spec, precision)
+    assert (gm.gathermm3d_fwd.launches, gm.gathermm3d_bwd.launches) == (1, 1)
+    want = gm.gathermm3d_fwd_reference(x, off, mask, w, b, spec, precision)
+    assert _rel(got, want) <= LIMITS[precision]
+    _check_grads(grads, gm.gathermm3d_bwd_reference(
+        x, off, mask, w, gout, spec, precision), LIMITS[precision])
+
+
+@pytest.mark.parametrize("precision", list(LIMITS))
+@pytest.mark.parametrize("case", BOUNDED3D)
+def test_shiftblend3d_kernels_match_plain(dev, case, precision):
+    spec, (x, off, mask, w, b) = _case(dev, *case[:-1])
+    bound = case[-1]
+    gout = _grad_out(spec, x, w)
+    sb.shiftblend3d_fwd.launches = sb.shiftblend3d_bwd.launches = 0
+    got = sb.shiftblend3d_fwd(x, off, mask, w, b, spec, precision, bound)
+    grads = sb.shiftblend3d_bwd(x, off, mask, w, gout, spec, precision,
+                                bound)
+    assert (sb.shiftblend3d_fwd.launches,
+            sb.shiftblend3d_bwd.launches) == (1, 1)
+    want = sb.shiftblend3d_fwd_reference(x, off, mask, w, b, spec, precision,
+                                         bound)
+    assert _rel(got, want) <= LIMITS[precision]
+    _check_grads(grads, sb.shiftblend3d_bwd_reference(
+        x, off, mask, w, gout, spec, precision, bound), LIMITS[precision])
+
+
+def test_backward3d_bitwise_deterministic_and_batch_chunked(dev):
+    """Two 3D backward runs give the same bits, and in_step (the batch
+    chunk of gcols) does not change them."""
+    case = (4, 32, 32, (6, 8, 16), 3, 1, 1, 1, 1, 1, True, True, 1.8)
+    runs = {}
+    for in_step in (64, 2, 1):
+        spec, (x, off, mask, w, _) = _case(dev, *case)
+        spec = DeformConvSpec.make(3, 3, 1, 1, 1, 1, 1, in_step, True)
+        gout = _grad_out(spec, x, w)
+        runs[in_step] = [gm.gathermm3d_bwd(x, off, mask, w, gout, spec),
+                         sb.shiftblend3d_bwd(x, off, mask, w, gout, spec,
+                                             "tensorfloat32", 2.0)]
+    again = [gm.gathermm3d_bwd(x, off, mask, w, gout, spec),
+             sb.shiftblend3d_bwd(x, off, mask, w, gout, spec,
+                                 "tensorfloat32", 2.0)]
+    for got in [again] + [runs[s] for s in (64, 2)]:
+        for a, b in zip(got, runs[1]):
+            assert all(torch.equal(u, v) for u, v in zip(a, b))

@@ -179,8 +179,8 @@ def test_fp16_upcast_and_fp64_policy():
 def test_kernel_path_raises_where_not_ported():
     spec, arrs = _inputs(5, 1, 8, (5, 5), 3, 1, True, 0.8)
     x, off, mask, w, bias = _t(arrs)
-    # The kernel path's backward is ported: it runs and matches autograd of
-    # the plain path.  gate_bounds and 3D still raise.
+    # The kernel path's backward is ported, in 2D and 3D: it runs and
+    # matches autograd of the plain path.  gate_bounds still raises.
     grads = []
     for impl in ("cuda", "torch"):
         xg = x.clone().requires_grad_(True)
@@ -196,8 +196,14 @@ def test_kernel_path_raises_where_not_ported():
     x3 = torch.ones((1, 8, 3, 3, 3))
     off3 = torch.zeros((1, 81, 3, 3, 3))
     w3 = torch.ones((8, 8, 3, 3, 3))
-    with pytest.raises(NotImplementedError, match="3D"):
-        mdt.deform_conv3d(x3, off3, w3, None, 1, 1, impl="cuda")
+    grads3 = []
+    for impl in ("cuda", "torch"):
+        xg = x3.clone().requires_grad_(True)
+        out = mdt.deform_conv3d(xg, off3, w3, None, 1, 1, impl=impl)
+        (out * out).sum().backward()
+        grads3.append((out.detach(), xg.grad))
+    for got, want in zip(*grads3):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     with pytest.raises(NotImplementedError, match="shiftblend"):
         mdt.deform_conv2d(x.detach(), off, w, None, 1, 1, impl="shiftblend")
     # CPU tensors under "auto" take the plain path, 3D included.
