@@ -18,18 +18,28 @@ Drives the port's main paths through the entry points a user calls:
    pair and the 3D shift-blend pair respectively;
 5. DCNVideoNet at its published defaults (width 32, blocks (1, 1, 1), 400
    classes) on B=8 clips of 16x112x112, trained for a few AdamW steps by
-   the in-package trainer.
+   the in-package trainer;
+6. BASELINE config 5 (benchmarks/suite.py:64-70): the ResNet-50 stage
+   sweep c3 / c4 / c5 (512 / 1024 / 2048 channels at 28x28 / 14x14 / 7x7,
+   B=32, g = dg = 1, bias), forward and training step: c3 on the fused
+   gather pair, c4 and c5 on the unfused columns path (column kernels and
+   a grouped cuBLAS product), as the JAX package's `_fuse_ok` decides;
+7. the 3D columns path: `modulated_deform_conv3d` at config 3's size
+   (B=2, 64 -> 64, 16x32x32) with groups=2, dg=1, forward and training
+   step, and `ModulatedDeformConv3dPack(groups=2)`.
 
-It builds the eight kernels (shift-blend and gather, forward and backward,
-2D and 3D) from `modulated_deform_conv_tpu_torch/csrc/`, checks with the
-launch counters that each path went through its kernels, holds each
-kernel against its plain PyTorch version in every precision mode (at
-configs 2, 3 and 4, on small edge cases, and on the inputs and output
-cotangents that the DCN layers of both networks saw at their first and
-last step), checks that the backward is bitwise deterministic, times
-kernels, cuDNN's dense convolution as an anchor and steps with CUDA
-events, and prints the kernel table as one JSON line and a last line
-{"ok": true, "device": {...}}.
+It builds the twelve kernels (shift-blend and gather, forward and
+backward, 2D and 3D; the gather's columns forward and backward, 2D and
+3D) from `modulated_deform_conv_tpu_torch/csrc/`, checks with the launch
+counters that each path went through its kernels, holds each kernel
+against its plain PyTorch version in every precision mode (at configs 2-5,
+on small edge cases, and on the inputs and output cotangents that the DCN
+layers of both networks saw at their first and last step), holds the
+columns path against the fused pair, checks that the backward is bitwise
+deterministic, times kernels, the grouped product, cuDNN's dense
+convolution as an anchor, `grid_sample` as the columns' library yardstick
+and steps with CUDA events, and prints the kernel table as one JSON line
+and a last line {"ok": true, "device": {...}}.
 
 Run from the repository root:  python3 chip_smoke.py
 It exits nonzero, and prints no result, without a CUDA device or without
@@ -70,6 +80,10 @@ REPLACES = {
     "gathermm3d_fwd": "modulated_deform_conv_tpu/ops/pallas/gathermm.py:1162",
     "shiftblend3d_bwd": "modulated_deform_conv_tpu/ops/pallas/shiftblend.py:1126",
     "gathermm3d_bwd": "modulated_deform_conv_tpu/ops/pallas/gathermm.py:1292",
+    "gathermm_cols_fwd": "modulated_deform_conv_tpu/ops/pallas/gathermm.py:523",
+    "gathermm_cols_bwd": "modulated_deform_conv_tpu/ops/pallas/gathermm.py:623",
+    "gathermm3d_cols_fwd": "modulated_deform_conv_tpu/ops/pallas/gathermm.py:523",
+    "gathermm3d_cols_bwd": "modulated_deform_conv_tpu/ops/pallas/gathermm.py:623",
 }
 # BASELINE configs 3 and 4 (benchmarks/suite.py:58-63): 3x3x3, stride 1,
 # pad 1, g = dg = 1, no bias, offsets U[-2, 2] passed with offset_bound=2.
@@ -96,6 +110,18 @@ TIMING3D = {"cfg3": {"kernel": (20, 10, 3), "plain": (5, 2, 1)},
 # pair.
 VIDEO = dict(width=32, classes=400, batch=8, frames=16, size=112, steps=4)
 VIDEO_DCN_LAYERS = 2
+# BASELINE config 5 (benchmarks/suite.py:64-70): modulated_deform_conv2d at
+# the ResNet-50 stage shapes, B=32, 3x3, stride 1, pad 1, g = dg = 1, zero
+# bias, offsets U[-2, 2], mask U[0, 1], weights N(0, 0.05^2); per layer
+# (channels, size, the pair the JAX package's `_fuse_ok` picks).
+CFG5 = {"c3": (512, 28, "gathermm"), "c4": (1024, 14, "gathermm_cols"),
+        "c5": (2048, 7, "gathermm_cols")}
+CFG5_B = 32
+# (iters, per_sample, warmup) of time_ms for config 5's plain path.
+TIMING_PLAIN5 = (5, 2, 1)
+# The columns path in 3D: config 3's size with two conv groups over one
+# deformable group, modulated, with bias.
+COLS3D = dict(B=2, C=64, S=(16, 32, 32), groups=2)
 
 
 class SmokeFailure(Exception):
@@ -160,7 +186,10 @@ def small_cases(torch, dev):
     table = [
         ("shiftblend", (2, 32, 48, 13, 11, 3, 1, 1, 1, 2, 4), True, True, 4.0, 1.5),
         ("shiftblend", (1, 16, 16, 9, 9, 3, 1, 2, 2, 1, 2), False, False, 5.0, 2.0),
-        ("shiftblend", (2, 64, 80, 10, 19, 5, 1, 2, 1, 2, 2), True, True, 3.0, 2.5),
+        # 5x5 taps at bound 1.5: 625 (tap, window) pairs, within the 640 a 2D
+        # config may unroll (past them the JAX package, and the port, refuse
+        # shift-blend in 2D).
+        ("shiftblend", (2, 64, 80, 10, 19, 5, 1, 2, 1, 2, 2), True, True, 3.0, 1.5),
         ("shiftblend", (2, 32, 32, 12, 12, 3, 1, 1, 1, 1, 1), True, True, 0.0, 2.0),
         ("gathermm", (2, 32, 48, 13, 11, 3, 2, 1, 1, 1, 4), True, True, 6.0, None),
         ("gathermm", (1, 12, 8, 9, 7, 3, 1, 2, 2, 2, 3), False, False, 2.0, None),
@@ -181,6 +210,11 @@ def small_cases(torch, dev):
         gout = t(rng.standard_normal((b, o, oh, ow)))
         cases.append((name, spec, (x, off, mask, wt, bias), gout, bound))
     return cases
+
+
+def launched(c):
+    """The kernels a run of the counters launched, with their counts."""
+    return {n: v for n, v in c.items() if v}
 
 
 def grad_rel_errs(got, want):
@@ -299,7 +333,7 @@ def check_recorded(torch, recorded, layers, pair, label):
 
 DCN_KERNELS = ("gathermm_fwd_kernel", "gathermm3d_fwd_kernel", "gcols_kernel", "ranges_kernel",
                "boxes3_kernel", "gx_kernel", "gx3_kernel", "goff_kernel", "goff3_kernel",
-               "gw_kernel", "gw3_kernel", "fold_kernel")
+               "gw_kernel", "gw3_kernel", "fold_kernel", "cols_kernel", "cols3_kernel")
 
 
 def profile_train_step(res, train_step, label):
@@ -396,11 +430,11 @@ def work(ins, out_numel, spec):
             "bwd": (2 * in_bytes + out_bytes, 2 * ops)}
 
 
-def bound_of(n_bytes, n_ops):
-    """The least time on the card (ms) and what sets it, at the main
-    precision's peak rate."""
+def bound_of(n_bytes, n_ops, op_type=MAIN_PRECISION):
+    """The least time on the card (ms) and what sets it, at the peak rate
+    of the operations' type (the main precision's for the products)."""
     return max((n_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-               (n_ops / PEAK_OPS[MAIN_PRECISION] * 1e3, "operations"))
+               (n_ops / PEAK_OPS[op_type] * 1e3, "operations"))
 
 
 def far(got, ref, frac=1e-3):
@@ -640,6 +674,435 @@ def run_3d(torch, mdt, families3d, reset, counts, dev):
     return {"rows": rows, "steps": steps, "cross": cross}
 
 
+def cfg5_inputs(torch, dev, layer):
+    """A config-5 layer's inputs (x, offset, mask, weight, bias) as
+    benchmarks/suite.py builds them, from numpy seed 0."""
+    C, S, _ = CFG5[layer]
+    rng = np.random.default_rng(0)
+    f32 = np.float32
+    arrs = (rng.standard_normal((CFG5_B, C, S, S), dtype=f32),
+            rng.uniform(-2, 2, (CFG5_B, 18, S, S)).astype(f32),
+            rng.uniform(0, 1, (CFG5_B, 9, S, S)).astype(f32),
+            rng.standard_normal((C, C, 3, 3), dtype=f32) * f32(0.05),
+            np.zeros((C,), f32))
+    return tuple(torch.from_numpy(a).to(dev) for a in arrs)
+
+
+def cols3d_inputs(torch, dev):
+    """The 3D columns case's spec and inputs (x, offset, mask, weight,
+    bias), from numpy seed 0."""
+    from modulated_deform_conv_tpu_torch.utils.config import DeformConvSpec
+    c = COLS3D
+    B, C, S, g, K = c["B"], c["C"], c["S"], c["groups"], 27
+    rng = np.random.default_rng(0)
+    f32 = np.float32
+    arrs = (rng.standard_normal((B, C) + S, dtype=f32),
+            rng.uniform(-2, 2, (B, 3 * K) + S).astype(f32),
+            rng.uniform(0, 1, (B, K) + S).astype(f32),
+            rng.standard_normal((C, C // g, 3, 3, 3), dtype=f32) * f32(0.05),
+            rng.standard_normal((C,), dtype=f32) * f32(0.1))
+    spec = DeformConvSpec.make(3, 3, 1, 1, 1, g, 1, modulated=True)
+    return spec, tuple(torch.from_numpy(a).to(dev) for a in arrs)
+
+
+def small_cases_cols(torch, dev):
+    """Small configs for the column kernels: conv groups straddling one
+    deformable group (g > dg), g = dg where the fused backward's footprint
+    keeps the JAX package off its fused pair, masked and unmasked, stride
+    2, offsets far outside the input, ragged tiles, 2D and 3D; each with a
+    cotangent of the op's output."""
+    from modulated_deform_conv_tpu_torch.utils.config import DeformConvSpec
+    rng = np.random.default_rng(4)
+    # (B, C, O, S, k, stride, pad, dil, g, dg), modulated, bias, offset scale
+    table = [
+        ((2, 16, 24, (15, 9), 3, 1, 1, 1, 2, 1), True, True, 3.0),
+        ((1, 12, 8, (11, 13), 3, 2, 1, 1, 1, 3), False, False, 8.0),
+        ((2, 32, 32, (7, 7), 3, 1, 1, 1, 4, 2), True, True, 40.0),
+        ((1, 1024, 1536, (5, 6), 3, 1, 1, 1, 1, 1), True, True, 2.0),
+        ((2, 16, 24, (5, 7, 6), 3, 1, 1, 1, 2, 1), True, True, 3.0),
+        ((1, 12, 8, (7, 9, 8), 3, 2, 1, 1, 1, 3), False, False, 2.0),
+        ((2, 16, 16, (5, 6, 7), 3, 1, 1, 1, 4, 2), True, False, 40.0),
+    ]
+    cases = []
+    for (b, c, o, S, k, s, p, d, g, dg), modulated, with_bias, scale in table:
+        spec = DeformConvSpec.make(len(S), k, s, p, d, g, dg, modulated=modulated)
+        OS, K = spec.out_sizes(S), spec.tap_count
+        t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)  # noqa: E731
+        ins = (t(rng.standard_normal((b, c) + S)),
+               t(rng.uniform(-scale, scale, (b, dg * len(S) * K) + OS)),
+               t(rng.uniform(0, 1, (b, dg * K) + OS)) if modulated else None,
+               t(rng.standard_normal((o, c // g) + spec.kernel) * 0.05),
+               t(rng.standard_normal((o,))) if with_bias else None)
+        cases.append((spec, ins, t(rng.standard_normal((b, o) + OS))))
+    return cases
+
+
+def grid_sample_columns(torch, x, off, mask, spec):
+    """The columns by one `grid_sample` call over every tap at once
+    (bilinear / trilinear, zeros padding, align_corners=True), times the
+    mask: the library yardstick of the column kernels (dg = 1; the
+    sampling grid is set-up, not timed).  Returns fn(x, grid, mask) and
+    those three inputs; fn's output is (B, C, K * OS[0], *OS[1:])."""
+    from modulated_deform_conv_tpu_torch.ops import core
+    nd, K, B = spec.ndim, spec.tap_count, x.shape[0]
+    S, OS = tuple(x.shape[2:]), spec.out_sizes(x.shape[2:])
+    base = core._base_positions(spec, OS, x.device)                    # (nd, K, P)
+    pos = base[None] + off.reshape(B, K, nd, -1).transpose(1, 2)      # (B, nd, K, P)
+    norm = torch.stack([2 * pos[:, d] / (S[d] - 1) - 1 for d in reversed(range(nd))], -1)
+    grid = norm.reshape((B, K * OS[0]) + OS[1:] + (nd,)).contiguous()
+    m = mask.reshape((B, 1, K * OS[0]) + OS[1:])
+
+    def fn(x, grid, m):
+        return torch.nn.functional.grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
+                                               align_corners=True) * m
+    return fn, (x, grid, m)
+
+
+def cols_work(ins, cols_numel, elem_bytes):
+    """(bytes, FP32 operations) of the column kernels: x, offset and mask
+    read once and the columns written (forward); the cotangent read and
+    grad_x, grad_offset and grad_mask written besides (backward).  Each
+    column value blends 4 (2D) or 8 (3D) corners, and the backward does it
+    twice (the pull and the correlation)."""
+    x, off, mask = ins[:3]
+    in_bytes = 4 * sum(t.numel() for t in (x, off, mask) if t is not None)
+    corners = 2 ** (x.dim() - 2)
+    return {"fwd": (in_bytes + elem_bytes * cols_numel, 2 * corners * cols_numel),
+            "bwd": (2 * in_bytes + elem_bytes * cols_numel, 4 * corners * cols_numel)}
+
+
+def columns_case(torch, gm, label, spec, ins, op, reset, counts, pair, fused_pair, dense):
+    """One config through the public op and the columns path: the counted
+    forward and training step (grads of sum(out^2) in all five inputs),
+    agreement with impl='torch' and with the fused pair on the same inputs,
+    bitwise-equal repeated backwards, each column kernel against its plain
+    version in every mode, and the times (main precision).  Returns the
+    launches, the kernel rows and the times."""
+    from modulated_deform_conv_tpu_torch.ops.cuda import lib
+    zero = {n: 0 for n in counts()}
+    fwd, bwd = pair
+    fwd_ref, bwd_ref = gm.gathermm_cols_reference, gm.gathermm_cols_bwd_reference
+    names5 = ("x", "offset", "mask", "weight", "bias")
+    x, off, mask, w, b = ins
+    B, O = x.shape[0], w.shape[0]
+    OS = spec.out_sizes(x.shape[2:])
+    P, K = math.prod(OS), spec.tap_count
+    fam = fwd.__name__[:-4]
+    with torch.no_grad():
+        reset()
+        out = op(ins, impl="auto")
+        torch.cuda.synchronize()
+        fwd_launches = counts()
+    check(fwd_launches == {**zero, f"{fam}_fwd": 1},
+          f"{label} forward did not run through {fam}_fwd alone: {fwd_launches}")
+    leaves = [t.detach().clone().requires_grad_(True) for t in ins]
+
+    def step(**kw):
+        y = op(leaves, **kw)
+        return torch.autograd.grad((y * y).sum(), leaves)
+
+    reset()
+    grads = step(impl="auto")
+    torch.cuda.synchronize()
+    step_launches = counts()
+    check(step_launches == {**zero, f"{fam}_fwd": 1, f"{fam}_bwd": 1},
+          f"{label} training step did not run through the {fam} pair alone: {step_launches}")
+    with torch.no_grad():
+        ref = op(ins, impl="torch")
+    check(out.shape == (B, O) + OS and bool(torch.isfinite(out).all()), f"{label} output bad")
+    e_out = rel_err(out, ref)
+    check(e_out <= LIMITS[MAIN_PRECISION], f"{label} forward vs impl='torch': {e_out:.3e}")
+    g_ref = step(impl="torch")
+    errs = {n: rel_err(g, r) for n, g, r in zip(names5, grads, g_ref)}
+    for n, e in errs.items():
+        check(bool(torch.isfinite(grads[names5.index(n)]).all()), f"{label} grad_{n} not finite")
+        check(e <= LIMITS[MAIN_PRECISION], f"{label} training step grad_{n} vs impl='torch': {e:.3e}")
+    again = step(impl="auto")
+    check(all(torch.equal(a, c) for a, c in zip(grads, again)), f"{label}: two backward runs differ")
+    # The same function through the fused pair, called directly.
+    fl = [t.detach().clone().requires_grad_(True) for t in ins]
+    y = gm._GathermmFwd.apply(*fl, spec, MAIN_PRECISION)
+    g_fused = torch.autograd.grad((y * y).sum(), fl)
+    e_fused = {"out": rel_err(out, y.detach())}
+    e_fused.update({n: rel_err(g, r) for n, g, r in zip(names5, grads, g_fused)})
+    for n, e in e_fused.items():
+        check(e <= LIMITS[MAIN_PRECISION], f"{label} columns path vs fused pair, {n}: {e:.3e}")
+    print(f"{label}: forward launches {launched(fwd_launches)}, step launches "
+          f"{launched(step_launches)}; vs "
+          f"impl='torch' out {e_out:.3e} " + " ".join(f"{n} {e:.3e}" for n, e in errs.items())
+          + "; vs the fused pair " + " ".join(f"{n} {e:.3e}" for n, e in e_fused.items())
+          + "; two backward runs bitwise equal")
+    del out, ref, grads, again, g_ref, y, g_fused, fl
+
+    rows = {f"{fam}_fwd": {"rel_err": {}}, f"{fam}_bwd": {"rel_err": {}}}
+    gen = torch.Generator(device=x.device).manual_seed(2)
+    with torch.no_grad():
+        for prec, limit in LIMITS.items():
+            got, want = fwd(x, off, mask, spec, prec), fwd_ref(x, off, mask, spec, prec)
+            check(got.dtype == want.dtype and got.shape == (x.shape[1] * K, B * P),
+                  f"{label} {fam}_fwd {prec}: {got.dtype} {tuple(got.shape)}")
+            e = rel_err(got, want)
+            rows[f"{fam}_fwd"]["rel_err"][prec] = e
+            if prec == MAIN_PRECISION:
+                rows[f"{fam}_fwd"]["max_abs_err"] = float((got.float() - want.float()).abs().max())
+            gcols = torch.randn(got.shape, generator=gen, device=x.device).to(got.dtype)
+            del got, want
+            g_got = bwd(x, off, mask, gcols, spec, prec)
+            g_want = bwd_ref(x, off, mask, gcols, spec, prec)
+            errs = {n: rel_err(a, r) for n, a, r in zip(names5, g_got, g_want) if r is not None}
+            rows[f"{fam}_bwd"]["rel_err"][prec] = errs
+            if prec == MAIN_PRECISION:
+                rows[f"{fam}_bwd"]["max_abs_err"] = max_abs(g_got, g_want)
+            check(e <= limit and all(v <= limit for v in errs.values()),
+                  f"{label} column kernels vs plain, {prec}: out {e:.3e} {errs}")
+            print(f"{fam} {label} {prec}: cols {e:.3e} " + " ".join(
+                f"grad_{n} {v:.3e}" for n, v in errs.items()) + f" (limit {limit:g})")
+            del g_got, g_want, gcols
+
+        # Times, in the main path's mode.
+        t = {}
+        cols = fwd(x, off, mask, spec, MAIN_PRECISION)
+        gcols = torch.randn(cols.shape, generator=gen, device=x.device).to(cols.dtype)
+        gout = torch.randn((B, O) + OS, generator=gen, device=x.device)
+        g, Og = spec.groups, O // spec.groups
+        wg = w.reshape(g, Og, -1).to(cols.dtype)
+        cg = cols.view(g, wg.shape[2], -1)
+        go = gout.transpose(0, 1).reshape(g, Og, -1).to(cols.dtype).contiguous()
+        t["cols_fwd"] = time_ms(lambda: fwd(x, off, mask, spec, MAIN_PRECISION))
+        t["cols_bwd"] = time_ms(lambda: bwd(x, off, mask, gcols, spec, MAIN_PRECISION))
+        t["cols_fwd_plain"] = time_ms(lambda: fwd_ref(x, off, mask, spec, MAIN_PRECISION),
+                                      *TIMING_PLAIN5)
+        t["cols_bwd_plain"] = time_ms(lambda: bwd_ref(x, off, mask, gcols, spec, MAIN_PRECISION),
+                                      *TIMING_PLAIN5)
+        with gm._matmul_mode(MAIN_PRECISION):
+            t["gemm_fwd"] = time_ms(lambda: gm._bmm(wg, cg))
+            t["gemm_bwd"] = time_ms(lambda: (gm._bmm(wg.transpose(1, 2), go, cols.dtype),
+                                             gm._bmm(go, cg.transpose(1, 2))))
+        t["op_fwd"] = time_ms(lambda: op(ins, impl="auto"))
+        fargs = (x, off, mask, w, b, spec, MAIN_PRECISION)
+        t["fused_fwd"] = time_ms(lambda: fused_pair[0](*fargs))
+        t["fused_bwd"] = time_ms(lambda: fused_pair[1](x, off, mask, w, gout, spec, MAIN_PRECISION))
+        t["dense_fwd"], t["dense_bwd"] = dense(x, w, gout)
+        gfn, gins = grid_sample_columns(torch, x, off, mask, spec)
+        ys = gfn(*gins)
+        e_gs = rel_err(ys.reshape(B, x.shape[1], K, P).permute(1, 2, 0, 3).reshape(cols.shape),
+                       fwd_ref(x, off, mask, spec, "float32"))
+        check(e_gs <= 1e-3, f"{label}: grid_sample computes other columns ({e_gs:.3e})")
+        t["grid_sample_fwd"] = time_ms(lambda: gfn(*gins))
+    with torch.enable_grad():
+        gl = [u.detach().clone().requires_grad_(True) for u in gins]
+        yl = gfn(*gl)
+        gy = torch.randn(yl.shape, generator=gen, device=x.device)
+        t["grid_sample_bwd"] = time_ms(lambda: torch.autograd.grad(yl, gl, gy, retain_graph=True))
+        del yl, gl
+    t["step"] = time_ms(lambda: step(impl="auto"))
+    t["step_plain"] = time_ms(lambda: step(impl="torch"), *TIMING_PLAIN5)
+    print_breakdown(f"{label} training step profile",
+                    device_time_by_kernel(lambda: step(impl="auto")), top=10)
+    gemm_ops = 2 * B * P * O * (x.shape[1] // g) * K
+    work = cols_work(ins, cols.numel(), cols.element_size())
+    for kind in ("fwd", "bwd"):
+        bound_ms, bound_by = bound_of(*work[kind], "float32")
+        rows[f"{fam}_{kind}"].update(
+            launches=(fwd_launches if kind == "fwd" else step_launches)[f"{fam}_{kind}"],
+            ms=t[f"cols_{kind}"], plain_ms=t[f"cols_{kind}_plain"], bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=t[f"grid_sample_{kind}"], at=label,
+            library="torch.nn.functional.grid_sample (+ mask), one call over all taps",
+            gemm_ms=t[f"gemm_{kind}"], fused_pair_ms=t[f"fused_{kind}"],
+            dense_conv_anchor_ms=t[f"dense_{kind}"])
+    t["gemm_tflops_fwd"] = gemm_ops / t["gemm_fwd"] / 1e9
+    t["gemm_tflops_bwd"] = 2 * gemm_ops / t["gemm_bwd"] / 1e9
+    print(f"{label} times (ms, {MAIN_PRECISION}): " + " ".join(
+        f"{n} {v:.4f}" for n, v in t.items()) + f"; GEMM {gemm_ops / 1e9:.1f} GFLOP fwd; column "
+        f"bounds fwd {rows[f'{fam}_fwd']['bound_ms']:.4f} / bwd {rows[f'{fam}_bwd']['bound_ms']:.4f}"
+        f" ms; grid_sample vs the columns {e_gs:.2e}")
+    del cols, gcols, gout, go, gins, leaves
+    torch.cuda.empty_cache()
+    return {"fwd": fwd_launches, "step": step_launches}, rows, t
+
+
+def run_columns(torch, mdt, gm, reset, counts, dev):
+    """Phases 14-16: the unfused columns path.  BASELINE config 5's sweep
+    through the public op (c3 on the fused pair, c4 and c5 on the column
+    kernels), the 3D columns case and its Pack module, and small cases of
+    the column kernels and of the op."""
+    from modulated_deform_conv_tpu_torch.utils.config import DeformConvSpec
+    F = torch.nn.functional
+    res = {"rows": {}, "times": {}, "launches": {}}
+    spec = DeformConvSpec.make(2, 3, 1, 1, 1, 1, 1, modulated=True)
+    zero = {n: 0 for n in counts()}
+
+    def op5(ins, **kw):
+        return mdt.modulated_deform_conv2d(*ins, 1, 1, 1, 1, 1, **kw)
+
+    def dense2(x, w, gout):
+        return (time_ms(lambda: F.conv2d(x, w, None, 1, 1)),
+                time_ms(lambda: torch.ops.aten.convolution_backward(
+                    gout, x, w, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+                    [True, True, False])))
+
+    # Phase 14: the config-5 sweep: forward, then training step, each layer
+    # counted; the counts are set to 0 before each run of the sweep.
+    sweep = {"fwd": dict(zero), "step": dict(zero)}
+    for layer, (C, S, pair) in CFG5.items():
+        ins = cfg5_inputs(torch, dev, layer)
+        label = f"cfg5 {layer} ({C} ch, {S}x{S}, B={CFG5_B})"
+        if pair == "gathermm":
+            with torch.no_grad():
+                reset()
+                out = op5(ins, impl="auto")
+                torch.cuda.synchronize()
+                fl = counts()
+                ref = op5(ins, impl="torch")
+            check(fl == {**zero, "gathermm_fwd": 1}, f"{label} forward took {fl}")
+            e = rel_err(out, ref)
+            check(e <= LIMITS[MAIN_PRECISION] and bool(torch.isfinite(out).all()),
+                  f"{label} forward vs impl='torch': {e:.3e}")
+            del out, ref
+            leaves = [t.clone().requires_grad_(True) for t in ins]
+
+            def step(**kw):
+                y = op5(leaves, **kw)
+                return torch.autograd.grad((y * y).sum(), leaves)
+
+            reset()
+            grads = step(impl="auto")
+            torch.cuda.synchronize()
+            sl = counts()
+            check(sl == {**zero, "gathermm_fwd": 1, "gathermm_bwd": 1}, f"{label} step took {sl}")
+            errs = [rel_err(g, r) for g, r in zip(grads, step(impl="torch"))]
+            check(max(errs) <= LIMITS[MAIN_PRECISION], f"{label} step vs impl='torch': {errs}")
+            again = step(impl="auto")
+            check(all(torch.equal(a, c) for a, c in zip(grads, again)),
+                  f"{label}: two backward runs differ")
+            del grads, again
+
+            def cols_step():
+                y = gm.deform_conv_cols(*leaves, spec, MAIN_PRECISION)
+                return torch.autograd.grad((y * y).sum(), leaves)
+
+            with torch.no_grad():
+                t = {"op_fwd": time_ms(lambda: op5(ins, impl="auto")),
+                     "columns_path_op_fwd": time_ms(
+                         lambda: gm.deform_conv_cols(*ins, spec, MAIN_PRECISION))}
+            # The same layer forced onto the columns path, for comparison.
+            t.update(step=time_ms(lambda: step(impl="auto")),
+                     columns_path_step=time_ms(cols_step),
+                     step_plain=time_ms(lambda: step(impl="torch"), *TIMING_PLAIN5))
+            print(f"{label}: forward launches {launched(fl)}, step launches {launched(sl)}; "
+                  f"vs impl='torch' out "
+                  f"{e:.3e}, grads worst {max(errs):.3e}; two backward runs bitwise equal; "
+                  + " ".join(f"{n} {v:.4f} ms" for n, v in t.items()))
+            del leaves
+        else:
+            launches, res["rows"][layer], t = columns_case(
+                torch, gm, label, spec, ins, op5, reset, counts,
+                (gm.gathermm_cols_fwd, gm.gathermm_cols_bwd), (gm.gathermm_fwd, gm.gathermm_bwd),
+                dense2)
+            fl, sl = launches["fwd"], launches["step"]
+        res["times"][f"cfg5_{layer}"] = t
+        for kind, c in (("fwd", fl), ("step", sl)):
+            sweep[kind] = {n: sweep[kind][n] + v for n, v in c.items()}
+        del ins
+        torch.cuda.empty_cache()
+    res["launches"]["cfg5"] = sweep
+    print(f"cfg5 sweep launches: forward {launched(sweep['fwd'])}; training step "
+          f"{launched(sweep['step'])}")
+
+    # Phase 15: the 3D columns path at config 3's size with groups=2, and
+    # ModulatedDeformConv3dPack(groups=2).
+    spec3, ins3 = cols3d_inputs(torch, dev)
+    g3 = spec3.groups
+
+    def op3(ins, **kw):
+        return mdt.modulated_deform_conv3d(*ins, 1, 1, 1, g3, 1, **kw)
+
+    def dense3(x, w, gout):
+        return (time_ms(lambda: F.conv3d(x, w, None, 1, 1, 1, g3)),
+                time_ms(lambda: torch.ops.aten.convolution_backward(
+                    gout, x, w, None, [1] * 3, [1] * 3, [1] * 3, False, [0] * 3, g3,
+                    [True, True, False])))
+
+    c = COLS3D
+    label3 = f"3D columns (B={c['B']}, {c['C']} ch, {c['S']}, g={g3}, dg=1)"
+    launches3, rows3, t3 = columns_case(
+        torch, gm, label3, spec3, ins3, op3, reset, counts,
+        (gm.gathermm3d_cols_fwd, gm.gathermm3d_cols_bwd),
+        (gm.gathermm3d_fwd, gm.gathermm3d_bwd), dense3)
+    res["rows"]["3d"], res["times"]["cols3d"] = rows3, t3
+    res["launches"]["cols3d"] = launches3
+    x3 = ins3[0]
+    torch.manual_seed(0)
+    mod = mdt.ModulatedDeformConv3dPack(c["C"], c["C"], 3, padding=1, groups=g3, device=dev)
+    with torch.no_grad():
+        reset()
+        y = mod(x3)
+        torch.cuda.synchronize()
+        pl = counts()
+        check(pl == {**zero, "gathermm3d_cols_fwd": 1}, f"ModulatedDeformConv3dPack(groups=2) took {pl}")
+        want = mdt.modulated_deform_conv3d(x3, mod.conv_offset(x3), mod.conv_mask(x3), mod.weight,
+                                           mod.bias, 1, 1, 1, g3, 1, impl="torch")
+        e = rel_err(y, want)
+        check(e <= LIMITS[MAIN_PRECISION], f"ModulatedDeformConv3dPack(groups=2) vs plain: {e:.3e}")
+    print(f"ModulatedDeformConv3dPack(groups={g3}): launches {launched(pl)}, vs impl='torch' "
+          f"rel err {e:.3e}")
+    del mod, y, want, ins3
+    torch.cuda.empty_cache()
+
+    # Phase 16: small cases, every mode: the column kernels against their
+    # plain versions (and bitwise-repeated backwards), and where the JAX
+    # package's `_fuse_ok` is false the op through "auto" (counted) against
+    # impl='torch'.
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for sspec, ins, gout in small_cases_cols(torch, dev):
+        x, off, mask, w, b = ins
+        fwd, bwd = ((gm.gathermm_cols_fwd, gm.gathermm_cols_bwd) if sspec.ndim == 2 else
+                    (gm.gathermm3d_cols_fwd, gm.gathermm3d_cols_bwd))
+        with torch.no_grad():
+            for prec, limit in LIMITS.items():
+                got = fwd(x, off, mask, sspec, prec)
+                e = rel_err(got, gm.gathermm_cols_reference(x, off, mask, sspec, prec))
+                gcols = torch.randn(got.shape, generator=gen, device=dev).to(got.dtype)
+                g_got = bwd(x, off, mask, gcols, sspec, prec)
+                g_want = gm.gathermm_cols_bwd_reference(x, off, mask, gcols, sspec, prec)
+                errs = [rel_err(a, r) for a, r in zip(g_got, g_want) if r is not None]
+                check(e <= limit and max(errs) <= limit,
+                      f"column kernels small case {sspec} {prec}: {e:.3e} {errs}")
+                check(all(torch.equal(a, r) for a, r in zip(
+                    g_got, bwd(x, off, mask, gcols, sspec, prec)) if a is not None),
+                    f"column backward small case {sspec}: two runs differ")
+        fused = gm.jax_fuse_ok(x, sspec, w.shape[0])
+        msg = "fused pair under auto (the JAX package's too)"
+        if not fused:
+            fn = mdt.modulated_deform_conv2d if sspec.ndim == 2 else mdt.modulated_deform_conv3d
+            if mask is None:
+                fn = mdt.deform_conv2d if sspec.ndim == 2 else mdt.deform_conv3d
+            leaves = [None if u is None else u.clone().requires_grad_(True) for u in ins]
+            live = [u for u in leaves if u is not None]
+
+            def run(impl):
+                args = [u for u in leaves[:3] if u is not None] + leaves[3:]
+                y = fn(*args, sspec.stride, sspec.padding, sspec.dilation, sspec.groups,
+                       sspec.deformable_groups, impl=impl)
+                return [y.detach()] + list(torch.autograd.grad(y, live, gout))
+
+            reset()
+            got = run("auto")
+            torch.cuda.synchronize()
+            cl = counts()
+            d = "" if sspec.ndim == 2 else "3d"
+            check(cl == {**zero, f"gathermm{d}_cols_fwd": 1, f"gathermm{d}_cols_bwd": 1},
+                  f"small case {sspec} under auto took {cl}")
+            errs = [rel_err(a, r) for a, r in zip(got, run("torch"))]
+            check(max(errs) <= LIMITS[MAIN_PRECISION], f"small case {sspec} op vs impl='torch': {errs}")
+            msg = f"columns path under auto, op + grads vs impl='torch' worst {max(errs):.2e}"
+        print(f"column kernels small case S={tuple(x.shape[2:])} C={x.shape[1]} O={w.shape[0]} "
+              f"s={sspec.stride} g={sspec.groups} dg={sspec.deformable_groups} "
+              f"max|off|={float(off.abs().max()):.1f} mask={mask is not None}: kernels ok in every "
+              f"mode, backward bitwise repeatable; {msg}")
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -685,6 +1148,9 @@ def main() -> int:
     for fam, (fwd, fwd_ref, bwd, bwd_ref) in {**families, **families3d}.items():
         kernels[f"{fam}_fwd"] = (fwd, fwd_ref)
         kernels[f"{fam}_bwd"] = (bwd, bwd_ref)
+    for fam in ("gathermm_cols", "gathermm3d_cols"):
+        kernels[f"{fam}_fwd"] = (getattr(gm, f"{fam}_fwd"), gm.gathermm_cols_reference)
+        kernels[f"{fam}_bwd"] = (getattr(gm, f"{fam}_bwd"), gm.gathermm_cols_bwd_reference)
 
     def reset():
         for fn, _ in kernels.values():
@@ -693,7 +1159,7 @@ def main() -> int:
     def counts():
         return {n: fn.launches for n, (fn, _) in kernels.items()}
 
-    # Phase 2: build the eight kernels from the sources, in parallel.
+    # Phase 2: build the twelve kernels from the sources, in parallel.
     t0 = time.time()
     logs = lib.build(lib.KERNELS, verbose=True)
     print(f"build: {time.time() - t0:.1f} s for {sorted(logs) or 'nothing (cached)'}")
@@ -934,11 +1400,26 @@ def main() -> int:
     profile_train_step(res, train_step, "DCNVideoNet")
     del res
 
-    # Phase 13: the kernel table.
+    # Phases 14-16: the unfused columns path.
+    torch.cuda.empty_cache()
+    r5 = run_columns(torch, mdt, gm, reset, counts, dev)
+    sweep5 = r5["launches"]["cfg5"]
+
+    # Phase 17: the kernel table.  The 2D column kernels' row is config 5's
+    # c4 layer (launches: the whole sweep), the 3D one the 3D columns case.
     table = []
     for n in kernels:
         kind = n.rsplit("_", 1)[1]
-        if n in r3["rows"]:
+        if n.startswith("gathermm_cols"):
+            row = r5["rows"]["c4"][n]
+            row["launches"] = sweep5["fwd" if kind == "fwd" else "step"][n]
+            c5 = r5["rows"]["c5"][n]
+            row.update({f"{k}_cfg5_c5": c5[k] for k in (
+                "ms", "plain_ms", "bound_ms", "library_ms", "gemm_ms", "fused_pair_ms",
+                "dense_conv_anchor_ms", "max_abs_err")})
+        elif n.startswith("gathermm3d_cols"):
+            row = r5["rows"]["3d"][n]
+        elif n in r3["rows"]:
             row = r3["rows"][n]
         else:
             row = dict(launches=(fwd_launches if kind == "fwd" else step_launches)[n],
@@ -953,12 +1434,14 @@ def main() -> int:
             "replaces": REPLACES[n], "launches": row.pop("launches"),
             "max_abs_err": row.pop("max_abs_err"), "ms": row.pop("ms"),
             "plain_ms": row.pop("plain_ms"), "bound_ms": row.pop("bound_ms"),
-            "bound_by": row.pop("bound_by"), "library_ms": None, **row,
+            "bound_by": row.pop("bound_by"), "library_ms": row.pop("library_ms", None), **row,
             "precision": MAIN_PRECISION, "resnet_launches": net_launches[n],
-            "videonet_launches": video_launches[n]})
+            "videonet_launches": video_launches[n],
+            "cfg5_launches": sweep5["fwd" if kind == "fwd" else "step"][n]})
     print(json.dumps({"kernels": table, "cfg2_train_step_ms": steps,
                       "dcn_resnet50_step_ms": step_ms, "train_step3d_ms": r3["steps"],
-                      "both_kernels3d_ms": r3["cross"], "dcn_videonet_step_ms": video_ms}))
+                      "both_kernels3d_ms": r3["cross"], "dcn_videonet_step_ms": video_ms,
+                      "columns_path_ms": r5["times"]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

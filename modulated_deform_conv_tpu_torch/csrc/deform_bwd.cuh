@@ -1,14 +1,19 @@
-// Pieces shared by the two backward kernels (gathermm_bwd.cu,
-// shiftblend_bwd.cu).  Both compute, for out = W2 cols + bias with
-// cols[c, k, p] = mask * sum_corners w * x[c, corner]:
+// Pieces shared by the 2D backward kernels (gathermm_bwd.cu,
+// shiftblend_bwd.cu, gathermm_cols_bwd.cu).  The first two compute, for
+// out = W2 cols + bias with cols[c, k, p] = mask * sum_corners w * x[c,
+// corner]:
 //
 //   gcols   = W2^T gout                        (gcols_kernel, a tiled GEMM)
 //   grad_x  = A gcols, A the mask-folded corner matrix
-//                                              (each .cu's own pull kernel)
+//                                              (a pull kernel: shift-blend's
+//                                               own, gather_gx_kernel)
 //   grad_offset, grad_mask from the correlation S[corner] = sum_c gcol x
 //   against dA/dpos and A                      (goff_kernel)
 //   grad_weight = gout cols^T, cols recomputed from x (never saved)
 //                                              (gw_kernel + fold_kernel)
+//
+// gathermm_cols_bwd.cu is given gcols and computes the middle two.  The
+// pull and goff kernels read gcols through a layout (KPC, CKBP below).
 //
 // Determinism: there is no float atomic anywhere.  Every output element has
 // one owner thread that sums in a fixed order; grad_weight is summed in
@@ -28,6 +33,52 @@ struct Geo {
 };
 
 constexpr int kNC = 32;  // contraction indices staged per GEMM step
+
+// ---- gcols layouts ------------------------------------------------------------
+//
+// gcols element (sample b, channel c, tap k, position p) of a layout:
+// `hit(k, p)` is the int a pull's hit list keeps for a (tap, position)
+// candidate, `base(b, c0)` the offset of sample b's channel c0, and `at(h,
+// c)` the offset of channel c0 + c of candidate h from that base.
+//   KPC:  (B, K, P, C), channels innermost: the fused backward's gcols;
+//   CKBP: (C * K, B * P), row c * K + k: the columns path's, float32 or bf16.
+struct KPC {
+  using T = float;
+  int K, P, C;
+  __device__ int hit(int k, int p) const { return k * P + p; }
+  __device__ size_t base(int b, int c0) const { return static_cast<size_t>(b) * K * P * C + c0; }
+  __device__ size_t at(int h, int c) const { return static_cast<size_t>(h) * C + c; }
+};
+
+template <typename Elem>
+struct CKBP {
+  using T = Elem;
+  int K, B, P;
+  __device__ int hit(int k, int p) const { return k * B * P + p; }
+  __device__ size_t base(int b, int c0) const {
+    return static_cast<size_t>(c0) * K * B * P + static_cast<size_t>(b) * P;
+  }
+  __device__ size_t at(int h, int c) const { return static_cast<size_t>(c) * K * B * P + h; }
+};
+
+__device__ __forceinline__ float as_float(float v) { return v; }
+__device__ __forceinline__ float as_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T to_elem(float v);
+template <>
+__device__ __forceinline__ float to_elem<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 to_elem<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// The column kernels (gathermm{,3d}_cols_fwd.cu): threads a block, and
+// channels of one slab that one thread blends from its tap's corner weights.
+constexpr int kColThreads = 256;
+constexpr int kColChans = 32;
 
 __device__ __forceinline__ float mask_at(const Geo& g, const float* __restrict__ mask, int b, int d, int k, int p) {
   const int K = g.kh * g.kw, P = g.OH * g.OW;
@@ -97,12 +148,13 @@ __global__ void __launch_bounds__(kThreads) gcols_kernel(const float* __restrict
 // One thread per (b, deformable group, tap, position): the correlation
 // S[corner] = sum_c gcol[c] x[c, corner] over the slab's channels in order,
 // then grad_offset = mask * sum dA/dpos S per axis and grad_mask = sum A S.
+template <class L>
 __global__ void __launch_bounds__(kThreads) goff_kernel(const float* __restrict__ x,
                                                         const float* __restrict__ offset,
                                                         const float* __restrict__ mask,
-                                                        const float* __restrict__ gcols,
+                                                        const typename L::T* __restrict__ gcols,
                                                         float* __restrict__ goff, float* __restrict__ gmask,
-                                                        Geo g) {
+                                                        Geo g, L lay) {
   const int K = g.kh * g.kw, P = g.OH * g.OW, Cdg = g.C / g.dg, HW = g.H * g.W;
   const size_t e = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (e >= static_cast<size_t>(g.B) * g.dg * K * P) return;
@@ -114,12 +166,13 @@ __global__ void __launch_bounds__(kThreads) goff_kernel(const float* __restrict_
                              offset[oidx + P], g.H, g.W, g.windowed, g.lo_y, g.win_y, g.lo_x, g.win_x);
   float s[4] = {0.f, 0.f, 0.f, 0.f};
   if (t.keep) {
-    const float* gp = gcols + ((static_cast<size_t>(b) * K + k) * P + p) * g.C + static_cast<size_t>(d) * Cdg;
+    const typename L::T* gp = gcols + lay.base(b, d * Cdg);
+    const int h = lay.hit(k, p);
     const float* xp = x + (static_cast<size_t>(b) * g.C + static_cast<size_t>(d) * Cdg) * HW;
     const int i0 = t.y0 * g.W + t.x0;
     const int idx[4] = {i0, i0 + 1, i0 + g.W, i0 + g.W + 1};
     for (int c = 0; c < Cdg; ++c) {
-      const float gv = gp[c];
+      const float gv = as_float(gp[lay.at(h, c)]);
       const float* xc = xp + static_cast<size_t>(c) * HW;
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -209,7 +262,7 @@ __global__ void fold_kernel(const float* __restrict__ part, float* __restrict__ 
   gwt[e] = operand(s, precision);
 }
 
-// ---- grad_x by pulling (both .cu files) ------------------------------------
+// ---- grad_x by pulling (all three .cu files) -----------------------------------
 //
 // A pull block owns kQT input pixels x kCW channels of one (batch,
 // deformable group).  It walks a candidate list of (tap, output position)
@@ -228,7 +281,7 @@ constexpr int kPullWarps = kPullThreads / 32;
 
 struct Hit {
   int pix;    // pixel within the block's tile
-  int kp;     // k * P + p of the candidate
+  int kp;     // the candidate's (tap, position) as its layout's hit(k, p)
   float w;    // mask-folded corner weight
 };
 
@@ -240,9 +293,10 @@ struct PullSmem {
 
 // Append this thread's n hits (in thread order across the block) and apply
 // the whole list.  Every thread of the block calls it once per chunk.
-// gcol points at gcols[b][0][0][c0]; cw channels of the chunk are real.
+// gcol points at gcols + lay.base(b, c0); cw channels of the chunk are real.
+template <class L>
 __device__ __forceinline__ void pull_hits(PullSmem& sm, int n, const int (&pix)[4], const float (&w)[4], int kp,
-                                          const float* __restrict__ gcol, int C, int cw) {
+                                          const typename L::T* __restrict__ gcol, const L& lay, int cw) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   int v = n;
 #pragma unroll
@@ -264,7 +318,7 @@ __device__ __forceinline__ void pull_hits(PullSmem& sm, int n, const int (&pix)[
     float* acc = &sm.acc[warp][0][lane];
     for (int h = warp; h < total; h += kPullWarps) {
       const Hit hh = sm.hits[h];
-      acc[hh.pix * kCWP] = fmaf(hh.w, gcol[static_cast<size_t>(hh.kp) * C + lane], acc[hh.pix * kCWP]);
+      acc[hh.pix * kCWP] = fmaf(hh.w, as_float(gcol[lay.at(hh.kp, lane)]), acc[hh.pix * kCWP]);
     }
   }
   __syncthreads();  // the list is rebuilt by the next chunk
@@ -284,6 +338,89 @@ __device__ __forceinline__ float pull_result(const PullSmem& sm, int pix, int la
   return s;
 }
 
+// ---- the gather's grad_x pull (gathermm_bwd.cu, gathermm_cols_bwd.cu) ------
+
+// One warp per (b, d, output tile): min / max flat index of the kept corners
+// (with a nonzero mask-folded weight) of every tap and position of the tile.
+__global__ void __launch_bounds__(kThreads) ranges_kernel(const float* __restrict__ offset,
+                                                          const float* __restrict__ mask,
+                                                          int2* __restrict__ ranges, Geo g) {
+  const int K = g.kh * g.kw, P = g.OH * g.OW, NT = (P + kTP - 1) / kTP;
+  const int wid = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (wid >= g.B * g.dg * NT) return;
+  const int t = wid % NT, d = (wid / NT) % g.dg, b = wid / (NT * g.dg);
+  int lo = 0x7fffffff, hi = 0;
+  for (int e = lane; e < K * kTP; e += 32) {
+    const int k = e / kTP, p = t * kTP + e % kTP;
+    if (p >= P) continue;
+    const TapWeights tw = weights_at(g, offset, mask, b, d, k, p);
+    const float w[4] = {tw.w.x, tw.w.y, tw.w.z, tw.w.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (w[i] == 0.f) continue;
+      const int q = (tw.y0 + (i >> 1)) * g.W + tw.x0 + (i & 1);
+      lo = min(lo, q);
+      hi = max(hi, q + 1);
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+  }
+  if (lane == 0) ranges[wid] = make_int2(lo, hi);
+}
+
+// grad_x of 64 consecutive flat input pixels x 32 channels of one
+// (b, deformable group), pulled from the output tiles whose corner range
+// overlaps them, tile by tile and tap by tap in order.
+template <class L>
+__global__ void __launch_bounds__(kPullThreads) gather_gx_kernel(const float* __restrict__ offset,
+                                                                 const float* __restrict__ mask,
+                                                                 const typename L::T* __restrict__ gcols,
+                                                                 const int2* __restrict__ ranges,
+                                                                 float* __restrict__ gx, Geo g, L lay) {
+  __shared__ PullSmem sm;
+  const int K = g.kh * g.kw, P = g.OH * g.OW, HW = g.H * g.W, NT = (P + kTP - 1) / kTP;
+  const int Cdg = g.C / g.dg, cchunks = (Cdg + kCW - 1) / kCW;
+  const int q0 = blockIdx.x * kQT, q1 = min(HW, q0 + kQT);
+  const int d = blockIdx.y / cchunks, c0 = d * Cdg + (blockIdx.y % cchunks) * kCW;
+  const int cw = min(kCW, (d + 1) * Cdg - c0);
+  const int b = blockIdx.z;
+  const typename L::T* gcol = gcols + lay.base(b, c0);
+  const int2* rg = ranges + (static_cast<size_t>(b) * g.dg + d) * NT;
+  pull_clear(sm);
+  for (int t = 0; t < NT; ++t) {
+    const int2 r = rg[t];
+    if (!(r.x < q1 && r.y > q0)) continue;  // uniform across the block
+    for (int e0 = 0; e0 < K * kTP; e0 += kPullThreads) {
+      const int e = e0 + threadIdx.x;
+      const int k = e / kTP, p = t * kTP + e % kTP;
+      int n = 0, pix[4];
+      float w[4];
+      if (e < K * kTP && p < P) {
+        const TapWeights tw = weights_at(g, offset, mask, b, d, k, p);
+        const float wv[4] = {tw.w.x, tw.w.y, tw.w.z, tw.w.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int q = (tw.y0 + (i >> 1)) * g.W + tw.x0 + (i & 1);
+          if (wv[i] != 0.f && q >= q0 && q < q1) {
+            pix[n] = q - q0;
+            w[n] = wv[i];
+            ++n;
+          }
+        }
+      }
+      pull_hits(sm, n, pix, w, lay.hit(k, p), gcol, lay, cw);
+    }
+  }
+  for (int e = threadIdx.x; e < kQT * kCW; e += kPullThreads) {
+    const int cl = e / kQT, pix = e % kQT;
+    if (cl < cw && q0 + pix < q1)
+      gx[(static_cast<size_t>(b) * g.C + c0 + cl) * HW + q0 + pix] = pull_result(sm, pix, cl);
+  }
+}
+
 // ---- host-side launches of the shared kernels -------------------------------
 
 inline cudaError_t launch_gcols(const Geo& g, const float* wk, const float* gout, float* gcols, cudaStream_t s) {
@@ -293,11 +430,26 @@ inline cudaError_t launch_gcols(const Geo& g, const float* wk, const float* gout
   return cudaGetLastError();
 }
 
+template <class L>
 inline cudaError_t launch_goff(const Geo& g, const float* x, const float* offset, const float* mask,
-                               const float* gcols, float* goff, float* gmask, cudaStream_t s) {
+                               const typename L::T* gcols, float* goff, float* gmask, L lay, cudaStream_t s) {
   const size_t n = static_cast<size_t>(g.B) * g.dg * g.kh * g.kw * g.OH * g.OW;
-  goff_kernel<<<static_cast<unsigned>((n + kThreads - 1) / kThreads), kThreads, 0, s>>>(x, offset, mask, gcols,
-                                                                                      goff, gmask, g);
+  goff_kernel<L><<<static_cast<unsigned>((n + kThreads - 1) / kThreads), kThreads, 0, s>>>(x, offset, mask, gcols,
+                                                                                         goff, gmask, g, lay);
+  return cudaGetLastError();
+}
+
+// grad_x by the gather's pull: ranges (B, dg, ceil(P / 64)) int2 scratch.
+template <class L>
+inline cudaError_t launch_gather_gx(const Geo& g, const float* offset, const float* mask,
+                                    const typename L::T* gcols, int2* ranges, float* gx, L lay, cudaStream_t s) {
+  const int NT = (g.OH * g.OW + kTP - 1) / kTP, warps = g.B * g.dg * NT;
+  ranges_kernel<<<(warps + kThreads / 32 - 1) / (kThreads / 32), kThreads, 0, s>>>(offset, mask, ranges, g);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int Cdg = g.C / g.dg;
+  const dim3 grid((g.H * g.W + kQT - 1) / kQT, g.dg * ((Cdg + kCW - 1) / kCW), g.B);
+  gather_gx_kernel<L><<<grid, kPullThreads, 0, s>>>(offset, mask, gcols, ranges, gx, g, lay);
   return cudaGetLastError();
 }
 

@@ -1,17 +1,20 @@
-// Pieces shared by the two 3D backward kernels (gathermm3d_bwd.cu,
-// shiftblend3d_bwd.cu).  They compute what the 2D pair computes
-// (deform_bwd.cuh), with the trilinear corner rules of deform_tile3d.cuh:
+// Pieces shared by the 3D backward kernels (gathermm3d_bwd.cu,
+// shiftblend3d_bwd.cu, gathermm3d_cols_bwd.cu).  They compute what the 2D
+// ones compute (deform_bwd.cuh), with the trilinear corner rules of
+// deform_tile3d.cuh:
 //
 //   gcols   = W2^T gout                        (deform_bwd.cuh's gcols_kernel
 //                                               over the flattened volume)
-//   grad_x  = A gcols                          (each .cu's own pull kernel,
-//                                               on 4 x 4 x 4 input bricks)
+//   grad_x  = A gcols                          (a pull on 4 x 4 x 4 input
+//                                               bricks: shift-blend's own,
+//                                               gather_gx3_kernel)
 //   grad_offset, grad_mask from S[corner] = sum_c gcol x
 //                                              (goff3_kernel)
 //   grad_weight = gout cols^T, cols rebuilt from x
 //                                              (gw3_kernel + fold_kernel)
 //
-// Determinism as in 2D: no float atomics; every output element has one
+// gathermm3d_cols_bwd.cu is given gcols (layout CKBP) and computes the
+// middle two.  Determinism as in 2D: no float atomics; every output element has one
 // owner that sums in a fixed order, and grad_weight is summed in shape-only
 // splits folded in order.  gcols (B, K, P, C) is the largest buffer (7.25 GB
 // for all of BASELINE config 4), so gcols, grad_x and grad_offset / grad_mask
@@ -53,9 +56,10 @@ __device__ __forceinline__ void pull3_clear(PullSmem3& sm) {
   __syncthreads();
 }
 
+template <class L>
 __device__ __forceinline__ void pull3_hits(PullSmem3& sm, int n, const int (&pix)[kHits3],
-                                           const float (&w)[kHits3], int kp, const float* __restrict__ gcol, int C,
-                                           int cw) {
+                                           const float (&w)[kHits3], int kp, const typename L::T* __restrict__ gcol,
+                                           const L& lay, int cw) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   int v = n;
 #pragma unroll
@@ -77,7 +81,7 @@ __device__ __forceinline__ void pull3_hits(PullSmem3& sm, int n, const int (&pix
     float* acc = &sm.acc[warp][0][lane];
     for (int h = warp; h < total; h += kPullWarps) {
       const Hit hh = sm.hits[h];
-      acc[hh.pix * kCWP] = fmaf(hh.w, gcol[static_cast<size_t>(hh.kp) * C + lane], acc[hh.pix * kCWP]);
+      acc[hh.pix * kCWP] = fmaf(hh.w, as_float(gcol[lay.at(hh.kp, lane)]), acc[hh.pix * kCWP]);
     }
   }
   __syncthreads();  // the list is rebuilt by the next chunk
@@ -117,16 +121,136 @@ __device__ __forceinline__ void pull3_store(const PullSmem3& sm, float* __restri
   }
 }
 
+// ---- the gather's grad_x pull (gathermm3d_bwd.cu, gathermm3d_cols_bwd.cu) --
+
+constexpr int kBoxInts = 6;  // z_lo, z_hi, y_lo, y_hi, x_lo, x_hi (inclusive)
+
+// The first position of brick t of a volume ny x nx bricks per plane.
+__device__ __forceinline__ void brick_origin(int t, int ny, int nx, int& z0, int& y0, int& x0) {
+  z0 = t / (nx * ny) * kBrick;
+  y0 = t / nx % ny * kBrick;
+  x0 = t % nx * kBrick;
+}
+
+// One warp per (b, d, output brick): the box of the input voxels that the
+// kept corners (nonzero mask-folded weight) of its taps and positions touch;
+// an empty box has hi < lo.
+__global__ void __launch_bounds__(kThreads) boxes3_kernel(const float* __restrict__ offset,
+                                                          const float* __restrict__ mask, int* __restrict__ boxes,
+                                                          Geo3 g) {
+  const int K = taps3(g), OHW = g.OH * g.OW;
+  const int nz = bricks(g.OD), ny = bricks(g.OH), nx = bricks(g.OW), NT = nz * ny * nx;
+  const int wid = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (wid >= g.B * g.dg * NT) return;
+  const int t = wid % NT, d = (wid / NT) % g.dg, b = wid / (NT * g.dg);
+  int tz0, ty0, tx0;
+  brick_origin(t, ny, nx, tz0, ty0, tx0);
+  int lo[3] = {0x7fffffff, 0x7fffffff, 0x7fffffff}, hi[3] = {-1, -1, -1};
+  for (int e = lane; e < K * kTP; e += 32) {
+    const int k = e / kTP, q = e % kTP;
+    const int oz = tz0 + q / 16, oy = ty0 + q / 4 % 4, ox = tx0 + q % 4;
+    if (oz >= g.OD || oy >= g.OH || ox >= g.OW) continue;
+    const TapWeights3 tw = weights3_at(g, offset, mask, b, d, k, oz * OHW + oy * g.OW + ox);
+    const float w[8] = {tw.lo.x, tw.lo.y, tw.lo.z, tw.lo.w, tw.hi.x, tw.hi.y, tw.hi.z, tw.hi.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (w[i] == 0.f) continue;
+      const int c[3] = {tw.z0 + (i >> 2), tw.y0 + ((i >> 1) & 1), tw.x0 + (i & 1)};
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        lo[a] = min(lo[a], c[a]);
+        hi[a] = max(hi[a], c[a]);
+      }
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      lo[a] = min(lo[a], __shfl_xor_sync(0xffffffffu, lo[a], o));
+      hi[a] = max(hi[a], __shfl_xor_sync(0xffffffffu, hi[a], o));
+    }
+  }
+  if (lane == 0) {
+    int* bx = boxes + static_cast<size_t>(wid) * kBoxInts;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      bx[2 * a] = lo[a];
+      bx[2 * a + 1] = hi[a];
+    }
+  }
+}
+
+// grad_x of one 4 x 4 x 4 input brick x 32 channels of one (b, deformable
+// group), pulled from the output bricks whose box meets it, brick by brick
+// and tap by tap in order.
+template <class L>
+__global__ void __launch_bounds__(kPullThreads) gather_gx3_kernel(const float* __restrict__ offset,
+                                                                  const float* __restrict__ mask,
+                                                                  const typename L::T* __restrict__ gcols,
+                                                                  const int* __restrict__ boxes,
+                                                                  float* __restrict__ gx, Geo3 g, L lay) {
+  __shared__ PullSmem3 sm;
+  const int K = taps3(g), P = out_size3(g), OHW = g.OH * g.OW;
+  const int nz = bricks(g.OD), ny = bricks(g.OH), nx = bricks(g.OW), NT = nz * ny * nx;
+  const int Cdg = g.C / g.dg, cchunks = (Cdg + kCW - 1) / kCW;
+  int bz0, by0, bx0;
+  brick_origin(blockIdx.x, bricks(g.H), bricks(g.W), bz0, by0, bx0);
+  const int d = blockIdx.y / cchunks, c0 = d * Cdg + (blockIdx.y % cchunks) * kCW;
+  const int cw = min(kCW, (d + 1) * Cdg - c0);
+  const int b = blockIdx.z;
+  const typename L::T* gcol = gcols + lay.base(b, c0);
+  const int* bxs = boxes + (static_cast<size_t>(b) * g.dg + d) * NT * kBoxInts;
+  pull3_clear(sm);
+  for (int t = 0; t < NT; ++t) {
+    const int* bx = bxs + static_cast<size_t>(t) * kBoxInts;
+    if (!(bx[0] <= bz0 + kBrick - 1 && bx[1] >= bz0 && bx[2] <= by0 + kBrick - 1 && bx[3] >= by0 &&
+          bx[4] <= bx0 + kBrick - 1 && bx[5] >= bx0))
+      continue;  // uniform across the block
+    int tz0, ty0, tx0;
+    brick_origin(t, ny, nx, tz0, ty0, tx0);
+    for (int e0 = 0; e0 < K * kTP; e0 += kPullThreads) {
+      const int e = e0 + threadIdx.x;
+      const int k = e / kTP, q = e % kTP;
+      const int oz = tz0 + q / 16, oy = ty0 + q / 4 % 4, ox = tx0 + q % 4;
+      const int p = oz * OHW + oy * g.OW + ox;
+      int n = 0, pix[kHits3];
+      float w[kHits3];
+      if (e < K * kTP && oz < g.OD && oy < g.OH && ox < g.OW)
+        n = brick_hits(weights3_at(g, offset, mask, b, d, k, p), bz0, by0, bx0, pix, w);
+      pull3_hits(sm, n, pix, w, lay.hit(k, p), gcol, lay, cw);
+    }
+  }
+  pull3_store(sm, gx, g, b, c0, cw, bz0, by0, bx0);
+}
+
+// grad_x by the gather's pull over the gc.B samples of a chunk: boxes
+// (gc.B, dg, output bricks, 6) int scratch.
+template <class L>
+inline cudaError_t launch_gather_gx3(const Geo3& gc, const float* offset, const float* mask,
+                                     const typename L::T* gcols, int* boxes, float* gx, L lay, cudaStream_t s) {
+  const int NT = bricks(gc.OD) * bricks(gc.OH) * bricks(gc.OW), warps = gc.B * gc.dg * NT;
+  boxes3_kernel<<<(warps + kThreads / 32 - 1) / (kThreads / 32), kThreads, 0, s>>>(offset, mask, boxes, gc);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int Cdg = gc.C / gc.dg;
+  const dim3 grid(bricks(gc.D) * bricks(gc.H) * bricks(gc.W), gc.dg * ((Cdg + kCW - 1) / kCW), gc.B);
+  gather_gx3_kernel<L><<<grid, kPullThreads, 0, s>>>(offset, mask, gcols, boxes, gx, gc, lay);
+  return cudaGetLastError();
+}
+
 // ---- grad_offset and grad_mask ---------------------------------------------
 
 // One thread per (b, deformable group, tap, position): S[corner] = sum_c
 // gcol[c] x[c, corner] over the slab's channels in order, then grad_offset
 // = mask * sum dA/dpos S per axis and grad_mask = sum A S.
+template <class L>
 __global__ void __launch_bounds__(kThreads) goff3_kernel(const float* __restrict__ x,
                                                          const float* __restrict__ offset,
                                                          const float* __restrict__ mask,
-                                                         const float* __restrict__ gcols, float* __restrict__ goff,
-                                                         float* __restrict__ gmask, Geo3 g) {
+                                                         const typename L::T* __restrict__ gcols,
+                                                         float* __restrict__ goff, float* __restrict__ gmask, Geo3 g,
+                                                         L lay) {
   const int K = taps3(g), P = out_size3(g), Cdg = g.C / g.dg, HW = g.H * g.W;
   const size_t S = static_cast<size_t>(g.D) * HW;
   const size_t e = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
@@ -136,11 +260,12 @@ __global__ void __launch_bounds__(kThreads) goff3_kernel(const float* __restrict
   const TapGrad3 t = grad3_at(g, offset, mask, b, d, k, p);
   float s[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   if (t.keep) {
-    const float* gp = gcols + ((static_cast<size_t>(b) * K + k) * P + p) * g.C + static_cast<size_t>(d) * Cdg;
+    const typename L::T* gp = gcols + lay.base(b, d * Cdg);
+    const int h = lay.hit(k, p);
     const float* xp = x + (static_cast<size_t>(b) * g.C + static_cast<size_t>(d) * Cdg) * S;
     const int i0 = t.z0 * HW + t.y0 * g.W + t.x0;
     for (int c = 0; c < Cdg; ++c) {
-      const float gv = gp[c];
+      const float gv = as_float(gp[lay.at(h, c)]);
       const float* xc = xp + static_cast<size_t>(c) * S;
 #pragma unroll
       for (int i = 0; i < 8; ++i)
@@ -166,6 +291,15 @@ __global__ void __launch_bounds__(kThreads) goff3_kernel(const float* __restrict
     for (int i = 0; i < 8; ++i) gm += t.w[i] * s[i];
     gmask[(static_cast<size_t>(b) * g.dg * K + static_cast<size_t>(d) * K + k) * P + p] = gm;
   }
+}
+
+template <class L>
+inline cudaError_t launch_goff3(const Geo3& gc, const float* x, const float* offset, const float* mask,
+                                const typename L::T* gcols, float* goff, float* gmask, L lay, cudaStream_t s) {
+  const size_t n = static_cast<size_t>(gc.B) * gc.dg * taps3(gc) * out_size3(gc);
+  goff3_kernel<L><<<static_cast<unsigned>((n + kThreads - 1) / kThreads), kThreads, 0, s>>>(x, offset, mask, gcols,
+                                                                                          goff, gmask, gc, lay);
+  return cudaGetLastError();
 }
 
 // ---- grad_weight -------------------------------------------------------------
@@ -297,14 +431,12 @@ inline cudaError_t backward3(const Geo3& g, const float* x, const float* offset,
         return err;
       if (gx && (err = pull(gc, off_c, mask_c, gcols, gx + static_cast<size_t>(b0) * g.C * S)) != cudaSuccess)
         return err;
-      if (goff || gmask) {
-        const size_t n = static_cast<size_t>(gc.B) * g.dg * K * P;
-        goff3_kernel<<<static_cast<unsigned>((n + kThreads - 1) / kThreads), kThreads, 0, s>>>(
-            x + static_cast<size_t>(b0) * g.C * S, off_c, mask_c, gcols,
-            goff ? goff + static_cast<size_t>(b0) * g.dg * 3 * K * P : nullptr,
-            gmask ? gmask + static_cast<size_t>(b0) * g.dg * K * P : nullptr, gc);
-        if ((err = cudaGetLastError()) != cudaSuccess) return err;
-      }
+      if ((goff || gmask) &&
+          (err = launch_goff3(gc, x + static_cast<size_t>(b0) * g.C * S, off_c, mask_c, gcols,
+                              goff ? goff + static_cast<size_t>(b0) * g.dg * 3 * K * P : nullptr,
+                              gmask ? gmask + static_cast<size_t>(b0) * g.dg * K * P : nullptr, KPC{K, P, g.C},
+                              s)) != cudaSuccess)
+        return err;
     }
   }
   if (gwt) {

@@ -21,7 +21,7 @@
 //   2. ranges_kernel: per (batch, deformable group, 64-position output tile)
 //      the range [lo, hi) of flat input pixels its kept corners touch: the
 //      counterpart of `_prep`'s `bnd`;
-//   3. gx_kernel: grad_x is a scatter with unbounded reach, so it is turned
+//   3. gather_gx_kernel: grad_x is a scatter with unbounded reach, so it is turned
 //      into a pull: a block owns 64 consecutive input pixels x 32 channels,
 //      walks the output tiles whose range overlaps its pixels in order, and
 //      applies their corner hits in a fixed order (deform_bwd.cuh);
@@ -33,92 +33,6 @@
 // No float atomics anywhere, so two runs give the same bits.  Tensor cores
 // and a fused single pass are later work.
 #include "deform_bwd.cuh"
-
-namespace {
-
-using namespace mdc;
-
-// One warp per (b, d, output tile): min / max flat index of the kept corners
-// (with a nonzero mask-folded weight) of every tap and position of the tile.
-__global__ void __launch_bounds__(kThreads) ranges_kernel(const float* __restrict__ offset,
-                                                          const float* __restrict__ mask,
-                                                          int2* __restrict__ ranges, Geo g) {
-  const int K = g.kh * g.kw, P = g.OH * g.OW, NT = (P + kTP - 1) / kTP;
-  const int wid = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5), lane = threadIdx.x & 31;
-  if (wid >= g.B * g.dg * NT) return;
-  const int t = wid % NT, d = (wid / NT) % g.dg, b = wid / (NT * g.dg);
-  int lo = 0x7fffffff, hi = 0;
-  for (int e = lane; e < K * kTP; e += 32) {
-    const int k = e / kTP, p = t * kTP + e % kTP;
-    if (p >= P) continue;
-    const TapWeights tw = weights_at(g, offset, mask, b, d, k, p);
-    const float w[4] = {tw.w.x, tw.w.y, tw.w.z, tw.w.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (w[i] == 0.f) continue;
-      const int q = (tw.y0 + (i >> 1)) * g.W + tw.x0 + (i & 1);
-      lo = min(lo, q);
-      hi = max(hi, q + 1);
-    }
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
-    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
-  }
-  if (lane == 0) ranges[wid] = make_int2(lo, hi);
-}
-
-// grad_x of 64 consecutive flat input pixels x 32 channels of one
-// (b, deformable group), pulled from the output tiles whose corner range
-// overlaps them, tile by tile and tap by tap in order.
-__global__ void __launch_bounds__(kPullThreads) gx_kernel(const float* __restrict__ offset,
-                                                          const float* __restrict__ mask,
-                                                          const float* __restrict__ gcols,
-                                                          const int2* __restrict__ ranges,
-                                                          float* __restrict__ gx, Geo g) {
-  __shared__ PullSmem sm;
-  const int K = g.kh * g.kw, P = g.OH * g.OW, HW = g.H * g.W, NT = (P + kTP - 1) / kTP;
-  const int Cdg = g.C / g.dg, cchunks = (Cdg + kCW - 1) / kCW;
-  const int q0 = blockIdx.x * kQT, q1 = min(HW, q0 + kQT);
-  const int d = blockIdx.y / cchunks, c0 = d * Cdg + (blockIdx.y % cchunks) * kCW;
-  const int cw = min(kCW, (d + 1) * Cdg - c0);
-  const int b = blockIdx.z;
-  const float* gcol = gcols + static_cast<size_t>(b) * K * P * g.C + c0;
-  const int2* rg = ranges + (static_cast<size_t>(b) * g.dg + d) * NT;
-  pull_clear(sm);
-  for (int t = 0; t < NT; ++t) {
-    const int2 r = rg[t];
-    if (!(r.x < q1 && r.y > q0)) continue;  // uniform across the block
-    for (int e0 = 0; e0 < K * kTP; e0 += kPullThreads) {
-      const int e = e0 + threadIdx.x;
-      const int k = e / kTP, p = t * kTP + e % kTP;
-      int n = 0, pix[4];
-      float w[4];
-      if (e < K * kTP && p < P) {
-        const TapWeights tw = weights_at(g, offset, mask, b, d, k, p);
-        const float wv[4] = {tw.w.x, tw.w.y, tw.w.z, tw.w.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int q = (tw.y0 + (i >> 1)) * g.W + tw.x0 + (i & 1);
-          if (wv[i] != 0.f && q >= q0 && q < q1) {
-            pix[n] = q - q0;
-            w[n] = wv[i];
-            ++n;
-          }
-        }
-      }
-      pull_hits(sm, n, pix, w, k * P + p, gcol, g.C, cw);
-    }
-  }
-  for (int e = threadIdx.x; e < kQT * kCW; e += kPullThreads) {
-    const int cl = e / kQT, pix = e % kQT;
-    if (cl < cw && q0 + pix < q1)
-      gx[(static_cast<size_t>(b) * g.C + c0 + cl) * HW + q0 + pix] = pull_result(sm, pix, cl);
-  }
-}
-
-}  // namespace
 
 // x (B, C, H, W), offset (B, dg*2*K, OH, OW), mask (B, dg*K, OH, OW) or null,
 // wk (groups, O/groups, K, C/groups), gout (B, O, OH, OW): float32,
@@ -139,18 +53,14 @@ extern "C" int gathermm_bwd(const float* x, const float* offset, const float* ma
   if (gx || goff || gmask) {
     if ((err = launch_gcols(g, wk, gout, gcols, s)) != cudaSuccess) return static_cast<int>(err);
   }
+  const KPC lay{kh * kw, OH * OW, C};
   if (gx) {
-    const int NT = (OH * OW + kTP - 1) / kTP, warps = B * dg * NT;
-    int2* rg = reinterpret_cast<int2*>(ranges);
-    ranges_kernel<<<(warps + kThreads / 32 - 1) / (kThreads / 32), kThreads, 0, s>>>(offset, mask, rg, g);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    const int Cdg = C / dg;
-    const dim3 grid((H * W + kQT - 1) / kQT, dg * ((Cdg + kCW - 1) / kCW), B);
-    gx_kernel<<<grid, kPullThreads, 0, s>>>(offset, mask, gcols, rg, gx, g);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+    err = launch_gather_gx(g, offset, mask, gcols, reinterpret_cast<int2*>(ranges), gx, lay, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (goff || gmask) {
-    if ((err = launch_goff(g, x, offset, mask, gcols, goff, gmask, s)) != cudaSuccess) return static_cast<int>(err);
+    if ((err = launch_goff(g, x, offset, mask, gcols, goff, gmask, lay, s)) != cudaSuccess)
+      return static_cast<int>(err);
   }
   if (gwt) err = launch_gw(g, x, offset, mask, gout, part, gwt, splits, s);
   return static_cast<int>(err);

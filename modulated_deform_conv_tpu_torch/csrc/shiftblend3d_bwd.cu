@@ -63,7 +63,7 @@ __global__ void __launch_bounds__(kPullThreads) gx3_kernel(const float* __restri
     float w[kHits3];
     if (e < n_cand && oz >= 0 && oz < g.D && oy >= 0 && oy < g.H && ox >= 0 && ox < g.W)
       n = brick_hits(weights3_at(g, offset, mask, b, d, k, p), bz0, by0, bx0, pix, w);
-    pull3_hits(sm, n, pix, w, k * P + p, gcol, g.C, cw);
+    pull3_hits(sm, n, pix, w, k * P + p, gcol, KPC{K, P, g.C}, cw);
   }
   pull3_store(sm, gx, g, b, c0, cw, bz0, by0, bx0);
 }

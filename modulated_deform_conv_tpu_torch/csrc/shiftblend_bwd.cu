@@ -70,7 +70,7 @@ __global__ void __launch_bounds__(kPullThreads) gx_kernel(const float* __restric
         }
       }
     }
-    pull_hits(sm, n, pix, w, k * P + p, gcol, g.C, cw);
+    pull_hits(sm, n, pix, w, k * P + p, gcol, KPC{K, P, g.C}, cw);
   }
   for (int e = threadIdx.x; e < kQT * kCW; e += kPullThreads) {
     const int cl = e / kQT, pix = e % kQT;
@@ -111,7 +111,8 @@ extern "C" int shiftblend_bwd(const float* x, const float* offset, const float* 
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   }
   if (goff || gmask) {
-    if ((err = launch_goff(g, x, offset, mask, gcols, goff, gmask, s)) != cudaSuccess) return static_cast<int>(err);
+    if ((err = launch_goff(g, x, offset, mask, gcols, goff, gmask, KPC{kh * kw, H * W, C}, s)) != cudaSuccess)
+      return static_cast<int>(err);
   }
   if (gwt) err = launch_gw(g, x, offset, mask, gout, part, gwt, splits, s);
   return static_cast<int>(err);

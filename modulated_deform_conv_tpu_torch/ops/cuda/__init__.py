@@ -9,12 +9,15 @@ as JAX's "auto" takes XLA off the TPU.
 """
 from __future__ import annotations
 
-import math
 from typing import Optional, Tuple
 
 from ...utils.config import DeformConvSpec
 from . import gathermm, shiftblend
 from .lib import PRECISIONS  # noqa: F401  (public)
+# Shape predicates copied from the JAX package's gathermm plan: its 3D
+# planar mode, and `_fuse_ok` (fused pair, or columns kernels and a GEMM).
+from .plan import jax_fuse_ok as _jax_fuse_ok  # noqa: F401
+from .plan import jax_planar as _jax_planar
 
 # Shift-blend when C/dg <= this, gathermm above.  Measured on v5e, not yet
 # on the H100: the TPU's VPU-sweep vs MXU balance set it.
@@ -23,47 +26,9 @@ SB_CROSSOVER_CG = 128
 # applies.  Measured on v5e; on the H100 the pair it picks at BASELINE
 # config 3 is the slower one per training step (PERF.md), and it stays the
 # JAX package's until a sweep on the H100 replaces it.  Whether planar mode
-# applies follows from the JAX package's v5e plan budgets
-# (utils/device.py:75-122): a K*P_tile lane budget of 4608, an A-chunk of
-# 2 MB (twice that for a planar chunk) and an input plane of 40 MB.
+# applies, and whether gathermm runs fused or as columns and a GEMM, follow
+# from the JAX package's v5e plan (plan.py).
 SB_WIDE_BOUND_3D = 1.5
-LANE_BUDGET = 4608
-A_CHUNK_BYTES = 2 * 1024 * 1024
-X_PLANE_BYTES = 40 * 1024 * 1024
-
-
-def _divisors(n: int):
-    return [d for d in range(1, n + 1) if n % d == 0]
-
-
-def _jax_planar(x, spec: DeformConvSpec) -> bool:
-    """Would the JAX package's gathermm plan take its 3D planar mode here?
-    The decision of `gathermm._Plan` (gathermm.py:237-303) as a shape
-    predicate: an in-plane chunk dividing the plane near plane/8, output
-    tiles of whole rows near 256 positions, tap groups within the lane
-    budget, the chunk within twice the A-chunk budget, and no streaming of
-    the input plane."""
-    S, OS = tuple(x.shape[2:]), spec.out_sizes(x.shape[2:])
-    plane, run = S[1] * S[2], OS[2]
-    cands = [d for d in range(8, plane + 1, 8) if plane % d == 0]
-    if not cands or plane < 2 * min(cands):
-        return False
-    tgt = max(128, plane // 8)
-    sch = min(cands, key=lambda d: abs(d - tgt))
-    rows = min(_divisors(OS[1]), key=lambda r: abs(r * run - 256))
-    pt = rows * run
-    pt8 = -(-pt // 8) * 8
-    ki = max((d for d in _divisors(spec.tap_count // spec.kernel[0])
-              if d * pt8 <= LANE_BUDGET), default=1)
-    if pt8 != pt or ki * pt * sch * 4 > 2 * A_CHUNK_BYTES:
-        return False
-    # Planar mode is dropped when even a channel-part split leaves the
-    # (volume, channels) plane over the budget.
-    sflat, cg, ncp = math.prod(S), x.shape[1] // spec.deformable_groups, 1
-    while (sflat * (cg // ncp) * 4 > X_PLANE_BYTES and cg % (ncp * 2) == 0
-           and cg // (ncp * 2) >= 8):
-        ncp *= 2
-    return sflat * (cg // ncp) * 4 <= X_PLANE_BYTES
 
 
 def _prefer_shiftblend(x, spec: DeformConvSpec, offset_bound) -> bool:

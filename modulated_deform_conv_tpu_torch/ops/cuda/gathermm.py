@@ -1,22 +1,30 @@
-"""General-offset kernels: `gathermm_fwd` / `gathermm_bwd` (2D,
-csrc/gathermm_fwd.cu, csrc/gathermm_bwd.cu) and `gathermm3d_fwd` /
-`gathermm3d_bwd` (3D, csrc/gathermm3d_*.cu).
+"""General-offset kernels: the fused pair `gathermm_fwd` / `gathermm_bwd`
+(2D, csrc/gathermm_fwd.cu, csrc/gathermm_bwd.cu) and `gathermm3d_fwd` /
+`gathermm3d_bwd` (3D, csrc/gathermm3d_*.cu), and the column pair
+`gathermm_cols_fwd` / `gathermm_cols_bwd` (csrc/gathermm_cols_*.cu) and
+`gathermm3d_cols_fwd` / `gathermm3d_cols_bwd` (csrc/gathermm3d_cols_*.cu).
 
-Counterparts of the JAX package's `ops/pallas/gathermm.py` fused pair
-(`deform_conv_fused`, kernels `_fwd_fused_kernel` and `_bwd_fused_kernel`,
-joined by the custom VJP `fused_conv`), in its 2D mode and its 3D flat and
-planar modes.  The row semantics of its `_prep` (floor and fraction per dim,
-the open-interval gate folded with the mask into the corner weights) are
-the corner rules the CUDA kernels apply (csrc/deform_tile.cuh::tap_weights
-and csrc/deform_tile3d.cuh::weights3_at, and tap_grad / grad3_at for their
-derivatives).
+Counterparts of the JAX package's `ops/pallas/gathermm.py`: its fused pair
+(kernels `_fwd_fused_kernel` and `_bwd_fused_kernel`, joined by the custom
+VJP `fused_conv`) and its columns path (kernels `_fwd_kernel` and
+`_bwd_kernel`, joined by `fused_columns`, with the grouped GEMM outside
+them), in its 2D mode and its 3D flat and planar modes.
+`deform_conv_fused` takes the columns path where the JAX package's
+`_fuse_ok` is false (plan.py).  The row semantics of its `_prep` (floor and
+fraction per dim, the open-interval gate folded with the mask into the
+corner weights) are the corner rules the CUDA kernels apply
+(csrc/deform_tile.cuh::tap_weights and csrc/deform_tile3d.cuh::weights3_at,
+and tap_grad / grad3_at for their derivatives).
 
 Each wrapper launches its kernel on CUDA tensors and runs its plain PyTorch
 version (`*_reference`, one for both ranks) on CPU tensors only.
-`_GathermmFwd` joins the two as one differentiable op.
+`_GathermmFwd` joins the fused pair as one differentiable op, and
+`_GathermmCols` the column pair; `_ColumnsGemm` is the columns path's
+grouped product (cuBLAS), in the precision mode asked for.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -26,6 +34,7 @@ from torch.autograd.function import once_differentiable
 from ...utils.config import DeformConvSpec, effective_step
 from .. import core
 from . import lib
+from .plan import jax_fuse_ok
 
 # The corner table holds K * 64 entries of 20 bytes (2D) or 36 bytes (3D) in
 # shared memory next to the 66 KB column and weight tiles
@@ -233,12 +242,285 @@ class _GathermmFwd(torch.autograd.Function):
         return gx, goff, gmask, gw, gb, None, None
 
 
+# ---- the columns path ------------------------------------------------------
+
+
+def _cols_dtype(precision: str) -> torch.dtype:
+    """The columns' (and their cotangent's) dtype: the GEMM's operand type,
+    bf16 in "bfloat16" and fp32 otherwise (the JAX package's `cols_dtype`)."""
+    return torch.bfloat16 if precision == "bfloat16" else torch.float32
+
+
+def gathermm_cols_reference(x, offset, mask, spec: DeformConvSpec,
+                            precision: str = "tensorfloat32") -> torch.Tensor:
+    """Plain PyTorch version of the column kernels, either rank:
+    `core.deform_conv_columns` laid out as the kernels lay the columns out,
+    (C * K, B * P) with row c * K + k and column b * P + p, in the mode's
+    columns dtype."""
+    cols = core.deform_conv_columns(x, offset, mask, spec)      # (B, P, C, K)
+    cols = cols.permute(2, 3, 0, 1).reshape(x.shape[1] * spec.tap_count, -1)
+    return cols.to(_cols_dtype(precision)).contiguous()
+
+
+def gathermm_cols_bwd_reference(x, offset, mask, gcols, spec: DeformConvSpec,
+                                precision: str = "tensorfloat32"):
+    """Plain PyTorch version of the column backward kernels: autograd's VJP
+    of `gathermm_cols_reference` for the cotangent gcols.  Returns (grad_x,
+    grad_offset, grad_mask or None)."""
+    with torch.enable_grad():
+        ins = [None if t is None else t.detach().requires_grad_(True)
+               for t in (x, offset, mask)]
+        cols = gathermm_cols_reference(*ins, spec, precision)
+        live = [t for t in ins if t is not None]
+        grads = iter(torch.autograd.grad(cols, live, gcols))
+    return tuple(None if t is None else next(grads) for t in ins)
+
+
+gathermm3d_cols_reference = gathermm_cols_reference
+gathermm3d_cols_bwd_reference = gathermm_cols_bwd_reference
+
+
+def _cols_geometry(x, spec: DeformConvSpec):
+    """The column kernels' int arguments: B, C, *S, *OS, dg, *kernel,
+    *stride, *padding, *dilation."""
+    return (*x.shape, *spec.out_sizes(x.shape[2:]), spec.deformable_groups,
+            *spec.kernel, *spec.stride, *spec.padding, *spec.dilation)
+
+
+def _cols_check(name, x, offset, mask, spec):
+    lib.check_inputs(name, x, offset, mask, None, None, spec)
+    # The kernels keep a (tap, batch, position) index in an int.
+    if spec.tap_count * x.shape[0] * math.prod(
+            spec.out_sizes(x.shape[2:])) >= 2 ** 31:
+        raise NotImplementedError(f"{name}: K * B * P must stay below 2^31")
+
+
+def _cols_fwd(name, x, offset, mask, spec, precision):
+    _cols_check(name, x, offset, mask, spec)
+    P = math.prod(spec.out_sizes(x.shape[2:]))
+    cols = torch.empty((x.shape[1] * spec.tap_count, x.shape[0] * P),
+                       dtype=_cols_dtype(precision), device=x.device)
+    lib.launch(name, x, (x, offset, mask, cols), (
+        *_cols_geometry(x, spec), lib.PRECISION_CODES[precision]))
+    return cols
+
+
+def gathermm_cols_fwd(x, offset, mask, spec: DeformConvSpec,
+                      precision: str = "tensorfloat32") -> torch.Tensor:
+    """The deformable columns (2D) of the unfused path, (C * K, B * P) with
+    row c * K + k and column b * P + p: float32, bf16 in "bfloat16".
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel or
+    raise.  Inputs: float32, contiguous, on one device."""
+    if x.device.type == "cpu":
+        return gathermm_cols_reference(x, offset, mask, spec, precision)
+    cols = _cols_fwd("gathermm_cols_fwd", x, offset, mask, spec, precision)
+    gathermm_cols_fwd.launches += 1
+    return cols
+
+
+gathermm_cols_fwd.launches = 0
+
+
+def gathermm3d_cols_fwd(x, offset, mask, spec: DeformConvSpec,
+                        precision: str = "tensorfloat32") -> torch.Tensor:
+    """The deformable columns (3D), as `gathermm_cols_fwd`.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel or
+    raise.  Inputs: float32, contiguous, on one device."""
+    if x.device.type == "cpu":
+        return gathermm3d_cols_reference(x, offset, mask, spec, precision)
+    cols = _cols_fwd("gathermm3d_cols_fwd", x, offset, mask, spec, precision)
+    gathermm3d_cols_fwd.launches += 1
+    return cols
+
+
+gathermm3d_cols_fwd.launches = 0
+
+
+def _cols_bwd(name, x, offset, mask, gcols, spec, precision, needs):
+    _cols_check(name, x, offset, mask, spec)
+    want = (x.shape[1] * spec.tap_count,
+            x.shape[0] * math.prod(spec.out_sizes(x.shape[2:])))
+    if (tuple(gcols.shape) != want or gcols.dtype != _cols_dtype(precision)
+            or gcols.device != x.device or not gcols.is_contiguous()):
+        raise ValueError(f"{name}: gcols must be a contiguous "
+                         f"{_cols_dtype(precision)} {want} tensor on "
+                         f"{x.device}, got {gcols.dtype} "
+                         f"{tuple(gcols.shape)} on {gcols.device}")
+    B, dg = x.shape[0], spec.deformable_groups
+    OS = spec.out_sizes(x.shape[2:])
+    gx = torch.empty_like(x) if needs[0] else None
+    goff = torch.empty_like(offset) if needs[1] else None
+    gmask = (torch.empty_like(mask) if needs[2] and mask is not None
+             else None)
+    tiles = None
+    if gx is not None:
+        # 2D: one flat corner range per 64-position output tile; 3D: one
+        # box per 4 x 4 x 4 output brick.
+        tiles = (torch.empty((B, dg, -(-math.prod(OS) // _TILE_P), 2),
+                             dtype=torch.int32, device=x.device)
+                 if spec.ndim == 2 else
+                 torch.empty((B, dg, math.prod(-(-o // _BRICK) for o in OS),
+                              _BOX_INTS), dtype=torch.int32, device=x.device))
+    lib.launch(name, x, (x, offset, mask, gcols, tiles, gx, goff, gmask), (
+        *_cols_geometry(x, spec), lib.PRECISION_CODES[precision]))
+    return gx, goff, gmask
+
+
+def gathermm_cols_bwd(x, offset, mask, gcols, spec: DeformConvSpec,
+                      precision: str = "tensorfloat32", needs=(True,) * 3):
+    """The VJP of the 2D columns for the cotangent gcols (the columns'
+    layout and dtype): (grad_x, grad_offset, grad_mask), float32, each None
+    where `needs` says it is not wanted (grad_mask also without a mask).
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel or
+    raise.  Inputs: float32, contiguous, on one device."""
+    if x.device.type == "cpu":
+        grads = gathermm_cols_bwd_reference(x, offset, mask, gcols, spec,
+                                            precision)
+        return tuple(g if n else None for g, n in zip(grads, needs))
+    grads = _cols_bwd("gathermm_cols_bwd", x, offset, mask, gcols, spec,
+                      precision, needs)
+    gathermm_cols_bwd.launches += 1
+    return grads
+
+
+gathermm_cols_bwd.launches = 0
+
+
+def gathermm3d_cols_bwd(x, offset, mask, gcols, spec: DeformConvSpec,
+                        precision: str = "tensorfloat32", needs=(True,) * 3):
+    """The VJP of the 3D columns, as `gathermm_cols_bwd`.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel or
+    raise.  Inputs: float32, contiguous, on one device."""
+    if x.device.type == "cpu":
+        grads = gathermm3d_cols_bwd_reference(x, offset, mask, gcols, spec,
+                                              precision)
+        return tuple(g if n else None for g, n in zip(grads, needs))
+    grads = _cols_bwd("gathermm3d_cols_bwd", x, offset, mask, gcols, spec,
+                      precision, needs)
+    gathermm3d_cols_bwd.launches += 1
+    return grads
+
+
+gathermm3d_cols_bwd.launches = 0
+
+
+class _GathermmCols(torch.autograd.Function):
+    """(x, offset, mask) -> columns through the column kernels of the
+    config's rank; the counterpart of the JAX package's `fused_columns`.
+    x, offset and mask are saved."""
+
+    @staticmethod
+    def forward(ctx, x, offset, mask, spec, precision):
+        ctx.save_for_backward(x, offset, mask)
+        ctx.spec, ctx.precision = spec, precision
+        fwd = gathermm_cols_fwd if spec.ndim == 2 else gathermm3d_cols_fwd
+        return fwd(x, offset, mask, spec, precision)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gcols):
+        x, offset, mask = ctx.saved_tensors
+        bwd = gathermm_cols_bwd if ctx.spec.ndim == 2 else gathermm3d_cols_bwd
+        gx, goff, gmask = bwd(x, offset, mask, gcols.contiguous(), ctx.spec,
+                              ctx.precision, ctx.needs_input_grad[:3])
+        return gx, goff, gmask, None, None
+
+
+@contextlib.contextmanager
+def _matmul_mode(precision: str):
+    """cuBLAS in the mode's arithmetic whatever the global flags say: TF32
+    only in "tensorfloat32", and no reduced-precision bf16 reductions; the
+    flags are restored afterwards."""
+    m = torch.backends.cuda.matmul
+    saved = m.allow_tf32, m.allow_bf16_reduced_precision_reduction
+    m.allow_tf32 = precision == "tensorfloat32"
+    m.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        m.allow_tf32, m.allow_bf16_reduced_precision_reduction = saved
+
+
+def _bmm(a, b, out_dtype=torch.float32):
+    """a @ b per batch.  bf16 operands accumulate in fp32 and give an fp32
+    result where out_dtype asks for it (on the CPU: the fp32 product of the
+    bf16 values, the same arithmetic)."""
+    if a.dtype == torch.bfloat16 and out_dtype == torch.float32:
+        if a.is_cuda:
+            return torch.bmm(a, b, out_dtype=torch.float32)
+        return torch.bmm(a.float(), b.float())
+    return torch.bmm(a, b)
+
+
+class _ColumnsGemm(torch.autograd.Function):
+    """The columns path's grouped product, outside any kernel as in the
+    JAX package (gathermm.py:1087-1100): out (B, O, *OS) = W (g, O/g,
+    C/g * K) @ cols (g, C/g * K, B * P), one batched cuBLAS call, fp32
+    result.  "float32": IEEE fp32; "tensorfloat32": TF32; "bfloat16": bf16
+    operands, fp32 accumulation.  Its backward computes gcols (in the
+    columns' dtype) and grad_weight in the same mode."""
+
+    @staticmethod
+    def forward(ctx, cols, weight, groups, precision, B, OS):
+        ctx.save_for_backward(cols, weight)
+        ctx.groups, ctx.precision, ctx.B, ctx.OS = groups, precision, B, OS
+        O = weight.shape[0]
+        w = weight.reshape(groups, O // groups, -1).to(cols.dtype)
+        with _matmul_mode(precision):
+            out = _bmm(w, cols.view(groups, w.shape[2], -1))   # (g, O/g, BP)
+        return out.view(O, B, *OS).transpose(0, 1).contiguous()
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gout):
+        cols, weight = ctx.saved_tensors
+        g, O = ctx.groups, weight.shape[0]
+        w = weight.reshape(g, O // g, -1).to(cols.dtype)
+        go = (gout.transpose(0, 1).reshape(g, O // g, -1).to(cols.dtype)
+              .contiguous())
+        cols_g = cols.view(g, w.shape[2], -1)
+        gcols = gw = None
+        with _matmul_mode(ctx.precision):
+            if ctx.needs_input_grad[0]:
+                gcols = _bmm(w.transpose(1, 2), go, cols.dtype).view(
+                    cols.shape)
+            if ctx.needs_input_grad[1]:
+                gw = _bmm(go, cols_g.transpose(1, 2)).reshape(weight.shape)
+        return gcols, gw, None, None, None, None
+
+
+def deform_conv_cols(x, offset, mask, weight, bias, spec: DeformConvSpec,
+                     precision: str = "tensorfloat32") -> torch.Tensor:
+    """General-offset deformable conv with bias by the columns path: the
+    column kernels, the grouped product, then the bias, as the JAX
+    package's unfused branch (gathermm.py:1087-1100).  Dtypes as in
+    `deform_conv_fused`."""
+    f32 = lib.as_f32
+    cols = _GathermmCols.apply(f32(x), f32(offset), f32(mask), spec,
+                               precision)
+    out = _ColumnsGemm.apply(cols, f32(weight), spec.groups, precision,
+                             x.shape[0], spec.out_sizes(x.shape[2:]))
+    if bias is not None:
+        out = out + f32(bias).reshape((1, -1) + (1,) * spec.ndim)
+    return out.to(x.dtype)
+
+
 def deform_conv_fused(x, offset, mask, weight, bias, spec: DeformConvSpec,
                       precision: str = "tensorfloat32") -> torch.Tensor:
     """Full general-offset deformable conv with bias (dispatch entry).
 
-    bf16 and fp16 inputs are upcast to fp32 for the kernels; the result
-    has x's dtype, and so do the gradients of each input."""
+    The fused pair where the JAX package's `_fuse_ok` holds, the columns
+    path (`deform_conv_cols`) elsewhere, as the JAX package's
+    `deform_conv_fused` decides (gathermm.py:1068).  bf16 and fp16 inputs
+    are upcast to fp32 for the kernels; the result has x's dtype, and so do
+    the gradients of each input."""
+    if not jax_fuse_ok(x, spec, weight.shape[0]):
+        return deform_conv_cols(x, offset, mask, weight, bias, spec,
+                                precision)
     f32 = lib.as_f32
     out = _GathermmFwd.apply(f32(x), f32(offset), f32(mask), f32(weight),
                              f32(bias), spec, precision)

@@ -22,7 +22,8 @@ CSRC = pathlib.Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build"
 KERNELS = ("gathermm_fwd", "shiftblend_fwd", "gathermm_bwd", "shiftblend_bwd",
            "gathermm3d_fwd", "shiftblend3d_fwd", "gathermm3d_bwd",
-           "shiftblend3d_bwd")
+           "shiftblend3d_bwd", "gathermm_cols_fwd", "gathermm_cols_bwd",
+           "gathermm3d_cols_fwd", "gathermm3d_cols_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -95,7 +96,8 @@ def kernel(name: str):
 def check_inputs(name: str, x, offset, mask, weight, bias, spec) -> None:
     """Raise unless the kernel can take these tensors as they are: of the
     kernel's rank (the `*3d_*` kernels 3D, the others 2D), float32,
-    contiguous, all on x's CUDA device, shapes per `spec`."""
+    contiguous, all on x's CUDA device, shapes per `spec`.  The column
+    kernels take no weight (None)."""
     if not x.is_cuda:
         raise ValueError(f"{name}: the kernel takes CUDA tensors, got "
                          f"{x.device}")
@@ -103,7 +105,9 @@ def check_inputs(name: str, x, offset, mask, weight, bias, spec) -> None:
     if spec.ndim != ndim:
         raise NotImplementedError(f"{name}: takes {ndim}D configs, got "
                                   f"{spec.ndim}D")
-    spec.validate(x.shape, offset.shape, weight.shape,
+    weight_shape = ((spec.groups, x.shape[1] // spec.groups) + spec.kernel
+                    if weight is None else weight.shape)
+    spec.validate(x.shape, offset.shape, weight_shape,
                   None if mask is None else mask.shape,
                   None if bias is None else bias.shape)
     for label, t in (("input", x), ("offset", offset), ("mask", mask),

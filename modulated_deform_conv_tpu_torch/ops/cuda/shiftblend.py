@@ -44,11 +44,11 @@ _CHUNK = {2: 8, 3: 4}
 _TABLE = {2: 5, 3: 9}
 _ROWS, _TP, _WSTRIDE = 128, 64, 68
 _MAX_SMEM_FLOATS = 227 * 1024 // 4
-# The JAX package's 3D loop-path rule (shiftblend.py:341-343): past this
-# many (tap, window) pairs its kernels roll the leading window axis, which
-# needs a plane stride that is a multiple of 128 (a TPU lane tiling, kept so
-# that both packages take the same path), and its shift set stays within
-# 4096 distinct shifts (:347).
+# The JAX package's loop-path rule (shiftblend.py:341-343): past this many
+# (tap, window) pairs its kernels roll the leading window axis, which needs
+# a 3D config with a plane stride that is a multiple of 128 (a TPU lane
+# tiling, kept so that both packages take the same path), and its shift set
+# stays within 4096 distinct shifts (:347).
 _UNROLL_PAIRS = 640
 _MAX_SHIFTS = 4096
 
@@ -98,15 +98,17 @@ def _smem_floats(spec: DeformConvSpec, halo) -> int:
 
 
 def _loop_path_reason(spec: DeformConvSpec, S, windows) -> Optional[str]:
-    """The JAX package's 3D rules on the window: more than 640 (tap,
-    window) pairs need a plane stride that is a multiple of 128, and the
-    distinct flat shifts stay within 4096 (SBPlan.ineligible_reason)."""
-    plane = S[1] * S[2]
+    """The JAX package's rules on the window (SBPlan.ineligible_reason):
+    more than 640 (tap, window) pairs need the rolled-loop kernel, which
+    takes only 3D configs whose plane stride is a multiple of 128 (a 2D
+    plan is never loopable), and the distinct flat shifts stay within
+    4096."""
+    loopable = spec.ndim == 3 and (S[1] * S[2]) % 128 == 0
     if (spec.tap_count * math.prod(w for _, w in windows) > _UNROLL_PAIRS
-            and plane % 128):
+            and not loopable):
         return ("window too large to unroll and the plane stride is not "
                 "128-aligned for the rolled-loop kernel")
-    qstride = (plane, S[2], 1)
+    qstride = tuple(math.prod(S[d + 1:]) for d in range(spec.ndim))
     anchors = itertools.product(*[
         sorted({i * dl - p + lo + dy for i in range(k) for dy in range(w)})
         for k, dl, p, (lo, w) in zip(spec.kernel, spec.dilation,
@@ -123,7 +125,7 @@ def ineligible_reason(x: torch.Tensor, spec: DeformConvSpec,
 
     The semantic rules of the JAX package's `SBPlan.ineligible_reason`
     (stride 1, output size == input size, C/dg % 8 == 0, C/dg <= 256,
-    dg % groups == 0; in 3D also its loop-path and shift-set rules), so
+    dg % groups == 0, its loop-path and shift-set rules), so
     both packages pick the same path for the same config, plus this
     kernel's own shared-memory limit on the halo tile.  Its VMEM residency
     and residual budgets are the TPU's and have no counterpart here."""
@@ -149,10 +151,9 @@ def ineligible_reason(x: torch.Tensor, spec: DeformConvSpec,
     if spec.deformable_groups % spec.groups:
         return "deformable_groups must be a multiple of groups"
     windows = corner_windows(spec, offset_bound)
-    if spec.ndim == 3:
-        reason = _loop_path_reason(spec, S, windows)
-        if reason is not None:
-            return reason
+    reason = _loop_path_reason(spec, S, windows)
+    if reason is not None:
+        return reason
     if _smem_floats(spec, _halo(spec, windows)) > _MAX_SMEM_FLOATS:
         return ("offset_bound window too large for the shared-memory halo "
                 "tile")

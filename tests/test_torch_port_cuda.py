@@ -258,3 +258,81 @@ def test_backward3d_bitwise_deterministic_and_batch_chunked(dev):
     for got in [again] + [runs[s] for s in (64, 2)]:
         for a, b in zip(got, runs[1]):
             assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+# The column kernels (the unfused path): (B, C, O, S, k, stride, pad, dil,
+# g, dg, modulated, bias, offscale).  Conv groups straddling the
+# deformable slab (g > dg), unmasked, stride 2 with offsets far outside the
+# input, and a 3D pair; O and bias matter only to the op.
+COLUMNS = [
+    (2, 16, 24, (15, 9), 3, 1, 1, 1, 2, 1, True, True, 3.0),
+    (1, 12, 8, (11, 13), 3, 2, 1, 1, 1, 3, False, False, 8.0),
+    (2, 32, 32, (7, 7), 3, 1, 1, 1, 1, 1, True, True, 40.0),
+    (2, 16, 24, (5, 7, 6), 3, 1, 1, 1, 2, 1, True, True, 3.0),
+    (1, 12, 8, (7, 9, 8), 3, 2, 1, 1, 1, 3, False, False, 2.0),
+]
+
+
+def _cols_pair(spec):
+    if spec.ndim == 2:
+        return (gm.gathermm_cols_fwd, gm.gathermm_cols_bwd)
+    return (gm.gathermm3d_cols_fwd, gm.gathermm3d_cols_bwd)
+
+
+@pytest.mark.parametrize("precision", list(LIMITS))
+@pytest.mark.parametrize("case", COLUMNS)
+def test_column_kernels_match_plain(dev, case, precision):
+    spec, (x, off, mask, _, _) = _case(dev, *case)
+    fwd, bwd = _cols_pair(spec)
+    fwd.launches = bwd.launches = 0
+    got = fwd(x, off, mask, spec, precision)
+    want = gm.gathermm_cols_reference(x, off, mask, spec, precision)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert _rel(got.float(), want.float()) <= LIMITS[precision]
+    rng = np.random.default_rng(3)
+    gcols = torch.tensor(rng.standard_normal(tuple(got.shape)),
+                         dtype=got.dtype, device=dev)
+    grads = bwd(x, off, mask, gcols, spec, precision)
+    assert (fwd.launches, bwd.launches) == (1, 1)
+    _check_grads(grads, gm.gathermm_cols_bwd_reference(
+        x, off, mask, gcols, spec, precision), LIMITS[precision])
+
+
+def _op(spec, ins, **kw):
+    x, off, mask, w, b = ins
+    fn = {2: mdt.modulated_deform_conv2d, 3: mdt.modulated_deform_conv3d}
+    return fn[spec.ndim](x, off, mask, w, b, spec.stride, spec.padding,
+                         spec.dilation, spec.groups, spec.deformable_groups,
+                         **kw)
+
+
+@pytest.mark.parametrize("case", [COLUMNS[0], COLUMNS[3]])
+def test_columns_path_against_fused_pair_and_repeatable(dev, case):
+    """Under "auto" a grouped config (g > dg) takes the column kernels and
+    the grouped product; its output and five gradients agree with the fused
+    pair's on the same inputs, in "float32" even with the global TF32 flag
+    on, and two backward runs give the same bits."""
+    spec, ins = _case(dev, *case)
+    fwd, bwd = _cols_pair(spec)
+    fused_bwd = gm.gathermm_bwd if spec.ndim == 2 else gm.gathermm3d_bwd
+    gout = _grad_out(spec, ins[0], ins[3])
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        runs = []
+        for _ in range(2):
+            leaves = [t.clone().requires_grad_(True) for t in ins]
+            fwd.launches = bwd.launches = fused_bwd.launches = 0
+            out = _op(spec, leaves, precision="float32")
+            out.backward(gout)
+            assert (fwd.launches, bwd.launches, fused_bwd.launches) == (1, 1, 0)
+            runs.append([out.detach()] + [t.grad for t in leaves])
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    leaves = [t.clone().requires_grad_(True) for t in ins]
+    x, off, mask, w, b = leaves
+    out = gm._GathermmFwd.apply(x, off, mask, w, b, spec, "float32")
+    out.backward(gout)
+    for got, want in zip(runs[0], [out.detach()] + [t.grad for t in leaves]):
+        assert _rel(got, want) <= LIMITS["float32"]

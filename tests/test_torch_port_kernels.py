@@ -118,6 +118,10 @@ DISPATCH = [
     (2, 32, (12, 12), 3, 1, 1, 4, 2, 2.0, "float32"),     # dg % g != 0
     (2, 32, (12, 12), 5, 1, 2, 2, 2, 0.5, "float16"),
     (1, 8, (3, 4, 5), 1, 1, 0, 1, 1, 1.0, "float32"),     # 3D, k=1
+    (2, 64, (10, 19), 5, 1, 2, 2, 2, 2.5, "float32"),     # 1,225 pairs in 2D
+    (2, 64, (10, 19), 5, 1, 2, 2, 2, 1.5, "float32"),     # 625 pairs
+    (32, 1024, (14, 14), 3, 1, 1, 1, 1, None, "float32"),  # cfg5 c4: columns
+    (2, 64, (9, 8), 3, 1, 1, 2, 1, 1.0, "float32"),       # g > dg: columns
 ]
 
 
