@@ -122,6 +122,17 @@ TIMING_PLAIN5 = (5, 2, 1)
 # The columns path in 3D: config 3's size with two conv groups over one
 # deformable group, modulated, with bias.
 COLS3D = dict(B=2, C=64, S=(16, 32, 32), groups=2)
+# The previous release's times on an NVIDIA H100 80GB HBM3 at 700 W
+# ("tensorfloat32", ms): each table row's `ms`, at the row's own config (2D
+# fused rows at config 2, 3D rows at configs 3 and 4 B=1, column rows at
+# config 5 c4 and the 3D columns case), printed beside this run's.
+PREV_MS = {"shiftblend_fwd": 0.4721, "gathermm_fwd": 0.6192, "shiftblend_bwd": 3.1269,
+           "gathermm_bwd": 3.1563, "shiftblend3d_fwd": 16.9480, "gathermm3d_fwd": 0.9751,
+           "shiftblend3d_bwd": 48.5179, "gathermm3d_bwd": 4.8274, "gathermm_cols_fwd": 0.1499,
+           "gathermm_cols_bwd": 1.3659, "gathermm3d_cols_fwd": 0.3220,
+           "gathermm3d_cols_bwd": 3.9291}
+PREV_STEP_MS = {"cfg2 bounded": 3.8172, "cfg2 general": 3.8975,
+                "DCNResNet-50 device": 22.44, "DCNResNet-50 DCN kernels": 13.58}
 
 
 class SmokeFailure(Exception):
@@ -333,7 +344,8 @@ def check_recorded(torch, recorded, layers, pair, label):
 
 DCN_KERNELS = ("gathermm_fwd_kernel", "gathermm3d_fwd_kernel", "gcols_kernel", "ranges_kernel",
                "boxes3_kernel", "gx_kernel", "gx3_kernel", "goff_kernel", "goff3_kernel",
-               "gw_kernel", "gw3_kernel", "fold_kernel", "cols_kernel", "cols3_kernel")
+               "gw3_kernel", "fold_kernel", "cols_kernel", "cols3_kernel", "x_cl_kernel",
+               "gcols_mma_kernel", "gw_mma_kernel", "corr_kernel", "boxes_kernel", "pull_kernel")
 
 
 def profile_train_step(res, train_step, label):
@@ -343,8 +355,10 @@ def profile_train_step(res, train_step, label):
     print_breakdown(f"{label} step profile", prof, top=12)
     if prof:
         dcn_ms = sum(ms for k, ms in prof.items() if any(o in k for o in DCN_KERNELS))
+        prev = (f" (previous release: {PREV_STEP_MS[label + ' DCN kernels']} of "
+                f"{PREV_STEP_MS[label + ' device']} ms)" if label + " device" in PREV_STEP_MS else "")
         print(f"{label} step: the port's DCN kernels {dcn_ms:.3f} ms of "
-              f"{sum(prof.values()):.3f} ms device time")
+              f"{sum(prof.values()):.3f} ms device time{prev}")
 
 
 def cfg3d_inputs(torch, dev, name):
@@ -1332,19 +1346,28 @@ def main() -> int:
                 ms = time_ms(lambda: fn(*args))
                 plain_ms = time_ms(lambda: ref_fn(*args))
                 results[name].update(ms=ms, plain_ms=plain_ms)
-                print(f"{name}: {ms:.4f} ms (plain {plain_ms:.3f} ms, dense conv {kind} "
-                      f"anchor {anchors[kind]:.4f} ms, bound {bounds[kind][0]:.4f} ms)")
+                print(f"{name}: {ms:.4f} ms (previous release {PREV_MS[name]:.4f} ms; plain "
+                      f"{plain_ms:.3f} ms, dense conv {kind} anchor {anchors[kind]:.4f} ms, "
+                      f"bound {bounds[kind][0]:.4f} ms)")
     steps = {}
     for label, kw in (("bounded", dict(impl="auto", offset_bound=BOUND)),
                       ("general", dict(impl="auto")), ("plain", dict(impl="torch"))):
         steps[label] = time_ms(lambda: cfg2_step(**kw))
+        prev = PREV_STEP_MS.get(f"cfg2 {label}")
         print(f"cfg2 training step (fwd + bwd of sum(out^2), five grads) {label}: "
-              f"{steps[label]:.4f} ms")
-    # Where the device time of the backward goes, kernel by kernel.
+              f"{steps[label]:.4f} ms" + (f" (previous release {prev:.4f} ms)" if prev else ""))
+    # Where the device time of the backward goes, kernel by kernel, and
+    # the backward's time in the other two modes.
     with torch.no_grad():
         for fam, (_, _, bwd, _) in families.items():
             args = (x, off, mask, w, gout, spec, MAIN_PRECISION, *extra[fam])
             print_breakdown(f"{fam}_bwd cfg2 profile", device_time_by_kernel(lambda: bwd(*args)))
+            by_mode = {}
+            for prec in LIMITS:
+                margs = (x, off, mask, w, gout, spec, prec, *extra[fam])
+                by_mode[prec] = time_ms(lambda: bwd(*margs))
+            results[f"{fam}_bwd"]["ms_by_mode"] = by_mode
+            print(f"{fam}_bwd cfg2 by mode: " + " ".join(f"{p} {ms:.4f} ms" for p, ms in by_mode.items()))
     del leaves
 
     # Phase 8: main path 3, DCNResNet-50 trained on the card by the
@@ -1427,6 +1450,8 @@ def main() -> int:
                        plain_ms=results[n]["plain_ms"], bound_ms=bounds[kind][0],
                        bound_by=bounds[kind][1], at="cfg2 B=8",
                        rel_err=results[n]["rel_err"])
+            if "ms_by_mode" in results[n]:
+                row["ms_by_mode"] = results[n]["ms_by_mode"]
             row[f"dense_conv_{kind}_anchor_ms"] = anchors[kind]
         table.append({
             "name": n, "route": "cuda",
@@ -1438,6 +1463,9 @@ def main() -> int:
             "precision": MAIN_PRECISION, "resnet_launches": net_launches[n],
             "videonet_launches": video_launches[n],
             "cfg5_launches": sweep5["fwd" if kind == "fwd" else "step"][n]})
+    print("every row against the previous release (ms, this run / previous): " + "; ".join(
+        f"{r['name']} {r['ms']:.4f} / {PREV_MS[r['name']]:.4f} ({r['ms'] / PREV_MS[r['name']]:.3f}x)"
+        for r in table))
     print(json.dumps({"kernels": table, "cfg2_train_step_ms": steps,
                       "dcn_resnet50_step_ms": step_ms, "train_step3d_ms": r3["steps"],
                       "both_kernels3d_ms": r3["cross"], "dcn_videonet_step_ms": video_ms,

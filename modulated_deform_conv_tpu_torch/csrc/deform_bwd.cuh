@@ -1,25 +1,29 @@
-// Pieces shared by the 2D backward kernels (gathermm_bwd.cu,
-// shiftblend_bwd.cu, gathermm_cols_bwd.cu).  The first two compute, for
-// out = W2 cols + bias with cols[c, k, p] = mask * sum_corners w * x[c,
-// corner]:
+// Pieces shared by the backward kernels.  For out = W2 cols + bias with
+// cols[c, k, p] = mask * sum_corners w * x[c, corner] they compute
 //
-//   gcols   = W2^T gout                        (gcols_kernel, a tiled GEMM)
-//   grad_x  = A gcols, A the mask-folded corner matrix
-//                                              (a pull kernel: shift-blend's
-//                                               own, gather_gx_kernel)
+//   gcols   = W2^T gout
+//   grad_x  = A gcols, A the mask-folded corner matrix (a pull)
 //   grad_offset, grad_mask from the correlation S[corner] = sum_c gcol x
-//   against dA/dpos and A                      (goff_kernel)
+//   against dA/dpos and A
 //   grad_weight = gout cols^T, cols recomputed from x (never saved)
-//                                              (gw_kernel + fold_kernel)
 //
-// gathermm_cols_bwd.cu is given gcols and computes the middle two.  The
-// pull and goff kernels read gcols through a layout (KPC, CKBP below).
+// in two generations:
+//   - the 2D fused backward (gathermm_bwd.cu, shiftblend_bwd.cu) runs the
+//     tensor-core kernels of the last section: gcols_mma_kernel,
+//     gw_mma_kernel + fold_kernel, corr_kernel and a pull per block of 8 x 8
+//     input pixels x 64 channels (gather_pull_kernel, shift_pull_kernel);
+//   - the columns path's backward (gathermm_cols_bwd.cu: ranges_kernel,
+//     gather_gx_kernel, goff_kernel, given gcols in its layout CKBP) and the
+//     3D backwards (deform_bwd3d.cuh: gcols_kernel, fold_kernel) run the
+//     FP32-FMA kernels of the first sections.
 //
 // Determinism: there is no float atomic anywhere.  Every output element has
-// one owner thread that sums in a fixed order; grad_weight is summed in
-// fixed-size splits of the (batch, position) axis, and the splits are folded
-// in order.  The split count depends on the shapes only.
+// one owner that sums in a fixed order; grad_weight is summed in fixed-size
+// splits of the (batch, position) axis, and the splits are folded in order.
+// The split count depends on the shapes only.
 #pragma once
+
+#include <cstdint>
 
 #include "deform_tile.cuh"
 
@@ -40,7 +44,7 @@ constexpr int kNC = 32;  // contraction indices staged per GEMM step
 // `hit(k, p)` is the int a pull's hit list keeps for a (tap, position)
 // candidate, `base(b, c0)` the offset of sample b's channel c0, and `at(h,
 // c)` the offset of channel c0 + c of candidate h from that base.
-//   KPC:  (B, K, P, C), channels innermost: the fused backward's gcols;
+//   KPC:  (B, K, P, C), channels innermost: the fused backwards' gcols;
 //   CKBP: (C * K, B * P), row c * K + k: the columns path's, float32 or bf16.
 struct KPC {
   using T = float;
@@ -189,68 +193,6 @@ __global__ void __launch_bounds__(kThreads) goff_kernel(const float* __restrict_
         t.w.x * s[0] + t.w.y * s[1] + t.w.z * s[2] + t.w.w * s[3];
 }
 
-// Partial grad_weight of one split of the flattened (batch, position) axis:
-// part[split][gi][row][o] = sum_n cols[n][row] gout[n][o] over n in
-// [split * chunk, (split + 1) * chunk).  A block owns 64 (channel, tap) rows
-// x kTO output channels of one conv group and rebuilds the columns it needs
-// from x through the corner rules, as the forward does.
-__global__ void __launch_bounds__(kThreads) gw_kernel(const float* __restrict__ x,
-                                                      const float* __restrict__ offset,
-                                                      const float* __restrict__ mask,
-                                                      const float* __restrict__ gout, float* __restrict__ part,
-                                                      int chunk, Geo g) {
-  __shared__ __align__(16) float colsT[kNC * kWStride];  // [n][row]
-  __shared__ __align__(16) float goutT[kNC * kWStride];  // [n][o]
-  const int K = g.kh * g.kw, P = g.OH * g.OW, HW = g.H * g.W;
-  const int Cgc = g.C / g.groups, Og = g.O / g.groups, Cdg = g.C / g.dg, rows = Cgc * K;
-  const int o_tiles = (Og + kTO - 1) / kTO;
-  const int r0 = (blockIdx.x / o_tiles) * kTO, o0 = (blockIdx.x % o_tiles) * kTO;
-  const int gi = blockIdx.y, split = blockIdx.z;
-  const int total = g.B * P;
-  const int n_begin = split * chunk, n_end = min(total, n_begin + chunk);
-  float acc[4][4] = {};
-  for (int n0 = n_begin; n0 < n_end; n0 += kNC) {
-    const int nn = min(kNC, n_end - n0);
-    __syncthreads();  // previous step done with colsT / goutT
-    // A warp stages one row (or one output channel) at 32 consecutive
-    // positions, so that its loads of offset, mask, x and gout coalesce.
-    for (int e = threadIdx.x; e < kNC * kTO; e += kThreads) {
-      const int r = e / kNC, n = e % kNC;
-      float v = 0.f;
-      if (n < nn && r0 + r < rows) {
-        const int b = (n0 + n) / P, p = (n0 + n) % P;
-        const int c = gi * Cgc + (r0 + r) / K, k = (r0 + r) % K;
-        const TapWeights t = weights_at(g, offset, mask, b, c / Cdg, k, p);
-        v = blend(x + (static_cast<size_t>(b) * g.C + c) * HW, t.y0 * g.W + t.x0, g.W, t.w);
-      }
-      colsT[n * kWStride + r] = operand(v, g.precision);
-    }
-    for (int e = threadIdx.x; e < kNC * kTO; e += kThreads) {
-      const int o = e / kNC, n = e % kNC;
-      float v = 0.f;
-      if (n < nn && o0 + o < Og) {
-        const int b = (n0 + n) / P, p = (n0 + n) % P;
-        v = gout[(static_cast<size_t>(b) * g.O + static_cast<size_t>(gi) * Og + o0 + o) * P + p];
-      }
-      goutT[n * kWStride + o] = operand(v, g.precision);
-    }
-    __syncthreads();
-    tile_fma<kWStride, kWStride>(goutT, colsT, nn, acc);
-  }
-  float* pg = part + (static_cast<size_t>(split) * g.groups + gi) * rows * Og;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + ty * 4 + i;
-    if (r >= rows) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int o = o0 + tx * 4 + j;
-      if (o < Og) pg[static_cast<size_t>(r) * Og + o] = acc[i][j];
-    }
-  }
-}
-
 // gwt[e] = sum over splits, in order, of part[split][e]; "bfloat16" rounds
 // the sum like the other products of that mode.
 __global__ void fold_kernel(const float* __restrict__ part, float* __restrict__ gwt, int n, int splits,
@@ -262,7 +204,7 @@ __global__ void fold_kernel(const float* __restrict__ part, float* __restrict__ 
   gwt[e] = operand(s, precision);
 }
 
-// ---- grad_x by pulling (all three .cu files) -----------------------------------
+// ---- grad_x by pulling (the columns path's and the 3D pulls) -----------------
 //
 // A pull block owns kQT input pixels x kCW channels of one (batch,
 // deformable group).  It walks a candidate list of (tap, output position)
@@ -338,7 +280,7 @@ __device__ __forceinline__ float pull_result(const PullSmem& sm, int pix, int la
   return s;
 }
 
-// ---- the gather's grad_x pull (gathermm_bwd.cu, gathermm_cols_bwd.cu) ------
+// ---- the columns path's grad_x pull (gathermm_cols_bwd.cu) -------------------
 
 // One warp per (b, d, output tile): min / max flat index of the kept corners
 // (with a nonzero mask-folded weight) of every tap and position of the tile.
@@ -453,20 +395,854 @@ inline cudaError_t launch_gather_gx(const Geo& g, const float* offset, const flo
   return cudaGetLastError();
 }
 
-// `splits` partials of the (batch, position) axis, each `chunk` long, then
-// the fold.  The Python wrapper picks `splits` from the shapes and sizes
-// `part` as (splits, groups, C/groups * K, O/groups).
-inline cudaError_t launch_gw(const Geo& g, const float* x, const float* offset, const float* mask,
-                             const float* gout, float* part, float* gwt, int splits, cudaStream_t s) {
-  const int rows = g.C / g.groups * g.kh * g.kw, Og = g.O / g.groups;
-  const int total = g.B * g.OH * g.OW, chunk = (total + splits - 1) / splits;
-  const dim3 grid(((rows + kTO - 1) / kTO) * ((Og + kTO - 1) / kTO), g.groups, splits);
-  gw_kernel<<<grid, kThreads, 0, s>>>(x, offset, mask, gout, part, chunk, g);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int n = g.groups * rows * Og;
-  fold_kernel<<<(n + 255) / 256, 256, 0, s>>>(part, gwt, n, splits, g.precision);
-  return cudaGetLastError();
+// ---- the 2D fused backward on tensor cores (gathermm_bwd.cu, shiftblend_bwd.cu)
+//
+// Five kernels on one stream, each reading what the earlier ones wrote:
+//   x_cl_kernel      x channels-last, xt (B, H*W, C), once per call, so that
+//                    every corner read below is a row of consecutive channels;
+//   gcols_mma_kernel gcols (B, K, P, C) = W2^T gout on mma.sync, in the
+//                    mode's arithmetic, stored fp32;
+//   a pull           grad_x per 8 x 8 input pixels x 64 channels: the
+//                    candidates' corner weights are evaluated once per block
+//                    into a table, then each warp applies the hits on its
+//                    own row of pixels in table order, lanes over channels;
+//   corr_kernel      grad_offset / grad_mask: per 64 positions of one (b, d,
+//                    k) the corner derivatives built once, then a warp per
+//                    two positions with lanes over channels and a
+//                    fixed-order butterfly;
+//   gw_mma_kernel    grad_W partials on mma.sync, the columns rebuilt from xt
+//                    through a corner table built once per block and step,
+//                    then fold_kernel.
+// The products stage their operands K-major in shared memory with cp.async,
+// two stages deep.
+
+constexpr int kMT = 64;           // a product block's tile: 64 x 64 outputs
+constexpr int kMS = kMT + 8;      // K-major tile row: fragment reads hit 32 banks
+constexpr int kMK = 32;           // contraction indices a stage
+constexpr int kMmaThreads = 256;  // 8 warps, 2 (rows) x 4 (columns), 32 x 16 outputs each
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(valid ? 4 : 0) : "memory");
 }
+// 16 bytes, or zeros when !valid.  The row tails are whole: the 64-wide tiles
+// start on multiples of 4 and rows % 4 == 0.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// acc[i][j] (the warp's 16 x 8 tile i, j at rows wm + 16 i, columns wn +
+// 8 j) += A B over one stage, A and B K-major in shared memory: As[k * kMS +
+// row], Bs[k * kMS + column].  Prec is the mode: "tensorfloat32" rounds
+// both operands to TF32; "bfloat16" rounds both operands to bf16; "float32"
+// runs 3xTF32 (each operand split into a TF32 big part and a TF32
+// remainder; small * big + big * small + big * big) into a sum of its own
+// for the stage, added to acc with an fp32 add: the tensor cores'
+// accumulation does not round to nearest, and over thousands of stages its
+// error would pass what FP32 FMAs give.  fp32 accumulation in every mode.
+template <int Prec>
+__device__ __forceinline__ void mma_stage_into(const float* __restrict__ As, const float* __restrict__ Bs, int wm,
+                                               int wn, float (&acc)[2][2][4]) {
+  const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
+  if constexpr (Prec == kBFloat16) {
+#pragma unroll
+    for (int k0 = 0; k0 < kMK; k0 += 16) {
+      uint32_t a[2][4], b[2][2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float* p = As + (k0 + 2 * tq) * kMS + wm + 16 * i + gq;
+        a[i][0] = bf16x2(p[0], p[kMS]);
+        a[i][1] = bf16x2(p[8], p[kMS + 8]);
+        a[i][2] = bf16x2(p[8 * kMS], p[9 * kMS]);
+        a[i][3] = bf16x2(p[8 * kMS + 8], p[9 * kMS + 8]);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float* p = Bs + (k0 + 2 * tq) * kMS + wn + 8 * j + gq;
+        b[j][0] = bf16x2(p[0], p[kMS]);
+        b[j][1] = bf16x2(p[8 * kMS], p[9 * kMS]);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) mma_bf16(acc[i][j], a[i], b[j]);
+    }
+  } else {
+#pragma unroll
+    for (int k0 = 0; k0 < kMK; k0 += 8) {
+      float af[2][4], bf[2][2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float* p = As + (k0 + tq) * kMS + wm + 16 * i + gq;
+        af[i][0] = p[0];
+        af[i][1] = p[8];
+        af[i][2] = p[4 * kMS];
+        af[i][3] = p[4 * kMS + 8];
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float* p = Bs + (k0 + tq) * kMS + wn + 8 * j + gq;
+        bf[j][0] = p[0];
+        bf[j][1] = p[4 * kMS];
+      }
+      uint32_t a[2][4], b[2][2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) a[i][v] = to_tf32(af[i][v]);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int v = 0; v < 2; ++v) b[j][v] = to_tf32(bf[j][v]);
+      if constexpr (Prec == kFloat32) {
+        uint32_t as[2][4], bs[2][2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int v = 0; v < 4; ++v) as[i][v] = to_tf32(af[i][v] - __uint_as_float(a[i][v]));
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int v = 0; v < 2; ++v) bs[j][v] = to_tf32(bf[j][v] - __uint_as_float(b[j][v]));
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            mma_tf32(acc[i][j], as[i], b[j]);
+            mma_tf32(acc[i][j], a[i], bs[j]);
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) mma_tf32(acc[i][j], a[i], b[j]);
+    }
+  }
+}
+
+template <int Prec>
+__device__ __forceinline__ void mma_stage(const float* __restrict__ As, const float* __restrict__ Bs, int wm, int wn,
+                                          float (&acc)[2][2][4]) {
+  if constexpr (Prec == kFloat32) {
+    float part[2][2][4] = {};
+    mma_stage_into<Prec>(As, Bs, wm, wn, part);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[i][j][v] += part[i][j][v];
+  } else {
+    mma_stage_into<Prec>(As, Bs, wm, wn, acc);
+  }
+}
+
+// The row and column, within the block's 64 x 64 tile, of accumulator v of
+// the warp's tile (i, j).
+__device__ __forceinline__ int acc_row(int wm, int i, int v) {
+  return wm + 16 * i + ((threadIdx.x & 31) >> 2) + 8 * (v >> 1);
+}
+__device__ __forceinline__ int acc_col(int wn, int j, int v) { return wn + 8 * j + 2 * (threadIdx.x & 3) + (v & 1); }
+
+// xt[b][q][c] = x[b][c][q], a 32 x 32 tile at a time through shared memory.
+__global__ void __launch_bounds__(256) x_cl_kernel(const float* __restrict__ x, float* __restrict__ xt, int C,
+                                                   int HW) {
+  __shared__ float t[32][33];
+  const int q0 = blockIdx.x * 32, c0 = blockIdx.y * 32, b = blockIdx.z;
+  const int lane = threadIdx.x & 31, row = threadIdx.x >> 5;
+  for (int i = row; i < 32; i += 8)
+    if (c0 + i < C && q0 + lane < HW) t[i][lane] = x[(static_cast<size_t>(b) * C + c0 + i) * HW + q0 + lane];
+  __syncthreads();
+  for (int i = row; i < 32; i += 8)
+    if (q0 + i < HW && c0 + lane < C) xt[(static_cast<size_t>(b) * HW + q0 + i) * C + c0 + lane] = t[lane][i];
+}
+
+// gcols[b][k][p][c] = sum_o W[o, c, k] gout[b, o, p] over the conv group of
+// channel c.  A block owns 64 rows (tap-major, r = k * C/groups + c) x 64
+// positions of one (batch, conv group) and runs the product over O/groups
+// in stages of 32; the tile goes out through shared memory, so that each
+// position's channels are stored as one contiguous run.  gcols is fp32 in
+// every mode ("bfloat16" rounds each value to bf16): stored as bf16 it
+// would halve its bytes, but the pull's 2-byte loads made the backward
+// slower on the H100.  wk is (groups, O/groups, K, C/groups).
+template <int Prec>
+__global__ void __launch_bounds__(kMmaThreads, 4) gcols_mma_kernel(const float* __restrict__ wk,
+                                                               const float* __restrict__ gout,
+                                                               float* __restrict__ gcols, Geo g) {
+  __shared__ __align__(16) float sm[2][2][kMK * kMS];  // [stage][W or gout][o][row or position]
+  const int K = g.kh * g.kw, P = g.OH * g.OW;
+  const int Cgc = g.C / g.groups, Og = g.O / g.groups, rows = Cgc * K;
+  const int p0 = blockIdx.x * kMT, r0 = blockIdx.y * kMT;
+  const int b = blockIdx.z / g.groups, gi = blockIdx.z % g.groups;
+  const float* wg = wk + static_cast<size_t>(gi) * Og * rows;
+  const float* gb = gout + (static_cast<size_t>(b) * g.O + static_cast<size_t>(gi) * Og) * P;
+  // 16 bytes a copy where every row starts 16-byte aligned, else 4.
+  const bool wide = rows % 4 == 0 && P % 4 == 0 && reinterpret_cast<size_t>(wk) % 16 == 0 &&
+                    reinterpret_cast<size_t>(gout) % 16 == 0;
+  auto load = [&](int s, int o0) {
+    if (wide) {
+      for (int e = threadIdx.x; e < kMK * kMT / 4; e += kMmaThreads) {
+        const int o = e / (kMT / 4), m = e % (kMT / 4) * 4;
+        const bool wok = o0 + o < Og && r0 + m < rows, gok = o0 + o < Og && p0 + m < P;
+        cp_async16(&sm[s][0][o * kMS + m], wok ? wg + static_cast<size_t>(o0 + o) * rows + r0 + m : wg, wok);
+        cp_async16(&sm[s][1][o * kMS + m], gok ? gb + static_cast<size_t>(o0 + o) * P + p0 + m : gb, gok);
+      }
+    } else {
+      for (int e = threadIdx.x; e < kMK * kMT; e += kMmaThreads) {
+        const int o = e / kMT, m = e % kMT;
+        const bool wok = o0 + o < Og && r0 + m < rows, gok = o0 + o < Og && p0 + m < P;
+        cp_async4(&sm[s][0][o * kMS + m], wok ? wg + static_cast<size_t>(o0 + o) * rows + r0 + m : wg, wok);
+        cp_async4(&sm[s][1][o * kMS + m], gok ? gb + static_cast<size_t>(o0 + o) * P + p0 + m : gb, gok);
+      }
+    }
+    cp_async_commit();
+  };
+  const int warp = threadIdx.x >> 5, wm = (warp & 1) * 32, wn = (warp >> 1) * 16;
+  float acc[2][2][4] = {};
+  const int steps = (Og + kMK - 1) / kMK;
+  load(0, 0);
+  for (int st = 0; st < steps; ++st) {
+    if (st + 1 < steps) {
+      load((st + 1) & 1, (st + 1) * kMK);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    mma_stage<Prec>(sm[st & 1][0], sm[st & 1][1], wm, wn, acc);
+    __syncthreads();  // the stage is reloaded two steps on
+  }
+  float* cS = &sm[0][0][0];  // [position][row], rows of kMT + 4
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) cS[acc_col(wn, j, v) * (kMT + 4) + acc_row(wm, i, v)] = acc[i][j][v];
+  __syncthreads();
+  const int r = threadIdx.x % kMT;  // every thread stores one row
+  if (r0 + r >= rows) return;
+  float* dst = gcols + (static_cast<size_t>(b) * K + (r0 + r) / Cgc) * P * g.C + gi * Cgc + (r0 + r) % Cgc;
+  for (int pl = threadIdx.x / kMT; pl < kMT && p0 + pl < P; pl += kMmaThreads / kMT)
+    dst[static_cast<size_t>(p0 + pl) * g.C] = operand(cS[pl * (kMT + 4) + r], Prec);
+}
+
+// Partial grad_weight of one split of the flattened (batch, position) axis
+// n: part[split][gi][c * K + k][o] = sum_n cols[n][c, k] gout[n][o] over
+// the split.  A block owns one tap k x 64 channels x 64 output channels of
+// one conv group.  Every `tsteps` stages of 32 positions it builds the
+// corner table of their positions for every deformable group its channels
+// span (at most nd_max; tsteps = max(1, 8 / nd_max); in dynamic shared
+// memory); each stage rebuilds its columns from xt, a warp reading
+// consecutive channels of a corner, while cp.async brings gout; the product
+// runs on the previous stage meanwhile.
+template <int Prec>
+__global__ void __launch_bounds__(kMmaThreads, 3) gw_mma_kernel(const float* __restrict__ xt,
+                                                            const float* __restrict__ offset,
+                                                            const float* __restrict__ mask,
+                                                            const float* __restrict__ gout,
+                                                            float* __restrict__ part, int chunk, int tsteps, Geo g) {
+  extern __shared__ __align__(16) float dyn[];
+  float* sA = dyn;                                              // [stage][n][channel]
+  float* sB = dyn + 2 * kMK * kMS;                              // [stage][n][o]
+  float4* tw = reinterpret_cast<float4*>(dyn + 4 * kMK * kMS);  // [d - d0][n - n_table]: corner weights
+  const int K = g.kh * g.kw, P = g.OH * g.OW, HW = g.H * g.W;
+  const int Cgc = g.C / g.groups, Og = g.O / g.groups, Cdg = g.C / g.dg;
+  const int c_tiles = (Cgc + kMT - 1) / kMT, o_tiles = (Og + kMT - 1) / kMT;
+  const int ot = blockIdx.x % o_tiles, ct = blockIdx.x / o_tiles % c_tiles, k = blockIdx.x / (o_tiles * c_tiles);
+  const int gi = blockIdx.y, split = blockIdx.z;
+  const int c0 = ct * kMT, cw = min(kMT, Cgc - c0), gc0 = gi * Cgc + c0, o0 = ot * kMT;
+  const int d0 = gc0 / Cdg, nd = (gc0 + cw - 1) / Cdg - d0 + 1;
+  const int tn = tsteps * kMK;                     // positions a table spans
+  int* tq = reinterpret_cast<int*>(tw + nd * tn);  // [d - d0][n - n_table]: low corner in xt's (B * H*W)
+  const int n_begin = split * chunk, n_end = min(g.B * P, n_begin + chunk);
+  const int steps = n_end > n_begin ? (n_end - n_begin + kMK - 1) / kMK : 0;
+
+  auto table = [&](int n0) {
+    for (int e = threadIdx.x; e < nd * tn; e += kMmaThreads) {
+      const int n = n0 + e % tn;
+      TapWeights t{0, 0, make_float4(0.f, 0.f, 0.f, 0.f)};
+      if (n < n_end) t = weights_at(g, offset, mask, n / P, d0 + e / tn, k, n % P);
+      tw[e] = t.w;
+      tq[e] = n / P * HW + t.y0 * g.W + t.x0;
+    }
+  };
+  // Lane l brings gout at position n0 + l for output channels warp, warp + 8, ...
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  auto load_gout = [&](int s, int n0) {
+    float* dst = sB + s * kMK * kMS + lane * kMS;
+    const int n = n0 + lane;
+    const float* src = gout + (static_cast<size_t>(n / P) * g.O + static_cast<size_t>(gi) * Og + o0) * P + n % P;
+#pragma unroll
+    for (int o = warp; o < kMT; o += kMmaThreads / 32) {
+      const bool ok = n < n_end && o0 + o < Og;
+      cp_async4(dst + o, ok ? src + static_cast<size_t>(o) * P : gout, ok);
+    }
+    cp_async_commit();
+  };
+  // Each thread rebuilds one channel r at kPer positions, or, where 4
+  // consecutive channels share a conv group and a deformable group (vec),
+  // channels r4 .. r4 + 3 at kPer / 4 positions with 16-byte loads and
+  // stores; all the corner loads are issued before the first blend.
+  constexpr int kPer = kMK * kMT / kMmaThreads;
+  const bool vec = Cgc % 4 == 0 && Cdg % 4 == 0;
+  const int r = threadIdx.x % kMT, gc = gc0 + r, dt = (gc / Cdg - d0) * tn;
+  const int r4 = threadIdx.x % (kMT / 4) * 4, dt4 = ((gc0 + r4) / Cdg - d0) * tn;
+  const size_t row = static_cast<size_t>(g.W) * g.C;
+  auto build_vec = [&](float* dst, int n0, int n_table) {
+    constexpr int kPer4 = kPer / 4, kStep = kMmaThreads / (kMT / 4);
+    float4 v[kPer4][4];
+#pragma unroll
+    for (int u = 0; u < kPer4; ++u) {
+      const int n = n0 + threadIdx.x / (kMT / 4) + u * kStep;
+      float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
+      const float* src = xt;
+      if (r4 < cw && n < n_end) {
+        const int te = dt4 + n - n_table;
+        w = tw[te];
+        src = xt + static_cast<size_t>(tq[te]) * g.C + gc0 + r4;
+      }
+      const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+      v[u][0] = w.x != 0.f ? *reinterpret_cast<const float4*>(src) : z;
+      v[u][1] = w.y != 0.f ? *reinterpret_cast<const float4*>(src + g.C) : z;
+      v[u][2] = w.z != 0.f ? *reinterpret_cast<const float4*>(src + row) : z;
+      v[u][3] = w.w != 0.f ? *reinterpret_cast<const float4*>(src + row + g.C) : z;
+    }
+#pragma unroll
+    for (int u = 0; u < kPer4; ++u) {
+      const int nl = threadIdx.x / (kMT / 4) + u * kStep, n = n0 + nl;
+      float4 out = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r4 < cw && n < n_end) {
+        const float4 w = tw[dt4 + n - n_table];
+        out.x = w.x * v[u][0].x + w.y * v[u][1].x + w.z * v[u][2].x + w.w * v[u][3].x;
+        out.y = w.x * v[u][0].y + w.y * v[u][1].y + w.z * v[u][2].y + w.w * v[u][3].y;
+        out.z = w.x * v[u][0].z + w.y * v[u][1].z + w.z * v[u][2].z + w.w * v[u][3].z;
+        out.w = w.x * v[u][0].w + w.y * v[u][1].w + w.z * v[u][2].w + w.w * v[u][3].w;
+      }
+      *reinterpret_cast<float4*>(dst + nl * kMS + r4) = out;
+    }
+  };
+  auto build = [&](int s, int n0, int n_table) {
+    float* dst = sA + s * kMK * kMS;
+    if (vec) {
+      build_vec(dst, n0, n_table);
+      return;
+    }
+    float v[kPer][4];
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int nl = threadIdx.x / kMT + u * (kMmaThreads / kMT), n = n0 + nl;
+      float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
+      const float* src = xt;
+      if (r < cw && n < n_end) {
+        const int te = dt + n - n_table;
+        w = tw[te];
+        src = xt + static_cast<size_t>(tq[te]) * g.C + gc;
+      }
+      v[u][0] = w.x != 0.f ? src[0] : 0.f;
+      v[u][1] = w.y != 0.f ? src[g.C] : 0.f;
+      v[u][2] = w.z != 0.f ? src[row] : 0.f;
+      v[u][3] = w.w != 0.f ? src[row + g.C] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int nl = threadIdx.x / kMT + u * (kMmaThreads / kMT), n = n0 + nl;
+      float out = 0.f;
+      if (r < cw && n < n_end) {
+        const float4 w = tw[dt + n - n_table];
+        out = w.x * v[u][0];
+        out += w.y * v[u][1];
+        out += w.z * v[u][2];
+        out += w.w * v[u][3];
+      }
+      dst[nl * kMS + r] = out;
+    }
+  };
+
+  const int wm = (warp & 1) * 32, wn = (warp >> 1) * 16;
+  float acc[2][2][4] = {};
+  int n_table = n_begin;
+  if (steps > 0) {
+    table(n_table);
+    load_gout(0, n_begin);
+    __syncthreads();
+    build(0, n_begin, n_table);
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+  for (int st = 0; st < steps; ++st) {
+    const int cur = st & 1, n_next = n_begin + (st + 1) * kMK;
+    const bool more = st + 1 < steps;
+    if (more) {
+      load_gout(cur ^ 1, n_next);
+      if ((st + 1) % tsteps == 0) table(n_table = n_next);  // the last table's stages are built
+    }
+    mma_stage<Prec>(sA + cur * kMK * kMS, sB + cur * kMK * kMS, wm, wn, acc);
+    __syncthreads();  // the table is complete; the other stage is free
+    if (more) build(cur ^ 1, n_next, n_table);
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+  float* pg = part + (static_cast<size_t>(split) * g.groups + gi) * Cgc * K * Og;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int r = acc_row(wm, i, v), o = o0 + acc_col(wn, j, v);
+        if (r < cw && o < Og) pg[(static_cast<size_t>(c0 + r) * K + k) * Og + o] = acc[i][j][v];
+      }
+}
+
+// The correlation of 64 consecutive positions of one (b, deformable group
+// d, tap k): their corner derivatives are built once into shared memory;
+// then warp w takes positions w, w + 8, ..., two at a time so that their
+// loads are in flight together, lane l sums gcol * x over channels l,
+// l + 32, ... of the slab for each kept corner, and warp_sum_spread sums the
+// lanes' eight values in a fixed order.  gcol and the corners of xt are rows
+// of consecutive channels.
+// Sums each of v[0..N) over the warp's 32 lanes (N a power of two <= 32), in
+// a fixed order, with N - 1 + log2(32 / N) shuffles: each step halves the
+// values a lane keeps and sends the other half to its partner.  Afterwards
+// lane l holds the sum of value l / (32 / N).
+template <int N>
+__device__ __forceinline__ float warp_sum_spread(float (&v)[N]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int h = N / 2, o = 16; h >= 1; h >>= 1, o >>= 1) {
+    const bool up = lane & o;
+#pragma unroll
+    for (int i = 0; i < h; ++i) {
+      const float send = up ? v[i] : v[i + h], keep = up ? v[i + h] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+    }
+  }
+#pragma unroll
+  for (int o = 16 / N; o > 0; o >>= 1) v[0] += __shfl_xor_sync(0xffffffffu, v[0], o);
+  return v[0];
+}
+
+__global__ void __launch_bounds__(256, 4) corr_kernel(const float* __restrict__ xt, const float* __restrict__ offset,
+                                                     const float* __restrict__ mask, const float* __restrict__ gcols,
+                                                     float* __restrict__ goff, float* __restrict__ gmask, Geo g) {
+  constexpr int kU = 2;             // positions a warp sums at once
+  constexpr int kL = 32 / (4 * kU);  // lanes that end up holding each sum
+  __shared__ TapGrad tg[kTP];
+  __shared__ float tm[kTP];
+  const int K = g.kh * g.kw, P = g.OH * g.OW, HW = g.H * g.W, Cdg = g.C / g.dg;
+  const int p0 = blockIdx.x * kTP, k = blockIdx.y % K, d = blockIdx.y / K, b = blockIdx.z;
+  if (threadIdx.x < kTP) {
+    const int p = p0 + threadIdx.x, oy = p / g.OW, ox = p % g.OW, ky = k / g.kw, kx = k % g.kw;
+    const size_t oidx = (static_cast<size_t>(b) * g.dg * 2 * K + static_cast<size_t>(d) * 2 * K + 2 * k) * P + p;
+    TapGrad t{};
+    if (p < P)
+      t = tap_grad(oy * g.sh - g.ph + ky * g.dh, ox * g.sw - g.pw + kx * g.dw, offset[oidx], offset[oidx + P], g.H,
+                   g.W, g.windowed, g.lo_y, g.win_y, g.lo_x, g.win_x);
+    tg[threadIdx.x] = t;
+    tm[threadIdx.x] = p < P ? mask_at(g, mask, b, d, k, p) : 0.f;
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float* gp = gcols + (static_cast<size_t>(b) * K + k) * P * g.C + static_cast<size_t>(d) * Cdg;
+  const float* xb = xt + static_cast<size_t>(b) * HW * g.C + static_cast<size_t>(d) * Cdg;
+  const int wc = g.W * g.C;
+  for (int i0 = warp; i0 < kTP; i0 += 8 * kU) {
+    int keep[kU], go[kU], xo[kU];  // gcol's row and the low corner's, in elements from gp and xb
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const TapGrad& t = tg[i0 + 8 * u];
+      keep[u] = t.keep;
+      go[u] = min(p0 + i0 + 8 * u, P - 1) * g.C;
+      xo[u] = t.keep ? (t.y0 * g.W + t.x0) * g.C : 0;
+    }
+    float s[kU * 4] = {};
+    for (int c = lane; c < Cdg; c += 32) {
+      float gv[kU], xv[kU][4];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const float* xc = xb + xo[u] + c;
+        gv[u] = keep[u] ? gp[go[u] + c] : 0.f;
+        xv[u][0] = keep[u] & 1 ? xc[0] : 0.f;
+        xv[u][1] = keep[u] & 2 ? xc[g.C] : 0.f;
+        xv[u][2] = keep[u] & 4 ? xc[wc] : 0.f;
+        xv[u][3] = keep[u] & 8 ? xc[wc + g.C] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kU; ++u)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[4 * u + j] = fmaf(gv[u], xv[u][j], s[4 * u + j]);
+    }
+    // Value 4 u + j, the sum of corner j of position u, ends in lanes
+    // (4 u + j) kL ...; lane 4 u kL gathers its position's four.
+    const float sum = warp_sum_spread<kU * 4>(s);
+    float S[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) S[j] = __shfl_sync(0xffffffffu, sum, (lane & ~(4 * kL - 1)) + j * kL);
+    const int u = lane / (4 * kL), i = i0 + 8 * u, p = p0 + i;
+    if (lane % (4 * kL) == 0 && p < P) {
+      const TapGrad& t = tg[i];
+      const size_t oidx = (static_cast<size_t>(b) * g.dg * 2 * K + static_cast<size_t>(d) * 2 * K + 2 * k) * P + p;
+      if (goff) {
+        goff[oidx] = tm[i] * (t.dy.x * S[0] + t.dy.y * S[1] + t.dy.z * S[2] + t.dy.w * S[3]);
+        goff[oidx + P] = tm[i] * (t.dx.x * S[0] + t.dx.y * S[1] + t.dx.z * S[2] + t.dx.w * S[3]);
+      }
+      if (gmask)
+        gmask[(static_cast<size_t>(b) * g.dg * K + static_cast<size_t>(d) * K + k) * P + p] =
+            t.w.x * S[0] + t.w.y * S[1] + t.w.z * S[2] + t.w.w * S[3];
+    }
+  }
+}
+
+// ---- the 2D pulls ----------------------------------------------------------
+//
+// A pull block owns an 8 x 8 tile of input pixels x 64 channels of one
+// (batch, deformable group), and warp w owns row w of the tile.  The block
+// walks its candidates (tap, output position) in a fixed order, kCand at a
+// time: it evaluates each candidate's corner weights once into a table in
+// shared memory; then every warp scans the table in order for the
+// candidates with a corner in its row, stages them in a small buffer of its
+// own, and applies them kU at a time so that their gcols loads are in flight
+// together: lane l adds weight * gcol to channels l and l + 32 of the one or
+// two pixels the candidate's corners hit in the row.  Every grad_x element
+// is thus summed in candidate order, with no atomics and no barrier inside
+// the scan.
+constexpr int kPullT = 256;   // threads of a pull block: one warp a tile row
+constexpr int kPullC = 64;    // channels of a pull block: two a lane
+constexpr int kPullPix = 64;  // input pixels of a pull block: 8 x 8
+constexpr int kCand = 512;    // candidates a table holds
+constexpr int kStage = 64;    // hits a warp stages
+constexpr int kBoxTile = 4;   // the gather's output tiles: 4 x 4 positions
+
+struct PullBlock {
+  float acc[kPullPix][kPullC + 1];
+  float4 cw[kCand];  // the candidates' mask-folded corner weights
+  int ck[kCand];     // their gcols row: tap * P + position
+  int cyx[kCand];    // their low corner from the tile's origin, (y + 16) * 64 + x + 16, clamped
+  int4 stage[kPullT / 32][kStage];  // a warp's hits: gcols row, column, weights at x and x + 1
+  int warp_sum[kPullT / 32];
+  int list[kPullT];  // the gather's output tiles of one round
+};
+
+__device__ __forceinline__ void pull_zero(PullBlock& sm) {
+  for (int e = threadIdx.x; e < kPullPix * (kPullC + 1); e += kPullT) (&sm.acc[0][0])[e] = 0.f;
+}
+
+// Table entry e: candidate (k, p), or none (zero weights) when !valid.
+__device__ __forceinline__ void pull_entry(PullBlock& sm, int e, bool valid, const Geo& g,
+                                           const float* __restrict__ offset, const float* __restrict__ mask, int b,
+                                           int d, int k, int p, int ty0, int tx0) {
+  float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
+  int yx = 0;
+  if (valid) {
+    const TapWeights tw = weights_at(g, offset, mask, b, d, k, p);
+    w = tw.w;
+    yx = (min(max(tw.y0 - ty0, -16), 47) + 16) * 64 + min(max(tw.x0 - tx0, -16), 47) + 16;
+  }
+  sm.cw[e] = w;
+  sm.ck[e] = k * g.OH * g.OW + p;
+  sm.cyx[e] = yx;
+}
+
+// Apply a warp's ns staged hits to its row.
+__device__ __forceinline__ void pull_stage_apply(PullBlock& sm, const int4* st, int ns,
+                                                 const float* __restrict__ gcol, int C, int cw) {
+  constexpr int kU = 8;  // hits a warp has in flight
+  const int lane = threadIdx.x & 31, row = threadIdx.x >> 5;
+  const bool lo = lane < cw, hi = lane + 32 < cw;
+  for (int j0 = 0; j0 < ns; j0 += kU) {
+    int4 h[kU];
+    float v0[kU], v1[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      h[u] = j0 + u < ns ? st[j0 + u] : make_int4(-1, 0, 0, 0);
+      v0[u] = v1[u] = 0.f;
+      if (h[u].x >= 0) {
+        const float* r = gcol + static_cast<size_t>(h[u].x) * C;
+        if (lo) v0[u] = r[lane];
+        if (hi) v1[u] = r[lane + 32];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      if (h[u].x < 0) continue;
+      const float wa = __int_as_float(h[u].z), wb = __int_as_float(h[u].w);
+      if (wa != 0.f) {
+        float* a = sm.acc[row * 8 + h[u].y];
+        a[lane] = fmaf(wa, v0[u], a[lane]);
+        a[lane + 32] = fmaf(wa, v1[u], a[lane + 32]);
+      }
+      if (wb != 0.f) {
+        float* a = sm.acc[row * 8 + h[u].y + 1];
+        a[lane] = fmaf(wb, v0[u], a[lane]);
+        a[lane + 32] = fmaf(wb, v1[u], a[lane + 32]);
+      }
+    }
+  }
+}
+
+// Scan table entries [0, n) for the warp's row, staging and applying its
+// hits in order.
+__device__ __forceinline__ void pull_scan(PullBlock& sm, int n, const float* __restrict__ gcol, int C, int cw) {
+  const int lane = threadIdx.x & 31, row = threadIdx.x >> 5;
+  int4* st = sm.stage[row];
+  int ns = 0;
+  for (int i0 = 0; i0 < n; i0 += 32) {
+    const int i = i0 + lane;
+    bool has = false;
+    int4 hit = make_int4(0, 0, 0, 0);
+    if (i < n) {
+      const int ry = sm.cyx[i] / 64 - 16, rx = sm.cyx[i] % 64 - 16;
+      const float4 w = sm.cw[i];
+      float wa = ry == row ? w.x : ry + 1 == row ? w.z : 0.f;
+      float wb = ry == row ? w.y : ry + 1 == row ? w.w : 0.f;
+      if (rx < 0 || rx > 7) wa = 0.f;
+      if (rx < -1 || rx > 6) wb = 0.f;
+      has = wa != 0.f || wb != 0.f;
+      hit = make_int4(sm.ck[i], rx, __float_as_int(wa), __float_as_int(wb));
+    }
+    const unsigned m = __ballot_sync(0xffffffffu, has);
+    if (has) st[ns + __popc(m & ((1u << lane) - 1))] = hit;
+    ns += __popc(m);
+    if (ns > kStage - 32) {
+      __syncwarp();
+      pull_stage_apply(sm, st, ns, gcol, C, cw);
+      ns = 0;
+      __syncwarp();
+    }
+  }
+  __syncwarp();
+  pull_stage_apply(sm, st, ns, gcol, C, cw);
+}
+
+// Store the tile's grad_x (after the last scan and a barrier).
+__device__ __forceinline__ void pull_store(const PullBlock& sm, const Geo& g, int b, int c0, int cw, int ty0, int tx0,
+                                           float* __restrict__ gx) {
+  const size_t HW = static_cast<size_t>(g.H) * g.W;
+  for (int e = threadIdx.x; e < kPullPix * cw; e += kPullT) {
+    const int c = e / kPullPix, pix = e % kPullPix, y = ty0 + pix / 8, x = tx0 + pix % 8;
+    if (y < g.H && x < g.W) gx[(static_cast<size_t>(b) * g.C + c0 + c) * HW + y * g.W + x] = sm.acc[pix][c];
+  }
+}
+
+// Block (tile, (deformable group, channel chunk), batch) of a pull grid.
+struct PullCoords {
+  int ty0, tx0, d, c0, cw, b;
+};
+
+__device__ __forceinline__ PullCoords pull_coords(const Geo& g) {
+  const int Cdg = g.C / g.dg, cchunks = (Cdg + kPullC - 1) / kPullC, tiles_x = (g.W + 7) / 8;
+  PullCoords pc;
+  pc.ty0 = blockIdx.x / tiles_x * 8;
+  pc.tx0 = blockIdx.x % tiles_x * 8;
+  pc.d = blockIdx.y / cchunks;
+  pc.c0 = pc.d * Cdg + blockIdx.y % cchunks * kPullC;
+  pc.cw = min(kPullC, (pc.d + 1) * Cdg - pc.c0);
+  pc.b = blockIdx.z;
+  return pc;
+}
+
+inline dim3 pull_grid(const Geo& g) {
+  const int Cdg = g.C / g.dg;
+  return dim3(((g.H + 7) / 8) * ((g.W + 7) / 8), g.dg * ((Cdg + kPullC - 1) / kPullC), g.B);
+}
+
+// The bounded pull: every (tap, position) whose kept corners can land in the
+// tile lies in the (8 + 2 Ry) x (8 + 2 Rx) halo around it (the static reach
+// of the bounded-offset contract); the candidates are those, tap-major.
+__global__ void __launch_bounds__(kPullT) shift_pull_kernel(const float* __restrict__ offset,
+                                                           const float* __restrict__ mask,
+                                                           const float* __restrict__ gcols, float* __restrict__ gx,
+                                                           int Ry, int Rx, Geo g) {
+  __shared__ PullBlock sm;
+  const PullCoords pc = pull_coords(g);
+  const int K = g.kh * g.kw, HS = 8 + 2 * Ry, WS = 8 + 2 * Rx, n_cand = K * HS * WS;
+  const float* gcol = gcols + static_cast<size_t>(pc.b) * K * g.OH * g.OW * g.C + pc.c0;
+  pull_zero(sm);
+  for (int e0 = 0; e0 < n_cand; e0 += kCand) {
+    for (int e = threadIdx.x; e < kCand; e += kPullT) {
+      const int c = e0 + e, k = c / (HS * WS), rem = c % (HS * WS);
+      const int oy = pc.ty0 - Ry + rem / WS, ox = pc.tx0 - Rx + rem % WS;
+      pull_entry(sm, e, c < n_cand && oy >= 0 && oy < g.OH && ox >= 0 && ox < g.OW, g, offset, mask, pc.b, pc.d,
+                 k, oy * g.OW + ox, pc.ty0, pc.tx0);
+    }
+    __syncthreads();
+    pull_scan(sm, min(kCand, n_cand - e0), gcol, g.C, pc.cw);
+    __syncthreads();  // the next table overwrites this one
+  }
+  pull_store(sm, g, pc.b, pc.c0, pc.cw, pc.ty0, pc.tx0, gx);
+}
+
+// The gather's corner boxes: one warp per (b, d, 4 x 4 output tile) writes
+// [y_lo, y_hi) x [x_lo, x_hi), the input rows and columns its kept corners
+// with a nonzero weight touch (empty: y_lo > y_hi).
+__global__ void __launch_bounds__(kThreads) boxes_kernel(const float* __restrict__ offset,
+                                                         const float* __restrict__ mask, int4* __restrict__ boxes,
+                                                         Geo g) {
+  const int K = g.kh * g.kw, NTX = (g.OW + kBoxTile - 1) / kBoxTile;
+  const int NT = NTX * ((g.OH + kBoxTile - 1) / kBoxTile);
+  const int wid = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (wid >= g.B * g.dg * NT) return;
+  const int t = wid % NT, d = (wid / NT) % g.dg, b = wid / (NT * g.dg);
+  int ylo = 0x7fffffff, yhi = -0x7fffffff, xlo = 0x7fffffff, xhi = -0x7fffffff;
+  for (int e = lane; e < K * kBoxTile * kBoxTile; e += 32) {
+    const int k = e / (kBoxTile * kBoxTile), j = e % (kBoxTile * kBoxTile);
+    const int oy = t / NTX * kBoxTile + j / kBoxTile, ox = t % NTX * kBoxTile + j % kBoxTile;
+    if (oy >= g.OH || ox >= g.OW) continue;
+    const TapWeights tw = weights_at(g, offset, mask, b, d, k, oy * g.OW + ox);
+    const float w[4] = {tw.w.x, tw.w.y, tw.w.z, tw.w.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (w[i] == 0.f) continue;
+      ylo = min(ylo, tw.y0 + (i >> 1));
+      yhi = max(yhi, tw.y0 + (i >> 1) + 1);
+      xlo = min(xlo, tw.x0 + (i & 1));
+      xhi = max(xhi, tw.x0 + (i & 1) + 1);
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    ylo = min(ylo, __shfl_xor_sync(0xffffffffu, ylo, o));
+    yhi = max(yhi, __shfl_xor_sync(0xffffffffu, yhi, o));
+    xlo = min(xlo, __shfl_xor_sync(0xffffffffu, xlo, o));
+    xhi = max(xhi, __shfl_xor_sync(0xffffffffu, xhi, o));
+  }
+  if (lane == 0) boxes[wid] = make_int4(ylo, yhi, xlo, xhi);
+}
+
+// The gather's pull: the candidates are the (tap, position) pairs of the
+// 4 x 4 output tiles whose corner box meets the block's 8 x 8 input tile,
+// tile by tile, then tap by tap.  The tiles are taken 256 at a time: one
+// thread tests one box, and the tiles that meet are compacted in order.
+__global__ void __launch_bounds__(kPullT) gather_pull_kernel(const float* __restrict__ offset,
+                                                            const float* __restrict__ mask,
+                                                            const float* __restrict__ gcols,
+                                                            const int4* __restrict__ boxes, float* __restrict__ gx,
+                                                            Geo g) {
+  __shared__ PullBlock sm;
+  const PullCoords pc = pull_coords(g);
+  const int K = g.kh * g.kw, NTX = (g.OW + kBoxTile - 1) / kBoxTile;
+  const int NT = NTX * ((g.OH + kBoxTile - 1) / kBoxTile), per_tile = K * kBoxTile * kBoxTile;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float* gcol = gcols + static_cast<size_t>(pc.b) * K * g.OH * g.OW * g.C + pc.c0;
+  const int4* bx = boxes + (static_cast<size_t>(pc.b) * g.dg + pc.d) * NT;
+  pull_zero(sm);
+  for (int t0 = 0; t0 < NT; t0 += kPullT) {
+    bool on = false;
+    if (t0 + threadIdx.x < NT) {
+      const int4 r = bx[t0 + threadIdx.x];
+      on = r.x < pc.ty0 + 8 && r.y > pc.ty0 && r.z < pc.tx0 + 8 && r.w > pc.tx0;
+    }
+    const unsigned m = __ballot_sync(0xffffffffu, on);
+    if (lane == 0) sm.warp_sum[warp] = __popc(m);
+    __syncthreads();
+    int pos = 0, n_on = 0;
+#pragma unroll
+    for (int i = 0; i < kPullT / 32; ++i) {
+      const int s = sm.warp_sum[i];
+      if (i < warp) pos += s;
+      n_on += s;
+    }
+    if (on) sm.list[pos + __popc(m & ((1u << lane) - 1))] = t0 + threadIdx.x;
+    __syncthreads();
+    const int n_cand = n_on * per_tile;
+    for (int e0 = 0; e0 < n_cand; e0 += kCand) {
+      for (int e = threadIdx.x; e < kCand; e += kPullT) {
+        const int c = e0 + e, t = sm.list[min(c, n_cand - 1) / per_tile];
+        const int k = c % per_tile / (kBoxTile * kBoxTile), j = c % (kBoxTile * kBoxTile);
+        const int oy = t / NTX * kBoxTile + j / kBoxTile, ox = t % NTX * kBoxTile + j % kBoxTile;
+        pull_entry(sm, e, c < n_cand && oy < g.OH && ox < g.OW, g, offset, mask, pc.b, pc.d, k, oy * g.OW + ox,
+                   pc.ty0, pc.tx0);
+      }
+      __syncthreads();
+      pull_scan(sm, min(kCand, n_cand - e0), gcol, g.C, pc.cw);
+      __syncthreads();  // the next table, or the next round's tile list, overwrites this one
+    }
+  }
+  pull_store(sm, g, pc.b, pc.c0, pc.cw, pc.ty0, pc.tx0, gx);
+}
+
+// The 2D fused backward's launches.  pull(gcols) launches grad_x's pull.
+// gcols (B, K, P, C), xt (B, H*W, C) and part (splits, groups, C/groups*K,
+// O/groups) are the caller's scratch; outputs not wanted are null.
+template <int Prec, class Pull>
+inline cudaError_t run_bwd2d(const Geo& g, const float* x, const float* offset, const float* mask,
+                             const float* wk, const float* gout, float* gcols, float* xt, float* part, float* gx,
+                             float* goff, float* gmask, float* gwt, int splits, cudaStream_t s, Pull pull) {
+  const int K = g.kh * g.kw, P = g.OH * g.OW, HW = g.H * g.W;
+  const int Cgc = g.C / g.groups, Og = g.O / g.groups, rows = Cgc * K;
+  cudaError_t err;
+  if (goff || gmask || gwt) {
+    x_cl_kernel<<<dim3((HW + 31) / 32, (g.C + 31) / 32, g.B), 256, 0, s>>>(x, xt, g.C, HW);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  if (gx || goff || gmask) {
+    const dim3 grid((P + kMT - 1) / kMT, (rows + kMT - 1) / kMT, g.B * g.groups);
+    gcols_mma_kernel<Prec><<<grid, kMmaThreads, 0, s>>>(wk, gout, gcols, g);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  if (gx && (err = pull(gcols)) != cudaSuccess) return err;
+  if (goff || gmask) {
+    corr_kernel<<<dim3((P + kTP - 1) / kTP, K * g.dg, g.B), 256, 0, s>>>(xt, offset, mask, gcols, goff, gmask, g);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  if (gwt) {
+    // The most deformable groups the 64 channels of one block span.
+    const int Cdg = g.C / g.dg;
+    int nd_max = 1;
+    for (int gi = 0; gi < g.groups; ++gi)
+      for (int c0 = 0; c0 < Cgc; c0 += kMT) {
+        const int gc0 = gi * Cgc + c0, gc1 = gc0 + min(kMT, Cgc - c0) - 1;
+        nd_max = max(nd_max, gc1 / Cdg - gc0 / Cdg + 1);
+      }
+    const int tsteps = max(1, 8 / nd_max);
+    const size_t smem = sizeof(float) * 4 * kMK * kMS + (sizeof(float4) + sizeof(int)) * nd_max * tsteps * kMK;
+    if ((err = cudaFuncSetAttribute(gw_mma_kernel<Prec>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    static_cast<int>(smem))) != cudaSuccess)
+      return err;
+    const int total = g.B * P, chunk = (total + splits - 1) / splits;
+    const dim3 grid(K * ((Cgc + kMT - 1) / kMT) * ((Og + kMT - 1) / kMT), g.groups, splits);
+    gw_mma_kernel<Prec><<<grid, kMmaThreads, smem, s>>>(xt, offset, mask, gout, part, chunk, tsteps, g);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    const int n = g.groups * rows * Og;
+    fold_kernel<<<(n + 255) / 256, 256, 0, s>>>(part, gwt, n, splits, g.precision);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
 
 }  // namespace mdc

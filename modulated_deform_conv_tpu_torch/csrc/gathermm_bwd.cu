@@ -10,58 +10,75 @@
 //
 // What bounds it on the H100: the bytes x, offset, mask, W and gout in and
 // grad_x, grad_offset, grad_mask and grad_W out (100 MB in f32 at the
-// bench's config 2), against the two GEMMs (gcols and grad_W, 14.8 GFLOP
-// there): ~30 us at 3.35 TB/s, ~30 us at the 495 TFLOP/s TF32 rate.  With
-// the plain FP32 FMAs used here the 67 TFLOP/s FP32 rate bounds it (~220
-// us), and gcols goes through device memory once (231 MB there).
+// bench's config 2), against the two products (gcols and grad_W, 14.8
+// GFLOP there): ~30 us at 3.35 TB/s, ~30 us at the 495 TFLOP/s TF32 rate.
+// What it cannot avoid besides, in this split into kernels: gcols through
+// device memory (231 MB in fp32 there) and read back by the
+// pull (about four times, mostly from L2) and the correlation; the corner
+// gathers of the column rebuild and the correlation.
 //
-// What the design does about that, in five kernels on one stream (the shared
-// ones in deform_bwd.cuh):
-//   1. gcols_kernel: gcols = W2^T gout, tiled FP32 GEMM, channels innermost;
-//   2. ranges_kernel: per (batch, deformable group, 64-position output tile)
-//      the range [lo, hi) of flat input pixels its kept corners touch: the
-//      counterpart of `_prep`'s `bnd`;
-//   3. gather_gx_kernel: grad_x is a scatter with unbounded reach, so it is turned
-//      into a pull: a block owns 64 consecutive input pixels x 32 channels,
-//      walks the output tiles whose range overlaps its pixels in order, and
-//      applies their corner hits in a fixed order (deform_bwd.cuh);
-//   4. goff_kernel: one owner per (batch, group, tap, position) sums the
-//      correlation over the slab's channels in order;
-//   5. gw_kernel + fold_kernel: grad_W in fixed splits of the (batch,
-//      position) axis, columns rebuilt from x in shared memory, folded in
-//      order.
-// No float atomics anywhere, so two runs give the same bits.  Tensor cores
-// and a fused single pass are later work.
+// What the design does about that (deform_bwd.cuh, the tensor-core section):
+// both products on mma.sync in the mode's arithmetic with cp.async-staged
+// operands; x copied channels-last once, so that every corner read is a row
+// of consecutive channels; corner weights evaluated once per block into
+// shared tables.  grad_x is a scatter with
+// unbounded reach, so it is turned into a pull: boxes_kernel writes, per
+// (batch, deformable group, 4 x 4 output tile), the 2D box of input pixels
+// its kept corners touch (the counterpart of `_prep`'s `bnd`), and a pull
+// block of 8 x 8 input pixels x 64 channels takes as candidates the taps
+// and positions of the tiles whose box meets it, in order.  No float
+// atomics anywhere, so two runs give the same bits.
 #include "deform_bwd.cuh"
+
+namespace {
+
+using namespace mdc;
+
+template <int Prec>
+int run(const Geo& g, const float* x, const float* offset, const float* mask, const float* wk, const float* gout,
+        float* gcols, float* xt, int* boxes, float* part, float* gx, float* goff, float* gmask, float* gwt,
+        int splits, cudaStream_t s) {
+  auto pull = [&](const float* gc) {
+    const int NT = ((g.OH + kBoxTile - 1) / kBoxTile) * ((g.OW + kBoxTile - 1) / kBoxTile);
+    const int warps = g.B * g.dg * NT;
+    int4* bx = reinterpret_cast<int4*>(boxes);
+    boxes_kernel<<<(warps + kThreads / 32 - 1) / (kThreads / 32), kThreads, 0, s>>>(offset, mask, bx, g);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    gather_pull_kernel<<<pull_grid(g), kPullT, 0, s>>>(offset, mask, gc, bx, gx, g);
+    return cudaGetLastError();
+  };
+  return static_cast<int>(run_bwd2d<Prec>(g, x, offset, mask, wk, gout, gcols, xt, part, gx,
+                                             goff, gmask, gwt, splits, s, pull));
+}
+
+}  // namespace
 
 // x (B, C, H, W), offset (B, dg*2*K, OH, OW), mask (B, dg*K, OH, OW) or null,
 // wk (groups, O/groups, K, C/groups), gout (B, O, OH, OW): float32,
 // contiguous, on the current device.  Scratch, allocated by the caller:
-// gcols (B, K, OH*OW, C), ranges (B, dg, ceil(OH*OW/64)) int2, part (splits,
-// groups, C/groups*K, O/groups).  Outputs, each null when not wanted:
-// gx like x, goff like offset, gmask like mask, gwt (groups, C/groups*K,
-// O/groups).  Returns the first CUDA error of the launches, or 0.
+// gcols (B, K, OH*OW, C); xt (B, H*W, C);
+// boxes (B, dg, ceil(OH/4)*ceil(OW/4), 4) int32; part (splits, groups,
+// C/groups*K, O/groups).  Outputs, each null when not wanted: gx like x,
+// goff like offset, gmask like mask, gwt (groups, C/groups*K, O/groups).
+// Returns the first CUDA error of the launches, or 0.
 extern "C" int gathermm_bwd(const float* x, const float* offset, const float* mask, const float* wk,
-                            const float* gout, float* gcols, int* ranges, float* part, float* gx, float* goff,
-                            float* gmask, float* gwt, int B, int C, int H, int W, int O, int OH, int OW,
+                            const float* gout, float* gcols, float* xt, int* boxes, float* part, float* gx,
+                            float* goff, float* gmask, float* gwt, int B, int C, int H, int W, int O, int OH, int OW,
                             int groups, int dg, int kh, int kw, int sh, int sw, int ph, int pw, int dh, int dw,
                             int splits, int precision, void* stream) {
   using namespace mdc;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Geo g{B, C, H, W, O, OH, OW, groups, dg, kh, kw, sh, sw, ph, pw, dh, dw, 0, 0, 0, 0, 0, precision};
-  cudaError_t err = cudaSuccess;
-  if (gx || goff || gmask) {
-    if ((err = launch_gcols(g, wk, gout, gcols, s)) != cudaSuccess) return static_cast<int>(err);
+  switch (precision) {
+    case kFloat32:
+      return run<kFloat32>(g, x, offset, mask, wk, gout, gcols, xt, boxes, part, gx, goff, gmask, gwt, splits,
+                                  s);
+    case kTensorFloat32:
+      return run<kTensorFloat32>(g, x, offset, mask, wk, gout, gcols, xt, boxes, part, gx, goff, gmask, gwt,
+                                        splits, s);
+    default:
+      return run<kBFloat16>(g, x, offset, mask, wk, gout, gcols, xt, boxes, part, gx, goff, gmask,
+                                           gwt, splits, s);
   }
-  const KPC lay{kh * kw, OH * OW, C};
-  if (gx) {
-    err = launch_gather_gx(g, offset, mask, gcols, reinterpret_cast<int2*>(ranges), gx, lay, s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  if (goff || gmask) {
-    if ((err = launch_goff(g, x, offset, mask, gcols, goff, gmask, lay, s)) != cudaSuccess)
-      return static_cast<int>(err);
-  }
-  if (gwt) err = launch_gw(g, x, offset, mask, gout, part, gwt, splits, s);
-  return static_cast<int>(err);
 }

@@ -40,9 +40,11 @@ from .plan import jax_fuse_ok
 # shared memory next to the 66 KB column and weight tiles
 # (csrc/gathermm_fwd.cu, csrc/gathermm3d_fwd.cu): at most 128 and 71 taps.
 _MAX_TAPS = {2: 128, 3: 71}
-# Output positions per tile of the kernels (csrc/deform_tile.cuh kTP): the
-# 2D backward keeps one corner range per tile; the 3D one a box per 4 x 4 x 4
-# output brick (6 ints).
+# The backward kernels' corner boxes: the 2D fused one keeps one box (4 ints)
+# per 4 x 4 output tile (csrc/deform_bwd.cuh kBoxTile), the 3D one a box (6
+# ints) per 4 x 4 x 4 output brick; the 2D columns backward one flat corner
+# range per 64 positions (csrc/deform_tile.cuh kTP).
+_BOX_TILE = 4
 _TILE_P = 64
 _BRICK, _BOX_INTS = 4, 6
 
@@ -155,20 +157,21 @@ def _bwd(name, x, offset, mask, weight, grad_out, spec, precision, needs):
     # chunks of gcd(B, in_step): a memory knob that does not change the
     # result, since each of those gradients belongs to one sample.
     b_step = effective_step(B, spec.in_step) if spec.ndim == 3 else None
-    gx, goff, gmask, gwt, gcols, part, splits = lib.bwd_buffers(
+    gx, goff, gmask, gwt, gcols, xt, part, splits = lib.bwd_buffers(
         x, offset, mask, weight, spec, math.prod(OS), needs, b_step)
     if gx is None:
         tiles = None
-    elif b_step is None:       # one flat corner range per 64-position tile
-        tiles = torch.empty((B, dg, -(-math.prod(OS) // _TILE_P), 2),
-                            dtype=torch.int32, device=x.device)
+    elif b_step is None:       # one corner box per 4 x 4 output tile
+        tiles = torch.empty((B, dg, math.prod(-(-o // _BOX_TILE) for o in OS),
+                             4), dtype=torch.int32, device=x.device)
     else:                      # one box per output brick
         tiles = torch.empty((b_step, dg, math.prod(-(-o // _BRICK)
                                                    for o in OS), _BOX_INTS),
                             dtype=torch.int32, device=x.device)
     wk = lib.tap_major_weight(weight, spec.groups)
+    scratch = (gcols, tiles) if b_step else (gcols, xt, tiles)
     lib.launch(name, x, (
-        x, offset, mask, wk, grad_out, gcols, tiles, part, gx, goff, gmask,
+        x, offset, mask, wk, grad_out, *scratch, part, gx, goff, gmask,
         gwt), (*_geometry(x, weight, spec),
                *(() if b_step is None else (b_step,)), splits,
                lib.PRECISION_CODES[precision]))

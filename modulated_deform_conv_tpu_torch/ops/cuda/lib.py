@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import pathlib
 import shutil
@@ -176,8 +177,10 @@ def bwd_buffers(x, offset, mask, weight, spec, P: int, needs,
                 b_step: Optional[int] = None):
     """Outputs (None where not wanted) and scratch of a backward kernel:
     grad_x, grad_offset, grad_mask, grad_weight in the kernels' weight
-    layout, the gcols buffer (b_step, K, P, C) (b_step defaults to the
-    batch), the grad_weight partials, and their split count."""
+    layout, the gcols buffer (b_step, K, P, C), x channels-last (B, H*W, C)
+    for the correlation and grad_weight of the 2D kernels, the grad_weight
+    partials, and their split count.  b_step is the 3D kernels' batch chunk
+    (None in 2D: the whole batch; the 3D kernels take no channels-last x)."""
     want_x, want_off, want_mask, want_w = needs
     B, C = x.shape[:2]
     O, g, K = weight.shape[0], spec.groups, spec.tap_count
@@ -190,8 +193,10 @@ def bwd_buffers(x, offset, mask, weight, spec, P: int, needs,
     gwt = empty(g, C // g * K, O // g) if want_w else None
     gcols = (empty(b_step or B, K, P, C) if gx is not None or goff is not None
              or gmask is not None else None)
+    xt = (empty(B, math.prod(x.shape[2:]), C) if b_step is None and (
+        goff is not None or gmask is not None or gwt is not None) else None)
     part = empty(splits, g, C // g * K, O // g) if want_w else None
-    return gx, goff, gmask, gwt, gcols, part, splits
+    return gx, goff, gmask, gwt, gcols, xt, part, splits
 
 
 def launch(name: str, x: torch.Tensor, tensors, ints) -> None:

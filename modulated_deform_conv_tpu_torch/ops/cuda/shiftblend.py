@@ -279,11 +279,13 @@ def _bwd(name, x, offset, mask, weight, grad_out, spec, precision,
     # chunks of gcd(B, in_step): a memory knob that does not change the
     # result, since each of those gradients belongs to one sample.
     b_step = effective_step(B, spec.in_step) if spec.ndim == 3 else None
-    gx, goff, gmask, gwt, gcols, part, splits = lib.bwd_buffers(
+    gx, goff, gmask, gwt, gcols, xt, part, splits = lib.bwd_buffers(
         x, offset, mask, weight, spec, P, needs, b_step)
     wk = lib.tap_major_weight(weight, spec.groups)
+    scratch = (gcols,) if b_step else (gcols, xt)
     lib.launch(name, x, (
-        x, offset, mask, wk, grad_out, gcols, part, gx, goff, gmask, gwt), (
+        x, offset, mask, wk, grad_out, *scratch, part, gx, goff, gmask,
+        gwt), (
         *_geometry(x, weight, spec, offset_bound),
         *(() if b_step is None else (b_step,)), splits,
         lib.PRECISION_CODES[precision]))

@@ -62,11 +62,16 @@ GENERAL = [
     (1, 12, 70, (11, 13), 3, 2, 1, 1, 1, 3, False, True, 8.0),
     (2, 8, 8, (10, 10), (3, 1), 1, (2, 0), (2, 1), 2, 4, True, False, 1.0),
     (1, 256, 64, (9, 9), 5, 1, 2, 1, 4, 4, True, True, 2.0),
+    # 5x5 taps at stride 2 and dilation 2, 24 channels over 3 deformable
+    # groups, 70 output channels: no tile of the backward's products is full.
+    (2, 24, 70, (17, 19), 5, 2, 4, 2, 1, 3, True, False, 3.0),
 ]
 BOUNDED = [
     (2, 16, 24, (15, 9), 3, 1, 1, 1, 2, 2, True, True, 3.0, 1.0),
     (1, 32, 70, (12, 17), 3, 1, 2, 2, 1, 2, False, True, 4.0, 1.5),
     (2, 256, 64, (9, 9), 5, 1, 2, 1, 4, 4, True, True, 2.0, 2.0),
+    # no mask; 24 channels a conv group over deformable groups of 8.
+    (1, 48, 24, (13, 11), 3, 1, 1, 1, 2, 6, False, False, 2.0, 1.5),
 ]
 
 
@@ -134,15 +139,54 @@ def test_shiftblend_bwd_kernel_matches_plain(dev, case, precision):
     _check_grads(got, want, LIMITS[precision])
 
 
-def test_backward_bitwise_deterministic(dev):
+@pytest.mark.parametrize("precision", ["tensorfloat32", "bfloat16"])
+def test_backward_bitwise_deterministic(dev, precision):
     """Two backward runs of each kernel give the same bits (no atomics)."""
     spec, (x, off, mask, w, _) = _case(dev, *GENERAL[3])
     gout = _grad_out(spec, x, w)
-    runs = [gm.gathermm_bwd(x, off, mask, w, gout, spec) for _ in range(2)]
-    runs += [sb.shiftblend_bwd(x, off, mask, w, gout, spec, "tensorfloat32",
-                               2.0) for _ in range(2)]
+    runs = [gm.gathermm_bwd(x, off, mask, w, gout, spec, precision)
+            for _ in range(2)]
+    runs += [sb.shiftblend_bwd(x, off, mask, w, gout, spec, precision, 2.0)
+             for _ in range(2)]
     for a, b in ((runs[0], runs[1]), (runs[2], runs[3])):
         assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def _bwd_pair(family):
+    if family == "gathermm":
+        return gm.gathermm_bwd, gm.gathermm_bwd_reference, GENERAL[0], ()
+    return sb.shiftblend_bwd, sb.shiftblend_bwd_reference, BOUNDED[0][:-1], (
+        BOUNDED[0][-1],)
+
+
+@pytest.mark.parametrize("precision", list(LIMITS))
+@pytest.mark.parametrize("needs", [(True, False, False, False),
+                                   (False, False, False, True),
+                                   (False, True, True, False)])
+@pytest.mark.parametrize("family", ["gathermm", "shiftblend"])
+def test_bwd_needs_subsets(dev, family, needs, precision):
+    """Only the wanted gradients come back, each as the plain version's."""
+    bwd, ref, case, extra = _bwd_pair(family)
+    spec, (x, off, mask, w, _) = _case(dev, *case)
+    gout = _grad_out(spec, x, w)
+    got = bwd(x, off, mask, w, gout, spec, precision, *extra, needs=needs)
+    want = ref(x, off, mask, w, gout, spec, precision, *extra)
+    _check_grads(got, [r if n else None for r, n in zip(want, needs)],
+                 LIMITS[precision])
+
+
+@pytest.mark.parametrize("precision", list(LIMITS))
+@pytest.mark.parametrize("family", ["gathermm", "shiftblend"])
+def test_bwd_config2_full_size(dev, family, precision):
+    """The bench's config 2: B=8, 256 -> 256, 56x56, 3x3, g = dg = 4."""
+    bwd, ref, _, extra = _bwd_pair(family)
+    spec, (x, off, mask, w, _) = _case(dev, 8, 256, 256, (56, 56), 3, 1, 1,
+                                       1, 4, 4, True, False, 2.0)
+    gout = _grad_out(spec, x, w)
+    extra = (2.0,) if extra else ()
+    _check_grads(bwd(x, off, mask, w, gout, spec, precision, *extra),
+                 ref(x, off, mask, w, gout, spec, precision, *extra),
+                 LIMITS[precision])
 
 
 def test_auto_dispatch_and_raises(dev):
