@@ -38,7 +38,8 @@ layers of both networks saw at their first and last step), holds the
 columns path against the fused pair, checks that the backward is bitwise
 deterministic, times kernels, the grouped product, cuDNN's dense
 convolution as an anchor, `grid_sample` as the columns' library yardstick
-and steps with CUDA events, and prints the kernel table as one JSON line
+and steps with CUDA events (the config-2 steps also in device time), times
+the 2D shift-blend forward's two routes side by side, and prints the kernel table as one JSON line
 and a last line {"ok": true, "device": {...}}.
 
 Run from the repository root:  python3 chip_smoke.py
@@ -119,6 +120,15 @@ CFG5 = {"c3": (512, 28, "gathermm"), "c4": (1024, 14, "gathermm_cols"),
 CFG5_B = 32
 # (iters, per_sample, warmup) of time_ms for config 5's plain path.
 TIMING_PLAIN5 = (5, 2, 1)
+# The 2D shift-blend forward's two routes (csrc/deform_fwd.cuh: the halo
+# tile, or the corners from channels-last x), timed side by side at bound 2,
+# B=8, 3x3, mask and bias: config 2, and g = dg = 1 planes from 56 x 56 down
+# to DCNResNet-50's c3 and c4 sizes, on both sides of halo_route's 2048
+# positions.  (label, C = O, (H, W), groups = deformable groups)
+ROUTE_SHAPES = [("cfg2", 256, (56, 56), 4), ("56x56", 256, (56, 56), 1),
+                ("48x48", 128, (48, 48), 1), ("32x32", 128, (32, 32), 1),
+                ("28x28 (c3)", 128, (28, 28), 1), ("16x16", 256, (16, 16), 1),
+                ("14x14 (c4)", 256, (14, 14), 1)]
 # The columns path in 3D: config 3's size with two conv groups over one
 # deformable group, modulated, with bias.
 COLS3D = dict(B=2, C=64, S=(16, 32, 32), groups=2)
@@ -126,13 +136,17 @@ COLS3D = dict(B=2, C=64, S=(16, 32, 32), groups=2)
 # ("tensorfloat32", ms): each table row's `ms`, at the row's own config (2D
 # fused rows at config 2, 3D rows at configs 3 and 4 B=1, column rows at
 # config 5 c4 and the 3D columns case), printed beside this run's.
-PREV_MS = {"shiftblend_fwd": 0.4721, "gathermm_fwd": 0.6192, "shiftblend_bwd": 3.1269,
-           "gathermm_bwd": 3.1563, "shiftblend3d_fwd": 16.9480, "gathermm3d_fwd": 0.9751,
-           "shiftblend3d_bwd": 48.5179, "gathermm3d_bwd": 4.8274, "gathermm_cols_fwd": 0.1499,
-           "gathermm_cols_bwd": 1.3659, "gathermm3d_cols_fwd": 0.3220,
-           "gathermm3d_cols_bwd": 3.9291}
-PREV_STEP_MS = {"cfg2 bounded": 3.8172, "cfg2 general": 3.8975,
-                "DCNResNet-50 device": 22.44, "DCNResNet-50 DCN kernels": 13.58}
+PREV_MS = {"shiftblend_fwd": 0.4826, "gathermm_fwd": 0.5903, "shiftblend_bwd": 0.9788,
+           "gathermm_bwd": 1.0616, "shiftblend3d_fwd": 16.8577, "gathermm3d_fwd": 0.9465,
+           "shiftblend3d_bwd": 48.9361, "gathermm3d_bwd": 4.8020, "gathermm_cols_fwd": 0.1506,
+           "gathermm_cols_bwd": 1.3616, "gathermm3d_cols_fwd": 0.3128,
+           "gathermm3d_cols_bwd": 3.9185}
+# The same release's steps and totals (ms): the config-2 training steps, the
+# DCNResNet-50 step's device time, its DCN kernels and its 13 gathermm_fwd
+# launches (from the step's profile), and config 5 c3's forward op.
+PREV_STEP_MS = {"cfg2 bounded": 1.5789, "cfg2 general": 1.7881,
+                "DCNResNet-50 device": 15.8475, "DCNResNet-50 DCN kernels": 7.036,
+                "DCNResNet-50 gathermm_fwd": 4.1352, "cfg5 c3 op_fwd": 8.2007}
 
 
 class SmokeFailure(Exception):
@@ -167,6 +181,23 @@ def time_ms(fn, iters=TIMED_ITERS, per_sample=10, warmup=3):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / per_sample)
+    return statistics.median(times)
+
+
+def host_ms(fn, calls=10, samples=5):
+    """Median over `samples` of the host's time to issue one fn() call, in
+    ms: the wall clock around `calls` back-to-back calls with no
+    synchronisation inside, the device idle at the start of each sample."""
+    import torch
+    fn()
+    times = []
+    for _ in range(samples):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e3)
+    torch.cuda.synchronize()
     return statistics.median(times)
 
 
@@ -342,10 +373,42 @@ def check_recorded(torch, recorded, layers, pair, label):
     print(f"{label} layer checks: peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
 
-DCN_KERNELS = ("gathermm_fwd_kernel", "gathermm3d_fwd_kernel", "gcols_kernel", "ranges_kernel",
-               "boxes3_kernel", "gx_kernel", "gx3_kernel", "goff_kernel", "goff3_kernel",
-               "gw3_kernel", "fold_kernel", "cols_kernel", "cols3_kernel", "x_cl_kernel",
-               "gcols_mma_kernel", "gw_mma_kernel", "corr_kernel", "boxes_kernel", "pull_kernel")
+DCN_KERNELS = ("fwd_mma_kernel", "fold_out_kernel", "gathermm3d_fwd_kernel", "gcols_kernel",
+               "ranges_kernel", "boxes3_kernel", "gx_kernel", "gx3_kernel", "goff_kernel",
+               "goff3_kernel", "gw3_kernel", "fold_kernel", "cols_kernel", "cols3_kernel",
+               "x_cl_kernel", "gcols_mma_kernel", "gw_mma_kernel", "corr_kernel", "boxes_kernel",
+               "pull_kernel")
+
+
+def time_recorded_fwd(torch, recorded, fwd, label):
+    """The forward kernel's time (main precision) on each DCN layer's inputs
+    recorded at the trainer's last step, beside the layer's bound: CUDA
+    events around back-to-back calls (where a call's host work outlasts
+    its device work, this is the host's time) and the device time of the
+    kernels one call launches (torch.profiler).  Returns the sums (ms) over
+    the layers."""
+    last = max(rec["step"] for rec in recorded)
+    total = {"ms": 0.0, "device_ms": 0.0, "bound_ms": 0.0}
+    with torch.no_grad():
+        for rec in recorded:
+            if rec["step"] != last:
+                continue
+            xs, offs, masks, ws = rec["ins"]
+            args = (xs, offs, masks, ws, None, rec["spec"], MAIN_PRECISION)
+            ms = time_ms(lambda: fwd(*args))
+            device_ms = sum(device_time_by_kernel(lambda: fwd(*args), calls=5).values())
+            n_out = math.prod(fwd(*args).shape)
+            bound_ms, bound_by = bound_of(*work((xs, offs, masks, ws, None), n_out, rec["spec"])["fwd"])
+            total["ms"] += ms
+            total["device_ms"] += device_ms
+            total["bound_ms"] += bound_ms
+            print(f"{label} {rec['name']} x {tuple(xs.shape)} stride {rec['spec'].stride[0]}: "
+                  f"{fwd.__name__} {ms:.4f} ms (device {device_ms:.4f} ms), bound {bound_ms:.4f} ms "
+                  f"({bound_by})")
+    print(f"{label}: {fwd.__name__} summed over its layers {total['ms']:.4f} ms, device "
+          f"{total['device_ms']:.4f} ms, summed bound {total['bound_ms']:.4f} ms (previous release, "
+          f"from the step's profile: {PREV_STEP_MS[label + ' gathermm_fwd']} ms)")
+    return total
 
 
 def profile_train_step(res, train_step, label):
@@ -359,6 +422,40 @@ def profile_train_step(res, train_step, label):
                 f"{PREV_STEP_MS[label + ' device']} ms)" if label + " device" in PREV_STEP_MS else "")
         print(f"{label} step: the port's DCN kernels {dcn_ms:.3f} ms of "
               f"{sum(prof.values()):.3f} ms device time{prev}")
+
+
+def time_routes(torch, sb, dev):
+    """Both routes of the 2D shift-blend forward at ROUTE_SHAPES, each held
+    against the plain version in the main precision and timed; prints which
+    route `halo_route` picks and whether it was the faster here."""
+    from modulated_deform_conv_tpu_torch.utils.config import DeformConvSpec
+    rng = np.random.default_rng(5)
+    out = {}
+    with torch.no_grad():
+        for label, c, hw, g in ROUTE_SHAPES:
+            spec = DeformConvSpec.make(2, KS, 1, 1, 1, g, g, modulated=True)
+            K = KS * KS
+            t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)  # noqa: E731
+            ins = (t(rng.standard_normal((B, c) + hw)),
+                   t(rng.uniform(-2, 2, (B, g * 2 * K) + hw)),
+                   t(rng.uniform(0, 1, (B, g * K) + hw)),
+                   t(rng.standard_normal((c, c // g, KS, KS)) * 0.05),
+                   t(rng.standard_normal((c,))))
+            want = sb.shiftblend_fwd_reference(*ins, spec, MAIN_PRECISION, BOUND)
+            ms = {}
+            for route, halo in (("halo", True), ("xt", False)):
+                def run(halo=halo):
+                    return sb._fwd("shiftblend_fwd", *ins, spec, MAIN_PRECISION, BOUND, halo=halo)
+                e = rel_err(run(), want)
+                check(e <= LIMITS[MAIN_PRECISION], f"shiftblend_fwd {route} route at {label}: rel err {e:.3e}")
+                ms[route] = time_ms(run)
+            pick = "halo" if sb.halo_route(hw) else "xt"
+            faster = min(ms, key=ms.get)
+            print(f"shiftblend_fwd route at {label} (B={B}, {c} ch, {hw[0]}x{hw[1]}, g = dg = {g}): "
+                  f"halo {ms['halo']:.4f} ms, xt {ms['xt']:.4f} ms; halo_route picks {pick}"
+                  f"{'' if pick == faster else ' (the slower here)'}")
+            out[label] = {**ms, "pick": pick}
+    return out
 
 
 def cfg3d_inputs(torch, dev, name):
@@ -997,8 +1094,14 @@ def run_columns(torch, mdt, gm, reset, counts, dev):
 
             with torch.no_grad():
                 t = {"op_fwd": time_ms(lambda: op5(ins, impl="auto")),
+                     "gathermm_fwd": time_ms(lambda: gm.gathermm_fwd(*ins, spec, MAIN_PRECISION)),
                      "columns_path_op_fwd": time_ms(
                          lambda: gm.deform_conv_cols(*ins, spec, MAIN_PRECISION))}
+            t["gathermm_fwd_bound"], bound_by = bound_of(
+                *work(ins, CFG5_B * C * S * S, spec)["fwd"])
+            print(f"{label}: gathermm_fwd {t['gathermm_fwd']:.4f} ms, bound "
+                  f"{t['gathermm_fwd_bound']:.4f} ms ({bound_by}); op forward {t['op_fwd']:.4f} ms "
+                  f"(previous release {PREV_STEP_MS['cfg5 c3 op_fwd']} ms)")
             # The same layer forced onto the columns path, for comparison.
             t.update(step=time_ms(lambda: step(impl="auto")),
                      columns_path_step=time_ms(cols_step),
@@ -1349,16 +1452,36 @@ def main() -> int:
                 print(f"{name}: {ms:.4f} ms (previous release {PREV_MS[name]:.4f} ms; plain "
                       f"{plain_ms:.3f} ms, dense conv {kind} anchor {anchors[kind]:.4f} ms, "
                       f"bound {bounds[kind][0]:.4f} ms)")
-    steps = {}
+    # The steps on CUDA events (back-to-back, so the host's enqueue of a step
+    # overlaps the device's run of the previous), in device time (the sum
+    # of the kernels one step launches, torch.profiler) and in host time
+    # (issuing one step): where the first exceeds the second, the host sets
+    # the step's time.
+    steps, steps_device, steps_host = {}, {}, {}
     for label, kw in (("bounded", dict(impl="auto", offset_bound=BOUND)),
                       ("general", dict(impl="auto")), ("plain", dict(impl="torch"))):
         steps[label] = time_ms(lambda: cfg2_step(**kw))
         prev = PREV_STEP_MS.get(f"cfg2 {label}")
         print(f"cfg2 training step (fwd + bwd of sum(out^2), five grads) {label}: "
               f"{steps[label]:.4f} ms" + (f" (previous release {prev:.4f} ms)" if prev else ""))
-    # Where the device time of the backward goes, kernel by kernel, and
-    # the backward's time in the other two modes.
+        if label != "plain":
+            prof = device_time_by_kernel(lambda: cfg2_step(**kw))
+            steps_device[label] = sum(prof.values()) if prof else None
+            steps_host[label] = host_ms(lambda: cfg2_step(**kw))
+            print(f"cfg2 training step {label}: host {steps_host[label]:.4f} ms to issue")
+            print_breakdown(f"cfg2 training step {label} profile", prof)
+    # Phase 7b: the shift-blend forward's two routes side by side.
+    routes = time_routes(torch, sb, dev)
+    # Where the device time of the forward and the backward goes, kernel by
+    # kernel, and their times in the other two modes.
     with torch.no_grad():
+        for fam, (fwd, _, _, _) in families.items():
+            fargs = (x, off, mask, w, bias, spec, MAIN_PRECISION, *extra[fam])
+            print_breakdown(f"{fam}_fwd cfg2 profile", device_time_by_kernel(lambda: fwd(*fargs)))
+            by_mode = {prec: time_ms(lambda: fwd(x, off, mask, w, bias, spec, prec, *extra[fam]))
+                       for prec in LIMITS}
+            results[f"{fam}_fwd"]["ms_by_mode"] = by_mode
+            print(f"{fam}_fwd cfg2 by mode: " + " ".join(f"{p} {ms:.4f} ms" for p, ms in by_mode.items()))
         for fam, (_, _, bwd, _) in families.items():
             args = (x, off, mask, w, gout, spec, MAIN_PRECISION, *extra[fam])
             print_breakdown(f"{fam}_bwd cfg2 profile", device_time_by_kernel(lambda: bwd(*args)))
@@ -1392,6 +1515,10 @@ def main() -> int:
     # The general kernels against their plain versions on the recorded
     # inputs of every DCN layer, every mode.
     check_recorded(torch, recorded, DCN_LAYERS, families["gathermm"], "DCNResNet")
+    resnet_fwd = time_recorded_fwd(torch, recorded, gm.gathermm_fwd, "DCNResNet-50")
+    results["gathermm_fwd"].update(resnet50_layers_ms=resnet_fwd["ms"],
+                                   resnet50_layers_device_ms=resnet_fwd["device_ms"],
+                                   resnet50_layers_bound_ms=resnet_fwd["bound_ms"])
     del recorded
     profile_train_step(res, train_step, "DCNResNet-50")
     del res
@@ -1450,8 +1577,13 @@ def main() -> int:
                        plain_ms=results[n]["plain_ms"], bound_ms=bounds[kind][0],
                        bound_by=bounds[kind][1], at="cfg2 B=8",
                        rel_err=results[n]["rel_err"])
-            if "ms_by_mode" in results[n]:
-                row["ms_by_mode"] = results[n]["ms_by_mode"]
+            for k in ("ms_by_mode", "resnet50_layers_ms", "resnet50_layers_device_ms",
+                      "resnet50_layers_bound_ms"):
+                if k in results[n]:
+                    row[k] = results[n][k]
+            if n == "gathermm_fwd":
+                c3 = r5["times"]["cfg5_c3"]
+                row.update(ms_cfg5_c3=c3["gathermm_fwd"], bound_ms_cfg5_c3=c3["gathermm_fwd_bound"])
             row[f"dense_conv_{kind}_anchor_ms"] = anchors[kind]
         table.append({
             "name": n, "route": "cuda",
@@ -1467,6 +1599,8 @@ def main() -> int:
         f"{r['name']} {r['ms']:.4f} / {PREV_MS[r['name']]:.4f} ({r['ms'] / PREV_MS[r['name']]:.3f}x)"
         for r in table))
     print(json.dumps({"kernels": table, "cfg2_train_step_ms": steps,
+                      "cfg2_train_step_device_ms": steps_device, "cfg2_train_step_host_ms": steps_host,
+                      "shiftblend_fwd_routes_ms": routes,
                       "dcn_resnet50_step_ms": step_ms, "train_step3d_ms": r3["steps"],
                       "both_kernels3d_ms": r3["cross"], "dcn_videonet_step_ms": video_ms,
                       "columns_path_ms": r5["times"]}))

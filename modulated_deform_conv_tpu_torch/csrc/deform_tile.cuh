@@ -1,16 +1,13 @@
-// Pieces shared by the forward kernels (gathermm_fwd.cu, shiftblend_fwd.cu);
-// the backward kernels (deform_bwd.cuh) use the corner rules and tile_fma.
+// Corner rules and FP32-FMA tile pieces shared by the kernels.
 //
-// Both kernels have one shape.  A block owns a tile of kTP output positions x
-// kTO output channels of ONE conv group.  It walks the input channels of that
-// group in deformable-group slabs: per slab it builds a corner table in shared
-// memory (for every (tap, position) of the tile the flat index of the low
-// corner and the four corner weights, with the tap gate, the in-image checks
-// and the mask folded in), then, chunk by chunk, it fills a
-// (rows = channel x tap, kTP) column tile from that table and multiplies it
-// against the matching (rows, kTO) weight slab with fp32 accumulation in
-// registers.  The sum over the slabs of a group happens in that loop, so no
-// partial result ever goes to device memory; bias is added in fp32 at the end.
+// The corner rules (tap_corners, tap_weights, weights_at, tap_grad) are the
+// function every 2D kernel computes.  The FP32-FMA tile (kTP output
+// positions x kTO output channels of one conv group, a corner table per
+// deformable-group slab, column chunks multiplied into register
+// accumulators by tile_fma against weight rows staged by load_weights) is
+// the shape of the 3D forwards (deform_tile3d.cuh) and of the first
+// sections of deform_bwd.cuh; the 2D forwards run on tensor cores
+// (deform_fwd.cuh).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -102,6 +99,28 @@ __device__ __forceinline__ TapWeights tap_weights(
   return t;
 }
 
+// Geometry of one call, passed by value to every kernel.
+struct Geo {
+  int B, C, H, W, O, OH, OW, groups, dg, kh, kw, sh, sw, ph, pw, dh, dw;
+  int windowed, lo_y, win_y, lo_x, win_x;
+  int precision;
+};
+
+__device__ __forceinline__ float mask_at(const Geo& g, const float* __restrict__ mask, int b, int d, int k, int p) {
+  const int K = g.kh * g.kw, P = g.OH * g.OW;
+  return mask ? mask[(static_cast<size_t>(b) * g.dg * K + static_cast<size_t>(d) * K + k) * P + p] : 1.f;
+}
+
+// Mask-folded corner weights of tap k at output position p (tap_weights).
+__device__ __forceinline__ TapWeights weights_at(const Geo& g, const float* __restrict__ offset,
+                                                 const float* __restrict__ mask, int b, int d, int k, int p) {
+  const int K = g.kh * g.kw, P = g.OH * g.OW;
+  const int oy = p / g.OW, ox = p % g.OW, ky = k / g.kw, kx = k % g.kw;
+  const size_t oidx = (static_cast<size_t>(b) * g.dg * 2 * K + static_cast<size_t>(d) * 2 * K + 2 * k) * P + p;
+  return tap_weights(oy * g.sh - g.ph + ky * g.dh, ox * g.sw - g.pw + kx * g.dw, offset[oidx], offset[oidx + P],
+                     mask_at(g, mask, b, d, k, p), g.H, g.W, g.windowed, g.lo_y, g.win_y, g.lo_x, g.win_x);
+}
+
 // The corner weights without the mask, and their derivatives with respect
 // to the sampling position, per axis and per corner.  The gate carries no
 // derivative, and a dropped corner (outside the image, or outside the
@@ -183,13 +202,6 @@ __device__ __forceinline__ void tile_fma(const float* __restrict__ colsS,
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
   }
-}
-
-// Shared memory of one block, in floats: column tile, weight tile, corner
-// table (float4 weights + int index per (tap, position)), then `extra`.
-__host__ __device__ inline size_t smem_floats(int rows_cap, int K, size_t extra) {
-  return static_cast<size_t>(rows_cap) * kTP + static_cast<size_t>(rows_cap) * kWStride +
-         static_cast<size_t>(K) * kTP * 5 + extra;
 }
 
 }  // namespace mdc

@@ -29,6 +29,13 @@ from torch import nn
 from .modules import ModulatedDeformConv2dPack, ModulatedDeformConv3dPack
 
 
+def _promote(x: torch.Tensor, param: torch.Tensor) -> torch.Tensor:
+    """x in the result type of x and the parameters, as flax's `nn.Conv`
+    and `nn.GroupNorm` promote their input (bf16 input, fp32 parameters:
+    fp32)."""
+    return x.to(torch.promote_types(x.dtype, param.dtype))
+
+
 class ConvBN(nn.Module):
     """kxk conv (no bias, pad k//2) + GroupNorm(min(32, C)) + optional
     ReLU."""
@@ -45,7 +52,7 @@ class ConvBN(nn.Module):
         self.relu = relu
 
     def forward(self, x):
-        y = self.norm(self.conv(x))
+        y = self.norm(self.conv(_promote(x, self.conv.weight)))
         return F.relu(y) if self.relu else y
 
 
@@ -158,7 +165,7 @@ class ConvBN3d(nn.Module):
         self.relu = relu
 
     def forward(self, x):
-        y = self.norm(self.conv(x))
+        y = self.norm(self.conv(_promote(x, self.conv.weight)))
         return F.relu(y) if self.relu else y
 
 

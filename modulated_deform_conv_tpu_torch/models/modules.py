@@ -163,10 +163,16 @@ class _PackBase(_DeformConvBase):
             conv.bias.zero_()
         return conv
 
+    def _predict(self, conv: nn.Module, x):
+        """A predictor conv in x's dtype, as the JAX package's
+        `_PredictorConv`: weight and bias cast to x's dtype."""
+        return conv._conv_forward(x, conv.weight.to(x.dtype),
+                                  conv.bias.to(x.dtype))
+
     def forward(self, x):
-        offset = self.conv_offset(x)
+        offset = self._predict(self.conv_offset, x)
         if self._modulated:
-            mask = self.conv_mask(x)
+            mask = self._predict(self.conv_mask, x)
             if self.sigmoid_mask:
                 mask = torch.sigmoid(mask)
             return self._conv(x, offset, mask)

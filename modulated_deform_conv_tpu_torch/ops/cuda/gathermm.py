@@ -36,10 +36,11 @@ from .. import core
 from . import lib
 from .plan import jax_fuse_ok
 
-# The corner table holds K * 64 entries of 20 bytes (2D) or 36 bytes (3D) in
-# shared memory next to the 66 KB column and weight tiles
-# (csrc/gathermm_fwd.cu, csrc/gathermm3d_fwd.cu): at most 128 and 71 taps.
-_MAX_TAPS = {2: 128, 3: 71}
+# The 3D forward's corner table holds K * 64 entries of 36 bytes in shared
+# memory next to the 66 KB column and weight tiles (csrc/gathermm3d_fwd.cu):
+# at most 71 taps.  The 2D forward's table spans at most 9 taps
+# (csrc/deform_fwd.cuh), so any tap count fits.
+_MAX_TAPS_3D = 71
 # The backward kernels' corner boxes: the 2D fused one keeps one box (4 ints)
 # per 4 x 4 output tile (csrc/deform_bwd.cuh kBoxTile), the 3D one a box (6
 # ints) per 4 x 4 x 4 output brick; the 2D columns backward one flat corner
@@ -57,9 +58,9 @@ def ineligible_reason(x: torch.Tensor, spec: DeformConvSpec) -> Optional[str]:
         return f"unsupported dtype {x.dtype}"
     if x.shape[1] % spec.deformable_groups:
         return "channels not divisible by deformable_groups"
-    if spec.tap_count > _MAX_TAPS[spec.ndim]:
-        return (f"more than {_MAX_TAPS[spec.ndim]} kernel taps do not fit "
-                "the shared-memory corner table")
+    if spec.ndim == 3 and spec.tap_count > _MAX_TAPS_3D:
+        return (f"more than {_MAX_TAPS_3D} kernel taps do not fit the "
+                "shared-memory corner table")
     return None
 
 
@@ -89,9 +90,17 @@ def _fwd(name, x, offset, mask, weight, bias, spec, precision):
     out = torch.empty((x.shape[0], weight.shape[0])
                       + spec.out_sizes(x.shape[2:]), dtype=torch.float32,
                       device=x.device)
-    wt = lib.grouped_weight(weight, spec.groups)
-    lib.launch(name, x, (x, offset, mask, wt, bias, out), (
-        *_geometry(x, weight, spec), lib.PRECISION_CODES[precision]))
+    code = lib.PRECISION_CODES[precision]
+    if spec.ndim == 2:
+        xt, part, splits = lib.fwd_buffers(x, weight, spec, out)
+        lib.launch(name, x, (x, offset, mask,
+                             lib.fwd_weight(weight, spec.groups), bias, out,
+                             xt, part),
+                   (*_geometry(x, weight, spec), splits, code))
+    else:
+        lib.launch(name, x, (x, offset, mask,
+                             lib.grouped_weight(weight, spec.groups), bias,
+                             out), (*_geometry(x, weight, spec), code))
     return out
 
 

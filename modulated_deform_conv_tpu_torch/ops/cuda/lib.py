@@ -149,6 +149,15 @@ def grouped_weight(weight: torch.Tensor, groups: int) -> torch.Tensor:
             .contiguous())
 
 
+def fwd_weight(weight: torch.Tensor, groups: int) -> torch.Tensor:
+    """(O, C/g, kh, kw) -> (g, K, C/g, O/g): the 2D forward kernels' weight
+    layout, each (tap, channel) row holding the group's output channels
+    contiguously, the rows of one tap consecutive."""
+    O, Cg = weight.shape[:2]
+    return (weight.reshape(groups, O // groups, Cg, -1).permute(0, 3, 2, 1)
+            .contiguous())
+
+
 def tap_major_weight(weight: torch.Tensor, groups: int) -> torch.Tensor:
     """(O, C/g, *k) -> (g, O/g, K, C/g): the backward kernels' weight
     layout, each output channel's (tap, channel) rows tap-major."""
@@ -171,6 +180,32 @@ def grad_weight_splits(spec, B: int, C: int, O: int, P: int) -> int:
     Og = O // spec.groups
     blocks = -(-rows // 64) * -(-Og // 64) * spec.groups
     return max(1, min(-(-(B * P) // 512), 1024 // blocks))
+
+
+def fwd_splits(spec, B: int, C: int, O: int, P: int) -> int:
+    """How many parts the 2D forward kernels split their contraction into
+    (csrc/deform_fwd.cuh): enough blocks of 64 positions x up to 256 output
+    channels for two on each of the H100's 132 SMs, at least 4 stages of 32
+    (channel, tap) rows a part.  It depends on the shapes only, so the
+    summation order does too."""
+    Og = O // spec.groups
+    tiles = 1 if Og <= 64 else 2 if Og <= 128 else 4
+    blocks = -(-(B * P) // 64) * spec.groups * -(-Og // (64 * tiles))
+    stages = spec.tap_count * -(-(C // spec.groups) // 32)
+    return max(1, min(-(-264 // blocks), stages // 4))
+
+
+def fwd_buffers(x, weight, spec, out):
+    """Scratch of a 2D forward kernel: x channels-last (B, H*W, C), the
+    split parts (splits, *out.shape) or None, and the split count."""
+    B, C = x.shape[:2]
+    P = math.prod(out.shape[2:])
+    splits = fwd_splits(spec, B, C, weight.shape[0], P)
+    xt = torch.empty((B, math.prod(x.shape[2:]), C), dtype=torch.float32,
+                     device=x.device)
+    part = (torch.empty((splits,) + tuple(out.shape), dtype=torch.float32,
+                        device=x.device) if splits > 1 else None)
+    return xt, part, splits
 
 
 def bwd_buffers(x, offset, mask, weight, spec, P: int, needs,

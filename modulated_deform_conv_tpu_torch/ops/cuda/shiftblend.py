@@ -34,14 +34,14 @@ from ...utils.config import DeformConvSpec, effective_step
 from .. import core
 from . import lib
 
-# Shared-memory layout of the forward kernels, in floats: column and
-# weight tiles of rows_cap rows, the corner table (_TABLE floats per (tap,
-# position)), and a chunk of _CHUNK channels of the halo-extended output
-# tile: 8 x 8 in 2D (csrc/shiftblend_fwd.cu), a 4 x 4 x 4 brick in 3D
-# (csrc/shiftblend3d_fwd.cu); both tiles are 64 positions.
-_TILE = {2: (8, 8), 3: (4, 4, 4)}
-_CHUNK = {2: 8, 3: 4}
-_TABLE = {2: 5, 3: 9}
+# Shared-memory layout of the 3D forward kernel (csrc/shiftblend3d_fwd.cu),
+# in floats: column and weight tiles of rows_cap rows, the corner table
+# (_TABLE floats per (tap, position)), and a chunk of _CHUNK channels of
+# the halo-extended 4 x 4 x 4 output brick.  The 2D forward has no such
+# limit: where its halo does not fit, it reads the corners from x in device
+# memory (csrc/deform_fwd.cuh).
+_BRICK = (4, 4, 4)
+_CHUNK, _TABLE = 4, 9
 _ROWS, _TP, _WSTRIDE = 128, 64, 68
 _MAX_SMEM_FLOATS = 227 * 1024 // 4
 # The JAX package's loop-path rule (shiftblend.py:341-343): past this many
@@ -89,12 +89,11 @@ def _halo(spec: DeformConvSpec, windows) -> Tuple[int, ...]:
                  for p, (lo, w) in zip(spec.padding, windows))
 
 
-def _smem_floats(spec: DeformConvSpec, halo) -> int:
-    nd, K = spec.ndim, spec.tap_count
-    rows = min(_CHUNK[nd] * K, _ROWS)
-    return (rows * (_TP + _WSTRIDE) + K * _TP * _TABLE[nd]
-            + _CHUNK[nd] * math.prod(t + 2 * r
-                                     for t, r in zip(_TILE[nd], halo)))
+def _smem_floats_3d(spec: DeformConvSpec, halo) -> int:
+    K = spec.tap_count
+    rows = min(_CHUNK * K, _ROWS)
+    return (rows * (_TP + _WSTRIDE) + K * _TP * _TABLE
+            + _CHUNK * math.prod(t + 2 * r for t, r in zip(_BRICK, halo)))
 
 
 def _loop_path_reason(spec: DeformConvSpec, S, windows) -> Optional[str]:
@@ -126,8 +125,8 @@ def ineligible_reason(x: torch.Tensor, spec: DeformConvSpec,
     The semantic rules of the JAX package's `SBPlan.ineligible_reason`
     (stride 1, output size == input size, C/dg % 8 == 0, C/dg <= 256,
     dg % groups == 0, its loop-path and shift-set rules), so
-    both packages pick the same path for the same config, plus this
-    kernel's own shared-memory limit on the halo tile.  Its VMEM residency
+    both packages pick the same path for the same config, plus, in 3D, the
+    kernel's own shared-memory limit on the halo brick.  Its VMEM residency
     and residual budgets are the TPU's and have no counterpart here."""
     if offset_bound is None:
         return "no offset_bound provided (shiftblend needs bounded offsets)"
@@ -154,7 +153,8 @@ def ineligible_reason(x: torch.Tensor, spec: DeformConvSpec,
     reason = _loop_path_reason(spec, S, windows)
     if reason is not None:
         return reason
-    if _smem_floats(spec, _halo(spec, windows)) > _MAX_SMEM_FLOATS:
+    if (spec.ndim == 3 and _smem_floats_3d(spec, _halo(spec, windows))
+            > _MAX_SMEM_FLOATS):
         return ("offset_bound window too large for the shared-memory halo "
                 "tile")
     return None
@@ -199,17 +199,45 @@ def _geometry(x, weight, spec: DeformConvSpec, offset_bound):
             *(v for w in windows for v in w), *_halo(spec, windows))
 
 
-def _fwd(name, x, offset, mask, weight, bias, spec, precision, offset_bound):
+# The 2D forward takes its halo route on planes of at least this many
+# positions (32 of its 8 x 8 tiles a sample); see halo_route.
+_HALO_MIN_POSITIONS = 2048
+
+
+def halo_route(S) -> bool:
+    """Whether the 2D forward stages the halo of its 8 x 8 output tiles
+    (else it reads the corners from channels-last x, as gathermm_fwd does,
+    with the bounded window): only on planes of at least 2048 positions.
+    Timed side by side on an H100 at B=8, bound 2 (chip_smoke.py, its route
+    phase), the halo route ran 10-24% faster at 56 x 56 and 48 x 48; from
+    32 x 32 down to 14 x 14 the two routes came within 16% of each other,
+    the xt route ahead in most runs."""
+    return math.prod(S) >= _HALO_MIN_POSITIONS
+
+
+def _fwd(name, x, offset, mask, weight, bias, spec, precision, offset_bound,
+         halo=None):
+    """Launch a forward kernel.  `halo` (2D only) picks the route, None
+    for halo_route's choice."""
     lib.check_inputs(name, x, offset, mask, weight, bias, spec)
     reason = ineligible_reason(x, spec, offset_bound)
     if reason is not None:
         raise NotImplementedError(f"{name}: {reason}")
     out = torch.empty((x.shape[0], weight.shape[0]) + tuple(x.shape[2:]),
                       dtype=torch.float32, device=x.device)
-    wt = lib.grouped_weight(weight, spec.groups)
-    lib.launch(name, x, (x, offset, mask, wt, bias, out), (
-        *_geometry(x, weight, spec, offset_bound),
-        lib.PRECISION_CODES[precision]))
+    geometry = _geometry(x, weight, spec, offset_bound)
+    code = lib.PRECISION_CODES[precision]
+    if spec.ndim == 2:
+        if halo is None:
+            halo = halo_route(x.shape[2:])
+        xt, part, splits = lib.fwd_buffers(x, weight, spec, out)
+        lib.launch(name, x, (x, offset, mask,
+                             lib.fwd_weight(weight, spec.groups), bias, out,
+                             xt, part), (*geometry, int(halo), splits, code))
+    else:
+        lib.launch(name, x, (x, offset, mask,
+                             lib.grouped_weight(weight, spec.groups), bias,
+                             out), (*geometry, code))
     return out
 
 
@@ -368,9 +396,9 @@ def deform_conv_shift(x, offset, mask, weight, bias, spec: DeformConvSpec,
                       offset_bound=2.0) -> torch.Tensor:
     """Full shift-blend deformable conv with bias (dispatch entry).
 
-    bf16 and fp16 inputs are upcast to fp32 for the kernels, as the JAX
-    kernel does; the result has x's dtype, and so do the gradients of each
-    input."""
+    bf16 and fp16 inputs are upcast to fp32 for the kernels (the JAX
+    kernel upcasts fp16 only and runs bf16 as it is); the result has x's
+    dtype, and so do the gradients of each input."""
     reason = ineligible_reason(x, spec, offset_bound)
     if reason is not None:
         raise NotImplementedError(f"shiftblend: {reason}")

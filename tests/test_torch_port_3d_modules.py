@@ -82,6 +82,32 @@ def test_module3d_matches_flax(name, kw, pack_kw):
                                atol=2e-5)
 
 
+@pytest.mark.parametrize("name,kw,pack_kw",
+                         [m for m in MODULES if "Pack" in m[0]])
+def test_pack3d_bf16_matches_flax(name, kw, pack_kw):
+    """bf16 input, float32 parameters: the 3D predictor convs run in bf16
+    with their weight and bias cast to it, as the JAX package's
+    `_PredictorConv` does, and the result is bf16 on both sides.
+    Tolerance 2e-2 of max|flax|: the offsets and the result are
+    bf16-rounded, each side in its own order."""
+    fm = getattr(jmod, name)(in_channels=8, out_channels=12, kernel_size=3,
+                             use_bias=True, **kw, **pack_kw)
+    tm = getattr(mdt, name)(8, 12, 3, bias=True, device="cpu", **kw,
+                            **pack_kw)
+    x = np.random.default_rng(8).standard_normal((2, 8, 5, 6, 7)).astype(
+        np.float32)
+    variables = {"params": _nonzero_biases(
+        fm.init(jax.random.key(0), jnp.asarray(x))["params"])}
+    load_flax_params(tm, variables)
+    want = fm.apply(variables, jnp.asarray(x, jnp.bfloat16))
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x).to(torch.bfloat16))
+    assert want.dtype == jnp.bfloat16 and got.dtype == torch.bfloat16
+    want = np.asarray(want.astype(jnp.float32))
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=2e-2 * np.abs(want).max())
+
+
 def test_flax_conv3d_kernel_becomes_oidhw():
     """A 5D flax `kernel` leaf (D, H, W, I, O) becomes an OIDHW `weight`,
     and the flax-named 3D bottleneck convs take the port's names."""

@@ -97,6 +97,96 @@ def test_shiftblend_kernel_matches_plain(dev, case, precision):
     assert _rel(got, want) <= LIMITS[precision]
 
 
+# The 2D forwards' tiles (csrc/deform_fwd.cuh) left ragged: output
+# channels a group that fill no 64-wide tile, or more than 256 of them (two
+# blocks a position tile); channels a deformable group that are no multiple
+# of 4 (the gather's 4-byte corner reads) or of 16 (the halo's 8-channel
+# chunks); 169 taps (the corner table rebuilt across a chunk); halos whose
+# two 8-channel buffers do not fit (corners from x in device memory).
+# (..., bound) where the last entry is not None runs shiftblend_fwd.
+FWD_RAGGED = [
+    (2, 18, 70, (9, 11), 3, 1, 1, 1, 1, 3, True, True, 2.0, None),
+    (1, 24, 300, (7, 6), 3, 1, 1, 1, 1, 1, True, True, 2.0, None),
+    (1, 8, 8, (16, 15), 13, 1, 6, 1, 1, 1, True, True, 2.0, None),
+    (1, 48, 100, (10, 9), 3, 1, 1, 1, 2, 2, True, True, 2.5, 2.0),
+    (1, 16, 16, (10, 10), 3, 1, 18, 18, 1, 2, True, True, 1.2, 1.0),
+    (1, 16, 16, (6, 7), 3, 1, 100, 100, 1, 1, True, True, 1.2, 1.0),
+]
+
+
+def _fwd_pair(bound):
+    if bound is None:
+        return gm.gathermm_fwd, gm.gathermm_fwd_reference, ()
+    return sb.shiftblend_fwd, sb.shiftblend_fwd_reference, (bound,)
+
+
+@pytest.mark.parametrize("precision", list(LIMITS))
+@pytest.mark.parametrize("case", FWD_RAGGED)
+def test_fwd_ragged_tiles_match_plain(dev, case, precision):
+    fwd, ref, extra = _fwd_pair(case[-1])
+    spec, args = _case(dev, *case[:-1])
+    fwd.launches = 0
+    got = fwd(*args, spec, precision, *extra)
+    assert fwd.launches == 1
+    assert _rel(got, ref(*args, spec, precision, *extra)) <= LIMITS[precision]
+
+
+@pytest.mark.parametrize("precision", list(LIMITS))
+@pytest.mark.parametrize("hw", [(16, 16), (14, 14), (10, 9)])
+def test_shiftblend_fwd_both_routes_match_plain(dev, hw, precision):
+    """Both routes of the 2D shift-blend forward, the halo tile and the
+    corners from channels-last x, whichever halo_route would pick, on
+    planes the 8 x 8 tiles fit and on ragged ones."""
+    spec, args = _case(dev, 2, 64, 48, hw, 3, 1, 1, 1, 2, 2, True, True,
+                       2.5)
+    want = sb.shiftblend_fwd_reference(*args, spec, precision, 2.0)
+    for halo in (True, False):
+        got = sb._fwd("shiftblend_fwd", *args, spec, precision, 2.0,
+                      halo=halo)
+        assert _rel(got, want) <= LIMITS[precision], halo
+
+
+@pytest.mark.parametrize("precision", list(LIMITS))
+@pytest.mark.parametrize("bound", [None, 2.0])
+def test_fwd_config2_full_size(dev, bound, precision):
+    """The bench's config 2: B=8, 256 -> 256, 56x56, 3x3, g = dg = 4."""
+    fwd, ref, extra = _fwd_pair(bound)
+    spec, args = _case(dev, 8, 256, 256, (56, 56), 3, 1, 1, 1, 4, 4, True,
+                       True, 2.0)
+    got = fwd(*args, spec, precision, *extra)
+    assert _rel(got, ref(*args, spec, precision, *extra)) <= LIMITS[precision]
+
+
+# DCNResNet-50's DCN layers at B=8 (g = dg = 1, mask, no bias): c3's first,
+# stride 2 from 56x56 to 28x28 over 128 channels, and a c5 layer, 512
+# channels at 7x7: 392 positions, the contraction split over 19 parts.
+RESNET_LAYERS = [
+    (8, 128, 128, (56, 56), 3, 2, 1, 1, 1, 1, True, False, 2.0),
+    (8, 512, 512, (7, 7), 3, 1, 1, 1, 1, 1, True, False, 2.0),
+]
+
+
+@pytest.mark.parametrize("precision", list(LIMITS))
+@pytest.mark.parametrize("case", RESNET_LAYERS)
+def test_fwd_resnet_layers_match_plain(dev, case, precision):
+    spec, args = _case(dev, *case)
+    got = gm.gathermm_fwd(*args, spec, precision)
+    want = gm.gathermm_fwd_reference(*args, spec, precision)
+    assert _rel(got, want) <= LIMITS[precision]
+
+
+@pytest.mark.parametrize("precision", list(LIMITS))
+def test_forward_bitwise_deterministic(dev, precision):
+    """Two forward runs of each kernel give the same bits, the contraction
+    split into parts (no atomics)."""
+    spec, args = _case(dev, *RESNET_LAYERS[1])
+    runs = [gm.gathermm_fwd(*args, spec, precision) for _ in range(2)]
+    assert torch.equal(*runs)
+    spec, args = _case(dev, *GENERAL[3])
+    runs = [sb.shiftblend_fwd(*args, spec, precision, 2.0) for _ in range(2)]
+    assert torch.equal(*runs)
+
+
 def _grad_out(spec, x, w, seed=1):
     B = x.shape[0]
     OS = spec.out_sizes(x.shape[2:])

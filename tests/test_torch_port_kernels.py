@@ -151,6 +151,39 @@ def test_dispatch_matches_jax(case):
     assert (gm.ineligible_reason(xt, spec) is None) == (reason_j is None)
 
 
+@pytest.mark.parametrize("k", [1, 3, 5, 7])
+@pytest.mark.parametrize("dilation", [1, 2])
+def test_shiftblend_2d_rule_as_wide_as_jax(k, dilation):
+    """Every 2D config that JAX's shift-blend rule accepts, the port's
+    accepts too, over bounds 0.5-3.5 and C/dg 8-256 at dg = 2: a narrower
+    port rule would send bounded configs to the gather pair, whose results
+    differ wherever offsets pass the bound."""
+    accepted = 0
+    for bound in (0.5, 1.0, 1.5, 2.0, 2.5, 3.0, 3.5):
+        for cdg in (8, 16, 32, 64, 128, 256):
+            spec = DeformConvSpec.make(2, k, 1, dilation * (k - 1) // 2,
+                                       dilation, 1, 2, modulated=True)
+            shape = (2, 2 * cdg, 16, 16)
+            xj = jax.ShapeDtypeStruct(shape, jnp.float32)
+            if jsb.ineligible_reason(xj, _jspec(spec), bound) is not None:
+                continue
+            accepted += 1
+            xt = torch.empty(shape, dtype=torch.float32, device="meta")
+            assert sb.ineligible_reason(xt, spec, bound) is None, (
+                k, dilation, bound, cdg)
+    assert accepted > 0
+
+
+@pytest.mark.parametrize("hw,halo", [((56, 56), True), ((48, 48), True),
+                                     ((32, 64), True), ((32, 32), False),
+                                     ((28, 28), False), ((14, 14), False)])
+def test_shiftblend_halo_route(hw, halo):
+    """The 2D shift-blend forward stages its halo only on planes of at
+    least 2048 positions: config 2's 56 x 56, not DCNResNet-50's 28 x 28
+    and 14 x 14."""
+    assert sb.halo_route(hw) is halo
+
+
 def test_offsets_within_bound_matches_jax():
     rng = np.random.default_rng(3)
     off = rng.uniform(-1.2, 1.2, (1, 36, 4, 4)).astype(np.float32)
