@@ -136,17 +136,20 @@ COLS3D = dict(B=2, C=64, S=(16, 32, 32), groups=2)
 # ("tensorfloat32", ms): each table row's `ms`, at the row's own config (2D
 # fused rows at config 2, 3D rows at configs 3 and 4 B=1, column rows at
 # config 5 c4 and the 3D columns case), printed beside this run's.
-PREV_MS = {"shiftblend_fwd": 0.4826, "gathermm_fwd": 0.5903, "shiftblend_bwd": 0.9788,
-           "gathermm_bwd": 1.0616, "shiftblend3d_fwd": 16.8577, "gathermm3d_fwd": 0.9465,
-           "shiftblend3d_bwd": 48.9361, "gathermm3d_bwd": 4.8020, "gathermm_cols_fwd": 0.1506,
-           "gathermm_cols_bwd": 1.3616, "gathermm3d_cols_fwd": 0.3128,
-           "gathermm3d_cols_bwd": 3.9185}
-# The same release's steps and totals (ms): the config-2 training steps, the
-# DCNResNet-50 step's device time, its DCN kernels and its 13 gathermm_fwd
-# launches (from the step's profile), and config 5 c3's forward op.
-PREV_STEP_MS = {"cfg2 bounded": 1.5789, "cfg2 general": 1.7881,
-                "DCNResNet-50 device": 15.8475, "DCNResNet-50 DCN kernels": 7.036,
-                "DCNResNet-50 gathermm_fwd": 4.1352, "cfg5 c3 op_fwd": 8.2007}
+PREV_MS = {"shiftblend_fwd": 0.3555, "gathermm_fwd": 0.4064, "shiftblend_bwd": 0.9880,
+           "gathermm_bwd": 1.0745, "shiftblend3d_fwd": 16.9463, "gathermm3d_fwd": 0.9420,
+           "shiftblend3d_bwd": 48.6017, "gathermm3d_bwd": 4.8125, "gathermm_cols_fwd": 0.1492,
+           "gathermm_cols_bwd": 1.3535, "gathermm3d_cols_fwd": 0.3237,
+           "gathermm3d_cols_bwd": 3.9274}
+# The same release's steps and totals (ms): the config-2 training steps on
+# CUDA events, the networks' step device time and their DCN kernels (from
+# the step's profile), the device time of DCNResNet-50's 13 gathermm_fwd
+# calls on their recorded inputs, and config 5 c3's forward op.
+PREV_STEP_MS = {"cfg2 bounded": 1.5023, "cfg2 general": 1.6154,
+                "DCNResNet-50 device": 12.7214, "DCNResNet-50 DCN kernels": 3.917,
+                "DCNResNet-50 gathermm_fwd": 1.1149, "cfg5 c3 op_fwd": 2.5456,
+                "DCNVideoNet device": 160.092, "DCNVideoNet DCN kernels": 104.455,
+                "cfg3 step": 5.8699, "cfg4 step": 262.6215}
 
 
 class SmokeFailure(Exception):
@@ -377,7 +380,7 @@ DCN_KERNELS = ("fwd_mma_kernel", "fold_out_kernel", "gathermm3d_fwd_kernel", "gc
                "ranges_kernel", "boxes3_kernel", "gx_kernel", "gx3_kernel", "goff_kernel",
                "goff3_kernel", "gw3_kernel", "fold_kernel", "cols_kernel", "cols3_kernel",
                "x_cl_kernel", "gcols_mma_kernel", "gw_mma_kernel", "corr_kernel", "boxes_kernel",
-               "pull_kernel")
+               "pull_kernel", "pull3_kernel", "corr3_kernel")
 
 
 def time_recorded_fwd(torch, recorded, fwd, label):
@@ -406,8 +409,8 @@ def time_recorded_fwd(torch, recorded, fwd, label):
                   f"{fwd.__name__} {ms:.4f} ms (device {device_ms:.4f} ms), bound {bound_ms:.4f} ms "
                   f"({bound_by})")
     print(f"{label}: {fwd.__name__} summed over its layers {total['ms']:.4f} ms, device "
-          f"{total['device_ms']:.4f} ms, summed bound {total['bound_ms']:.4f} ms (previous release, "
-          f"from the step's profile: {PREV_STEP_MS[label + ' gathermm_fwd']} ms)")
+          f"{total['device_ms']:.4f} ms, summed bound {total['bound_ms']:.4f} ms (previous release: "
+          f"{PREV_STEP_MS[label + ' gathermm_fwd']} ms of device time)")
     return total
 
 
@@ -493,8 +496,8 @@ def small_cases3(torch, dev):
     """Small 3D configs with ragged 4 x 4 x 4 bricks, offsets beyond the
     bound and far outside the volume, all-zero offsets, no mask / no bias,
     stride 2, deformable groups straddling conv groups, dg > 1 with
-    groups > 1, and 2 x 2 x 2 taps at bound 0.5 (at most 640 pairs); each
-    with a cotangent for the backward."""
+    groups > 1, 2 x 2 x 2 taps at bound 0.5 (at most 640 pairs), and a
+    5 x 5 x 5 kernel at bound 1; each with a cotangent for the backward."""
     from modulated_deform_conv_tpu_torch.utils.config import DeformConvSpec
     rng = np.random.default_rng(1)
     # family, (B, C, O, S, k, stride, pad, dil, g, dg), modulated, bias,
@@ -505,6 +508,7 @@ def small_cases3(torch, dev):
         ("shiftblend3d", (2, 32, 32, (4, 9, 7), 2, 1, 1, 2, 1, 1), True, True, 0.45, 0.5),
         ("shiftblend3d", (2, 16, 16, (5, 8, 16), 3, 1, 1, 1, 1, 1), True, True, 0.0, 2.0),
         ("shiftblend3d", (1, 32, 48, (5, 16, 8), 3, 1, 1, 1, 2, 4), True, True, 1.5, 1.5),
+        ("shiftblend3d", (1, 16, 24, (5, 8, 16), 5, 1, 2, 1, 1, 1), True, True, 1.3, 1.0),
         ("gathermm3d", (2, 16, 24, (5, 7, 6), 3, 1, 1, 1, 2, 2), True, True, 3.0, None),
         ("gathermm3d", (1, 12, 8, (7, 9, 8), 3, 2, 1, 1, 1, 3), False, False, 2.0, None),
         ("gathermm3d", (2, 16, 16, (5, 6, 7), 3, 1, 1, 1, 1, 2), True, True, 40.0, None),
@@ -669,7 +673,8 @@ def run_3d(torch, mdt, families3d, reset, counts, dev):
         steps[name] = {"auto": time_ms(lambda: step(impl="auto", offset_bound=BOUND3D), *it_k),
                        "plain": time_ms(lambda: step(impl="torch"), *it_p)}
         print(f"{name} training step (fwd + bwd of sum(out^2), {len(leaves)} grads): "
-              f"{steps[name]['auto']:.4f} ms through {fam}, {steps[name]['plain']:.4f} ms plain")
+              f"{steps[name]['auto']:.4f} ms through {fam} (previous release "
+              f"{PREV_STEP_MS[name + ' step']} ms), {steps[name]['plain']:.4f} ms plain")
         del leaves
 
         with torch.no_grad():
@@ -719,6 +724,8 @@ def run_3d(torch, mdt, families3d, reset, counts, dev):
                 bargs = (*ins[:4], gout, *args[5:])
                 cross[name][f"{f}_fwd"] = time_ms(lambda: fwd(*args), *it_k)
                 cross[name][f"{f}_bwd"] = time_ms(lambda: bwd(*bargs), *it_k)
+                print_breakdown(f"{f}_fwd {name} B={B} profile",
+                                device_time_by_kernel(lambda: fwd(*args), calls=2))
                 print_breakdown(f"{f}_bwd {name} B={B} profile",
                                 device_time_by_kernel(lambda: bwd(*bargs), calls=2))
             anchors3d = {}
@@ -740,6 +747,9 @@ def run_3d(torch, mdt, families3d, reset, counts, dev):
             for kind, (fn, ref_fn, a) in own.items():
                 n = f"{fam}_{kind}"
                 ms = (cross[name][n] if pb == B else time_ms(lambda: fn(*a), *it_k))
+                if pb != B:
+                    print_breakdown(f"{n} {name} B={pb} profile",
+                                    device_time_by_kernel(lambda: fn(*a), calls=2))
                 plain_ms = time_ms(lambda: ref_fn(*a), *it_p)
                 bound_ms, bound_by = bound_of(*w_pb[kind])
                 rows[n].update(

@@ -12,10 +12,13 @@
 //     tensor-core kernels of the last section: gcols_mma_kernel,
 //     gw_mma_kernel + fold_kernel, corr_kernel and a pull per block of 8 x 8
 //     input pixels x 64 channels (gather_pull_kernel, shift_pull_kernel);
+//     the bounded 3D backward (deform_bwd3d.cuh's run_bwd3d) runs
+//     gcols_mma_kernel and gw_mma_kernel too, beside its own pull and
+//     correlation;
 //   - the columns path's backward (gathermm_cols_bwd.cu: ranges_kernel,
 //     gather_gx_kernel, goff_kernel, given gcols in its layout CKBP) and the
-//     3D backwards (deform_bwd3d.cuh: gcols_kernel, fold_kernel) run the
-//     FP32-FMA kernels of the first sections.
+//     3D gather's backwards (deform_bwd3d.cuh: gcols_kernel, fold_kernel)
+//     run the FP32-FMA kernels of the first sections.
 //
 // Determinism: there is no float atomic anywhere.  Every output element has
 // one owner that sums in a fixed order; grad_weight is summed in fixed-size
@@ -24,6 +27,7 @@
 #pragma once
 
 #include "deform_mma.cuh"
+#include "deform_tile3d.cuh"
 
 namespace mdc {
 
@@ -470,36 +474,37 @@ __global__ void __launch_bounds__(kMmaThreads, 4) gcols_mma_kernel(const float* 
 // span (at most nd_max; tsteps = max(1, 8 / nd_max); in dynamic shared
 // memory); each stage rebuilds its columns from xt, a warp reading
 // consecutive channels of a corner, while cp.async brings gout; the product
-// runs on the previous stage meanwhile.
-template <int Prec>
-__global__ void __launch_bounds__(kMmaThreads, 3) gw_mma_kernel(const float* __restrict__ xt,
-                                                            const float* __restrict__ offset,
-                                                            const float* __restrict__ mask,
-                                                            const float* __restrict__ gout,
-                                                            float* __restrict__ part, int chunk, int tsteps, Geo g) {
+// runs on the previous stage meanwhile.  G is the rank's geometry: Geo, or
+// Geo3 (8 corners a tap; needs C/groups and C/dg % 4 == 0).
+template <int Prec, class G>
+__global__ void __launch_bounds__(kMmaThreads, kIs3D<G> ? 2 : 3) gw_mma_kernel(
+    const float* __restrict__ xt, const float* __restrict__ offset, const float* __restrict__ mask,
+    const float* __restrict__ gout, float* __restrict__ part, int chunk, int tsteps, G g) {
   extern __shared__ __align__(16) float dyn[];
+  constexpr bool k3D = kIs3D<G>;
   float* sA = dyn;                                              // [stage][n][channel]
   float* sB = dyn + 2 * kMK * kMS;                              // [stage][n][o]
-  float4* tw = reinterpret_cast<float4*>(dyn + 4 * kMK * kMS);  // [d - d0][n - n_table]: corner weights
-  const int K = g.kh * g.kw, P = g.OH * g.OW, HW = g.H * g.W;
+  float4* tw = reinterpret_cast<float4*>(dyn + 4 * kMK * kMS);  // [plane][d - d0][n - n_table]: corner weights
+  const int K = taps(g), P = out_positions(g);
   const int Cgc = g.C / g.groups, Og = g.O / g.groups, Cdg = g.C / g.dg;
   const int c_tiles = (Cgc + kMT - 1) / kMT, o_tiles = (Og + kMT - 1) / kMT;
   const int ot = blockIdx.x % o_tiles, ct = blockIdx.x / o_tiles % c_tiles, k = blockIdx.x / (o_tiles * c_tiles);
   const int gi = blockIdx.y, split = blockIdx.z;
   const int c0 = ct * kMT, cw = min(kMT, Cgc - c0), gc0 = gi * Cgc + c0, o0 = ot * kMT;
   const int d0 = gc0 / Cdg, nd = (gc0 + cw - 1) / Cdg - d0 + 1;
-  const int tn = tsteps * kMK;                     // positions a table spans
-  int* tq = reinterpret_cast<int*>(tw + nd * tn);  // [d - d0][n - n_table]: low corner in xt's (B * H*W)
+  const int tn = tsteps * kMK, n_tab = nd * tn;           // positions a table spans; its entries
+  int* tq = reinterpret_cast<int*>(tw + kPlanes<G> * n_tab);  // [d - d0][n - n_table]: low corner's row in xt
   const int n_begin = split * chunk, n_end = min(g.B * P, n_begin + chunk);
   const int steps = n_end > n_begin ? (n_end - n_begin + kMK - 1) / kMK : 0;
 
   auto table = [&](int n0) {
-    for (int e = threadIdx.x; e < nd * tn; e += kMmaThreads) {
+    for (int e = threadIdx.x; e < n_tab; e += kMmaThreads) {
       const int n = n0 + e % tn;
-      TapWeights t{0, 0, make_float4(0.f, 0.f, 0.f, 0.f)};
-      if (n < n_end) t = weights_at(g, offset, mask, n / P, d0 + e / tn, k, n % P);
-      tw[e] = t.w;
-      tq[e] = n / P * HW + t.y0 * g.W + t.x0;
+      CornerRow<G> t{};
+      if (n < n_end) t = corner_row(g, offset, mask, n / P, d0 + e / tn, k, n % P);
+#pragma unroll
+      for (int j = 0; j < kPlanes<G>; ++j) tw[j * n_tab + e] = t.w[j];
+      tq[e] = t.row;
     }
   };
   // Lane l brings gout at position n0 + l for output channels warp, warp + 8, ...
@@ -516,32 +521,43 @@ __global__ void __launch_bounds__(kMmaThreads, 3) gw_mma_kernel(const float* __r
     cp_async_commit();
   };
   // Each thread rebuilds one channel r at kPer positions, or, where 4
-  // consecutive channels share a conv group and a deformable group (vec),
-  // channels r4 .. r4 + 3 at kPer / 4 positions with 16-byte loads and
-  // stores; all the corner loads are issued before the first blend.
-  constexpr int kPer = kMK * kMT / kMmaThreads;
+  // consecutive channels share a conv group and a deformable group (vec,
+  // always in 3D), channels r4 .. r4 + 3 at kPer / 4 positions with 16-byte
+  // loads and stores; all the corner loads are issued before the first
+  // blend.  Corner j (of 4, or 8 in 3D) is xt's row + (j & 1) + W (j >> 1 &
+  // 1) + H W (j >> 2), weighed by plane j >> 2's component j & 3.
+  constexpr int kPer = kMK * kMT / kMmaThreads, kCorners = 4 * kPlanes<G>;
   const bool vec = Cgc % 4 == 0 && Cdg % 4 == 0;
   const int r = threadIdx.x % kMT, gc = gc0 + r, dt = (gc / Cdg - d0) * tn;
   const int r4 = threadIdx.x % (kMT / 4) * 4, dt4 = ((gc0 + r4) / Cdg - d0) * tn;
   const size_t row = static_cast<size_t>(g.W) * g.C;
+  size_t step[kCorners];
+#pragma unroll
+  for (int j = 0; j < kCorners; ++j) {
+    step[j] = (j & 1) * static_cast<size_t>(g.C) + (j >> 1 & 1) * row;
+    if constexpr (k3D) step[j] += (j >> 2) * static_cast<size_t>(g.H) * row;
+  }
+  auto comp = [](const float4& w, int i) { return i == 0 ? w.x : i == 1 ? w.y : i == 2 ? w.z : w.w; };
   auto build_vec = [&](float* dst, int n0, int n_table) {
     constexpr int kPer4 = kPer / 4, kStep = kMmaThreads / (kMT / 4);
-    float4 v[kPer4][4];
+    float4 v[kPer4][kCorners];
 #pragma unroll
     for (int u = 0; u < kPer4; ++u) {
       const int n = n0 + threadIdx.x / (kMT / 4) + u * kStep;
-      float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 w[kPlanes<G>];
       const float* src = xt;
+#pragma unroll
+      for (int j = 0; j < kPlanes<G>; ++j) w[j] = make_float4(0.f, 0.f, 0.f, 0.f);
       if (r4 < cw && n < n_end) {
         const int te = dt4 + n - n_table;
-        w = tw[te];
+#pragma unroll
+        for (int j = 0; j < kPlanes<G>; ++j) w[j] = tw[j * n_tab + te];
         src = xt + static_cast<size_t>(tq[te]) * g.C + gc0 + r4;
       }
       const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-      v[u][0] = w.x != 0.f ? *reinterpret_cast<const float4*>(src) : z;
-      v[u][1] = w.y != 0.f ? *reinterpret_cast<const float4*>(src + g.C) : z;
-      v[u][2] = w.z != 0.f ? *reinterpret_cast<const float4*>(src + row) : z;
-      v[u][3] = w.w != 0.f ? *reinterpret_cast<const float4*>(src + row + g.C) : z;
+#pragma unroll
+      for (int j = 0; j < kCorners; ++j)
+        v[u][j] = comp(w[j >> 2], j & 3) != 0.f ? *reinterpret_cast<const float4*>(src + step[j]) : z;
     }
 #pragma unroll
     for (int u = 0; u < kPer4; ++u) {
@@ -553,13 +569,20 @@ __global__ void __launch_bounds__(kMmaThreads, 3) gw_mma_kernel(const float* __r
         out.y = w.x * v[u][0].y + w.y * v[u][1].y + w.z * v[u][2].y + w.w * v[u][3].y;
         out.z = w.x * v[u][0].z + w.y * v[u][1].z + w.z * v[u][2].z + w.w * v[u][3].z;
         out.w = w.x * v[u][0].w + w.y * v[u][1].w + w.z * v[u][2].w + w.w * v[u][3].w;
+        if constexpr (k3D) {
+          const float4 h = tw[n_tab + dt4 + n - n_table];
+          out.x += h.x * v[u][4].x + h.y * v[u][5].x + h.z * v[u][6].x + h.w * v[u][7].x;
+          out.y += h.x * v[u][4].y + h.y * v[u][5].y + h.z * v[u][6].y + h.w * v[u][7].y;
+          out.z += h.x * v[u][4].z + h.y * v[u][5].z + h.z * v[u][6].z + h.w * v[u][7].z;
+          out.w += h.x * v[u][4].w + h.y * v[u][5].w + h.z * v[u][6].w + h.w * v[u][7].w;
+        }
       }
       *reinterpret_cast<float4*>(dst + nl * kMS + r4) = out;
     }
   };
   auto build = [&](int s, int n0, int n_table) {
     float* dst = sA + s * kMK * kMS;
-    if (vec) {
+    if (k3D || vec) {
       build_vec(dst, n0, n_table);
       return;
     }
@@ -997,6 +1020,36 @@ __global__ void __launch_bounds__(kPullT) gather_pull_kernel(const float* __rest
   pull_store(sm, g, pc.b, pc.c0, pc.cw, pc.ty0, pc.tx0, gx);
 }
 
+// grad_W: gw_mma_kernel's partials over `splits` shape-only splits of the
+// (batch, position) axis, folded in order into gwt.  xt (B, positions, C)
+// holds x channels-last, part (splits, groups, C/groups*K, O/groups).
+template <int Prec, class G>
+inline cudaError_t launch_gw_mma(const G& g, const float* xt, const float* offset, const float* mask,
+                                 const float* gout, float* part, float* gwt, int splits, cudaStream_t s) {
+  const int K = taps(g), Cgc = g.C / g.groups, Og = g.O / g.groups, Cdg = g.C / g.dg;
+  if (kIs3D<G> && (Cgc % 4 || Cdg % 4)) return cudaErrorInvalidValue;
+  // The most deformable groups the 64 channels of one block span.
+  int nd_max = 1;
+  for (int gi = 0; gi < g.groups; ++gi)
+    for (int c0 = 0; c0 < Cgc; c0 += kMT) {
+      const int gc0 = gi * Cgc + c0, gc1 = gc0 + min(kMT, Cgc - c0) - 1;
+      nd_max = max(nd_max, gc1 / Cdg - gc0 / Cdg + 1);
+    }
+  const int tsteps = max(1, 8 / nd_max);
+  const size_t smem = sizeof(float) * 4 * kMK * kMS +
+                      (kPlanes<G> * sizeof(float4) + sizeof(int)) * nd_max * tsteps * kMK;
+  cudaError_t err = cudaFuncSetAttribute(gw_mma_kernel<Prec, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int total = g.B * out_positions(g), chunk = (total + splits - 1) / splits;
+  const dim3 grid(K * ((Cgc + kMT - 1) / kMT) * ((Og + kMT - 1) / kMT), g.groups, splits);
+  gw_mma_kernel<Prec, G><<<grid, kMmaThreads, smem, s>>>(xt, offset, mask, gout, part, chunk, tsteps, g);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int n = g.groups * Cgc * K * Og;
+  fold_kernel<<<(n + 255) / 256, 256, 0, s>>>(part, gwt, n, splits, g.precision);
+  return cudaGetLastError();
+}
+
 // The 2D fused backward's launches.  pull(gcols) launches grad_x's pull.
 // gcols (B, K, P, C), xt (B, H*W, C) and part (splits, groups, C/groups*K,
 // O/groups) are the caller's scratch; outputs not wanted are null.
@@ -1004,8 +1057,7 @@ template <int Prec, class Pull>
 inline cudaError_t run_bwd2d(const Geo& g, const float* x, const float* offset, const float* mask,
                              const float* wk, const float* gout, float* gcols, float* xt, float* part, float* gx,
                              float* goff, float* gmask, float* gwt, int splits, cudaStream_t s, Pull pull) {
-  const int K = g.kh * g.kw, P = g.OH * g.OW, HW = g.H * g.W;
-  const int Cgc = g.C / g.groups, Og = g.O / g.groups, rows = Cgc * K;
+  const int K = g.kh * g.kw, P = g.OH * g.OW, HW = g.H * g.W, rows = g.C / g.groups * K;
   cudaError_t err;
   if (goff || gmask || gwt) {
     x_cl_kernel<<<dim3((HW + 31) / 32, (g.C + 31) / 32, g.B), 256, 0, s>>>(x, xt, g.C, HW);
@@ -1021,28 +1073,8 @@ inline cudaError_t run_bwd2d(const Geo& g, const float* x, const float* offset, 
     corr_kernel<<<dim3((P + kTP - 1) / kTP, K * g.dg, g.B), 256, 0, s>>>(xt, offset, mask, gcols, goff, gmask, g);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-  if (gwt) {
-    // The most deformable groups the 64 channels of one block span.
-    const int Cdg = g.C / g.dg;
-    int nd_max = 1;
-    for (int gi = 0; gi < g.groups; ++gi)
-      for (int c0 = 0; c0 < Cgc; c0 += kMT) {
-        const int gc0 = gi * Cgc + c0, gc1 = gc0 + min(kMT, Cgc - c0) - 1;
-        nd_max = max(nd_max, gc1 / Cdg - gc0 / Cdg + 1);
-      }
-    const int tsteps = max(1, 8 / nd_max);
-    const size_t smem = sizeof(float) * 4 * kMK * kMS + (sizeof(float4) + sizeof(int)) * nd_max * tsteps * kMK;
-    if ((err = cudaFuncSetAttribute(gw_mma_kernel<Prec>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    static_cast<int>(smem))) != cudaSuccess)
-      return err;
-    const int total = g.B * P, chunk = (total + splits - 1) / splits;
-    const dim3 grid(K * ((Cgc + kMT - 1) / kMT) * ((Og + kMT - 1) / kMT), g.groups, splits);
-    gw_mma_kernel<Prec><<<grid, kMmaThreads, smem, s>>>(xt, offset, mask, gout, part, chunk, tsteps, g);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    const int n = g.groups * rows * Og;
-    fold_kernel<<<(n + 255) / 256, 256, 0, s>>>(part, gwt, n, splits, g.precision);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
+  if (gwt && (err = launch_gw_mma<Prec>(g, xt, offset, mask, gout, part, gwt, splits, s)) != cudaSuccess)
+    return err;
   return cudaSuccess;
 }
 

@@ -1,20 +1,21 @@
-// Pieces shared by the 3D backward kernels (gathermm3d_bwd.cu,
-// shiftblend3d_bwd.cu, gathermm3d_cols_bwd.cu).  They compute what the 2D
-// ones compute (deform_bwd.cuh), with the trilinear corner rules of
-// deform_tile3d.cuh:
-//
-//   gcols   = W2^T gout                        (deform_bwd.cuh's gcols_kernel
-//                                               over the flattened volume)
-//   grad_x  = A gcols                          (a pull on 4 x 4 x 4 input
-//                                               bricks: shift-blend's own,
-//                                               gather_gx3_kernel)
-//   grad_offset, grad_mask from S[corner] = sum_c gcol x
-//                                              (goff3_kernel)
-//   grad_weight = gout cols^T, cols rebuilt from x
-//                                              (gw3_kernel + fold_kernel)
-//
-// gathermm3d_cols_bwd.cu is given gcols (layout CKBP) and computes the
-// middle two.  Determinism as in 2D: no float atomics; every output element has one
+// The 3D backward kernels.  They compute what the 2D ones compute
+// (deform_bwd.cuh), with the trilinear corner rules of deform_tile3d.cuh,
+// in two generations:
+//   - the gather's (gathermm3d_bwd.cu through backward3, and
+//     gathermm3d_cols_bwd.cu) run the FP32-FMA kernels of the first
+//     sections:
+//       gcols   = W2^T gout          (deform_bwd.cuh's gcols_kernel over the
+//                                     flattened volume)
+//       grad_x  = A gcols            (boxes3_kernel + gather_gx3_kernel, a
+//                                     pull on 4 x 4 x 4 input bricks)
+//       grad_offset, grad_mask from S[corner] = sum_c gcol x (goff3_kernel)
+//       grad_weight = gout cols^T, cols rebuilt from x (gw3_kernel +
+//                                     fold_kernel);
+//     gathermm3d_cols_bwd.cu is given gcols (layout CKBP) and computes the
+//     middle two;
+//   - the bounded pair's (shiftblend3d_bwd.cu) runs the tensor-core
+//     kernels of the last section (run_bwd3d).
+// Determinism as in 2D: no float atomics; every output element has one
 // owner that sums in a fixed order, and grad_weight is summed in shape-only
 // splits folded in order.  gcols (B, K, P, C) is the largest buffer (7.25 GB
 // for all of BASELINE config 4), so gcols, grad_x and grad_offset / grad_mask
@@ -456,6 +457,299 @@ inline cudaError_t backward3(const Geo3& g, const float* x, const float* offset,
     err = cudaGetLastError();
   }
   return err;
+}
+
+// ---- the bounded 3D backward on tensor cores (shiftblend3d_bwd.cu) -----------
+//
+// The 3D counterpart of deform_bwd.cuh's run_bwd2d, per batch chunk of
+// b_step samples where gcols is involved:
+//   x_cl_kernel       x channels-last, xt (B, D*H*W, C), once per call;
+//   gcols_mma_kernel  gcols (b_step, K, P, C) = W2^T gout on mma.sync, over
+//                     the flattened volume (flat_geo);
+//   shift_pull3_kernel  grad_x per 4 x 4 x 4 input brick x 64 channels: the
+//                     candidates, each tap's own reach, are evaluated once
+//                     per block into a table, then each warp applies the
+//                     hits on its own two pixel rows in table order, lanes
+//                     over channels;
+//   corr3_kernel      grad_offset / grad_mask: per 64 positions of one (b,
+//                     d, k) the corner derivatives built once, then a warp
+//                     per two positions with lanes over channels of xt and
+//                     gcols and a fixed-order butterfly;
+//   gw_mma_kernel     grad_W partials on mma.sync (launch_gw_mma, 8 corners
+//                     a tap), then fold_kernel.
+// No float atomics: every output element has one owner that sums in a
+// fixed order, and the batch chunks only bound gcols.
+
+// The pull's block: 64 pixels of the brick x kPullC channels, a table of
+// kCand candidates (corner weights of both planes, gcols row, low corner
+// relative to the brick), and each warp's staged hits.  In dynamic shared
+// memory (57 KB).
+struct Pull3Block {
+  float acc[kPullPix][kPullC + 1];
+  float4 cw[2][kCand];
+  int ck[kCand];
+  int czyx[kCand];  // the low corner from the brick's origin, ((z + 16) * 64 + y + 16) * 64 + x + 16, clamped
+  int2 hk[kPullT / 32][kStage];    // a warp's hits: gcols row, x of the first pixel
+  float4 hw[kPullT / 32][kStage];  // their weights: row a at x and x + 1, row b at x and x + 1
+};
+
+__device__ __forceinline__ int pull3_rel(int v) { return min(max(v, -16), 47) + 16; }
+
+// Apply a warp's ns staged hits to its two rows (pixels pa + x, pa + 4 + x).
+__device__ __forceinline__ void pull3_apply(Pull3Block& sm, int ns, int pa, const float* __restrict__ gcol, int C,
+                                            int cw) {
+  constexpr int kU = 8;  // hits a warp has in flight
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool lo = lane < cw, hi = lane + 32 < cw;
+  for (int j0 = 0; j0 < ns; j0 += kU) {
+    int2 h[kU];
+    float v0[kU], v1[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      h[u] = j0 + u < ns ? sm.hk[warp][j0 + u] : make_int2(-1, 0);
+      v0[u] = v1[u] = 0.f;
+      if (h[u].x >= 0) {
+        const float* r = gcol + static_cast<size_t>(h[u].x) * C;
+        if (lo) v0[u] = r[lane];
+        if (hi) v1[u] = r[lane + 32];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      if (h[u].x < 0) continue;
+      const float4 w = sm.hw[warp][j0 + u];
+      const float wv[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (wv[i] == 0.f) continue;
+        float* a = sm.acc[pa + (i >> 1) * kBrick + h[u].y + (i & 1)];
+        a[lane] = fmaf(wv[i], v0[u], a[lane]);
+        a[lane + 32] = fmaf(wv[i], v1[u], a[lane + 32]);
+      }
+    }
+  }
+}
+
+// grad_x of one 4 x 4 x 4 input brick x 64 channels of one (b, deformable
+// group).  The bounded contract keeps a tap's corners within rows [lo, lo +
+// win - 1] of its anchor per axis, so the (tap, output position) pairs
+// whose corners can land in the brick are, per tap, a box of (win + 3)
+// positions per axis (8^3 = 512 at bound 2); the candidates are those,
+// tap-major, evaluated kCand at a time into a table.  Warp w owns brick
+// plane w / 2, rows 2 (w % 2) and 2 (w % 2) + 1; it scans the table in
+// order for candidates with a corner there, stages them and applies them.
+__global__ void __launch_bounds__(kPullT) shift_pull3_kernel(const float* __restrict__ offset,
+                                                            const float* __restrict__ mask,
+                                                            const float* __restrict__ gcols, float* __restrict__ gx,
+                                                            Geo3 g) {
+  extern __shared__ __align__(16) float dyn[];
+  Pull3Block& sm = *reinterpret_cast<Pull3Block*>(dyn);
+  const int K = taps3(g), P = out_size3(g), HW = g.H * g.W;
+  const int Cdg = g.C / g.dg, cchunks = (Cdg + kPullC - 1) / kPullC;
+  int bz0, by0, bx0;
+  brick_origin(blockIdx.x, bricks(g.H), bricks(g.W), bz0, by0, bx0);
+  const int d = blockIdx.y / cchunks, c0 = d * Cdg + blockIdx.y % cchunks * kPullC;
+  const int cw = min(kPullC, (d + 1) * Cdg - c0), b = blockIdx.z;
+  const int Lz = g.win_z + kBrick - 1, Ly = g.win_y + kBrick - 1, Lx = g.win_x + kBrick - 1;
+  const int n_cand = K * Lz * Ly * Lx;
+  const float* gcol = gcols + static_cast<size_t>(b) * K * P * g.C + c0;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int zw = warp >> 1, ya = 2 * (warp & 1), pa = (zw * kBrick + ya) * kBrick;
+  for (int e = threadIdx.x; e < kPullPix * (kPullC + 1); e += kPullT) (&sm.acc[0][0])[e] = 0.f;
+  for (int e0 = 0; e0 < n_cand; e0 += kCand) {
+    for (int e = threadIdx.x; e < kCand; e += kPullT) {
+      const int c = e0 + e, k = c / (Lz * Ly * Lx), rem = c % (Lz * Ly * Lx);
+      const int kz = k / (g.kh * g.kw), ky = k / g.kw % g.kh, kx = k % g.kw;
+      // Output rows o whose corners o + anchor + [lo, lo + win - 1] meet the
+      // brick's rows [i0, i0 + 3].
+      const int oz = bz0 - (kz * g.dd - g.pd) - (g.lo_z + g.win_z - 1) + rem / (Ly * Lx);
+      const int oy = by0 - (ky * g.dh - g.ph) - (g.lo_y + g.win_y - 1) + rem / Lx % Ly;
+      const int ox = bx0 - (kx * g.dw - g.pw) - (g.lo_x + g.win_x - 1) + rem % Lx;
+      TapWeights3 t{0, 0, 0, make_float4(0.f, 0.f, 0.f, 0.f), make_float4(0.f, 0.f, 0.f, 0.f)};
+      if (c < n_cand && oz >= 0 && oz < g.OD && oy >= 0 && oy < g.OH && ox >= 0 && ox < g.OW)
+        t = weights3_at(g, offset, mask, b, d, k, (oz * g.OH + oy) * g.OW + ox);
+      sm.cw[0][e] = t.lo;
+      sm.cw[1][e] = t.hi;
+      sm.ck[e] = k * P + (oz * g.OH + oy) * g.OW + ox;
+      sm.czyx[e] = (pull3_rel(t.z0 - bz0) * 64 + pull3_rel(t.y0 - by0)) * 64 + pull3_rel(t.x0 - bx0);
+    }
+    __syncthreads();
+    // The scan: candidate i's corners in this warp's rows, staged in order.
+    const int n = min(kCand, n_cand - e0);
+    int ns = 0;
+    for (int i0 = 0; i0 < n; i0 += 32) {
+      const int i = i0 + lane;
+      bool has = false;
+      float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
+      int rx = 0;
+      if (i < n) {
+        const int q = sm.czyx[i], rz = q / 4096 - 16, ry = q / 64 % 64 - 16;
+        rx = q % 64 - 16;
+        const float4 pw = rz == zw ? sm.cw[0][i] : rz + 1 == zw ? sm.cw[1][i] : make_float4(0.f, 0.f, 0.f, 0.f);
+        w.x = ry == ya ? pw.x : ry + 1 == ya ? pw.z : 0.f;
+        w.y = ry == ya ? pw.y : ry + 1 == ya ? pw.w : 0.f;
+        w.z = ry == ya + 1 ? pw.x : ry == ya ? pw.z : 0.f;
+        w.w = ry == ya + 1 ? pw.y : ry == ya ? pw.w : 0.f;
+        if (rx < 0 || rx > kBrick - 1) w.x = w.z = 0.f;
+        if (rx < -1 || rx > kBrick - 2) w.y = w.w = 0.f;
+        has = w.x != 0.f || w.y != 0.f || w.z != 0.f || w.w != 0.f;
+      }
+      const unsigned m = __ballot_sync(0xffffffffu, has);
+      if (has) {
+        const int slot = ns + __popc(m & ((1u << lane) - 1));
+        sm.hk[warp][slot] = make_int2(sm.ck[i], rx);
+        sm.hw[warp][slot] = w;
+      }
+      ns += __popc(m);
+      if (ns > kStage - 32) {
+        __syncwarp();
+        pull3_apply(sm, ns, pa, gcol, g.C, cw);
+        ns = 0;
+        __syncwarp();
+      }
+    }
+    __syncwarp();
+    pull3_apply(sm, ns, pa, gcol, g.C, cw);
+    __syncthreads();  // the next table overwrites this one
+  }
+  const size_t S = static_cast<size_t>(g.D) * HW;
+  for (int e = threadIdx.x; e < kPullPix * cw; e += kPullT) {
+    const int c = e / kPullPix, pix = e % kPullPix;
+    const int z = bz0 + pix / 16, y = by0 + pix / 4 % 4, x = bx0 + pix % 4;
+    if (z < g.D && y < g.H && x < g.W)
+      gx[(static_cast<size_t>(b) * g.C + c0 + c) * S + z * HW + y * g.W + x] = sm.acc[pix][c];
+  }
+}
+
+// The correlation of 64 consecutive positions of one (b, deformable group
+// d, tap k): their corner derivatives (grad3_at) are built once into
+// shared memory; then warp w takes positions w, w + 8, ..., two at a time
+// so that their loads are in flight together, lane l sums gcol * x over
+// channels l, l + 32, ... of the slab for each kept corner, and
+// warp_sum_spread sums the lanes' sixteen values in a fixed order.  gcol
+// and the corners of xt are rows of consecutive channels.
+__global__ void __launch_bounds__(256, 2) corr3_kernel(const float* __restrict__ xt,
+                                                      const float* __restrict__ offset,
+                                                      const float* __restrict__ mask,
+                                                      const float* __restrict__ gcols, float* __restrict__ goff,
+                                                      float* __restrict__ gmask, Geo3 g) {
+  constexpr int kU = 2;              // positions a warp sums at once
+  constexpr int kL = 32 / (8 * kU);  // lanes that end up holding each sum
+  __shared__ TapGrad3 tg[kTP];
+  const int K = taps3(g), P = out_size3(g), Cdg = g.C / g.dg;
+  const size_t S = static_cast<size_t>(g.D) * g.H * g.W;
+  const int p0 = blockIdx.x * kTP, k = blockIdx.y % K, d = blockIdx.y / K, b = blockIdx.z;
+  if (threadIdx.x < kTP) {
+    TapGrad3 t{};
+    if (p0 + threadIdx.x < P) t = grad3_at(g, offset, mask, b, d, k, p0 + threadIdx.x);
+    tg[threadIdx.x] = t;
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float* gp = gcols + (static_cast<size_t>(b) * K + k) * P * g.C + static_cast<size_t>(d) * Cdg;
+  const float* xb = xt + static_cast<size_t>(b) * S * g.C + static_cast<size_t>(d) * Cdg;
+  int step[8];  // corner j from the low corner, in elements of xt
+#pragma unroll
+  for (int j = 0; j < 8; ++j) step[j] = ((j >> 2) * g.H * g.W + (j >> 1 & 1) * g.W + (j & 1)) * g.C;
+  for (int i0 = warp; i0 < kTP; i0 += 8 * kU) {
+    int keep[kU], go[kU], xo[kU];  // gcol's row and the low corner's, in elements from gp and xb
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const TapGrad3& t = tg[i0 + 8 * u];
+      keep[u] = t.keep;
+      go[u] = min(p0 + i0 + 8 * u, P - 1) * g.C;
+      xo[u] = t.keep ? ((t.z0 * g.H + t.y0) * g.W + t.x0) * g.C : 0;
+    }
+    float s[kU * 8] = {};
+    for (int c = lane; c < Cdg; c += 32) {
+      float gv[kU], xv[kU][8];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const float* xc = xb + xo[u] + c;
+        gv[u] = keep[u] ? gp[go[u] + c] : 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) xv[u][j] = keep[u] >> j & 1 ? xc[step[j]] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kU; ++u)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) s[8 * u + j] = fmaf(gv[u], xv[u][j], s[8 * u + j]);
+    }
+    // Value 8 u + j, the sum of corner j of position u, ends in lanes
+    // (8 u + j) kL ...; lane 8 u kL gathers its position's eight.
+    const float sum = warp_sum_spread<kU * 8>(s);
+    float Sc[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) Sc[j] = __shfl_sync(0xffffffffu, sum, (lane & ~(8 * kL - 1)) + j * kL);
+    const int u = lane / (8 * kL), i = i0 + 8 * u, p = p0 + i;
+    if (lane % (8 * kL) == 0 && p < P) {
+      const TapGrad3& t = tg[i];
+      if (goff) {
+        float gz = 0.f, gy = 0.f, gxv = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          gz += t.dz[j] * Sc[j];
+          gy += t.dy[j] * Sc[j];
+          gxv += t.dx[j] * Sc[j];
+        }
+        const size_t oidx = (static_cast<size_t>(b) * g.dg * 3 * K + static_cast<size_t>(d) * 3 * K + 3 * k) * P + p;
+        goff[oidx] = t.m * gz;
+        goff[oidx + P] = t.m * gy;
+        goff[oidx + 2 * static_cast<size_t>(P)] = t.m * gxv;
+      }
+      if (gmask) {
+        float gm = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) gm += t.w[j] * Sc[j];
+        gmask[(static_cast<size_t>(b) * g.dg * K + static_cast<size_t>(d) * K + k) * P + p] = gm;
+      }
+    }
+  }
+}
+
+// The bounded 3D backward's launches (windowed geometry).  gcols (b_step,
+// K, P, C), xt (B, D*H*W, C) and part (splits, groups, C/groups*K,
+// O/groups) are the caller's scratch; outputs not wanted are null.
+template <int Prec>
+inline cudaError_t run_bwd3d(const Geo3& g, const float* x, const float* offset, const float* mask, const float* wk,
+                             const float* gout, float* gcols, float* xt, float* part, float* gx, float* goff,
+                             float* gmask, float* gwt, int b_step, int splits, cudaStream_t s) {
+  const int K = taps3(g), P = out_size3(g), rows = g.C / g.groups * K, Cdg = g.C / g.dg;
+  const int S = g.D * g.H * g.W;
+  cudaError_t err;
+  if (goff || gmask || gwt) {
+    x_cl_kernel<<<dim3((S + 31) / 32, (g.C + 31) / 32, g.B), 256, 0, s>>>(x, xt, g.C, S);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  if (gx && (err = cudaFuncSetAttribute(shift_pull3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                        static_cast<int>(sizeof(Pull3Block)))) != cudaSuccess)
+    return err;
+  for (int b0 = 0; (gx || goff || gmask) && b0 < g.B; b0 += b_step) {
+    Geo3 gc = g;
+    gc.B = min(b_step, g.B - b0);
+    const float* off_c = offset + static_cast<size_t>(b0) * g.dg * 3 * K * P;
+    const float* mask_c = mask ? mask + static_cast<size_t>(b0) * g.dg * K * P : nullptr;
+    const dim3 grid((P + kMT - 1) / kMT, (rows + kMT - 1) / kMT, gc.B * g.groups);
+    gcols_mma_kernel<Prec><<<grid, kMmaThreads, 0, s>>>(wk, gout + static_cast<size_t>(b0) * g.O * P, gcols,
+                                                        flat_geo(gc));
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    if (gx) {
+      const dim3 pgrid(bricks(g.D) * bricks(g.H) * bricks(g.W), g.dg * ((Cdg + kPullC - 1) / kPullC), gc.B);
+      shift_pull3_kernel<<<pgrid, kPullT, sizeof(Pull3Block), s>>>(off_c, mask_c, gcols,
+                                                                   gx + static_cast<size_t>(b0) * g.C * S, gc);
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    }
+    if (goff || gmask) {
+      corr3_kernel<<<dim3((P + kTP - 1) / kTP, K * g.dg, gc.B), 256, 0, s>>>(
+          xt + static_cast<size_t>(b0) * S * g.C, off_c, mask_c, gcols,
+          goff ? goff + static_cast<size_t>(b0) * g.dg * 3 * K * P : nullptr,
+          gmask ? gmask + static_cast<size_t>(b0) * g.dg * K * P : nullptr, gc);
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    }
+  }
+  if (gwt && (err = launch_gw_mma<Prec>(g, xt, offset, mask, gout, part, gwt, splits, s)) != cudaSuccess)
+    return err;
+  return cudaSuccess;
 }
 
 }  // namespace mdc

@@ -1,12 +1,14 @@
-// The 2D forward on tensor cores (gathermm_fwd.cu, shiftblend_fwd.cu):
+// The forward on tensor cores, 2D (gathermm_fwd.cu, shiftblend_fwd.cu) and
+// 3D (shiftblend3d_fwd.cu):
 //
 //   out = W2 cols + bias,  cols[(c, k), n] = sum_corners w * x[c, corner]
 //
 // with the mask and the tap gate folded into the corner weights w
-// (tap_weights; `windowed` adds the bounded contract's per-axis window).
-// Three kernels on one stream:
-//   x_cl_kernel     x channels-last, xt (B, H*W, C), once per call, so that
-//                   every corner is a row of consecutive channels;
+// (tap_weights, tap_weights3; `windowed` adds the bounded contract's
+// per-axis window), 4 corners a tap in 2D and 8 in 3D.  Three kernels on
+// one stream:
+//   x_cl_kernel     x channels-last, xt (B, positions, C), once per call, so
+//                   that every corner is a row of consecutive channels;
 //   fwd_mma_kernel  a block owns 64 output positions (128 on the xt path
 //                   where one output tile holds the group) x up to OT * 64
 //                   output channels of one conv group and runs the
@@ -21,13 +23,14 @@
 //                   summed in order, plus the bias.
 //
 // Two sources for the corners, one kernel template:
-//   xt    (gathermm_fwd, and shiftblend_fwd where its route rule or the
-//         halo's size says so):
+//   xt    (gathermm_fwd, shiftblend3d_fwd, and shiftblend_fwd where its route
+//         rule or the halo's size says so):
 //         the positions are consecutive on the flattened (b, p) axis, the
 //         rows run channel chunk by channel chunk (32 channels), tap by tap
 //         within a chunk; a thread reads 4 consecutive channels of a
 //         corner, 16 bytes, straight from xt;
-//   halo  (shiftblend_fwd): the positions are an 8 x 8 tile of one sample;
+//   halo  (shiftblend_fwd, 2D only): the positions are an 8 x 8 tile of one
+//         sample;
 //         the bounded contract keeps every kept corner inside the tile's
 //         (8 + 2 Ry) x (8 + 2 Rx) halo, so the halo of `ch` channels is
 //         staged with cp.async, channels innermost, before the offsets are
@@ -45,6 +48,7 @@
 #pragma once
 
 #include "deform_mma.cuh"
+#include "deform_tile3d.cuh"
 
 namespace mdc {
 
@@ -67,19 +71,22 @@ __host__ __device__ constexpr int fwd_halves(int OT, bool halo) { return !halo &
 
 // The layout of a block's dynamic shared memory, in floats: two stages of
 // OT weight tiles and of NH column tiles (32 x kMS each), the corner table
-// (tt taps x nd deformable groups x NH * 64 positions: float4 weights, then
-// int corner indices), and the halo buffers (pixels x (ch + 4) floats).
+// (tt taps x nd deformable groups x NH * 64 positions: `planes` float4s of
+// weights each, then int corner indices), and the halo buffers (pixels x
+// (ch + 4) floats).
 struct FwdSmem {
   int tt, nd;
   size_t halo_floats;
+  int planes = 1;
   size_t floats(int OT, int NH) const {
-    return static_cast<size_t>(2) * (OT + NH) * kMK * kMS + static_cast<size_t>(tt) * nd * NH * kMT * 5 +
-           halo_floats;
+    return static_cast<size_t>(2) * (OT + NH) * kMK * kMS +
+           static_cast<size_t>(tt) * nd * NH * kMT * (4 * planes + 1) + halo_floats;
   }
 };
 
-// The four corners (16 bytes each) of a column quad at src with weights wt,
-// into registers v##0 .. v##3; a corner of weight 0 is not read.
+// The four corners (16 bytes each) of a column quad at src with weights wt
+// (one plane of them in 3D), into registers v##0 .. v##3; a corner of
+// weight 0 is not read.
 #define MDC_GATHER(src, wt, v)                                                                   \
   do {                                                                                           \
     v##0 = (wt).x != 0.f ? *reinterpret_cast<const float4*>(src) : z;                            \
@@ -87,15 +94,15 @@ struct FwdSmem {
     v##2 = (wt).z != 0.f ? *reinterpret_cast<const float4*>((src) + dy) : z;                     \
     v##3 = (wt).w != 0.f ? *reinterpret_cast<const float4*>((src) + dy + dx) : z;                \
   } while (0)
-// Blend them into column buffer buf, rows 4 (lq + 4 u) .. + 3 at position
-// nl, each thread's 4 stores rotated by lq so that a warp's hit 32 banks.
-#define MDC_BLEND_STORE(buf, wt, v, u)                                                           \
+// Channel f (x, y, z or w) of the quad's blend of them.
+#define MDC_BLEND(wt, v, f) \
+  ((wt).x * (v##0).f + (wt).y * (v##1).f + (wt).z * (v##2).f + (wt).w * (v##3).f)
+// Store a quad's four blended rows r(x) .. r(w) into column buffer buf, rows
+// 4 (lq + 4 u) .. + 3 at position nl, each thread's 4 stores rotated by lq
+// so that a warp's hit 32 banks.
+#define MDC_STORE(buf, u, r)                                                                     \
   do {                                                                                           \
-    const float r_[4] = {                                                                        \
-        (wt).x * (v##0).x + (wt).y * (v##1).x + (wt).z * (v##2).x + (wt).w * (v##3).x,           \
-        (wt).x * (v##0).y + (wt).y * (v##1).y + (wt).z * (v##2).y + (wt).w * (v##3).y,           \
-        (wt).x * (v##0).z + (wt).y * (v##1).z + (wt).z * (v##2).z + (wt).w * (v##3).z,           \
-        (wt).x * (v##0).w + (wt).y * (v##1).w + (wt).z * (v##2).w + (wt).w * (v##3).w};          \
+    const float r_[4] = {r(x), r(y), r(z), r(w)};                                                \
     float* row_ = sB + (buf) * kA + 4 * (lq + 4 * (u)) * kMS + nl;                               \
     _Pragma("unroll") for (int j_ = 0; j_ < 4; ++j_) {                                           \
       const int jj_ = (j_ + lq) & 3;                                                             \
@@ -103,20 +110,24 @@ struct FwdSmem {
     }                                                                                            \
   } while (0)
 
-template <int Prec, int OT, bool kHalo>
+// G is the rank's geometry: Geo (2D) or Geo3 (3D, xt route only).
+template <int Prec, int OT, bool kHalo, class G>
 __global__ void __launch_bounds__(kMmaThreads, 2) fwd_mma_kernel(
     const float* __restrict__ xt, const float* __restrict__ offset, const float* __restrict__ mask,
     const float* __restrict__ wf, const float* __restrict__ bias, float* __restrict__ out,
-    float* __restrict__ part, int cw_log2, int tt, int nd_tab, Halo h, Geo g) {
+    float* __restrict__ part, int cw_log2, int tt, int nd_tab, Halo h, G g) {
   extern __shared__ __align__(16) float dyn[];
   constexpr int kA = kMK * kMS;  // one operand tile of a stage
   constexpr int NH = fwd_halves(OT, kHalo), kNP = NH * kMT;  // the block's positions
+  constexpr bool k3D = kIs3D<G>;
+  static_assert(!(k3D && kHalo), "the halo route is 2D only");
+  const int n_tab = tt * nd_tab * kNP;  // corner table entries
   float* sA = dyn;                // [stage][ot][row][o]
   float* sB = dyn + 2 * OT * kA;  // [stage][half][row][n]
-  float4* tw = reinterpret_cast<float4*>(sB + 2 * NH * kA);  // [k - wk][d - wd][n]: corner weights
-  int* tq = reinterpret_cast<int*>(tw + tt * nd_tab * kNP);  // the low corner: xt row, or halo pixel
-  float* halo = reinterpret_cast<float*>(tq + tt * nd_tab * kNP);  // [buf][pixel][channel], rows of ch + 4
-  const int K = g.kh * g.kw, P = g.OH * g.OW, HW = g.H * g.W;
+  float4* tw = reinterpret_cast<float4*>(sB + 2 * NH * kA);  // [plane][k - wk][d - wd][n]: corner weights
+  int* tq = reinterpret_cast<int*>(tw + kPlanes<G> * n_tab);  // the low corner: xt row, or halo pixel
+  float* halo = reinterpret_cast<float*>(tq + n_tab);         // [buf][pixel][channel], rows of ch + 4
+  const int K = taps(g), P = out_positions(g), HW = in_positions(g);
   const int Cgc = g.C / g.groups, Og = g.O / g.groups, Cdg = g.C / g.dg;
   const int o_tiles = (Og + OT * kMT - 1) / (OT * kMT);
   const int gi = blockIdx.y / o_tiles, o0 = blockIdx.y % o_tiles * OT * kMT;
@@ -125,7 +136,7 @@ __global__ void __launch_bounds__(kMmaThreads, 2) fwd_mma_kernel(
   // The block's positions: n0 + nl on the flattened (b, p) axis, or the
   // 8 x 8 tile at (ty0, tx0) of sample bh.
   int n0 = 0, bh = 0, ty0 = 0, tx0 = 0;
-  if (kHalo) {
+  if constexpr (kHalo) {
     const int tiles_x = (g.W + kHaloTile - 1) / kHaloTile, tiles = tiles_x * ((g.H + kHaloTile - 1) / kHaloTile);
     bh = blockIdx.x / tiles;
     ty0 = blockIdx.x % tiles / tiles_x * kHaloTile;
@@ -134,7 +145,7 @@ __global__ void __launch_bounds__(kMmaThreads, 2) fwd_mma_kernel(
     n0 = blockIdx.x * kNP;
   }
   auto where = [&](int nl, int& b, int& p) {
-    if (kHalo) {
+    if constexpr (kHalo) {
       const int y = ty0 + nl / kHaloTile, x = tx0 + nl % kHaloTile;
       b = bh;
       p = y * g.W + x;
@@ -220,72 +231,87 @@ __global__ void __launch_bounds__(kMmaThreads, 2) fwd_mma_kernel(
     if (st.k0 >= wk && k1 <= wk + tt && dr0 >= wd && dr1 < wd + nd_tab) return false;
     wk = st.k0;
     wd = dr0;
-    // Four entries a thread at a time, their offsets and masks read before
-    // any is used, so that the reads are in flight together.
-    constexpr int kU = 4;
-    const int n_e = tt * nd_tab * kNP;
-    for (int e0 = threadIdx.x; e0 < n_e; e0 += kU * kMmaThreads) {
-      float oy[kU], ox[kU], m[kU];
+    // Four entries a thread at a time, their offsets (ND a tap, offset
+    // channels d * ND * K + ND * k + axis) and masks read before any is
+    // used, so that the reads are in flight together.
+    constexpr int kU = 4, ND = k3D ? 3 : 2;
+    for (int e0 = threadIdx.x; e0 < n_tab; e0 += kU * kMmaThreads) {
+      float o[kU][ND], m[kU];
       int b[kU], p[kU], k[kU];
       bool ok[kU];
 #pragma unroll
       for (int u = 0; u < kU; ++u) {
         const int e = e0 + u * kMmaThreads, d = wd + e / kNP % nd_tab;
         k[u] = wk + e / (nd_tab * kNP);
-        ok[u] = e < n_e && k[u] < K && d < g.dg && where(e % kNP, b[u], p[u]);
-        oy[u] = ox[u] = 0.f;
+        ok[u] = e < n_tab && k[u] < K && d < g.dg && where(e % kNP, b[u], p[u]);
+#pragma unroll
+        for (int a = 0; a < ND; ++a) o[u][a] = 0.f;
         m[u] = 1.f;
         if (ok[u]) {
-          const size_t oidx = ((static_cast<size_t>(b[u]) * g.dg + d) * 2 * K + 2 * k[u]) * P + p[u];
-          oy[u] = offset[oidx];
-          ox[u] = offset[oidx + P];
+          const size_t oidx = ((static_cast<size_t>(b[u]) * g.dg + d) * ND * K + ND * k[u]) * P + p[u];
+#pragma unroll
+          for (int a = 0; a < ND; ++a) o[u][a] = offset[oidx + static_cast<size_t>(a) * P];
           if (mask) m[u] = mask[((static_cast<size_t>(b[u]) * g.dg + d) * K + k[u]) * P + p[u]];
         }
       }
 #pragma unroll
       for (int u = 0; u < kU; ++u) {
         const int e = e0 + u * kMmaThreads;
-        if (e >= n_e) break;
-        TapWeights tap{0, 0, make_float4(0.f, 0.f, 0.f, 0.f)};
-        if (ok[u]) {
-          const int ky = k[u] / g.kw, kx = k[u] % g.kw, oyp = p[u] / g.OW, oxp = p[u] % g.OW;
-          tap = tap_weights(oyp * g.sh - g.ph + ky * g.dh, oxp * g.sw - g.pw + kx * g.dw, oy[u], ox[u], m[u], g.H,
-                            g.W, g.windowed, g.lo_y, g.win_y, g.lo_x, g.win_x);
+        if (e >= n_tab) break;
+        if constexpr (k3D) {
+          TapWeights3 tap{0, 0, 0, make_float4(0.f, 0.f, 0.f, 0.f), make_float4(0.f, 0.f, 0.f, 0.f)};
+          if (ok[u]) {
+            int bz, by, bx;
+            tap_base3(g, k[u], p[u], bz, by, bx);
+            tap = tap_weights3(g, bz, by, bx, o[u][0], o[u][1], o[u][2], m[u]);
+          }
+          tw[e] = tap.lo;
+          tw[n_tab + e] = tap.hi;
+          tq[e] = ok[u] ? b[u] * HW + (tap.z0 * g.H + tap.y0) * g.W + tap.x0 : 0;
+        } else {
+          TapWeights tap{0, 0, make_float4(0.f, 0.f, 0.f, 0.f)};
+          if (ok[u]) {
+            const int ky = k[u] / g.kw, kx = k[u] % g.kw, oyp = p[u] / g.OW, oxp = p[u] % g.OW;
+            tap = tap_weights(oyp * g.sh - g.ph + ky * g.dh, oxp * g.sw - g.pw + kx * g.dw, o[u][0], o[u][1], m[u],
+                              g.H, g.W, g.windowed, g.lo_y, g.win_y, g.lo_x, g.win_x);
+          }
+          tw[e] = tap.w;
+          tq[e] = !ok[u] ? 0
+                  : kHalo ? (tap.y0 - ty0 + h.ry) * WS + tap.x0 - tx0 + h.rx
+                          : b[u] * HW + tap.y0 * g.W + tap.x0;
         }
-        tw[e] = tap.w;
-        tq[e] = !ok[u] ? 0
-                : kHalo ? (tap.y0 - ty0 + h.ry) * WS + tap.x0 - tx0 + h.rx
-                        : b[u] * HW + tap.y0 * g.W + tap.x0;
       }
     }
     return true;
   };
 
   // Columns of a stage.  Thread (warp w, lane l) owns position nl = 8 w +
-  // l % 8 of each half of the block's positions.  With 4 channels of one deformable group a quad (vec), it reads
-  // the 4 corners of quads l / 8 and l / 8 + 4 of the stage's rows, 16
-  // bytes each, into registers (MDC_GATHER), then blends them and stores
-  // each quad's 4 rows rotated by l / 8, so that a warp's stores hit 32
-  // banks (MDC_BLEND_STORE); otherwise (build_scalar) it blends rows l / 8
-  // + 4 u, u < 8, from 4-byte reads.  A corner of weight 0 is never read:
-  // its address may lie outside x.
+  // l % 8 of each half of the block's positions.  With 4 channels of one
+  // deformable group a quad (vec), it reads the 4 corners (8 in 3D) of
+  // quads l / 8 and l / 8 + 4 of the stage's rows, 16 bytes each, into
+  // registers (MDC_GATHER), then blends them and stores each quad's 4 rows
+  // rotated by l / 8, so that a warp's stores hit 32 banks (MDC_STORE);
+  // otherwise (build_scalar, 2D only) it blends rows l / 8 + 4 u, u < 8,
+  // from 4-byte reads.  A corner of weight 0 is never read: its address may
+  // lie outside x.
   const bool vec = Cgc % 4 == 0 && Cdg % 4 == 0;
   const int dx = kHalo ? chp : g.C, dy = kHalo ? WS * chp : g.W * g.C;
   const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
   // The corner rows of quad u of a stage at position nl of half hh: its
-  // table entry and first corner's address (weights 0 for a row past the
-  // taps or the channels).
-  auto corner = [&](const Stage& st, int u, int hh, float4& w) -> const float* {
+  // table entry's weights (wh: plane z0 + 1's, 3D) and first corner's
+  // address (weights 0 for a row past the taps or the channels).
+  auto corner = [&](const Stage& st, int u, int hh, float4& w, float4& wh) -> const float* {
     const int rr = 4 * (lq + 4 * u), rk = rr >> cw_log2, rc = rr & cmask, k = st.k0 + rk;
-    w = z;
+    w = wh = z;
     if (k >= K || st.c0 + rc >= Cgc) return xt;
     const int te = ((k - wk) * nd_tab + (kHalo ? 0 : dq[u] - wd)) * kNP + hh * kMT + nl;
     w = tw[te];
-    if (kHalo) return halo + static_cast<size_t>(st.t & 1) * HS * WS * chp + tq[te] * chp + rc;
+    if constexpr (k3D) wh = tw[n_tab + te];
+    if constexpr (kHalo) return halo + static_cast<size_t>(st.t & 1) * HS * WS * chp + tq[te] * chp + rc;
     return xt + gi * Cgc + st.c0 + static_cast<ptrdiff_t>(tq[te]) * g.C + rc;
   };
-  // Only the xt path comes here (the halo's chunks are whole quads): rows
-  // l / 8 + 4 u, four at a time.
+  // Only the 2D xt path comes here (the halo's chunks are whole quads, and
+  // the 3D callers give whole quads): rows l / 8 + 4 u, four at a time.
   auto build_scalar = [&](int buf, int hh, const Stage& st) {
     float* dst = sB + buf * kA;
     const float* xb = xt + gi * Cgc + st.c0;
@@ -327,14 +353,31 @@ __global__ void __launch_bounds__(kMmaThreads, 2) fwd_mma_kernel(
 #pragma unroll
     for (int hh = 0; hh < NH; ++hh) {
       const int buf = stage_buf * NH + hh;
-      if (vec) {
-        float4 w0, w1, a0, a1, a2, a3, b0, b1, b2, b3;
-        const float* p0 = corner(st, 0, hh, w0);
-        const float* p1 = corner(st, 1, hh, w1);
+      if constexpr (k3D) {
+        // A quad's 8 corners: plane z0's into a, plane z0 + 1's into b.
+        const int dz = g.H * g.W * g.C;
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          float4 wl, wh, a0, a1, a2, a3, b0, b1, b2, b3;
+          const float* p = corner(st, u, hh, wl, wh);
+          MDC_GATHER(p, wl, a);
+          MDC_GATHER(p + dz, wh, b);
+#define MDC_R(f) (MDC_BLEND(wl, a, f) + MDC_BLEND(wh, b, f))
+          MDC_STORE(buf, u, MDC_R);
+#undef MDC_R
+        }
+      } else if (vec) {
+        float4 w0, w1, unused, a0, a1, a2, a3, b0, b1, b2, b3;
+        const float* p0 = corner(st, 0, hh, w0, unused);
+        const float* p1 = corner(st, 1, hh, w1, unused);
         MDC_GATHER(p0, w0, a);
         MDC_GATHER(p1, w1, b);
-        MDC_BLEND_STORE(buf, w0, a, 0);
-        MDC_BLEND_STORE(buf, w1, b, 1);
+#define MDC_R0(f) MDC_BLEND(w0, a, f)
+#define MDC_R1(f) MDC_BLEND(w1, b, f)
+        MDC_STORE(buf, 0, MDC_R0);
+        MDC_STORE(buf, 1, MDC_R1);
+#undef MDC_R0
+#undef MDC_R1
       } else {
         build_scalar(buf, hh, st);
       }
@@ -343,7 +386,7 @@ __global__ void __launch_bounds__(kMmaThreads, 2) fwd_mma_kernel(
   Stage cur_st = stage_at(s_begin / nst, s_begin % nst);
   if (s_begin < s_end) {
     load_w(0, cur_st);
-    if (kHalo) {
+    if constexpr (kHalo) {
       load_halo(cur_st.t);
       if (cur_st.t + 1 <= t_last) load_halo(cur_st.t + 1);
     }
@@ -408,7 +451,8 @@ __global__ void __launch_bounds__(kMmaThreads, 2) fwd_mma_kernel(
   }
 }
 
-#undef MDC_BLEND_STORE
+#undef MDC_STORE
+#undef MDC_BLEND
 #undef MDC_GATHER
 
 // out[e] = sum of the splits' parts in order, plus the bias.
@@ -422,8 +466,8 @@ __global__ void __launch_bounds__(256) fold_out_kernel(const float* __restrict__
   }
 }
 
-template <int Prec, int OT, bool kHalo>
-inline cudaError_t launch_fwd_mma(const Geo& g, const float* xt, const float* offset, const float* mask,
+template <int Prec, int OT, bool kHalo, class G>
+inline cudaError_t launch_fwd_mma(const G& g, const float* xt, const float* offset, const float* mask,
                                   const float* wf, const float* bias, float* out, float* part, int splits, int cw,
                                   const FwdSmem& sm, const Halo& h, cudaStream_t s) {
   int cw_log2 = 0;
@@ -431,20 +475,20 @@ inline cudaError_t launch_fwd_mma(const Geo& g, const float* xt, const float* of
   constexpr int NH = fwd_halves(OT, kHalo);
   const size_t smem = sm.floats(OT, NH) * sizeof(float);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  auto kern = fwd_mma_kernel<Prec, OT, kHalo>;
+  auto kern = fwd_mma_kernel<Prec, OT, kHalo, G>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int Og = g.O / g.groups;
   const int blocks = kHalo ? g.B * ((g.H + kHaloTile - 1) / kHaloTile) * ((g.W + kHaloTile - 1) / kHaloTile)
-                           : (g.B * g.OH * g.OW + NH * kMT - 1) / (NH * kMT);
+                           : (g.B * out_positions(g) + NH * kMT - 1) / (NH * kMT);
   const dim3 grid(blocks, g.groups * ((Og + OT * kMT - 1) / (OT * kMT)), splits);
   kern<<<grid, kMmaThreads, smem, s>>>(xt, offset, mask, wf, bias, out, splits > 1 ? part : nullptr, cw_log2,
                                        sm.tt, sm.nd, h, g);
   return cudaGetLastError();
 }
 
-template <int Prec, bool kHalo>
-inline cudaError_t launch_fwd_ot(const Geo& g, const float* xt, const float* offset, const float* mask,
+template <int Prec, bool kHalo, class G>
+inline cudaError_t launch_fwd_ot(const G& g, const float* xt, const float* offset, const float* mask,
                                  const float* wf, const float* bias, float* out, float* part, int splits, int cw,
                                  const FwdSmem& sm, const Halo& h, cudaStream_t s) {
   switch (fwd_tiles(g.O / g.groups)) {
@@ -454,8 +498,8 @@ inline cudaError_t launch_fwd_ot(const Geo& g, const float* xt, const float* off
   }
 }
 
-template <bool kHalo>
-inline cudaError_t launch_fwd(const Geo& g, const float* xt, const float* offset, const float* mask, const float* wf,
+template <bool kHalo, class G>
+inline cudaError_t launch_fwd(const G& g, const float* xt, const float* offset, const float* mask, const float* wf,
                               const float* bias, float* out, float* part, int splits, int cw, const FwdSmem& sm,
                               const Halo& h, cudaStream_t s) {
   switch (g.precision) {
@@ -470,7 +514,8 @@ inline cudaError_t launch_fwd(const Geo& g, const float* xt, const float* offset
 
 // The most deformable groups that a chunk of cw channels of one conv group
 // spans.
-inline int chunk_groups(const Geo& g, int cw) {
+template <class G>
+inline int chunk_groups(const G& g, int cw) {
   const int Cgc = g.C / g.groups, Cdg = g.C / g.dg;
   int nd = 1;
   for (int gi = 0; gi < g.groups; ++gi)
@@ -481,52 +526,58 @@ inline int chunk_groups(const Geo& g, int cw) {
   return nd;
 }
 
-// The 2D forward: xt (B, H*W, C) and part (splits, B, O, OH*OW; unused
-// when splits == 1) are the caller's scratch, wf the weight as (groups, K,
-// C/groups, O/groups).  With `halo` (shiftblend_fwd, windowed geometry and
-// the halo's reach given) the halo path runs where two buffers of its
-// narrowest chunk fit in shared memory, the xt path elsewhere.
-inline cudaError_t run_fwd2d(const Geo& g, const float* x, const float* offset, const float* mask, const float* wf,
-                             const float* bias, float* out, float* xt, float* part, int splits, const Halo* halo,
-                             cudaStream_t s) {
-  const int HW = g.H * g.W, K = g.kh * g.kw, OT = fwd_tiles(g.O / g.groups);
+// The forward: xt (B, positions, C) and part (splits, B, O, output
+// positions; unused when splits == 1) are the caller's scratch, wf the
+// weight as (groups, K, C/groups, O/groups).  With `halo` (shiftblend_fwd,
+// windowed geometry and the halo's reach given) the halo path runs where
+// two buffers of its narrowest chunk fit in shared memory, the xt path
+// elsewhere.  3D takes the xt path and needs C/dg and C/groups % 4 == 0.
+template <class G>
+inline cudaError_t run_fwd(const G& g, const float* x, const float* offset, const float* mask, const float* wf,
+                           const float* bias, float* out, float* xt, float* part, int splits, const Halo* halo,
+                           cudaStream_t s) {
+  const int HW = in_positions(g), K = taps(g), OT = fwd_tiles(g.O / g.groups);
+  if (kIs3D<G> && ((g.C / g.dg) % 4 || (g.C / g.groups) % 4)) return cudaErrorInvalidValue;
   x_cl_kernel<<<dim3((HW + 31) / 32, (g.C + 31) / 32, g.B), 256, 0, s>>>(x, xt, g.C, HW);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   bool done = false;
-  if (halo) {
-    // The widest chunk (32, 16 or 8 channels of one deformable group)
-    // whose two buffers leave room for two blocks an SM, else for one.
-    const size_t pix = static_cast<size_t>(kHaloTile + 2 * halo->ry) * (kHaloTile + 2 * halo->rx);
-    const int Cdg = g.C / g.dg;
-    Halo h = *halo;
-    FwdSmem sm{min(K, kFwdTaps), 1, 0};
-    bool fits = false;
-    for (size_t budget = kMaxSmem / 2; budget <= kMaxSmem && !fits; budget *= 2)
-      for (int ch = 32; ch >= 8 && !fits; ch /= 2) {
-        if (Cdg % ch) continue;
-        sm.halo_floats = 2 * pix * (ch + 4);
-        h.ch = ch;
-        fits = sm.floats(OT, 1) * sizeof(float) <= budget;
+  if constexpr (!kIs3D<G>) {
+    if (halo) {
+      // The widest chunk (32, 16 or 8 channels of one deformable group)
+      // whose two buffers leave room for two blocks an SM, else for one.
+      const size_t pix = static_cast<size_t>(kHaloTile + 2 * halo->ry) * (kHaloTile + 2 * halo->rx);
+      const int Cdg = g.C / g.dg;
+      Halo h = *halo;
+      FwdSmem sm{min(K, kFwdTaps), 1, 0};
+      bool fits = false;
+      for (size_t budget = kMaxSmem / 2; budget <= kMaxSmem && !fits; budget *= 2)
+        for (int ch = 32; ch >= 8 && !fits; ch /= 2) {
+          if (Cdg % ch) continue;
+          sm.halo_floats = 2 * pix * (ch + 4);
+          h.ch = ch;
+          fits = sm.floats(OT, 1) * sizeof(float) <= budget;
+        }
+      if (fits) {
+        if ((err = launch_fwd<true>(g, xt, offset, mask, wf, bias, out, part, splits, h.ch, sm, h, s)) !=
+            cudaSuccess)
+          return err;
+        done = true;
       }
-    if (fits) {
-      if ((err = launch_fwd<true>(g, xt, offset, mask, wf, bias, out, part, splits, h.ch, sm, h, s)) != cudaSuccess)
-        return err;
-      done = true;
     }
   }
   if (!done) {
     const int nd = chunk_groups(g, kMK);
-    const FwdSmem sm{max(1, min(K, kFwdTaps / nd)), nd, 0};
+    const FwdSmem sm{max(1, min(K, kFwdTaps / nd)), nd, 0, kPlanes<G>};
     if ((err = launch_fwd<false>(g, xt, offset, mask, wf, bias, out, part, splits, kMK, sm, Halo{0, 0, 8}, s)) !=
         cudaSuccess)
       return err;
   }
   if (splits > 1) {
-    const size_t n = static_cast<size_t>(g.B) * g.O * g.OH * g.OW;
+    const size_t n = static_cast<size_t>(g.B) * g.O * out_positions(g);
     const size_t blocks = (n + 255) / 256;
     fold_out_kernel<<<static_cast<unsigned>(blocks < 132 * 16 ? blocks : 132 * 16), 256, 0, s>>>(
-        part, bias, out, n, splits, g.O, g.OH * g.OW);
+        part, bias, out, n, splits, g.O, out_positions(g));
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   return cudaSuccess;

@@ -5,9 +5,9 @@
 // positions x kTO output channels of one conv group, a corner table per
 // deformable-group slab, column chunks multiplied into register
 // accumulators by tile_fma against weight rows staged by load_weights) is
-// the shape of the 3D forwards (deform_tile3d.cuh) and of the first
-// sections of deform_bwd.cuh; the 2D forwards run on tensor cores
-// (deform_fwd.cuh).
+// the shape of gathermm3d_fwd.cu and of the first sections of
+// deform_bwd.cuh; the 2D forwards and the bounded 3D forward run on tensor
+// cores (deform_fwd.cuh).
 #pragma once
 
 #include <cuda_runtime.h>

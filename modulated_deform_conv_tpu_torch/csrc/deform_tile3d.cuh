@@ -1,10 +1,13 @@
 // The 3D corner rules: trilinear counterparts of deform_tile.cuh's
-// tap_corners / tap_weights / tap_grad / blend, used by the four 3D kernels
-// (shiftblend3d_*.cu, gathermm3d_*.cu).  The 2D kernels do not include this
-// header.  The GEMM pieces (tile_fma, load_weights, operand) and the block
+// tap_corners / tap_weights / tap_grad / blend, used by the 3D kernels
+// (shiftblend3d_*.cu, gathermm3d_*.cu) and by the tensor-core kernels that
+// are written once for both ranks (deform_fwd.cuh, gw_mma_kernel).  The
+// FP32-FMA GEMM pieces (tile_fma, load_weights, operand) and their block
 // shape (kTP positions x kTO output channels, kThreads threads) are
 // deform_tile.cuh's.
 #pragma once
+
+#include <type_traits>
 
 #include "deform_tile.cuh"
 
@@ -83,16 +86,21 @@ struct TapAt3 {
   float oz, oy, ox, m;
 };
 
+// The sampling base of tap k at output position p, per axis.
+__device__ __forceinline__ void tap_base3(const Geo3& g, int k, int p, int& bz, int& by, int& bx) {
+  const int ozp = p / (g.OH * g.OW), oyp = (p / g.OW) % g.OH, oxp = p % g.OW;
+  const int kz = k / (g.kh * g.kw), ky = (k / g.kw) % g.kh, kx = k % g.kw;
+  bz = ozp * g.sd - g.pd + kz * g.dd;
+  by = oyp * g.sh - g.ph + ky * g.dh;
+  bx = oxp * g.sw - g.pw + kx * g.dw;
+}
+
 __device__ __forceinline__ TapAt3 tap_at3(const Geo3& g, const float* __restrict__ offset,
                                           const float* __restrict__ mask, int b, int d, int k, int p) {
   const int K = taps3(g), P = out_size3(g);
-  const int ozp = p / (g.OH * g.OW), oyp = (p / g.OW) % g.OH, oxp = p % g.OW;
-  const int kz = k / (g.kh * g.kw), ky = (k / g.kw) % g.kh, kx = k % g.kw;
   const size_t oidx = (static_cast<size_t>(b) * g.dg * 3 * K + static_cast<size_t>(d) * 3 * K + 3 * k) * P + p;
   TapAt3 t;
-  t.bz = ozp * g.sd - g.pd + kz * g.dd;
-  t.by = oyp * g.sh - g.ph + ky * g.dh;
-  t.bx = oxp * g.sw - g.pw + kx * g.dw;
+  tap_base3(g, k, p, t.bz, t.by, t.bx);
   t.oz = offset[oidx];
   t.oy = offset[oidx + P];
   t.ox = offset[oidx + 2 * static_cast<size_t>(P)];
@@ -108,15 +116,21 @@ struct TapWeights3 {
   float4 lo, hi;
 };
 
-__device__ __forceinline__ TapWeights3 weights3_at(const Geo3& g, const float* __restrict__ offset,
-                                                   const float* __restrict__ mask, int b, int d, int k, int p) {
-  const TapAt3 a = tap_at3(g, offset, mask, b, d, k, p);
-  const TapCorners3 c = tap_corners3(g, a.bz, a.by, a.bx, a.oz, a.oy, a.ox);
+// From the tap's base, offsets and mask (tap_at3's fields).
+__device__ __forceinline__ TapWeights3 tap_weights3(const Geo3& g, int bz, int by, int bx, float oz, float oy,
+                                                    float ox, float m) {
+  const TapCorners3 c = tap_corners3(g, bz, by, bx, oz, oy, ox);
   const float wz[2] = {1.f - c.rz, c.rz}, wy[2] = {1.f - c.ry, c.ry}, wx[2] = {1.f - c.rx, c.rx};
   float w[8];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) w[i] = c.keep >> i & 1 ? wz[i >> 2] * wy[(i >> 1) & 1] * wx[i & 1] * a.m : 0.f;
+  for (int i = 0; i < 8; ++i) w[i] = c.keep >> i & 1 ? wz[i >> 2] * wy[(i >> 1) & 1] * wx[i & 1] * m : 0.f;
   return TapWeights3{c.z0, c.y0, c.x0, make_float4(w[0], w[1], w[2], w[3]), make_float4(w[4], w[5], w[6], w[7])};
+}
+
+__device__ __forceinline__ TapWeights3 weights3_at(const Geo3& g, const float* __restrict__ offset,
+                                                   const float* __restrict__ mask, int b, int d, int k, int p) {
+  const TapAt3 a = tap_at3(g, offset, mask, b, d, k, p);
+  return tap_weights3(g, a.bz, a.by, a.bx, a.oz, a.oy, a.ox, a.m);
 }
 
 // The corner weights without the mask, and their derivatives with respect
@@ -176,17 +190,56 @@ __device__ __forceinline__ float blend3(const float* __restrict__ src, int i0, i
   return v;
 }
 
-// Shared memory of a 3D forward block, in floats: column tile, weight tile,
-// corner table (two float4 of weights + one int index per (tap, position)),
-// then `extra`.
-__host__ __device__ inline size_t smem3_floats(int rows_cap, int K, size_t extra) {
+// Shared memory of a gathermm3d_fwd block, in floats: column tile, weight
+// tile, corner table (two float4 of weights + one int index per (tap,
+// position)).
+__host__ __device__ inline size_t smem3_floats(int rows_cap, int K) {
   return static_cast<size_t>(rows_cap) * kTP + static_cast<size_t>(rows_cap) * kWStride +
-         static_cast<size_t>(K) * kTP * 9 + extra;
+         static_cast<size_t>(K) * kTP * 9;
 }
 
 // A 4 x 4 x 4 brick of positions: the 3D kernels' tile of kTP positions.
 constexpr int kBrick = 4;
 
 __host__ __device__ inline int bricks(int n) { return (n + kBrick - 1) / kBrick; }
+
+// ---- either rank -------------------------------------------------------------
+//
+// For the kernels written once for 2D and 3D (deform_fwd.cuh, gw_mma_kernel):
+// taps, output and input positions a sample, and the corner weights of a
+// tap: one float4 in 2D (corners (y0, x0), (y0, x0+1), (y0+1, x0), (y0+1,
+// x0+1)), two in 3D (those of planes z0 and z0 + 1).
+template <class G>
+constexpr bool kIs3D = std::is_same<G, Geo3>::value;
+template <class G>
+constexpr int kPlanes = kIs3D<G> ? 2 : 1;
+
+__host__ __device__ inline int taps(const Geo& g) { return g.kh * g.kw; }
+__host__ __device__ inline int taps(const Geo3& g) { return taps3(g); }
+__host__ __device__ inline int out_positions(const Geo& g) { return g.OH * g.OW; }
+__host__ __device__ inline int out_positions(const Geo3& g) { return out_size3(g); }
+__host__ __device__ inline int in_positions(const Geo& g) { return g.H * g.W; }
+__host__ __device__ inline int in_positions(const Geo3& g) { return g.D * g.H * g.W; }
+
+// Mask-folded corner weights of tap k at output position p of sample b,
+// deformable group d, and the low corner's row in x channels-last, (B *
+// input positions, C).
+template <class G>
+struct CornerRow {
+  float4 w[kPlanes<G>];
+  int row;
+};
+
+__device__ __forceinline__ CornerRow<Geo> corner_row(const Geo& g, const float* __restrict__ offset,
+                                                     const float* __restrict__ mask, int b, int d, int k, int p) {
+  const TapWeights t = weights_at(g, offset, mask, b, d, k, p);
+  return CornerRow<Geo>{{t.w}, b * in_positions(g) + t.y0 * g.W + t.x0};
+}
+
+__device__ __forceinline__ CornerRow<Geo3> corner_row(const Geo3& g, const float* __restrict__ offset,
+                                                      const float* __restrict__ mask, int b, int d, int k, int p) {
+  const TapWeights3 t = weights3_at(g, offset, mask, b, d, k, p);
+  return CornerRow<Geo3>{{t.lo, t.hi}, b * in_positions(g) + (t.z0 * g.H + t.y0) * g.W + t.x0};
+}
 
 }  // namespace mdc

@@ -116,7 +116,7 @@ extern "C" int gathermm3d_fwd(const float* x, const float* offset, const float* 
   using namespace mdc;
   const Geo3 g{B,  C,  D,  H,  W,  O,  OD, OH, OW, groups, dg, kd, kh, kw, sd, sh,
                sw, pd, ph, pw, dd, dh, dw, 0,  0,  0,      0,  0,  0,  0,  precision};
-  const size_t smem = smem3_floats(kRows, taps3(g), 0) * sizeof(float);
+  const size_t smem = smem3_floats(kRows, taps3(g)) * sizeof(float);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(gathermm3d_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));

@@ -41,5 +41,5 @@ extern "C" int gathermm_fwd(const float* x, const float* offset, const float* ma
   using namespace mdc;
   const Geo g{B, C, H, W, O, OH, OW, groups, dg, kh, kw, sh, sw, ph, pw, dh, dw, 0, 0, 0, 0, 0, precision};
   return static_cast<int>(
-      run_fwd2d(g, x, offset, mask, wf, bias, out, xt, part, splits, nullptr, static_cast<cudaStream_t>(stream)));
+      run_fwd(g, x, offset, mask, wf, bias, out, xt, part, splits, nullptr, static_cast<cudaStream_t>(stream)));
 }

@@ -58,6 +58,6 @@ extern "C" int shiftblend_fwd(const float* x, const float* offset, const float* 
   using namespace mdc;
   const Geo g{B, C, H, W, O, H, W, groups, dg, kh, kw, 1, 1, ph, pw, dh, dw, 1, lo_y, win_y, lo_x, win_x, precision};
   const Halo h{Ry, Rx, 8};
-  return static_cast<int>(run_fwd2d(g, x, offset, mask, wf, bias, out, xt, part, splits, halo ? &h : nullptr,
+  return static_cast<int>(run_fwd(g, x, offset, mask, wf, bias, out, xt, part, splits, halo ? &h : nullptr,
                                     static_cast<cudaStream_t>(stream)));
 }

@@ -167,7 +167,8 @@ def _bwd(name, x, offset, mask, weight, grad_out, spec, precision, needs):
     # result, since each of those gradients belongs to one sample.
     b_step = effective_step(B, spec.in_step) if spec.ndim == 3 else None
     gx, goff, gmask, gwt, gcols, xt, part, splits = lib.bwd_buffers(
-        x, offset, mask, weight, spec, math.prod(OS), needs, b_step)
+        x, offset, mask, weight, spec, math.prod(OS), needs, b_step,
+        channels_last=b_step is None)
     if gx is None:
         tiles = None
     elif b_step is None:       # one corner box per 4 x 4 output tile

@@ -183,11 +183,11 @@ def grad_weight_splits(spec, B: int, C: int, O: int, P: int) -> int:
 
 
 def fwd_splits(spec, B: int, C: int, O: int, P: int) -> int:
-    """How many parts the 2D forward kernels split their contraction into
-    (csrc/deform_fwd.cuh): enough blocks of 64 positions x up to 256 output
-    channels for two on each of the H100's 132 SMs, at least 4 stages of 32
-    (channel, tap) rows a part.  It depends on the shapes only, so the
-    summation order does too."""
+    """How many parts the tensor-core forward kernels split their
+    contraction into (csrc/deform_fwd.cuh): enough blocks of 64 positions
+    x up to 256 output channels for two on each of the H100's 132 SMs, at
+    least 4 stages of 32 (channel, tap) rows a part.  It depends on the
+    shapes only, so the summation order does too."""
     Og = O // spec.groups
     tiles = 1 if Og <= 64 else 2 if Og <= 128 else 4
     blocks = -(-(B * P) // 64) * spec.groups * -(-Og // (64 * tiles))
@@ -196,8 +196,9 @@ def fwd_splits(spec, B: int, C: int, O: int, P: int) -> int:
 
 
 def fwd_buffers(x, weight, spec, out):
-    """Scratch of a 2D forward kernel: x channels-last (B, H*W, C), the
-    split parts (splits, *out.shape) or None, and the split count."""
+    """Scratch of a tensor-core forward kernel: x channels-last (B,
+    positions, C), the split parts (splits, *out.shape) or None, and the
+    split count."""
     B, C = x.shape[:2]
     P = math.prod(out.shape[2:])
     splits = fwd_splits(spec, B, C, weight.shape[0], P)
@@ -209,13 +210,14 @@ def fwd_buffers(x, weight, spec, out):
 
 
 def bwd_buffers(x, offset, mask, weight, spec, P: int, needs,
-                b_step: Optional[int] = None):
+                b_step: Optional[int] = None, channels_last: bool = True):
     """Outputs (None where not wanted) and scratch of a backward kernel:
     grad_x, grad_offset, grad_mask, grad_weight in the kernels' weight
-    layout, the gcols buffer (b_step, K, P, C), x channels-last (B, H*W, C)
-    for the correlation and grad_weight of the 2D kernels, the grad_weight
-    partials, and their split count.  b_step is the 3D kernels' batch chunk
-    (None in 2D: the whole batch; the 3D kernels take no channels-last x)."""
+    layout, the gcols buffer (b_step, K, P, C), x channels-last (B,
+    positions, C) for the correlation and grad_weight of the kernels that
+    take it (`channels_last`), the grad_weight partials, and their split
+    count.  b_step is the 3D kernels' batch chunk (None in 2D: the whole
+    batch)."""
     want_x, want_off, want_mask, want_w = needs
     B, C = x.shape[:2]
     O, g, K = weight.shape[0], spec.groups, spec.tap_count
@@ -228,7 +230,7 @@ def bwd_buffers(x, offset, mask, weight, spec, P: int, needs,
     gwt = empty(g, C // g * K, O // g) if want_w else None
     gcols = (empty(b_step or B, K, P, C) if gx is not None or goff is not None
              or gmask is not None else None)
-    xt = (empty(B, math.prod(x.shape[2:]), C) if b_step is None and (
+    xt = (empty(B, math.prod(x.shape[2:]), C) if channels_last and (
         goff is not None or gmask is not None or gwt is not None) else None)
     part = empty(splits, g, C // g * K, O // g) if want_w else None
     return gx, goff, gmask, gwt, gcols, xt, part, splits

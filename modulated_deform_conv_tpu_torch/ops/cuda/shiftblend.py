@@ -34,16 +34,6 @@ from ...utils.config import DeformConvSpec, effective_step
 from .. import core
 from . import lib
 
-# Shared-memory layout of the 3D forward kernel (csrc/shiftblend3d_fwd.cu),
-# in floats: column and weight tiles of rows_cap rows, the corner table
-# (_TABLE floats per (tap, position)), and a chunk of _CHUNK channels of
-# the halo-extended 4 x 4 x 4 output brick.  The 2D forward has no such
-# limit: where its halo does not fit, it reads the corners from x in device
-# memory (csrc/deform_fwd.cuh).
-_BRICK = (4, 4, 4)
-_CHUNK, _TABLE = 4, 9
-_ROWS, _TP, _WSTRIDE = 128, 64, 68
-_MAX_SMEM_FLOATS = 227 * 1024 // 4
 # The JAX package's loop-path rule (shiftblend.py:341-343): past this many
 # (tap, window) pairs its kernels roll the leading window axis, which needs
 # a 3D config with a plane stride that is a multiple of 128 (a TPU lane
@@ -89,13 +79,6 @@ def _halo(spec: DeformConvSpec, windows) -> Tuple[int, ...]:
                  for p, (lo, w) in zip(spec.padding, windows))
 
 
-def _smem_floats_3d(spec: DeformConvSpec, halo) -> int:
-    K = spec.tap_count
-    rows = min(_CHUNK * K, _ROWS)
-    return (rows * (_TP + _WSTRIDE) + K * _TP * _TABLE
-            + _CHUNK * math.prod(t + 2 * r for t, r in zip(_BRICK, halo)))
-
-
 def _loop_path_reason(spec: DeformConvSpec, S, windows) -> Optional[str]:
     """The JAX package's rules on the window (SBPlan.ineligible_reason):
     more than 640 (tap, window) pairs need the rolled-loop kernel, which
@@ -124,10 +107,11 @@ def ineligible_reason(x: torch.Tensor, spec: DeformConvSpec,
 
     The semantic rules of the JAX package's `SBPlan.ineligible_reason`
     (stride 1, output size == input size, C/dg % 8 == 0, C/dg <= 256,
-    dg % groups == 0, its loop-path and shift-set rules), so
-    both packages pick the same path for the same config, plus, in 3D, the
-    kernel's own shared-memory limit on the halo brick.  Its VMEM residency
-    and residual budgets are the TPU's and have no counterpart here."""
+    dg % groups == 0, its loop-path and shift-set rules), so both
+    packages pick the same path for the same config.  The kernels fit any
+    tap count and window, so they add no rule of their own; JAX's VMEM
+    residency and residual budgets are the TPU's and have no counterpart
+    here."""
     if offset_bound is None:
         return "no offset_bound provided (shiftblend needs bounded offsets)"
     if spec.ndim not in (2, 3):
@@ -150,14 +134,7 @@ def ineligible_reason(x: torch.Tensor, spec: DeformConvSpec,
     if spec.deformable_groups % spec.groups:
         return "deformable_groups must be a multiple of groups"
     windows = corner_windows(spec, offset_bound)
-    reason = _loop_path_reason(spec, S, windows)
-    if reason is not None:
-        return reason
-    if (spec.ndim == 3 and _smem_floats_3d(spec, _halo(spec, windows))
-            > _MAX_SMEM_FLOATS):
-        return ("offset_bound window too large for the shared-memory halo "
-                "tile")
-    return None
+    return _loop_path_reason(spec, S, windows)
 
 
 def offsets_within_bound(offset: torch.Tensor, offset_bound) -> torch.Tensor:
@@ -192,11 +169,13 @@ def shiftblend_fwd_reference(x, offset, mask, weight, bias,
 
 def _geometry(x, weight, spec: DeformConvSpec, offset_bound):
     """The kernels' leading int arguments: B, C, *S, O, groups, dg,
-    *kernel, *padding, *dilation, (lo, win) per axis, halo reach per axis."""
+    *kernel, *padding, *dilation, (lo, win) per axis, and in 2D the halo
+    reach per axis (the 3D kernels find each tap's reach themselves)."""
     windows = corner_windows(spec, offset_bound)
     return (*x.shape, weight.shape[0], spec.groups, spec.deformable_groups,
             *spec.kernel, *spec.padding, *spec.dilation,
-            *(v for w in windows for v in w), *_halo(spec, windows))
+            *(v for w in windows for v in w),
+            *(_halo(spec, windows) if spec.ndim == 2 else ()))
 
 
 # The 2D forward takes its halo route on planes of at least this many
@@ -225,19 +204,14 @@ def _fwd(name, x, offset, mask, weight, bias, spec, precision, offset_bound,
         raise NotImplementedError(f"{name}: {reason}")
     out = torch.empty((x.shape[0], weight.shape[0]) + tuple(x.shape[2:]),
                       dtype=torch.float32, device=x.device)
-    geometry = _geometry(x, weight, spec, offset_bound)
-    code = lib.PRECISION_CODES[precision]
+    route = ()
     if spec.ndim == 2:
-        if halo is None:
-            halo = halo_route(x.shape[2:])
-        xt, part, splits = lib.fwd_buffers(x, weight, spec, out)
-        lib.launch(name, x, (x, offset, mask,
-                             lib.fwd_weight(weight, spec.groups), bias, out,
-                             xt, part), (*geometry, int(halo), splits, code))
-    else:
-        lib.launch(name, x, (x, offset, mask,
-                             lib.grouped_weight(weight, spec.groups), bias,
-                             out), (*geometry, code))
+        route = (int(halo_route(x.shape[2:]) if halo is None else halo),)
+    xt, part, splits = lib.fwd_buffers(x, weight, spec, out)
+    lib.launch(name, x, (x, offset, mask, lib.fwd_weight(weight, spec.groups),
+                         bias, out, xt, part),
+               (*_geometry(x, weight, spec, offset_bound), *route, splits,
+                lib.PRECISION_CODES[precision]))
     return out
 
 
@@ -310,9 +284,8 @@ def _bwd(name, x, offset, mask, weight, grad_out, spec, precision,
     gx, goff, gmask, gwt, gcols, xt, part, splits = lib.bwd_buffers(
         x, offset, mask, weight, spec, P, needs, b_step)
     wk = lib.tap_major_weight(weight, spec.groups)
-    scratch = (gcols,) if b_step else (gcols, xt)
     lib.launch(name, x, (
-        x, offset, mask, wk, grad_out, *scratch, part, gx, goff, gmask,
+        x, offset, mask, wk, grad_out, gcols, xt, part, gx, goff, gmask,
         gwt), (
         *_geometry(x, weight, spec, offset_bound),
         *(() if b_step is None else (b_step,)), splits,

@@ -8,7 +8,10 @@ of the JAX op at precision "float32", its Pallas kernels in interpret mode:
 * shift-blend on the loop path (`_fwd_kernel_loop` / `_bwd_kernel_loop`):
   1 x 8 x (4, 8, 16) at bound 0.5, 729 (tap, window) pairs and a plane of
   128, with offsets beyond the bound whose corners drop;
-* gathermm in its 3D planar mode: 1 x 16 x (5, 16, 16), offsets U[-2, 2].
+* gathermm in its 3D planar mode: 1 x 16 x (5, 16, 16), offsets U[-2, 2];
+* a 5 x 5 x 5 kernel through the port's impl="shiftblend" against JAX's
+  plain impl="xla", offsets inside the bound 0.5 and off +-0.5, so that the
+  window drops nothing and both compute the same function.
 
 The plain versions (`shiftblend3d_bwd_reference`, `gathermm3d_bwd_reference`)
 are also held against the same JAX gradients on their own.  Each JAX result
@@ -19,7 +22,9 @@ weight, bias) divided by max|JAX gradient| within 1e-5.
 The dispatch test holds the port's `select_kernel` against the JAX
 package's choice on 3D shapes, built from its `ineligible_reason`s and
 `_prefer_shiftblend` as `maybe_pallas` combines them on a TPU, and the
-port's copy of the planar-mode decision against `gathermm._Plan`.
+port's copy of the planar-mode decision against `gathermm._Plan`; a sweep
+on meta tensors holds the port's 3D shift-blend rule at least as wide as
+JAX's.
 """
 import functools
 
@@ -97,10 +102,11 @@ def _jax(name):
             {n: np.asarray(g) for n, g in zip(NAMES, grads)})
 
 
-def _port(arrs, cot, impl, bound):
+def _port(arrs, cot, impl, bound, padding=1):
     ts = {n: torch.tensor(a, requires_grad=True) for n, a in arrs.items()}
-    out = mdt.modulated_deform_conv3d(*[ts[n] for n in NAMES], padding=1,
-                                      impl=impl, offset_bound=bound)
+    out = mdt.modulated_deform_conv3d(*[ts[n] for n in NAMES],
+                                      padding=padding, impl=impl,
+                                      offset_bound=bound)
     out.backward(torch.from_numpy(cot))
     return out.detach().numpy(), {n: t.grad.numpy() for n, t in ts.items()}
 
@@ -152,6 +158,36 @@ def test_gathermm3d_matches_jax_planar():
                   want)
 
 
+def test_shiftblend3d_5x5x5_matches_jax():
+    """125 taps at bound 0.5: 3,375 (tap, window) pairs, the loop path on a
+    128-aligned plane.  The port's impl="shiftblend" (the kernel pair's
+    plain versions on CPU tensors) against JAX's impl="xla"."""
+    rng = np.random.default_rng(7)
+    B, C, S, K = 1, 8, (3, 8, 16), 125
+    arrs = {"x": rng.standard_normal((B, C) + S),
+            "offset": rng.uniform(-0.45, 0.45, (B, 3 * K) + S),
+            "mask": rng.uniform(0, 1, (B, K) + S),
+            "weight": rng.standard_normal((C, C, 5, 5, 5)) * 0.05,
+            "bias": rng.standard_normal((C,))}
+    arrs = {n: a.astype(np.float32) for n, a in arrs.items()}
+    cot = rng.standard_normal((B, C) + S).astype(np.float32)
+    spec = DeformConvSpec.make(3, 5, 1, 2, 1, 1, 1, modulated=True)
+    xt = torch.empty((B, C) + S, device="meta")
+    assert sb.ineligible_reason(xt, spec, 0.5) is None
+
+    def f(*a):
+        return jmdc.modulated_deform_conv3d(*a, padding=2, impl="xla",
+                                            precision="float32")
+
+    want_out, vjp = jax.vjp(f, *[jnp.asarray(arrs[n]) for n in NAMES])
+    want = {n: np.asarray(g) for n, g in
+            zip(NAMES, vjp(jnp.asarray(cot)))}
+    out, grads = _port(arrs, cot, "shiftblend", 0.5, padding=2)
+    np.testing.assert_allclose(out, np.asarray(want_out), rtol=2e-5,
+                               atol=2e-5)
+    _assert_close(grads, want)
+
+
 # (B, C, S, k, pad, dil, bound, dtype)
 DISPATCH3D = [
     (4, 128, (32, 64, 64), 3, 1, 1, 2.0, "float32"),   # cfg4: shift-blend
@@ -166,6 +202,7 @@ DISPATCH3D = [
     (2, 16, (8, 16, 16), 3, 1, 1, 1.5, "float32"),     # planar at bound 1.5
     (1, 8, (128, 128, 128), 3, 1, 1, 2.0, "float32"),  # streamed: not planar
     (1, 16, (8, 6, 7), 3, 1, 1, 2.0, "float32"),       # plane 42: not planar
+    (1, 32, (8, 16, 16), 5, 2, 1, 1.0, "float32"),     # 5x5x5: 3,375 pairs
 ]
 
 
@@ -195,3 +232,31 @@ def test_dispatch3d_matches_jax(case):
     assert (sb_reason is None) == (sb_reason_j is None)
     if "128-aligned" in (sb_reason_j or ""):
         assert sb_reason == sb_reason_j
+
+
+@pytest.mark.parametrize("S", [(4, 8, 16), (8, 16, 16), (32, 64, 64)])
+@pytest.mark.parametrize("k,dilation", [(1, 1), (1, 2), (2, 2), (3, 1),
+                                        (3, 2), (5, 1), (5, 2)])
+def test_shiftblend_3d_rule_as_wide_as_jax(k, dilation, S):
+    """Every size-preserving 3D config that JAX's shift-blend rule accepts,
+    the port's accepts too, over bounds 0.5-3.5 and C/dg 8-256 at dg = 2: a
+    narrower port rule would send bounded configs to the gather pair, whose
+    results differ wherever offsets pass the bound.  Read from the port's
+    side (where the port refuses, JAX must refuse), since JAX's rule builds
+    its shift plan in Python, up to seconds a call on a 5x5x5 window, and
+    the port's is cheap."""
+    pad = dilation * (k - 1) // 2
+    spec = DeformConvSpec.make(3, k, 1, pad, dilation, 1, 2, modulated=True)
+    js = JSpec.make(3, k, 1, pad, dilation, 1, 2, modulated=True)
+    for bound in (0.5, 1.0, 1.5, 2.0, 2.5, 3.0, 3.5):
+        for cdg in (8, 32, 128, 256):
+            shape = (2, 2 * cdg) + S
+            xt = torch.empty(shape, dtype=torch.float32, device="meta")
+            if sb.ineligible_reason(xt, spec, bound) is None:
+                continue
+            xj = jax.ShapeDtypeStruct(shape, jnp.float32)
+            assert jsb.ineligible_reason(xj, js, bound) is not None, (bound,
+                                                                      cdg)
+    # The sweep is not empty on JAX's side: it takes the narrowest config.
+    xj = jax.ShapeDtypeStruct((2, 16) + S, jnp.float32)
+    assert jsb.ineligible_reason(xj, js, 0.5) is None

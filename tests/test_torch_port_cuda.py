@@ -331,12 +331,26 @@ GENERAL3D = [
      2.5),
 ]
 # ... plus the bound: beyond it, the loop path's 128-aligned planes, 2 x 2 x
-# 2 taps at 0.5 (at most 640 pairs), and dg > 1 with groups > 1.
+# 2 taps at 0.5 (at most 640 pairs), and dg > 1 with groups > 1; a 5 x 5 x 5
+# kernel (125 taps: the corner table spans a few of them), bound 3 (a
+# window of 7, each tap's pull reach 10 positions an axis), 256 channels a
+# deformable group, 8 channels a deformable group over 4 of them and 2
+# conv groups, a ragged 7 x 9 x 11 volume (at most 640 pairs: bound 0 on
+# one axis), a per-axis bound, and no mask.
 BOUNDED3D = [
     (2, 16, 24, (5, 64, 6), 3, 1, 1, 1, 2, 2, True, True, 2.5, 2.0),
     (1, 16, 16, (6, 8, 16), 3, 1, 2, 2, 1, 2, False, False, 3.0, 1.0),
     (2, 32, 32, (4, 9, 7), 2, 1, 1, 2, 1, 1, True, True, 0.45, 0.5),
     (1, 32, 48, (5, 16, 8), 3, 1, 1, 1, 2, 4, True, True, 1.5, 1.5),
+    (1, 16, 24, (5, 8, 16), 5, 1, 2, 1, 1, 1, True, True, 1.3, 1.0),
+    (1, 16, 16, (6, 8, 16), 3, 1, 1, 1, 1, 1, True, True, 3.5, 3.0),
+    (1, 256, 64, (4, 8, 16), 3, 1, 1, 1, 1, 1, True, False, 2.5, 2.0),
+    (2, 32, 24, (4, 8, 16), 3, 1, 1, 1, 2, 4, True, True, 2.5, 2.0),
+    (1, 16, 24, (7, 9, 11), 3, 1, 1, 1, 1, 1, True, True, 0.6,
+     (0.5, 0.0, 0.5)),
+    (1, 16, 16, (4, 8, 16), 3, 1, 1, 1, 1, 1, True, True, 2.2,
+     (2.0, 1.0, 1.5)),
+    (1, 16, 16, (4, 8, 16), 3, 1, 1, 1, 1, 2, False, True, 2.5, 2.0),
 ]
 
 
@@ -372,6 +386,26 @@ def test_shiftblend3d_kernels_match_plain(dev, case, precision):
     assert _rel(got, want) <= LIMITS[precision]
     _check_grads(grads, sb.shiftblend3d_bwd_reference(
         x, off, mask, w, gout, spec, precision, bound), LIMITS[precision])
+
+
+@pytest.mark.parametrize("precision", list(LIMITS))
+def test_shiftblend3d_config4_full_size(dev, precision):
+    """BASELINE config 4 at B=1 (its plain versions hold a sample's columns
+    at once): 128 -> 128, 32 x 64 x 64, 3 x 3 x 3, bound 2, in_step 2."""
+    spec, (x, off, mask, w, _) = _case(dev, 1, 128, 128, (32, 64, 64), 3, 1,
+                                       1, 1, 1, 1, True, False, 2.0)
+    spec = DeformConvSpec.make(3, 3, 1, 1, 1, 1, 1, 2, True)
+    gout = _grad_out(spec, x, w)
+    got = sb.shiftblend3d_fwd(x, off, mask, w, None, spec, precision, 2.0)
+    want = sb.shiftblend3d_fwd_reference(x, off, mask, w, None, spec,
+                                         precision, 2.0)
+    assert _rel(got, want) <= LIMITS[precision]
+    del got, want
+    _check_grads(sb.shiftblend3d_bwd(x, off, mask, w, gout, spec, precision,
+                                     2.0),
+                 sb.shiftblend3d_bwd_reference(x, off, mask, w, gout, spec,
+                                               precision, 2.0),
+                 LIMITS[precision])
 
 
 def test_backward3d_bitwise_deterministic_and_batch_chunked(dev):
