@@ -39,8 +39,11 @@ columns path against the fused pair, checks that the backward is bitwise
 deterministic, times kernels, the grouped product, cuDNN's dense
 convolution as an anchor, `grid_sample` as the columns' library yardstick
 and steps with CUDA events (the config-2 steps also in device time), times
-the 2D shift-blend forward's two routes side by side, and prints the kernel table as one JSON line
-and a last line {"ok": true, "device": {...}}.
+the 2D shift-blend forward's two routes side by side, both 3D pairs at
+configs 3 and 4 side by side, and the DCN layers' kernels of both networks
+on their recorded inputs beside their bounds (DCNResNet-50's forwards,
+DCNVideoNet's forwards and backwards), and prints the kernel table as one
+JSON line and a last line {"ok": true, "device": {...}}.
 
 Run from the repository root:  python3 chip_smoke.py
 It exits nonzero, and prints no result, without a CUDA device or without
@@ -136,20 +139,20 @@ COLS3D = dict(B=2, C=64, S=(16, 32, 32), groups=2)
 # ("tensorfloat32", ms): each table row's `ms`, at the row's own config (2D
 # fused rows at config 2, 3D rows at configs 3 and 4 B=1, column rows at
 # config 5 c4 and the 3D columns case), printed beside this run's.
-PREV_MS = {"shiftblend_fwd": 0.3555, "gathermm_fwd": 0.4064, "shiftblend_bwd": 0.9880,
-           "gathermm_bwd": 1.0745, "shiftblend3d_fwd": 16.9463, "gathermm3d_fwd": 0.9420,
-           "shiftblend3d_bwd": 48.6017, "gathermm3d_bwd": 4.8125, "gathermm_cols_fwd": 0.1492,
-           "gathermm_cols_bwd": 1.3535, "gathermm3d_cols_fwd": 0.3237,
-           "gathermm3d_cols_bwd": 3.9274}
+PREV_MS = {"shiftblend_fwd": 0.3527, "gathermm_fwd": 0.3992, "shiftblend_bwd": 1.0023,
+           "gathermm_bwd": 1.0725, "shiftblend3d_fwd": 5.6724, "gathermm3d_fwd": 0.9485,
+           "shiftblend3d_bwd": 16.4938, "gathermm3d_bwd": 4.8196, "gathermm_cols_fwd": 0.1539,
+           "gathermm_cols_bwd": 1.3489, "gathermm3d_cols_fwd": 0.3171,
+           "gathermm3d_cols_bwd": 3.9222}
 # The same release's steps and totals (ms): the config-2 training steps on
 # CUDA events, the networks' step device time and their DCN kernels (from
 # the step's profile), the device time of DCNResNet-50's 13 gathermm_fwd
 # calls on their recorded inputs, and config 5 c3's forward op.
-PREV_STEP_MS = {"cfg2 bounded": 1.5023, "cfg2 general": 1.6154,
-                "DCNResNet-50 device": 12.7214, "DCNResNet-50 DCN kernels": 3.917,
-                "DCNResNet-50 gathermm_fwd": 1.1149, "cfg5 c3 op_fwd": 2.5456,
-                "DCNVideoNet device": 160.092, "DCNVideoNet DCN kernels": 104.455,
-                "cfg3 step": 5.8699, "cfg4 step": 262.6215}
+PREV_STEP_MS = {"cfg2 bounded": 1.4855, "cfg2 general": 1.6182,
+                "DCNResNet-50 device": 12.7388, "DCNResNet-50 DCN kernels": 3.962,
+                "DCNResNet-50 gathermm_fwd": 1.0899, "cfg5 c3 op_fwd": 2.5648,
+                "DCNVideoNet device": 160.5783, "DCNVideoNet DCN kernels": 104.429,
+                "cfg3 step": 5.9211, "cfg4 step": 85.9671}
 
 
 class SmokeFailure(Exception):
@@ -376,41 +379,54 @@ def check_recorded(torch, recorded, layers, pair, label):
     print(f"{label} layer checks: peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
 
-DCN_KERNELS = ("fwd_mma_kernel", "fold_out_kernel", "gathermm3d_fwd_kernel", "gcols_kernel",
-               "ranges_kernel", "boxes3_kernel", "gx_kernel", "gx3_kernel", "goff_kernel",
-               "goff3_kernel", "gw3_kernel", "fold_kernel", "cols_kernel", "cols3_kernel",
-               "x_cl_kernel", "gcols_mma_kernel", "gw_mma_kernel", "corr_kernel", "boxes_kernel",
-               "pull_kernel", "pull3_kernel", "corr3_kernel")
+DCN_KERNELS = ("fwd_mma_kernel", "fold_out_kernel", "ranges_kernel", "boxes3_kernel", "gx_kernel",
+               "gx3_kernel", "goff_kernel", "goff3_kernel", "fold_kernel", "cols_kernel",
+               "cols3_kernel", "x_cl_kernel", "gcols_mma_kernel", "gw_mma_kernel", "corr_kernel",
+               "boxes_kernel", "pull_kernel", "pull3_kernel", "corr3_kernel")
 
 
-def time_recorded_fwd(torch, recorded, fwd, label):
+def time_recorded(torch, recorded, fwd, label, bwd=None):
     """The forward kernel's time (main precision) on each DCN layer's inputs
-    recorded at the trainer's last step, beside the layer's bound: CUDA
-    events around back-to-back calls (where a call's host work outlasts
-    its device work, this is the host's time) and the device time of the
-    kernels one call launches (torch.profiler).  Returns the sums (ms) over
-    the layers."""
+    recorded at the trainer's last step, and the backward kernel's on the
+    recorded cotangent where `bwd` is given, each beside the layer's bound:
+    CUDA events around back-to-back calls (where a call's host work
+    outlasts its device work, this is the host's time) and the device time
+    of the kernels one call launches (torch.profiler); and the device memory
+    a call allocates at its peak.  Returns the sums (ms) over the layers,
+    per kind."""
     last = max(rec["step"] for rec in recorded)
-    total = {"ms": 0.0, "device_ms": 0.0, "bound_ms": 0.0}
+    kinds = {"fwd": fwd} if bwd is None else {"fwd": fwd, "bwd": bwd}
+    total = {kind: {"ms": 0.0, "device_ms": 0.0, "bound_ms": 0.0} for kind in kinds}
     with torch.no_grad():
         for rec in recorded:
             if rec["step"] != last:
                 continue
             xs, offs, masks, ws = rec["ins"]
-            args = (xs, offs, masks, ws, None, rec["spec"], MAIN_PRECISION)
-            ms = time_ms(lambda: fwd(*args))
-            device_ms = sum(device_time_by_kernel(lambda: fwd(*args), calls=5).values())
-            n_out = math.prod(fwd(*args).shape)
-            bound_ms, bound_by = bound_of(*work((xs, offs, masks, ws, None), n_out, rec["spec"])["fwd"])
-            total["ms"] += ms
-            total["device_ms"] += device_ms
-            total["bound_ms"] += bound_ms
-            print(f"{label} {rec['name']} x {tuple(xs.shape)} stride {rec['spec'].stride[0]}: "
-                  f"{fwd.__name__} {ms:.4f} ms (device {device_ms:.4f} ms), bound {bound_ms:.4f} ms "
-                  f"({bound_by})")
-    print(f"{label}: {fwd.__name__} summed over its layers {total['ms']:.4f} ms, device "
-          f"{total['device_ms']:.4f} ms, summed bound {total['bound_ms']:.4f} ms (previous release: "
-          f"{PREV_STEP_MS[label + ' gathermm_fwd']} ms of device time)")
+            n_out = rec["gout"].numel()
+            w = work((xs, offs, masks, ws, None), n_out, rec["spec"])
+            for kind, fn in kinds.items():
+                fifth = None if kind == "fwd" else rec["gout"]
+                args = (xs, offs, masks, ws, fifth, rec["spec"], MAIN_PRECISION)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+                fn(*args)
+                torch.cuda.synchronize()
+                peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+                ms = time_ms(lambda: fn(*args))
+                device_ms = sum(device_time_by_kernel(lambda: fn(*args), calls=5).values())
+                bound_ms, bound_by = bound_of(*w[kind])
+                for key, v in (("ms", ms), ("device_ms", device_ms), ("bound_ms", bound_ms)):
+                    total[kind][key] += v
+                print(f"{label} {rec['name']} x {tuple(xs.shape)} stride {rec['spec'].stride[0]}: "
+                      f"{fn.__name__} {ms:.4f} ms (device {device_ms:.4f} ms), bound {bound_ms:.4f} ms "
+                      f"({bound_by}; {w[kind][1] / 1e9:.1f} GFLOP); peak {peak_gb:.2f} GB above its "
+                      "inputs")
+    for kind, fn in kinds.items():
+        prev = PREV_STEP_MS.get(f"{label} {fn.__name__}")
+        print(f"{label}: {fn.__name__} summed over its layers {total[kind]['ms']:.4f} ms, device "
+              f"{total[kind]['device_ms']:.4f} ms, summed bound {total[kind]['bound_ms']:.4f} ms"
+              + ("" if prev is None else f" (previous release: {prev} ms of device time)"))
     return total
 
 
@@ -496,8 +512,10 @@ def small_cases3(torch, dev):
     """Small 3D configs with ragged 4 x 4 x 4 bricks, offsets beyond the
     bound and far outside the volume, all-zero offsets, no mask / no bias,
     stride 2, deformable groups straddling conv groups, dg > 1 with
-    groups > 1, 2 x 2 x 2 taps at bound 0.5 (at most 640 pairs), and a
-    5 x 5 x 5 kernel at bound 1; each with a cotangent for the backward."""
+    groups > 1, 2 x 2 x 2 taps at bound 0.5 (at most 640 pairs), a 5 x 5 x
+    5 kernel at bound 1 and one without a bound, and 10 channels a
+    deformable group (the 4-byte column builds); each with a cotangent for
+    the backward."""
     from modulated_deform_conv_tpu_torch.utils.config import DeformConvSpec
     rng = np.random.default_rng(1)
     # family, (B, C, O, S, k, stride, pad, dil, g, dg), modulated, bias,
@@ -515,6 +533,8 @@ def small_cases3(torch, dev):
         ("gathermm3d", (2, 32, 32, (6, 6, 6), 3, 2, 1, 1, 1, 1), True, True, 0.0, None),
         ("gathermm3d", (1, 12, 10, (4, 5, 6), (3, 1, 3), 1, (1, 0, 1), 1, 2, 3), True, False,
          2.5, None),
+        ("gathermm3d", (1, 16, 16, (6, 9, 10), 5, 1, 2, 1, 1, 1), True, True, 2.0, None),
+        ("gathermm3d", (2, 40, 24, (5, 7, 6), 3, 1, 1, 1, 2, 4), True, True, 2.5, None),
     ]
     cases = []
     for fam, (b, c, o, S, k, s, p, d, g, dg), modulated, with_bias, scale, bound in table:
@@ -739,6 +759,11 @@ def run_3d(torch, mdt, families3d, reset, counts, dev):
             print(f"{name} both pairs at B={B}: " + " ".join(
                 f"{n} {ms:.4f} ms" for n, ms in cross[name].items())
                 + f"; dense conv3d anchors {anchors3d}")
+            pair_ms = {f: cross[name][f"{f}_fwd"] + cross[name][f"{f}_bwd"] for f in families3d}
+            print(f"{name} SB_WIDE_BOUND_3D: the pair 'auto' takes ({fam}) fwd + bwd "
+                  f"{pair_ms[fam]:.4f} ms; " + ", ".join(
+                      f"{f} {ms:.4f} ms" for f, ms in pair_ms.items())
+                  + f"; the other pair / the taken one {min(pair_ms.values()) / pair_ms[fam]:.3f}x")
             fwd, fwd_ref, bwd, bwd_ref = families3d[fam]
             args = (*cut, spec, MAIN_PRECISION, BOUND3D)[:7 if fam == "gathermm3d" else 8]
             bargs = (*cut[:4], gout[:pb], *args[5:])
@@ -1525,7 +1550,7 @@ def main() -> int:
     # The general kernels against their plain versions on the recorded
     # inputs of every DCN layer, every mode.
     check_recorded(torch, recorded, DCN_LAYERS, families["gathermm"], "DCNResNet")
-    resnet_fwd = time_recorded_fwd(torch, recorded, gm.gathermm_fwd, "DCNResNet-50")
+    resnet_fwd = time_recorded(torch, recorded, gm.gathermm_fwd, "DCNResNet-50")["fwd"]
     results["gathermm_fwd"].update(resnet50_layers_ms=resnet_fwd["ms"],
                                    resnet50_layers_device_ms=resnet_fwd["device_ms"],
                                    resnet50_layers_bound_ms=resnet_fwd["bound_ms"])
@@ -1555,7 +1580,20 @@ def main() -> int:
           f"{v['frames']}x{v['size']}x{v['size']}: loss {res['losses'][0]:.4f} -> "
           f"{res['losses'][-1]:.4f}, step {video_ms:.2f} ms (median of steps 2-{v['steps']}; "
           f"first {res['step_s'][0] * 1e3:.1f} ms)")
+    print("DCNVideoNet 3D gather launches over "
+          f"{v['steps']} steps: gathermm3d_fwd {video_launches['gathermm3d_fwd']}, "
+          f"gathermm3d_bwd {video_launches['gathermm3d_bwd']}")
     check_recorded(torch, recorded, VIDEO_DCN_LAYERS, families3d["gathermm3d"], "DCNVideoNet")
+    video_dcn = time_recorded(torch, recorded, gm.gathermm3d_fwd, "DCNVideoNet",
+                              bwd=gm.gathermm3d_bwd)
+    print("DCNVideoNet: its DCN calls a step (forward and backward of each layer) "
+          f"{sum(t['ms'] for t in video_dcn.values()):.4f} ms on events, "
+          f"{sum(t['device_ms'] for t in video_dcn.values()):.4f} ms device, against a bound of "
+          f"{sum(t['bound_ms'] for t in video_dcn.values()):.4f} ms")
+    for kind, t in video_dcn.items():
+        r3["rows"][f"gathermm3d_{kind}"].update(videonet_layers_ms=t["ms"],
+                                                videonet_layers_device_ms=t["device_ms"],
+                                                videonet_layers_bound_ms=t["bound_ms"])
     del recorded
     profile_train_step(res, train_step, "DCNVideoNet")
     del res

@@ -7,18 +7,17 @@
 //   against dA/dpos and A
 //   grad_weight = gout cols^T, cols recomputed from x (never saved)
 //
-// in two generations:
+// in two sections:
 //   - the 2D fused backward (gathermm_bwd.cu, shiftblend_bwd.cu) runs the
 //     tensor-core kernels of the last section: gcols_mma_kernel,
 //     gw_mma_kernel + fold_kernel, corr_kernel and a pull per block of 8 x 8
 //     input pixels x 64 channels (gather_pull_kernel, shift_pull_kernel);
-//     the bounded 3D backward (deform_bwd3d.cuh's run_bwd3d) runs
-//     gcols_mma_kernel and gw_mma_kernel too, beside its own pull and
+//     the 3D fused backwards (deform_bwd3d.cuh's run_bwd3d) run
+//     gcols_mma_kernel and gw_mma_kernel too, beside their own pulls and
 //     correlation;
 //   - the columns path's backward (gathermm_cols_bwd.cu: ranges_kernel,
-//     gather_gx_kernel, goff_kernel, given gcols in its layout CKBP) and the
-//     3D gather's backwards (deform_bwd3d.cuh: gcols_kernel, fold_kernel)
-//     run the FP32-FMA kernels of the first sections.
+//     gather_gx_kernel, goff_kernel, given gcols in its layout CKBP) runs
+//     the kernels of the first sections.
 //
 // Determinism: there is no float atomic anywhere.  Every output element has
 // one owner that sums in a fixed order; grad_weight is summed in fixed-size
@@ -30,8 +29,6 @@
 #include "deform_tile3d.cuh"
 
 namespace mdc {
-
-constexpr int kNC = 32;  // contraction indices staged per GEMM step
 
 // ---- gcols layouts ------------------------------------------------------------
 //
@@ -78,56 +75,6 @@ __device__ __forceinline__ __nv_bfloat16 to_elem<__nv_bfloat16>(float v) {
 // channels of one slab that one thread blends from its tap's corner weights.
 constexpr int kColThreads = 256;
 constexpr int kColChans = 32;
-
-// gcols[b][k][p][c] = sum_o W[o, c, k] gout[b, o, p] over the conv group of
-// channel c; "bfloat16" rounds both operands and the result.  The rows of
-// this GEMM are tap-major, r = k * C/groups + c, so that a block's 64 rows
-// are (mostly) consecutive channels of one tap and its stores to the
-// channels-innermost gcols are contiguous.  A block owns 64 rows x kTP
-// positions of one (batch, conv group).  wk is (groups, O/groups, K,
-// C/groups): the weight with the rows contiguous per output channel.
-__global__ void __launch_bounds__(kThreads) gcols_kernel(const float* __restrict__ wk,
-                                                         const float* __restrict__ gout,
-                                                         float* __restrict__ gcols, Geo g) {
-  __shared__ __align__(16) float aS[kNC * kTO];       // [o][row]
-  __shared__ __align__(16) float bS[kNC * kWStride];  // [o][p]
-  const int K = g.kh * g.kw, P = g.OH * g.OW;
-  const int Cgc = g.C / g.groups, Og = g.O / g.groups, rows = Cgc * K;
-  const int p0 = blockIdx.x * kTP, r0 = blockIdx.y * kTO;
-  const int b = blockIdx.z / g.groups, gi = blockIdx.z % g.groups;
-  const float* wg = wk + static_cast<size_t>(gi) * Og * rows;
-  const float* gb = gout + (static_cast<size_t>(b) * g.O + static_cast<size_t>(gi) * Og) * P;
-  float acc[4][4] = {};
-  for (int o0 = 0; o0 < Og; o0 += kNC) {
-    const int n = min(kNC, Og - o0);
-    __syncthreads();  // previous step done with aS / bS
-    for (int e = threadIdx.x; e < kNC * kTO; e += kThreads) {
-      const int o = e / kTO, r = e % kTO;
-      const float v = o < n && r0 + r < rows ? wg[static_cast<size_t>(o0 + o) * rows + r0 + r] : 0.f;
-      aS[o * kTO + r] = operand(v, g.precision);
-    }
-    for (int e = threadIdx.x; e < kNC * kTP; e += kThreads) {
-      const int o = e / kTP, p = e % kTP;
-      const float v = o < n && p0 + p < P ? gb[static_cast<size_t>(o0 + o) * P + p0 + p] : 0.f;
-      bS[o * kWStride + p] = operand(v, g.precision);
-    }
-    __syncthreads();
-    tile_fma(aS, bS, n, acc);  // acc[i][j]: position ty*4 + i, row tx*4 + j
-  }
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int p = p0 + ty * 4 + i;
-    if (p >= P) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = r0 + tx * 4 + j;
-      if (r < rows)
-        gcols[((static_cast<size_t>(b) * K + r / Cgc) * P + p) * g.C + gi * Cgc + r % Cgc] =
-            operand(acc[i][j], g.precision);
-    }
-  }
-}
 
 // One thread per (b, deformable group, tap, position): the correlation
 // S[corner] = sum_c gcol[c] x[c, corner] over the slab's channels in order,
@@ -345,13 +292,6 @@ __global__ void __launch_bounds__(kPullThreads) gather_gx_kernel(const float* __
 
 // ---- host-side launches of the shared kernels -------------------------------
 
-inline cudaError_t launch_gcols(const Geo& g, const float* wk, const float* gout, float* gcols, cudaStream_t s) {
-  const int rows = g.C / g.groups * g.kh * g.kw;
-  const dim3 grid((g.OH * g.OW + kTP - 1) / kTP, (rows + kTO - 1) / kTO, g.B * g.groups);
-  gcols_kernel<<<grid, kThreads, 0, s>>>(wk, gout, gcols, g);
-  return cudaGetLastError();
-}
-
 template <class L>
 inline cudaError_t launch_goff(const Geo& g, const float* x, const float* offset, const float* mask,
                                const typename L::T* gcols, float* goff, float* gmask, L lay, cudaStream_t s) {
@@ -475,7 +415,7 @@ __global__ void __launch_bounds__(kMmaThreads, 4) gcols_mma_kernel(const float* 
 // memory); each stage rebuilds its columns from xt, a warp reading
 // consecutive channels of a corner, while cp.async brings gout; the product
 // runs on the previous stage meanwhile.  G is the rank's geometry: Geo, or
-// Geo3 (8 corners a tap; needs C/groups and C/dg % 4 == 0).
+// Geo3 (8 corners a tap).
 template <int Prec, class G>
 __global__ void __launch_bounds__(kMmaThreads, kIs3D<G> ? 2 : 3) gw_mma_kernel(
     const float* __restrict__ xt, const float* __restrict__ offset, const float* __restrict__ mask,
@@ -520,12 +460,13 @@ __global__ void __launch_bounds__(kMmaThreads, kIs3D<G> ? 2 : 3) gw_mma_kernel(
     }
     cp_async_commit();
   };
-  // Each thread rebuilds one channel r at kPer positions, or, where 4
-  // consecutive channels share a conv group and a deformable group (vec,
-  // always in 3D), channels r4 .. r4 + 3 at kPer / 4 positions with 16-byte
-  // loads and stores; all the corner loads are issued before the first
-  // blend.  Corner j (of 4, or 8 in 3D) is xt's row + (j & 1) + W (j >> 1 &
-  // 1) + H W (j >> 2), weighed by plane j >> 2's component j & 3.
+  // Each thread rebuilds one channel r at kPer positions (half of them at a
+  // time in 3D), or, where 4 consecutive channels share a conv group and a
+  // deformable group (vec), channels r4 .. r4 + 3 at kPer / 4 positions
+  // with 16-byte loads and stores; all the corner loads of a pass are
+  // issued before its first blend.  Corner j (of 4, or 8 in 3D) is xt's
+  // row + (j & 1) + W (j >> 1 & 1) + H W (j >> 2), weighed by plane j >> 2's
+  // component j & 3.
   constexpr int kPer = kMK * kMT / kMmaThreads, kCorners = 4 * kPlanes<G>;
   const bool vec = Cgc % 4 == 0 && Cdg % 4 == 0;
   const int r = threadIdx.x % kMT, gc = gc0 + r, dt = (gc / Cdg - d0) * tn;
@@ -582,8 +523,38 @@ __global__ void __launch_bounds__(kMmaThreads, kIs3D<G> ? 2 : 3) gw_mma_kernel(
   };
   auto build = [&](int s, int n0, int n_table) {
     float* dst = sA + s * kMK * kMS;
-    if (k3D || vec) {
+    if (vec) {
       build_vec(dst, n0, n_table);
+      return;
+    }
+    if constexpr (k3D) {
+      constexpr int kPass = kPer / 2;
+#pragma unroll
+      for (int u0 = 0; u0 < kPer; u0 += kPass) {
+        float v[kPass][kCorners];
+        float4 w[kPass][2];
+#pragma unroll
+        for (int u = 0; u < kPass; ++u) {
+          const int nl = threadIdx.x / kMT + (u0 + u) * (kMmaThreads / kMT), n = n0 + nl;
+          w[u][0] = w[u][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+          const float* src = xt;
+          if (r < cw && n < n_end) {
+            const int te = dt + n - n_table;
+            w[u][0] = tw[te];
+            w[u][1] = tw[n_tab + te];
+            src = xt + static_cast<size_t>(tq[te]) * g.C + gc;
+          }
+#pragma unroll
+          for (int j = 0; j < kCorners; ++j) v[u][j] = comp(w[u][j >> 2], j & 3) != 0.f ? src[step[j]] : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < kPass; ++u) {
+          float out = 0.f;
+#pragma unroll
+          for (int j = 0; j < kCorners; ++j) out += comp(w[u][j >> 2], j & 3) * v[u][j];
+          dst[(threadIdx.x / kMT + (u0 + u) * (kMmaThreads / kMT)) * kMS + r] = out;
+        }
+      }
       return;
     }
     float v[kPer][4];
@@ -1027,7 +998,6 @@ template <int Prec, class G>
 inline cudaError_t launch_gw_mma(const G& g, const float* xt, const float* offset, const float* mask,
                                  const float* gout, float* part, float* gwt, int splits, cudaStream_t s) {
   const int K = taps(g), Cgc = g.C / g.groups, Og = g.O / g.groups, Cdg = g.C / g.dg;
-  if (kIs3D<G> && (Cgc % 4 || Cdg % 4)) return cudaErrorInvalidValue;
   // The most deformable groups the 64 channels of one block span.
   int nd_max = 1;
   for (int gi = 0; gi < g.groups; ++gi)

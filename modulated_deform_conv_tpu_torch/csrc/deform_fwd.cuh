@@ -1,5 +1,5 @@
 // The forward on tensor cores, 2D (gathermm_fwd.cu, shiftblend_fwd.cu) and
-// 3D (shiftblend3d_fwd.cu):
+// 3D (gathermm3d_fwd.cu, shiftblend3d_fwd.cu):
 //
 //   out = W2 cols + bias,  cols[(c, k), n] = sum_corners w * x[c, corner]
 //
@@ -23,12 +23,13 @@
 //                   summed in order, plus the bias.
 //
 // Two sources for the corners, one kernel template:
-//   xt    (gathermm_fwd, shiftblend3d_fwd, and shiftblend_fwd where its route
-//         rule or the halo's size says so):
+//   xt    (gathermm_fwd, both 3D forwards, and shiftblend_fwd where its
+//         route rule or the halo's size says so):
 //         the positions are consecutive on the flattened (b, p) axis, the
 //         rows run channel chunk by channel chunk (32 channels), tap by tap
 //         within a chunk; a thread reads 4 consecutive channels of a
-//         corner, 16 bytes, straight from xt;
+//         corner, 16 bytes, straight from xt (one channel, 4 bytes, where
+//         4 channels do not share a conv group and a deformable group);
 //   halo  (shiftblend_fwd, 2D only): the positions are an 8 x 8 tile of one
 //         sample;
 //         the bounded contract keeps every kept corner inside the tile's
@@ -109,6 +110,36 @@ struct FwdSmem {
       row_[jj_ * kMS] = jj_ == 0 ? r_[0] : jj_ == 1 ? r_[1] : jj_ == 2 ? r_[2] : r_[3];          \
     }                                                                                            \
   } while (0)
+
+// fwd_mma_kernel's 3D build from 4-byte reads, for channels that do not
+// come four to a conv group and a deformable group: the stage's rows lq + 4
+// u (u < 8), channels c0 + row of the conv group whose first channel is
+// gc0, at one position, each the blend of its 8 corners (plane z0's from
+// the low corner, plane z0 + 1's dz floats on); te0 + (gc0 + c) / Cdg * np
+// is channel c's corner table entry.  Out of line: inlined into the kernel,
+// it cost the vector build registers and spills, and shiftblend3d_fwd took
+// 3% longer at BASELINE config 4 on an H100 (chip_smoke.py).
+__device__ __noinline__ void build_scalar3(float* __restrict__ dst, const float* __restrict__ xb,
+                                           const float4* __restrict__ tw, const int* __restrict__ tq, int n_tab,
+                                           int te0, int np, int lq, int c0, int Cgc, int gc0, int Cdg, int C, int dy,
+                                           int dz) {
+  for (int u = 0; u < 8; ++u) {
+    const int rr = lq + 4 * u, c = c0 + rr;
+    const float* src = xb;
+    float4 wl = make_float4(0.f, 0.f, 0.f, 0.f), wh = wl;
+    if (c < Cgc) {
+      const int te = te0 + (gc0 + c) / Cdg * np;
+      wl = tw[te];
+      wh = tw[n_tab + te];
+      src = xb + static_cast<ptrdiff_t>(tq[te]) * C + rr;
+    }
+    const float v0 = wl.x != 0.f ? src[0] : 0.f, v1 = wl.y != 0.f ? src[C] : 0.f;
+    const float v2 = wl.z != 0.f ? src[dy] : 0.f, v3 = wl.w != 0.f ? src[dy + C] : 0.f;
+    const float v4 = wh.x != 0.f ? src[dz] : 0.f, v5 = wh.y != 0.f ? src[dz + C] : 0.f;
+    const float v6 = wh.z != 0.f ? src[dz + dy] : 0.f, v7 = wh.w != 0.f ? src[dz + dy + C] : 0.f;
+    dst[rr * kMS] = wl.x * v0 + wl.y * v1 + wl.z * v2 + wl.w * v3 + wh.x * v4 + wh.y * v5 + wh.z * v6 + wh.w * v7;
+  }
+}
 
 // G is the rank's geometry: Geo (2D) or Geo3 (3D, xt route only).
 template <int Prec, int OT, bool kHalo, class G>
@@ -291,9 +322,9 @@ __global__ void __launch_bounds__(kMmaThreads, 2) fwd_mma_kernel(
   // quads l / 8 and l / 8 + 4 of the stage's rows, 16 bytes each, into
   // registers (MDC_GATHER), then blends them and stores each quad's 4 rows
   // rotated by l / 8, so that a warp's stores hit 32 banks (MDC_STORE);
-  // otherwise (build_scalar, 2D only) it blends rows l / 8 + 4 u, u < 8,
-  // from 4-byte reads.  A corner of weight 0 is never read: its address may
-  // lie outside x.
+  // otherwise (build_scalar) it blends rows l / 8 + 4 u, u < 8, from 4-byte
+  // reads.  A corner of weight 0 is never read: its address may lie
+  // outside x.
   const bool vec = Cgc % 4 == 0 && Cdg % 4 == 0;
   const int dx = kHalo ? chp : g.C, dy = kHalo ? WS * chp : g.W * g.C;
   const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -310,11 +341,16 @@ __global__ void __launch_bounds__(kMmaThreads, 2) fwd_mma_kernel(
     if constexpr (kHalo) return halo + static_cast<size_t>(st.t & 1) * HS * WS * chp + tq[te] * chp + rc;
     return xt + gi * Cgc + st.c0 + static_cast<ptrdiff_t>(tq[te]) * g.C + rc;
   };
-  // Only the 2D xt path comes here (the halo's chunks are whole quads, and
-  // the 3D callers give whole quads): rows l / 8 + 4 u, four at a time.
+  // Only the xt path comes here (the halo's chunks are whole quads): rows
+  // l / 8 + 4 u, four at a time (in 3D, build_scalar3).
   auto build_scalar = [&](int buf, int hh, const Stage& st) {
     float* dst = sB + buf * kA;
     const float* xb = xt + gi * Cgc + st.c0;
+    if constexpr (k3D) {
+      build_scalar3(dst + nl, xb, tw, tq, n_tab, ((st.k0 - wk) * nd_tab - wd) * kNP + hh * kMT + nl, kNP, lq,
+                    st.c0, Cgc, gi * Cgc, Cdg, g.C, g.W * g.C, g.H * g.W * g.C);
+      return;
+    }
 #pragma unroll
     for (int u0 = 0; u0 < 8; u0 += 4) {
       float v[4][4], w[4][4];
@@ -354,17 +390,21 @@ __global__ void __launch_bounds__(kMmaThreads, 2) fwd_mma_kernel(
     for (int hh = 0; hh < NH; ++hh) {
       const int buf = stage_buf * NH + hh;
       if constexpr (k3D) {
-        // A quad's 8 corners: plane z0's into a, plane z0 + 1's into b.
-        const int dz = g.H * g.W * g.C;
+        if (vec) {
+          // A quad's 8 corners: plane z0's into a, plane z0 + 1's into b.
+          const int dz = g.H * g.W * g.C;
 #pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          float4 wl, wh, a0, a1, a2, a3, b0, b1, b2, b3;
-          const float* p = corner(st, u, hh, wl, wh);
-          MDC_GATHER(p, wl, a);
-          MDC_GATHER(p + dz, wh, b);
+          for (int u = 0; u < 2; ++u) {
+            float4 wl, wh, a0, a1, a2, a3, b0, b1, b2, b3;
+            const float* p = corner(st, u, hh, wl, wh);
+            MDC_GATHER(p, wl, a);
+            MDC_GATHER(p + dz, wh, b);
 #define MDC_R(f) (MDC_BLEND(wl, a, f) + MDC_BLEND(wh, b, f))
-          MDC_STORE(buf, u, MDC_R);
+            MDC_STORE(buf, u, MDC_R);
 #undef MDC_R
+          }
+        } else {
+          build_scalar(buf, hh, st);
         }
       } else if (vec) {
         float4 w0, w1, unused, a0, a1, a2, a3, b0, b1, b2, b3;
@@ -531,13 +571,12 @@ inline int chunk_groups(const G& g, int cw) {
 // weight as (groups, K, C/groups, O/groups).  With `halo` (shiftblend_fwd,
 // windowed geometry and the halo's reach given) the halo path runs where
 // two buffers of its narrowest chunk fit in shared memory, the xt path
-// elsewhere.  3D takes the xt path and needs C/dg and C/groups % 4 == 0.
+// elsewhere.  3D takes the xt path.
 template <class G>
 inline cudaError_t run_fwd(const G& g, const float* x, const float* offset, const float* mask, const float* wf,
                            const float* bias, float* out, float* xt, float* part, int splits, const Halo* halo,
                            cudaStream_t s) {
   const int HW = in_positions(g), K = taps(g), OT = fwd_tiles(g.O / g.groups);
-  if (kIs3D<G> && ((g.C / g.dg) % 4 || (g.C / g.groups) % 4)) return cudaErrorInvalidValue;
   x_cl_kernel<<<dim3((HW + 31) / 32, (g.C + 31) / 32, g.B), 256, 0, s>>>(x, xt, g.C, HW);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;

@@ -1,6 +1,6 @@
 // The tensor-core pieces shared by the forwards of deform_fwd.cuh and the
-// backwards of deform_bwd.cuh / deform_bwd3d.cuh (2D, and the bounded 3D
-// pair): cp.async copies into shared memory,
+// backwards of deform_bwd.cuh / deform_bwd3d.cuh (both ranks): cp.async
+// copies into shared memory,
 // mma.sync products over K-major operand tiles in the mode's arithmetic,
 // and the channels-last copy of x that both directions read corners from.
 #pragma once

@@ -1,13 +1,9 @@
-// Corner rules and FP32-FMA tile pieces shared by the kernels.
+// Corner rules and constants shared by the kernels.
 //
 // The corner rules (tap_corners, tap_weights, weights_at, tap_grad) are the
-// function every 2D kernel computes.  The FP32-FMA tile (kTP output
-// positions x kTO output channels of one conv group, a corner table per
-// deformable-group slab, column chunks multiplied into register
-// accumulators by tile_fma against weight rows staged by load_weights) is
-// the shape of gathermm3d_fwd.cu and of the first sections of
-// deform_bwd.cuh; the 2D forwards and the bounded 3D forward run on tensor
-// cores (deform_fwd.cuh).
+// function every 2D kernel computes; `blend` applies them to one column
+// value (the column kernels).  The products run on tensor cores
+// (deform_mma.cuh).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -15,11 +11,8 @@
 
 namespace mdc {
 
-constexpr int kTP = 64;            // output positions per block
-constexpr int kTO = 64;            // output channels per block (one conv group)
-constexpr int kWStride = kTO + 4;  // padded weight-tile row: spreads banks, keeps 16-byte rows
-constexpr int kRows = 128;         // most (channel, tap) rows staged per step
-constexpr int kThreads = 256;      // 16 x 16 threads, 4 x 4 outputs each
+constexpr int kTP = 64;        // output positions of a tile (a 4 x 4 x 4 brick in 3D)
+constexpr int kThreads = 256;  // threads of the corner-box and per-position correlation kernels
 constexpr size_t kMaxSmem = 227 * 1024;
 
 // Precision modes, as the Python wrappers number them.
@@ -166,42 +159,6 @@ __device__ __forceinline__ float blend(const float* __restrict__ src, int i0,
   if (w.z != 0.f) v += w.z * src[i0 + pitch];
   if (w.w != 0.f) v += w.w * src[i0 + pitch + 1];
   return v;
-}
-
-// Stage `rows` rows of the weight slab: wS[r][o] = wt_rows[r * Og + o0 + o],
-// zero past the group's Og output channels.  wt_rows points at the first
-// row, in the (groups, C/groups * K, Og) layout the wrappers prepare.
-__device__ __forceinline__ void load_weights(float* __restrict__ wS,
-                                             const float* __restrict__ wt_rows,
-                                             int rows, int Og, int o0,
-                                             int precision) {
-  for (int e = threadIdx.x; e < rows * kTO; e += kThreads) {
-    const int r = e / kTO, o = e % kTO;
-    const float v = o0 + o < Og ? wt_rows[static_cast<size_t>(r) * Og + o0 + o] : 0.f;
-    wS[r * kWStride + o] = operand(v, precision);
-  }
-}
-
-// acc[i][j] += sum_r wS[r][ty*4 + i] * colsS[r][tx*4 + j], the rows of colsS
-// kColsStride floats apart and those of wS kWStrideT (multiples of 4).
-template <int kColsStride = kTP, int kWStrideT = kWStride>
-__device__ __forceinline__ void tile_fma(const float* __restrict__ colsS,
-                                         const float* __restrict__ wS, int rows,
-                                         float (&acc)[4][4]) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const float* cp = colsS + tx * 4;
-  const float* wp = wS + ty * 4;
-#pragma unroll 4
-  for (int r = 0; r < rows; ++r) {
-    const float4 a = *reinterpret_cast<const float4*>(wp + r * kWStrideT);
-    const float4 b = *reinterpret_cast<const float4*>(cp + r * kColsStride);
-    const float av[4] = {a.x, a.y, a.z, a.w};
-    const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
 }
 
 }  // namespace mdc

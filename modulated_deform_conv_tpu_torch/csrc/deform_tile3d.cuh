@@ -1,10 +1,7 @@
 // The 3D corner rules: trilinear counterparts of deform_tile.cuh's
 // tap_corners / tap_weights / tap_grad / blend, used by the 3D kernels
 // (shiftblend3d_*.cu, gathermm3d_*.cu) and by the tensor-core kernels that
-// are written once for both ranks (deform_fwd.cuh, gw_mma_kernel).  The
-// FP32-FMA GEMM pieces (tile_fma, load_weights, operand) and their block
-// shape (kTP positions x kTO output channels, kThreads threads) are
-// deform_tile.cuh's.
+// are written once for both ranks (deform_fwd.cuh, gw_mma_kernel).
 #pragma once
 
 #include <type_traits>
@@ -188,14 +185,6 @@ __device__ __forceinline__ float blend3(const float* __restrict__ src, int i0, i
   if (hi.z != 0.f) v += hi.z * src[i0 + pz + py];
   if (hi.w != 0.f) v += hi.w * src[i0 + pz + py + 1];
   return v;
-}
-
-// Shared memory of a gathermm3d_fwd block, in floats: column tile, weight
-// tile, corner table (two float4 of weights + one int index per (tap,
-// position)).
-__host__ __device__ inline size_t smem3_floats(int rows_cap, int K) {
-  return static_cast<size_t>(rows_cap) * kTP + static_cast<size_t>(rows_cap) * kWStride +
-         static_cast<size_t>(K) * kTP * 9;
 }
 
 // A 4 x 4 x 4 brick of positions: the 3D kernels' tile of kTP positions.

@@ -10,45 +10,59 @@
 // (grad_mask), and grad_weight += gout cols^T.
 //
 // What bounds it on the H100: the two products (gcols and grad_W, 14.5
-// GFLOP at BASELINE config 3: ~0.029 ms at the 495 TFLOP/s TF32 rate, ~0.22
-// ms at the 67 TFLOP/s FP32 FMA rate used here); the bytes (x, offset,
-// mask, W and gout in, the four gradients out, ~45 MB there) take ~0.014 ms.
+// GFLOP at BASELINE config 3: ~0.029 ms at the 495 TFLOP/s TF32 rate); the
+// bytes (x, offset, mask, W and gout in, the four gradients out, ~45 MB
+// there) take ~0.014 ms.  In this split into kernels gcols (fp32, 226 MB at
+// config 3) goes through device memory, written once and read by the pull
+// and the correlation.
 //
-// What the design does about that: the 2D pair's five steps
-// (gathermm_bwd.cu) with the 3D pieces of deform_bwd3d.cuh.  grad_x is a
-// scatter with unbounded reach, turned into a pull: boxes3_kernel keeps, per
-// (batch, deformable group, 4 x 4 x 4 output brick), the box [z_lo, z_hi] x
-// [y_lo, y_hi] x [x_lo, x_hi] of input voxels its kept corners touch -- the
-// Hopper counterpart of the TPU's planar bound table, one step tighter (a
-// flat [lo, hi) range would span whole planes, about 7 x 1,024 voxels at
-// config 3).  A pull block owns a 4 x 4 x 4 input brick x 32 channels and
-// walks, in order, the output bricks whose box meets it: about 27 bricks x
-// 27 taps x 64 positions at offsets in [-2, 2].  No float atomics anywhere,
-// so two runs give the same bits.
+// What the design does about that (deform_bwd3d.cuh, run_bwd3d, the
+// bounded pair's backward with another pull): x channels-last once a call;
+// gcols and grad_W on mma.sync in the mode's arithmetic; the correlation
+// with lanes over channels.  grad_x is a scatter with unbounded reach,
+// turned into a pull: boxes3_kernel keeps, per (batch, deformable group, 4
+// x 4 x 4 output brick), the box of input voxels its kept corners touch and
+// the box of each tap's -- the Hopper counterpart of the TPU's planar and
+// flat chunk bounds, which have no counterpart block by block -- and
+// gather_pull3_kernel, a block per 4 x 4 x 4 input brick x 64 channels,
+// compacts in order the output bricks whose box meets it, then their taps
+// whose box meets it, evaluates those (tap, position) candidates once per
+// block, keeps the ones landing next to the brick in a table and applies
+// them warp by warp in table order (at offsets in [-2, 2] about 27 bricks x
+// 27 taps x 64 positions are evaluated; near-zero offsets leave fewer taps
+// per brick).  No float atomics anywhere, so two runs give the same bits.
 #include "deform_bwd3d.cuh"
 
 // x (B, C, D, H, W), offset (B, dg*3*K, OD, OH, OW), mask (B, dg*K, OD, OH,
 // OW) or null, wk (groups, O/groups, K, C/groups), gout (B, O, OD, OH, OW):
 // float32, contiguous, on the current device.  Scratch, allocated by the
-// caller: gcols (b_step, K, OD*OH*OW, C), boxes (b_step, dg, output bricks,
-// 6) int, part (splits, groups, C/groups*K, O/groups).  Outputs, each null
-// when not wanted: gx like x, goff like offset, gmask like mask, gwt
-// (groups, C/groups*K, O/groups).  Returns the first CUDA error of the
-// launches, or 0.
+// caller: gcols (b_step, K, OD*OH*OW, C); xt (B, D*H*W, C); boxes (b_step,
+// dg, output bricks, 1 + K, 6) int; part (splits, groups, C/groups*K,
+// O/groups).
+// Outputs, each null when not wanted: gx like x, goff like offset, gmask
+// like mask, gwt (groups, C/groups*K, O/groups).  Returns the first CUDA
+// error of the launches, or 0.
 extern "C" int gathermm3d_bwd(const float* x, const float* offset, const float* mask, const float* wk,
-                              const float* gout, float* gcols, int* boxes, float* part, float* gx, float* goff,
-                              float* gmask, float* gwt, int B, int C, int D, int H, int W, int O, int OD, int OH,
-                              int OW, int groups, int dg, int kd, int kh, int kw, int sd, int sh, int sw, int pd,
-                              int ph, int pw, int dd, int dh, int dw, int b_step, int splits, int precision,
+                              const float* gout, float* gcols, float* xt, int* boxes, float* part, float* gx,
+                              float* goff, float* gmask, float* gwt, int B, int C, int D, int H, int W, int O, int OD,
+                              int OH, int OW, int groups, int dg, int kd, int kh, int kw, int sd, int sh, int sw,
+                              int pd, int ph, int pw, int dd, int dh, int dw, int b_step, int splits, int precision,
                               void* stream) {
   using namespace mdc;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Geo3 g{B,  C,  D,  H,  W,  O,  OD, OH, OW, groups, dg, kd, kh, kw, sd, sh,
                sw, pd, ph, pw, dd, dh, dw, 0,  0,  0,      0,  0,  0,  0,  precision};
   const auto pull = [&](const Geo3& gc, const float* off_c, const float* mask_c, const float* gcols_c,
-                        float* gx_c) {
-    return launch_gather_gx3(gc, off_c, mask_c, gcols_c, boxes, gx_c, KPC{taps3(gc), out_size3(gc), C}, s);
-  };
-  return static_cast<int>(backward3(g, x, offset, mask, wk, gout, gcols, part, gx, goff, gmask, gwt, b_step,
-                                    splits, s, pull));
+                        float* gx_c) { return launch_gather_pull3(gc, off_c, mask_c, gcols_c, boxes, gx_c, s); };
+  switch (precision) {
+    case kFloat32:
+      return static_cast<int>(run_bwd3d<kFloat32>(g, x, offset, mask, wk, gout, gcols, xt, part, gx, goff, gmask,
+                                                  gwt, b_step, splits, s, pull));
+    case kTensorFloat32:
+      return static_cast<int>(run_bwd3d<kTensorFloat32>(g, x, offset, mask, wk, gout, gcols, xt, part, gx, goff,
+                                                        gmask, gwt, b_step, splits, s, pull));
+    default:
+      return static_cast<int>(run_bwd3d<kBFloat16>(g, x, offset, mask, wk, gout, gcols, xt, part, gx, goff, gmask,
+                                                   gwt, b_step, splits, s, pull));
+  }
 }

@@ -21,8 +21,9 @@
 // pull and the correlation, at least 21.7 GB, ~6.5 ms at 3.35 TB/s, the
 // floor of this design.
 //
-// What the design does about that (deform_bwd3d.cuh, run_bwd3d): the 2D
-// backward's tensor-core kernels carried over to the volume.  x goes
+// What the design does about that (deform_bwd3d.cuh, run_bwd3d, shared
+// with the gather's backward, gathermm3d_bwd.cu): the 2D backward's
+// tensor-core kernels carried over to the volume.  x goes
 // channels-last once a call; gcols and grad_W run on mma.sync in the mode's
 // arithmetic; the corner weights of every (tap, position) are built once per
 // block into tables; the static bound gives grad_x a per-tap reach of (win
@@ -39,7 +40,7 @@
 // K, D*H*W, C); xt (B, D*H*W, C); part (splits, groups, C/groups*K,
 // O/groups).  Outputs, each null when not wanted: gx like x, goff like
 // offset, gmask like mask, gwt (groups, C/groups*K, O/groups).  Needs
-// stride 1, 2*pad == dilation*(k-1), C/dg % 4 == 0 and dg % groups == 0.
+// stride 1, 2*pad == dilation*(k-1) and dg % groups == 0.
 // Returns the first CUDA error of the launches, or 0.
 extern "C" int shiftblend3d_bwd(const float* x, const float* offset, const float* mask, const float* wk,
                                 const float* gout, float* gcols, float* xt, float* part, float* gx, float* goff,
@@ -51,15 +52,17 @@ extern "C" int shiftblend3d_bwd(const float* x, const float* offset, const float
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Geo3 g{B,  C,  D,  H,  W,  O,  D,  H,    W,     groups, dg,    kd,   kh,    kw, 1, 1,
                1,  pd, ph, pw, dd, dh, dw, 1, lo_z, win_z, lo_y,   win_y, lo_x, win_x, precision};
+  const auto pull = [&](const Geo3& gc, const float* off_c, const float* mask_c, const float* gcols_c,
+                        float* gx_c) { return launch_shift_pull3(gc, off_c, mask_c, gcols_c, gx_c, s); };
   switch (precision) {
     case kFloat32:
-      return static_cast<int>(
-          run_bwd3d<kFloat32>(g, x, offset, mask, wk, gout, gcols, xt, part, gx, goff, gmask, gwt, b_step, splits, s));
+      return static_cast<int>(run_bwd3d<kFloat32>(g, x, offset, mask, wk, gout, gcols, xt, part, gx, goff, gmask,
+                                                  gwt, b_step, splits, s, pull));
     case kTensorFloat32:
       return static_cast<int>(run_bwd3d<kTensorFloat32>(g, x, offset, mask, wk, gout, gcols, xt, part, gx, goff,
-                                                        gmask, gwt, b_step, splits, s));
+                                                        gmask, gwt, b_step, splits, s, pull));
     default:
-      return static_cast<int>(
-          run_bwd3d<kBFloat16>(g, x, offset, mask, wk, gout, gcols, xt, part, gx, goff, gmask, gwt, b_step, splits, s));
+      return static_cast<int>(run_bwd3d<kBFloat16>(g, x, offset, mask, wk, gout, gcols, xt, part, gx, goff, gmask,
+                                                   gwt, b_step, splits, s, pull));
   }
 }

@@ -38,7 +38,7 @@
 // H, W): float32, contiguous, on the current device.  (lo, win) per axis is
 // the bounded-offset window.  Scratch, allocated by the caller: xt (B,
 // D*H*W, C); part (splits, B, O, D, H, W), unused when splits is 1.  Needs
-// stride 1, 2*pad == dilation*(k-1), C/dg % 4 == 0 and dg % groups == 0.
+// stride 1, 2*pad == dilation*(k-1) and dg % groups == 0.
 // Returns the first CUDA error of the launches, or 0.
 extern "C" int shiftblend3d_fwd(const float* x, const float* offset, const float* mask, const float* wf,
                                 const float* bias, float* out, float* xt, float* part, int B, int C, int D, int H,

@@ -36,15 +36,11 @@ from .. import core
 from . import lib
 from .plan import jax_fuse_ok
 
-# The 3D forward's corner table holds K * 64 entries of 36 bytes in shared
-# memory next to the 66 KB column and weight tiles (csrc/gathermm3d_fwd.cu):
-# at most 71 taps.  The 2D forward's table spans at most 9 taps
-# (csrc/deform_fwd.cuh), so any tap count fits.
-_MAX_TAPS_3D = 71
 # The backward kernels' corner boxes: the 2D fused one keeps one box (4 ints)
-# per 4 x 4 output tile (csrc/deform_bwd.cuh kBoxTile), the 3D one a box (6
-# ints) per 4 x 4 x 4 output brick; the 2D columns backward one flat corner
-# range per 64 positions (csrc/deform_tile.cuh kTP).
+# per 4 x 4 output tile (csrc/deform_bwd.cuh kBoxTile), the 3D ones a box (6
+# ints) per 4 x 4 x 4 output brick, the fused one followed by a box per tap;
+# the 2D columns backward one flat corner range per 64 positions
+# (csrc/deform_tile.cuh kTP).
 _BOX_TILE = 4
 _TILE_P = 64
 _BRICK, _BOX_INTS = 4, 6
@@ -58,9 +54,6 @@ def ineligible_reason(x: torch.Tensor, spec: DeformConvSpec) -> Optional[str]:
         return f"unsupported dtype {x.dtype}"
     if x.shape[1] % spec.deformable_groups:
         return "channels not divisible by deformable_groups"
-    if spec.ndim == 3 and spec.tap_count > _MAX_TAPS_3D:
-        return (f"more than {_MAX_TAPS_3D} kernel taps do not fit the "
-                "shared-memory corner table")
     return None
 
 
@@ -90,17 +83,11 @@ def _fwd(name, x, offset, mask, weight, bias, spec, precision):
     out = torch.empty((x.shape[0], weight.shape[0])
                       + spec.out_sizes(x.shape[2:]), dtype=torch.float32,
                       device=x.device)
-    code = lib.PRECISION_CODES[precision]
-    if spec.ndim == 2:
-        xt, part, splits = lib.fwd_buffers(x, weight, spec, out)
-        lib.launch(name, x, (x, offset, mask,
-                             lib.fwd_weight(weight, spec.groups), bias, out,
-                             xt, part),
-                   (*_geometry(x, weight, spec), splits, code))
-    else:
-        lib.launch(name, x, (x, offset, mask,
-                             lib.grouped_weight(weight, spec.groups), bias,
-                             out), (*_geometry(x, weight, spec), code))
+    xt, part, splits = lib.fwd_buffers(x, weight, spec, out)
+    lib.launch(name, x, (x, offset, mask, lib.fwd_weight(weight, spec.groups),
+                         bias, out, xt, part),
+               (*_geometry(x, weight, spec), splits,
+                lib.PRECISION_CODES[precision]))
     return out
 
 
@@ -167,22 +154,21 @@ def _bwd(name, x, offset, mask, weight, grad_out, spec, precision, needs):
     # result, since each of those gradients belongs to one sample.
     b_step = effective_step(B, spec.in_step) if spec.ndim == 3 else None
     gx, goff, gmask, gwt, gcols, xt, part, splits = lib.bwd_buffers(
-        x, offset, mask, weight, spec, math.prod(OS), needs, b_step,
-        channels_last=b_step is None)
+        x, offset, mask, weight, spec, math.prod(OS), needs, b_step)
     if gx is None:
         tiles = None
     elif b_step is None:       # one corner box per 4 x 4 output tile
         tiles = torch.empty((B, dg, math.prod(-(-o // _BOX_TILE) for o in OS),
                              4), dtype=torch.int32, device=x.device)
-    else:                      # one box per output brick
+    else:                      # a box per output brick, then one per tap
         tiles = torch.empty((b_step, dg, math.prod(-(-o // _BRICK)
-                                                   for o in OS), _BOX_INTS),
+                                                   for o in OS),
+                             1 + spec.tap_count, _BOX_INTS),
                             dtype=torch.int32, device=x.device)
     wk = lib.tap_major_weight(weight, spec.groups)
-    scratch = (gcols, tiles) if b_step else (gcols, xt, tiles)
     lib.launch(name, x, (
-        x, offset, mask, wk, grad_out, *scratch, part, gx, goff, gmask,
-        gwt), (*_geometry(x, weight, spec),
+        x, offset, mask, wk, grad_out, gcols, xt, tiles, part, gx, goff,
+        gmask, gwt), (*_geometry(x, weight, spec),
                *(() if b_step is None else (b_step,)), splits,
                lib.PRECISION_CODES[precision]))
     gw = None if gwt is None else lib.ungrouped_weight(gwt, weight.shape)

@@ -141,17 +141,9 @@ def as_f32(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return None if t is None else t.to(torch.float32).contiguous()
 
 
-def grouped_weight(weight: torch.Tensor, groups: int) -> torch.Tensor:
-    """(O, C/g, *k) -> (g, C/g*K, O/g): the kernels' weight layout, each
-    (channel, tap) row holding the group's output channels contiguously."""
-    O = weight.shape[0]
-    return (weight.reshape(groups, O // groups, -1).transpose(1, 2)
-            .contiguous())
-
-
 def fwd_weight(weight: torch.Tensor, groups: int) -> torch.Tensor:
-    """(O, C/g, kh, kw) -> (g, K, C/g, O/g): the 2D forward kernels' weight
-    layout, each (tap, channel) row holding the group's output channels
+    """(O, C/g, *k) -> (g, K, C/g, O/g): the forward kernels' weight layout,
+    each (tap, channel) row holding the group's output channels
     contiguously, the rows of one tap consecutive."""
     O, Cg = weight.shape[:2]
     return (weight.reshape(groups, O // groups, Cg, -1).permute(0, 3, 2, 1)
@@ -167,15 +159,16 @@ def tap_major_weight(weight: torch.Tensor, groups: int) -> torch.Tensor:
 
 
 def ungrouped_weight(wt: torch.Tensor, weight_shape) -> torch.Tensor:
-    """Inverse of `grouped_weight`: (g, C/g*K, O/g) -> (O, C/g, *k)."""
+    """The backward kernels' grad_weight layout back to the weight's: (g,
+    C/g*K, O/g), row c * K + k, -> (O, C/g, *k)."""
     return wt.transpose(1, 2).reshape(weight_shape)
 
 
 def grad_weight_splits(spec, B: int, C: int, O: int, P: int) -> int:
     """How many splits of the (batch, position) axis the backward kernels
-    sum grad_weight partials over (csrc/deform_bwd.cuh::launch_gw): enough
-    blocks to fill the card, at least 512 positions a split.  It depends
-    on the shapes only, so the summation order does too."""
+    sum grad_weight partials over (csrc/deform_bwd.cuh::launch_gw_mma):
+    enough blocks to fill the card, at least 512 positions a split.  It
+    depends on the shapes only, so the summation order does too."""
     rows = C // spec.groups * spec.tap_count
     Og = O // spec.groups
     blocks = -(-rows // 64) * -(-Og // 64) * spec.groups
@@ -210,14 +203,13 @@ def fwd_buffers(x, weight, spec, out):
 
 
 def bwd_buffers(x, offset, mask, weight, spec, P: int, needs,
-                b_step: Optional[int] = None, channels_last: bool = True):
+                b_step: Optional[int] = None):
     """Outputs (None where not wanted) and scratch of a backward kernel:
     grad_x, grad_offset, grad_mask, grad_weight in the kernels' weight
     layout, the gcols buffer (b_step, K, P, C), x channels-last (B,
-    positions, C) for the correlation and grad_weight of the kernels that
-    take it (`channels_last`), the grad_weight partials, and their split
-    count.  b_step is the 3D kernels' batch chunk (None in 2D: the whole
-    batch)."""
+    positions, C) for the correlation and grad_weight, the grad_weight
+    partials, and their split count.  b_step is the 3D kernels' batch
+    chunk (None in 2D: the whole batch)."""
     want_x, want_off, want_mask, want_w = needs
     B, C = x.shape[:2]
     O, g, K = weight.shape[0], spec.groups, spec.tap_count
@@ -230,8 +222,8 @@ def bwd_buffers(x, offset, mask, weight, spec, P: int, needs,
     gwt = empty(g, C // g * K, O // g) if want_w else None
     gcols = (empty(b_step or B, K, P, C) if gx is not None or goff is not None
              or gmask is not None else None)
-    xt = (empty(B, math.prod(x.shape[2:]), C) if channels_last and (
-        goff is not None or gmask is not None or gwt is not None) else None)
+    xt = (empty(B, math.prod(x.shape[2:]), C) if goff is not None
+          or gmask is not None or gwt is not None else None)
     part = empty(splits, g, C // g * K, O // g) if want_w else None
     return gx, goff, gmask, gwt, gcols, xt, part, splits
 

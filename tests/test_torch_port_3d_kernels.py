@@ -11,7 +11,9 @@ of the JAX op at precision "float32", its Pallas kernels in interpret mode:
 * gathermm in its 3D planar mode: 1 x 16 x (5, 16, 16), offsets U[-2, 2];
 * a 5 x 5 x 5 kernel through the port's impl="shiftblend" against JAX's
   plain impl="xla", offsets inside the bound 0.5 and off +-0.5, so that the
-  window drops nothing and both compute the same function.
+  window drops nothing and both compute the same function;
+* an unbounded 5 x 5 x 5 kernel through the port's impl="cuda" (the gather
+  pair) against JAX's impl="xla", offsets U[-2, 2].
 
 The plain versions (`shiftblend3d_bwd_reference`, `gathermm3d_bwd_reference`)
 are also held against the same JAX gradients on their own.  Each JAX result
@@ -188,6 +190,40 @@ def test_shiftblend3d_5x5x5_matches_jax():
     _assert_close(grads, want)
 
 
+def test_gathermm3d_5x5x5_matches_jax():
+    """125 taps without a bound: the port's impl="cuda" takes the gather
+    pair (on CPU tensors its autograd Function runs the kernels' plain
+    versions), as JAX's maybe_pallas takes its gathermm kernel, and agrees
+    with JAX's impl="xla"."""
+    rng = np.random.default_rng(8)
+    B, C, S, K = 1, 8, (4, 6, 8), 125
+    arrs = {"x": rng.standard_normal((B, C) + S),
+            "offset": rng.uniform(-2.0, 2.0, (B, 3 * K) + S),
+            "mask": rng.uniform(0, 1, (B, K) + S),
+            "weight": rng.standard_normal((C, C, 5, 5, 5)) * 0.05,
+            "bias": rng.standard_normal((C,))}
+    arrs = {n: a.astype(np.float32) for n, a in arrs.items()}
+    cot = rng.standard_normal((B, C) + S).astype(np.float32)
+    spec = DeformConvSpec.make(3, 5, 1, 2, 1, 1, 1, modulated=True)
+    js = JSpec.make(3, 5, 1, 2, 1, 1, 1, modulated=True)
+    assert jgm.ineligible_reason(jax.ShapeDtypeStruct((B, C) + S,
+                                                      jnp.float32), js) is None
+    assert select_kernel(torch.empty((B, C) + S, device="meta"), spec,
+                         None) == ("gathermm", None)
+
+    def f(*a):
+        return jmdc.modulated_deform_conv3d(*a, padding=2, impl="xla",
+                                            precision="float32")
+
+    want_out, vjp = jax.vjp(f, *[jnp.asarray(arrs[n]) for n in NAMES])
+    want = {n: np.asarray(g) for n, g in
+            zip(NAMES, vjp(jnp.asarray(cot)))}
+    out, grads = _port(arrs, cot, "cuda", None, padding=2)
+    np.testing.assert_allclose(out, np.asarray(want_out), rtol=2e-5,
+                               atol=2e-5)
+    _assert_close(grads, want)
+
+
 # (B, C, S, k, pad, dil, bound, dtype)
 DISPATCH3D = [
     (4, 128, (32, 64, 64), 3, 1, 1, 2.0, "float32"),   # cfg4: shift-blend
@@ -203,6 +239,8 @@ DISPATCH3D = [
     (1, 8, (128, 128, 128), 3, 1, 1, 2.0, "float32"),  # streamed: not planar
     (1, 16, (8, 6, 7), 3, 1, 1, 2.0, "float32"),       # plane 42: not planar
     (1, 32, (8, 16, 16), 5, 2, 1, 1.0, "float32"),     # 5x5x5: 3,375 pairs
+    (1, 32, (8, 16, 16), 5, 2, 1, None, "float32"),    # 5x5x5 unbounded
+    (2, 64, (16, 32, 32), 5, 2, 1, None, "float32"),   # 5x5x5 at cfg3's size
 ]
 
 

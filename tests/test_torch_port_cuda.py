@@ -10,6 +10,8 @@ PyTorch is installed:
 precision mode, as max|kernel - plain| / max|plain|: float32 1e-5,
 tensorfloat32 5e-3, bfloat16 2e-2.
 """
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -322,13 +324,20 @@ def test_auto_dispatch_and_raises(dev):
 
 # 3D: (B, C, O, S, k, stride, pad, dil, g, dg, modulated, bias, offscale),
 # ragged 4 x 4 x 4 bricks, offsets far outside the volume, stride 2, no
-# mask / bias, and deformable groups straddling conv groups.
+# mask / bias, and deformable groups straddling conv groups; an unbounded
+# 5 x 5 x 5 kernel, 10 channels a deformable group (no multiple of 4: the
+# forward's and grad_W's 4-byte column builds) over 2 conv groups, stride 2
+# with dilation 2, and a ragged 7 x 9 x 11 volume.
 GENERAL3D = [
     (2, 16, 24, (5, 7, 6), 3, 1, 1, 1, 2, 2, True, True, 3.0),
     (1, 12, 8, (7, 9, 8), 3, 2, 1, 1, 1, 3, False, False, 2.0),
     (2, 16, 16, (5, 6, 7), 3, 1, 1, 1, 1, 2, True, True, 40.0),
     (1, 12, 10, (4, 5, 6), (3, 1, 3), 1, (1, 0, 1), 1, 2, 3, True, False,
      2.5),
+    (1, 16, 24, (6, 9, 10), 5, 1, 2, 1, 1, 1, True, True, 2.0),
+    (2, 40, 24, (5, 7, 6), 3, 1, 1, 1, 2, 4, True, True, 2.5),
+    (1, 16, 16, (9, 10, 11), 3, 2, 2, 2, 1, 1, True, True, 2.0),
+    (2, 8, 12, (7, 9, 11), 3, 1, 1, 1, 1, 1, True, False, 1.5),
 ]
 # ... plus the bound: beyond it, the loop path's 128-aligned planes, 2 x 2 x
 # 2 taps at 0.5 (at most 640 pairs), and dg > 1 with groups > 1; a 5 x 5 x 5
@@ -406,6 +415,81 @@ def test_shiftblend3d_config4_full_size(dev, precision):
                  sb.shiftblend3d_bwd_reference(x, off, mask, w, gout, spec,
                                                precision, 2.0),
                  LIMITS[precision])
+
+
+@pytest.mark.parametrize("precision", list(LIMITS))
+def test_gathermm3d_config3_full_size(dev, precision):
+    """BASELINE config 3: B=2, 64 -> 64, 16 x 32 x 32, 3 x 3 x 3, no mask,
+    offsets U[-2, 2], through the gather pair."""
+    spec, (x, off, _, w, _) = _case(dev, 2, 64, 64, (16, 32, 32), 3, 1, 1, 1,
+                                    1, 1, False, False, 2.0)
+    gout = _grad_out(spec, x, w)
+    got = gm.gathermm3d_fwd(x, off, None, w, None, spec, precision)
+    want = gm.gathermm3d_fwd_reference(x, off, None, w, None, spec, precision)
+    assert _rel(got, want) <= LIMITS[precision]
+    _check_grads(gm.gathermm3d_bwd(x, off, None, w, gout, spec, precision),
+                 gm.gathermm3d_bwd_reference(x, off, None, w, gout, spec,
+                                             precision), LIMITS[precision])
+
+
+# DCNVideoNet's DCN layers at B=8 (width 32, 16 x 112 x 112 clips): s1b0, 64
+# channels at 16 x 56 x 56, and s2b0, 128 channels at 16 x 28 x 28; 3 x 3 x
+# 3, g = dg = 1, mask, no bias.
+VIDEO_LAYERS = [
+    (8, 64, 64, (16, 56, 56), 3, 1, 1, 1, 1, 1, True, False, 1.0),
+    (8, 128, 128, (16, 28, 28), 3, 1, 1, 1, 1, 1, True, False, 1.0),
+]
+
+
+@pytest.mark.parametrize("case", VIDEO_LAYERS)
+def test_gathermm3d_videonet_layers_match_plain(dev, case):
+    spec, (x, off, mask, w, _) = _case(dev, *case)
+    gout = _grad_out(spec, x, w)
+    with torch.no_grad():
+        got = gm.gathermm3d_fwd(x, off, mask, w, None, spec)
+        assert _rel(got, gm.gathermm3d_fwd_reference(
+            x, off, mask, w, None, spec)) <= LIMITS["tensorfloat32"]
+        del got
+        _check_grads(gm.gathermm3d_bwd(x, off, mask, w, gout, spec),
+                     gm.gathermm3d_bwd_reference(x, off, mask, w, gout, spec),
+                     LIMITS["tensorfloat32"])
+
+
+def shiftblend3d_bwd_digest(dev, precision):
+    """SHA-256 of the four gradients of `shiftblend3d_bwd` on two BOUNDED3D
+    cases (dg > 1 over 2 conv groups, and a 5 x 5 x 5 kernel) with in_step
+    1, so that the pull runs once per sample."""
+    h = hashlib.sha256()
+    for case in (BOUNDED3D[7], BOUNDED3D[4]):
+        spec, (x, off, mask, w, _) = _case(dev, *case[:-1])
+        spec = DeformConvSpec.make(3, spec.kernel, 1, spec.padding,
+                                   spec.dilation, spec.groups,
+                                   spec.deformable_groups, 1, True)
+        for g in sb.shiftblend3d_bwd(x, off, mask, w, _grad_out(spec, x, w),
+                                     spec, precision, case[-1]):
+            h.update(g.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+# shiftblend3d_bwd_digest of the kernels before their pull became a callable
+# of run_bwd3d, built by nvcc for sm_90a and run on an NVIDIA H100 80GB HBM3
+# (nvcc 12.9): the same bits in every mode.
+SHIFTBLEND3D_BWD_DIGESTS = {
+    "float32":
+        "eb2bf11b3223ff2b5d0723952e9f579b2367b915555f087a21123e91b66fb9e6",
+    "tensorfloat32":
+        "96c214427f8319544b12c380b59a34456507d036df4afe878328af621e3edcd6",
+    "bfloat16":
+        "2bb1e3c5974aafa1c41811f98aeaebd308305d7366e698d8cca2dd47bec43840",
+}
+
+
+@pytest.mark.parametrize("precision", list(LIMITS))
+def test_shiftblend3d_bwd_bits_unchanged(dev, precision):
+    """The bounded 3D backward gives the same bits as before its pull
+    became a callable shared with the gather's backward."""
+    assert shiftblend3d_bwd_digest(dev, precision) == \
+        SHIFTBLEND3D_BWD_DIGESTS[precision]
 
 
 def test_backward3d_bitwise_deterministic_and_batch_chunked(dev):
