@@ -138,21 +138,23 @@ COLS3D = dict(B=2, C=64, S=(16, 32, 32), groups=2)
 # The previous release's times on an NVIDIA H100 80GB HBM3 at 700 W
 # ("tensorfloat32", ms): each table row's `ms`, at the row's own config (2D
 # fused rows at config 2, 3D rows at configs 3 and 4 B=1, column rows at
-# config 5 c4 and the 3D columns case), printed beside this run's.
-PREV_MS = {"shiftblend_fwd": 0.3527, "gathermm_fwd": 0.3992, "shiftblend_bwd": 1.0023,
-           "gathermm_bwd": 1.0725, "shiftblend3d_fwd": 5.6724, "gathermm3d_fwd": 0.9485,
-           "shiftblend3d_bwd": 16.4938, "gathermm3d_bwd": 4.8196, "gathermm_cols_fwd": 0.1539,
-           "gathermm_cols_bwd": 1.3489, "gathermm3d_cols_fwd": 0.3171,
-           "gathermm3d_cols_bwd": 3.9222}
+# config 5 c4 and the 3D columns case), printed beside this run's; the
+# column rows at config 5 c5 apart.
+PREV_MS = {"shiftblend_fwd": 0.3660, "gathermm_fwd": 0.4182, "shiftblend_bwd": 1.0210,
+           "gathermm_bwd": 1.1262, "shiftblend3d_fwd": 6.1657, "gathermm3d_fwd": 0.6528,
+           "shiftblend3d_bwd": 16.7097, "gathermm3d_bwd": 2.1919, "gathermm_cols_fwd": 0.1514,
+           "gathermm_cols_bwd": 1.3474, "gathermm3d_cols_fwd": 0.3186,
+           "gathermm3d_cols_bwd": 3.9215}
+PREV_MS_C5 = {"gathermm_cols_fwd": 0.0895, "gathermm_cols_bwd": 0.9535}
 # The same release's steps and totals (ms): the config-2 training steps on
 # CUDA events, the networks' step device time and their DCN kernels (from
 # the step's profile), the device time of DCNResNet-50's 13 gathermm_fwd
 # calls on their recorded inputs, and config 5 c3's forward op.
-PREV_STEP_MS = {"cfg2 bounded": 1.4855, "cfg2 general": 1.6182,
-                "DCNResNet-50 device": 12.7388, "DCNResNet-50 DCN kernels": 3.962,
-                "DCNResNet-50 gathermm_fwd": 1.0899, "cfg5 c3 op_fwd": 2.5648,
-                "DCNVideoNet device": 160.5783, "DCNVideoNet DCN kernels": 104.429,
-                "cfg3 step": 5.9211, "cfg4 step": 85.9671}
+PREV_STEP_MS = {"cfg2 bounded": 2.9075, "cfg2 general": 2.7959,
+                "DCNResNet-50 device": 12.774, "DCNResNet-50 DCN kernels": 3.971,
+                "DCNResNet-50 gathermm_fwd": 1.0975, "cfg5 c3 op_fwd": 2.5898,
+                "DCNVideoNet device": 96.287, "DCNVideoNet DCN kernels": 40.662,
+                "cfg3 step": 3.5116, "cfg4 step": 85.9156}
 
 
 class SmokeFailure(Exception):
@@ -296,6 +298,17 @@ def device_time_by_kernel(fn, calls=3):
                 and not e.is_user_annotation):   # annotations double-count
             times[e.key] = e.self_device_time_total / 1e3 / calls
     return times
+
+
+def kernel_split(times):
+    """Device time per call by kernel (device_time_by_kernel), keyed by the
+    kernel's short name (no namespace, arguments or return type), largest
+    first."""
+    short = {}
+    for key, ms in times.items():
+        name = key.split("(")[0].replace("void ", "").replace("mdc::", "").strip()
+        short[name] = short.get(name, 0.0) + ms
+    return dict(sorted(short.items(), key=lambda kv: -kv[1]))
 
 
 def print_breakdown(label, times, top=8):
@@ -855,8 +868,9 @@ def small_cases_cols(torch, dev):
     """Small configs for the column kernels: conv groups straddling one
     deformable group (g > dg), g = dg where the fused backward's footprint
     keeps the JAX package off its fused pair, masked and unmasked, stride
-    2, offsets far outside the input, ragged tiles, 2D and 3D; each with a
-    cotangent of the op's output."""
+    2, offsets far outside the input, ragged tiles, a 2D plane of several
+    input tiles of the column backward, 2D and 3D; each with a cotangent of
+    the op's output."""
     from modulated_deform_conv_tpu_torch.utils.config import DeformConvSpec
     rng = np.random.default_rng(4)
     # (B, C, O, S, k, stride, pad, dil, g, dg), modulated, bias, offset scale
@@ -865,6 +879,7 @@ def small_cases_cols(torch, dev):
         ((1, 12, 8, (11, 13), 3, 2, 1, 1, 1, 3), False, False, 8.0),
         ((2, 32, 32, (7, 7), 3, 1, 1, 1, 4, 2), True, True, 40.0),
         ((1, 1024, 1536, (5, 6), 3, 1, 1, 1, 1, 1), True, True, 2.0),
+        ((1, 12, 16, (40, 36), 3, 1, 1, 1, 2, 1), True, True, 3.0),
         ((2, 16, 24, (5, 7, 6), 3, 1, 1, 1, 2, 1), True, True, 3.0),
         ((1, 12, 8, (7, 9, 8), 3, 2, 1, 1, 1, 3), False, False, 2.0),
         ((2, 16, 16, (5, 6, 7), 3, 1, 1, 1, 4, 2), True, False, 40.0),
@@ -917,13 +932,15 @@ def cols_work(ins, cols_numel, elem_bytes):
             "bwd": (2 * in_bytes + elem_bytes * cols_numel, 4 * corners * cols_numel)}
 
 
-def columns_case(torch, gm, label, spec, ins, op, reset, counts, pair, fused_pair, dense):
+def columns_case(torch, gm, label, spec, ins, op, reset, counts, pair, fused_pair, dense,
+                 prev=PREV_MS):
     """One config through the public op and the columns path: the counted
     forward and training step (grads of sum(out^2) in all five inputs),
     agreement with impl='torch' and with the fused pair on the same inputs,
     bitwise-equal repeated backwards, each column kernel against its plain
-    version in every mode, and the times (main precision).  Returns the
-    launches, the kernel rows and the times."""
+    version in every mode, and the times (main precision), the column
+    backward's beside `prev` (the previous release's) and split by kernel.
+    Returns the launches, the kernel rows and the times."""
     from modulated_deform_conv_tpu_torch.ops.cuda import lib
     zero = {n: 0 for n in counts()}
     fwd, bwd = pair
@@ -1016,6 +1033,13 @@ def columns_case(torch, gm, label, spec, ins, op, reset, counts, pair, fused_pai
         go = gout.transpose(0, 1).reshape(g, Og, -1).to(cols.dtype).contiguous()
         t["cols_fwd"] = time_ms(lambda: fwd(x, off, mask, spec, MAIN_PRECISION))
         t["cols_bwd"] = time_ms(lambda: bwd(x, off, mask, gcols, spec, MAIN_PRECISION))
+        split = kernel_split(device_time_by_kernel(
+            lambda: bwd(x, off, mask, gcols, spec, MAIN_PRECISION)))
+        rows[f"{fam}_bwd"].update(split_ms=split, device_ms=sum(split.values()) if split else None)
+        print(f"{label} {fam}_bwd: {t['cols_bwd']:.4f} ms on events (previous release "
+              f"{prev[f'{fam}_bwd']:.4f} ms), "
+              + (f"{sum(split.values()):.4f} ms device: " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in split.items()) if split else "device time not measured"))
         t["cols_fwd_plain"] = time_ms(lambda: fwd_ref(x, off, mask, spec, MAIN_PRECISION),
                                       *TIMING_PLAIN5)
         t["cols_bwd_plain"] = time_ms(lambda: bwd_ref(x, off, mask, gcols, spec, MAIN_PRECISION),
@@ -1150,7 +1174,7 @@ def run_columns(torch, mdt, gm, reset, counts, dev):
             launches, res["rows"][layer], t = columns_case(
                 torch, gm, label, spec, ins, op5, reset, counts,
                 (gm.gathermm_cols_fwd, gm.gathermm_cols_bwd), (gm.gathermm_fwd, gm.gathermm_bwd),
-                dense2)
+                dense2, PREV_MS_C5 if layer == "c5" else PREV_MS)
             fl, sl = launches["fwd"], launches["step"]
         res["times"][f"cfg5_{layer}"] = t
         for kind, c in (("fwd", fl), ("step", sl)):
@@ -1614,7 +1638,7 @@ def main() -> int:
             c5 = r5["rows"]["c5"][n]
             row.update({f"{k}_cfg5_c5": c5[k] for k in (
                 "ms", "plain_ms", "bound_ms", "library_ms", "gemm_ms", "fused_pair_ms",
-                "dense_conv_anchor_ms", "max_abs_err")})
+                "dense_conv_anchor_ms", "max_abs_err", "split_ms", "device_ms") if k in c5})
         elif n.startswith("gathermm3d_cols"):
             row = r5["rows"]["3d"][n]
         elif n in r3["rows"]:

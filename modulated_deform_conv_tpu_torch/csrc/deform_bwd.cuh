@@ -7,17 +7,13 @@
 //   against dA/dpos and A
 //   grad_weight = gout cols^T, cols recomputed from x (never saved)
 //
-// in two sections:
-//   - the 2D fused backward (gathermm_bwd.cu, shiftblend_bwd.cu) runs the
-//     tensor-core kernels of the last section: gcols_mma_kernel,
-//     gw_mma_kernel + fold_kernel, corr_kernel and a pull per block of 8 x 8
-//     input pixels x 64 channels (gather_pull_kernel, shift_pull_kernel);
-//     the 3D fused backwards (deform_bwd3d.cuh's run_bwd3d) run
-//     gcols_mma_kernel and gw_mma_kernel too, beside their own pulls and
-//     correlation;
-//   - the columns path's backward (gathermm_cols_bwd.cu: ranges_kernel,
-//     gather_gx_kernel, goff_kernel, given gcols in its layout CKBP) runs
-//     the kernels of the first sections.
+// for the 2D fused backward (gathermm_bwd.cu, shiftblend_bwd.cu) on
+// tensor-core kernels: gcols_mma_kernel, gw_mma_kernel
+// + fold_kernel, corr_kernel and a pull per block of 8 x 8 input pixels x 64
+// channels (gather_pull_kernel, shift_pull_kernel).  The 3D fused
+// backwards (deform_bwd3d.cuh's run_bwd3d) run gcols_mma_kernel and
+// gw_mma_kernel too, beside their own pulls and correlation; the columns
+// path's backward (deform_cols_bwd.cuh) reads gcols through CKBP.
 //
 // Determinism: there is no float atomic anywhere.  Every output element has
 // one owner that sums in a fixed order; grad_weight is summed in fixed-size
@@ -30,22 +26,11 @@
 
 namespace mdc {
 
-// ---- gcols layouts ------------------------------------------------------------
+// ---- the columns' layout -------------------------------------------------------
 //
-// gcols element (sample b, channel c, tap k, position p) of a layout:
-// `hit(k, p)` is the int a pull's hit list keeps for a (tap, position)
-// candidate, `base(b, c0)` the offset of sample b's channel c0, and `at(h,
-// c)` the offset of channel c0 + c of candidate h from that base.
-//   KPC:  (B, K, P, C), channels innermost: the fused backwards' gcols;
-//   CKBP: (C * K, B * P), row c * K + k: the columns path's, float32 or bf16.
-struct KPC {
-  using T = float;
-  int K, P, C;
-  __device__ int hit(int k, int p) const { return k * P + p; }
-  __device__ size_t base(int b, int c0) const { return static_cast<size_t>(b) * K * P * C + c0; }
-  __device__ size_t at(int h, int c) const { return static_cast<size_t>(h) * C + c; }
-};
-
+// CKBP: gcols (C * K, B * P), row c * K + k, float32 or bf16: element
+// (sample b, channel c0 + c, tap k, position p) lies at base(b, c0) +
+// at(hit(k, p), c).
 template <typename Elem>
 struct CKBP {
   using T = Elem;
@@ -76,50 +61,6 @@ __device__ __forceinline__ __nv_bfloat16 to_elem<__nv_bfloat16>(float v) {
 constexpr int kColThreads = 256;
 constexpr int kColChans = 32;
 
-// One thread per (b, deformable group, tap, position): the correlation
-// S[corner] = sum_c gcol[c] x[c, corner] over the slab's channels in order,
-// then grad_offset = mask * sum dA/dpos S per axis and grad_mask = sum A S.
-template <class L>
-__global__ void __launch_bounds__(kThreads) goff_kernel(const float* __restrict__ x,
-                                                        const float* __restrict__ offset,
-                                                        const float* __restrict__ mask,
-                                                        const typename L::T* __restrict__ gcols,
-                                                        float* __restrict__ goff, float* __restrict__ gmask,
-                                                        Geo g, L lay) {
-  const int K = g.kh * g.kw, P = g.OH * g.OW, Cdg = g.C / g.dg, HW = g.H * g.W;
-  const size_t e = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (e >= static_cast<size_t>(g.B) * g.dg * K * P) return;
-  const int p = e % P, k = (e / P) % K, d = (e / (static_cast<size_t>(P) * K)) % g.dg;
-  const int b = e / (static_cast<size_t>(P) * K * g.dg);
-  const int oy = p / g.OW, ox = p % g.OW, ky = k / g.kw, kx = k % g.kw;
-  const size_t oidx = (static_cast<size_t>(b) * g.dg * 2 * K + static_cast<size_t>(d) * 2 * K + 2 * k) * P + p;
-  const TapGrad t = tap_grad(oy * g.sh - g.ph + ky * g.dh, ox * g.sw - g.pw + kx * g.dw, offset[oidx],
-                             offset[oidx + P], g.H, g.W, g.windowed, g.lo_y, g.win_y, g.lo_x, g.win_x);
-  float s[4] = {0.f, 0.f, 0.f, 0.f};
-  if (t.keep) {
-    const typename L::T* gp = gcols + lay.base(b, d * Cdg);
-    const int h = lay.hit(k, p);
-    const float* xp = x + (static_cast<size_t>(b) * g.C + static_cast<size_t>(d) * Cdg) * HW;
-    const int i0 = t.y0 * g.W + t.x0;
-    const int idx[4] = {i0, i0 + 1, i0 + g.W, i0 + g.W + 1};
-    for (int c = 0; c < Cdg; ++c) {
-      const float gv = as_float(gp[lay.at(h, c)]);
-      const float* xc = xp + static_cast<size_t>(c) * HW;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        if (t.keep >> i & 1) s[i] = fmaf(gv, xc[idx[i]], s[i]);
-    }
-  }
-  const float m = mask_at(g, mask, b, d, k, p);
-  if (goff) {
-    goff[oidx] = m * (t.dy.x * s[0] + t.dy.y * s[1] + t.dy.z * s[2] + t.dy.w * s[3]);
-    goff[oidx + P] = m * (t.dx.x * s[0] + t.dx.y * s[1] + t.dx.z * s[2] + t.dx.w * s[3]);
-  }
-  if (gmask)
-    gmask[(static_cast<size_t>(b) * g.dg * K + static_cast<size_t>(d) * K + k) * P + p] =
-        t.w.x * s[0] + t.w.y * s[1] + t.w.z * s[2] + t.w.w * s[3];
-}
-
 // gwt[e] = sum over splits, in order, of part[split][e]; "bfloat16" rounds
 // the sum like the other products of that mode.
 __global__ void fold_kernel(const float* __restrict__ part, float* __restrict__ gwt, int n, int splits,
@@ -129,190 +70,6 @@ __global__ void fold_kernel(const float* __restrict__ part, float* __restrict__ 
   float s = 0.f;
   for (int i = 0; i < splits; ++i) s += part[static_cast<size_t>(i) * n + e];
   gwt[e] = operand(s, precision);
-}
-
-// ---- grad_x by pulling (the columns path's and the 3D pulls) -----------------
-//
-// A pull block owns kQT input pixels x kCW channels of one (batch,
-// deformable group).  It walks a candidate list of (tap, output position)
-// pairs in a fixed order, kPullThreads at a time: each thread takes one
-// candidate, finds which of its corners land in the block's pixels (up to 4
-// "hits"), and the block appends the hits in thread order to a list in
-// shared memory.  Warp w then applies hits w, w + 4, ... to its own
-// accumulator copy, each lane one channel: acc[w][pixel][lane] +=
-// weight * gcol.  At the end the four copies are summed in order.  So every
-// grad_x element has a fixed summation order, with no atomics.
-constexpr int kQT = 64;          // input pixels per pull block
-constexpr int kCW = 32;          // channels per pull block: one per lane
-constexpr int kCWP = kCW + 1;    // padded accumulator row: the write-out walks pixels
-constexpr int kPullThreads = 128;
-constexpr int kPullWarps = kPullThreads / 32;
-
-struct Hit {
-  int pix;    // pixel within the block's tile
-  int kp;     // the candidate's (tap, position) as its layout's hit(k, p)
-  float w;    // mask-folded corner weight
-};
-
-struct PullSmem {
-  float acc[kPullWarps][kQT][kCWP];
-  Hit hits[kPullThreads * 4];
-  int warp_total[kPullWarps];
-};
-
-// Append this thread's n hits (in thread order across the block) and apply
-// the whole list.  Every thread of the block calls it once per chunk.
-// gcol points at gcols + lay.base(b, c0); cw channels of the chunk are real.
-template <class L>
-__device__ __forceinline__ void pull_hits(PullSmem& sm, int n, const int (&pix)[4], const float (&w)[4], int kp,
-                                          const typename L::T* __restrict__ gcol, const L& lay, int cw) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int v = n;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int t = __shfl_up_sync(0xffffffffu, v, o);
-    if (lane >= o) v += t;
-  }
-  if (lane == 31) sm.warp_total[warp] = v;
-  __syncthreads();
-  int pos = v - n, total = 0;
-#pragma unroll
-  for (int i = 0; i < kPullWarps; ++i) {
-    if (i < warp) pos += sm.warp_total[i];
-    total += sm.warp_total[i];
-  }
-  for (int i = 0; i < n; ++i) sm.hits[pos + i] = Hit{pix[i], kp, w[i]};
-  __syncthreads();
-  if (lane < cw) {
-    float* acc = &sm.acc[warp][0][lane];
-    for (int h = warp; h < total; h += kPullWarps) {
-      const Hit hh = sm.hits[h];
-      acc[hh.pix * kCWP] = fmaf(hh.w, as_float(gcol[lay.at(hh.kp, lane)]), acc[hh.pix * kCWP]);
-    }
-  }
-  __syncthreads();  // the list is rebuilt by the next chunk
-}
-
-__device__ __forceinline__ void pull_clear(PullSmem& sm) {
-  float* a = &sm.acc[0][0][0];
-  for (int e = threadIdx.x; e < kPullWarps * kQT * kCWP; e += kPullThreads) a[e] = 0.f;
-  __syncthreads();
-}
-
-// Sum of the warps' copies, in order, for pixel `pix` and channel `lane`.
-__device__ __forceinline__ float pull_result(const PullSmem& sm, int pix, int lane) {
-  float s = 0.f;
-#pragma unroll
-  for (int w = 0; w < kPullWarps; ++w) s += sm.acc[w][pix][lane];
-  return s;
-}
-
-// ---- the columns path's grad_x pull (gathermm_cols_bwd.cu) -------------------
-
-// One warp per (b, d, output tile): min / max flat index of the kept corners
-// (with a nonzero mask-folded weight) of every tap and position of the tile.
-__global__ void __launch_bounds__(kThreads) ranges_kernel(const float* __restrict__ offset,
-                                                          const float* __restrict__ mask,
-                                                          int2* __restrict__ ranges, Geo g) {
-  const int K = g.kh * g.kw, P = g.OH * g.OW, NT = (P + kTP - 1) / kTP;
-  const int wid = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5), lane = threadIdx.x & 31;
-  if (wid >= g.B * g.dg * NT) return;
-  const int t = wid % NT, d = (wid / NT) % g.dg, b = wid / (NT * g.dg);
-  int lo = 0x7fffffff, hi = 0;
-  for (int e = lane; e < K * kTP; e += 32) {
-    const int k = e / kTP, p = t * kTP + e % kTP;
-    if (p >= P) continue;
-    const TapWeights tw = weights_at(g, offset, mask, b, d, k, p);
-    const float w[4] = {tw.w.x, tw.w.y, tw.w.z, tw.w.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (w[i] == 0.f) continue;
-      const int q = (tw.y0 + (i >> 1)) * g.W + tw.x0 + (i & 1);
-      lo = min(lo, q);
-      hi = max(hi, q + 1);
-    }
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
-    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
-  }
-  if (lane == 0) ranges[wid] = make_int2(lo, hi);
-}
-
-// grad_x of 64 consecutive flat input pixels x 32 channels of one
-// (b, deformable group), pulled from the output tiles whose corner range
-// overlaps them, tile by tile and tap by tap in order.
-template <class L>
-__global__ void __launch_bounds__(kPullThreads) gather_gx_kernel(const float* __restrict__ offset,
-                                                                 const float* __restrict__ mask,
-                                                                 const typename L::T* __restrict__ gcols,
-                                                                 const int2* __restrict__ ranges,
-                                                                 float* __restrict__ gx, Geo g, L lay) {
-  __shared__ PullSmem sm;
-  const int K = g.kh * g.kw, P = g.OH * g.OW, HW = g.H * g.W, NT = (P + kTP - 1) / kTP;
-  const int Cdg = g.C / g.dg, cchunks = (Cdg + kCW - 1) / kCW;
-  const int q0 = blockIdx.x * kQT, q1 = min(HW, q0 + kQT);
-  const int d = blockIdx.y / cchunks, c0 = d * Cdg + (blockIdx.y % cchunks) * kCW;
-  const int cw = min(kCW, (d + 1) * Cdg - c0);
-  const int b = blockIdx.z;
-  const typename L::T* gcol = gcols + lay.base(b, c0);
-  const int2* rg = ranges + (static_cast<size_t>(b) * g.dg + d) * NT;
-  pull_clear(sm);
-  for (int t = 0; t < NT; ++t) {
-    const int2 r = rg[t];
-    if (!(r.x < q1 && r.y > q0)) continue;  // uniform across the block
-    for (int e0 = 0; e0 < K * kTP; e0 += kPullThreads) {
-      const int e = e0 + threadIdx.x;
-      const int k = e / kTP, p = t * kTP + e % kTP;
-      int n = 0, pix[4];
-      float w[4];
-      if (e < K * kTP && p < P) {
-        const TapWeights tw = weights_at(g, offset, mask, b, d, k, p);
-        const float wv[4] = {tw.w.x, tw.w.y, tw.w.z, tw.w.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int q = (tw.y0 + (i >> 1)) * g.W + tw.x0 + (i & 1);
-          if (wv[i] != 0.f && q >= q0 && q < q1) {
-            pix[n] = q - q0;
-            w[n] = wv[i];
-            ++n;
-          }
-        }
-      }
-      pull_hits(sm, n, pix, w, lay.hit(k, p), gcol, lay, cw);
-    }
-  }
-  for (int e = threadIdx.x; e < kQT * kCW; e += kPullThreads) {
-    const int cl = e / kQT, pix = e % kQT;
-    if (cl < cw && q0 + pix < q1)
-      gx[(static_cast<size_t>(b) * g.C + c0 + cl) * HW + q0 + pix] = pull_result(sm, pix, cl);
-  }
-}
-
-// ---- host-side launches of the shared kernels -------------------------------
-
-template <class L>
-inline cudaError_t launch_goff(const Geo& g, const float* x, const float* offset, const float* mask,
-                               const typename L::T* gcols, float* goff, float* gmask, L lay, cudaStream_t s) {
-  const size_t n = static_cast<size_t>(g.B) * g.dg * g.kh * g.kw * g.OH * g.OW;
-  goff_kernel<L><<<static_cast<unsigned>((n + kThreads - 1) / kThreads), kThreads, 0, s>>>(x, offset, mask, gcols,
-                                                                                         goff, gmask, g, lay);
-  return cudaGetLastError();
-}
-
-// grad_x by the gather's pull: ranges (B, dg, ceil(P / 64)) int2 scratch.
-template <class L>
-inline cudaError_t launch_gather_gx(const Geo& g, const float* offset, const float* mask,
-                                    const typename L::T* gcols, int2* ranges, float* gx, L lay, cudaStream_t s) {
-  const int NT = (g.OH * g.OW + kTP - 1) / kTP, warps = g.B * g.dg * NT;
-  ranges_kernel<<<(warps + kThreads / 32 - 1) / (kThreads / 32), kThreads, 0, s>>>(offset, mask, ranges, g);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int Cdg = g.C / g.dg;
-  const dim3 grid((g.H * g.W + kQT - 1) / kQT, g.dg * ((Cdg + kCW - 1) / kCW), g.B);
-  gather_gx_kernel<L><<<grid, kPullThreads, 0, s>>>(offset, mask, gcols, ranges, gx, g, lay);
-  return cudaGetLastError();
 }
 
 // ---- the 2D fused backward on tensor cores (gathermm_bwd.cu, shiftblend_bwd.cu)

@@ -1,14 +1,12 @@
 // The 3D backward kernels.  They compute what the 2D ones compute
 // (deform_bwd.cuh), with the trilinear corner rules of deform_tile3d.cuh:
-//   - both fused pairs' backwards (gathermm3d_bwd.cu, shiftblend3d_bwd.cu)
-//     run the tensor-core kernels of the last section (run_bwd3d), each
-//     with its own grad_x pull: the gather's is driven by the corner boxes
-//     of the output bricks (boxes3_kernel + gather_pull3_kernel), the
-//     bounded pair's by each tap's static reach (shift_pull3_kernel);
-//   - the columns path's 3D backward (gathermm3d_cols_bwd.cu) is given
-//     gcols (layout CKBP) and runs the first sections: boxes3_kernel +
-//     gather_gx3_kernel for grad_x, goff3_kernel for grad_offset and
-//     grad_mask.
+// both fused pairs' backwards (gathermm3d_bwd.cu, shiftblend3d_bwd.cu) run
+// the tensor-core kernels of run_bwd3d, each with its own grad_x pull: the
+// gather's is driven by the corner boxes of the output bricks
+// (boxes3_kernel + gather_pull3_kernel), the bounded pair's by each tap's
+// static reach (shift_pull3_kernel).  The columns path's 3D backward is in
+// deform_cols_bwd.cuh.
+//
 // Determinism as in 2D: no float atomics; every output element has one
 // owner that sums in a fixed order, and grad_weight is summed in shape-only
 // splits folded in order.  gcols (B, K, P, C) is the largest buffer (7.25 GB
@@ -32,92 +30,7 @@ inline Geo flat_geo(const Geo3& g) {
              0,   0,   0, 0, 0,   g.precision};
 }
 
-// ---- grad_x by pulling, with up to 8 hits a candidate ----------------------
-//
-// As deform_bwd.cuh's pull: a block owns kQT = 64 input pixels (a 4 x 4 x 4
-// brick) x kCW channels, walks a candidate list of (tap, output position) in
-// a fixed order, appends the hits in thread order and applies them warp by
-// warp to per-warp accumulator copies, summed in order at the end.
-constexpr int kHits3 = 8;
-
-struct PullSmem3 {
-  float acc[kPullWarps][kQT][kCWP];
-  Hit hits[kPullThreads * kHits3];
-  int warp_total[kPullWarps];
-};
-
-__device__ __forceinline__ void pull3_clear(PullSmem3& sm) {
-  float* a = &sm.acc[0][0][0];
-  for (int e = threadIdx.x; e < kPullWarps * kQT * kCWP; e += kPullThreads) a[e] = 0.f;
-  __syncthreads();
-}
-
-template <class L>
-__device__ __forceinline__ void pull3_hits(PullSmem3& sm, int n, const int (&pix)[kHits3],
-                                           const float (&w)[kHits3], int kp, const typename L::T* __restrict__ gcol,
-                                           const L& lay, int cw) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int v = n;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int t = __shfl_up_sync(0xffffffffu, v, o);
-    if (lane >= o) v += t;
-  }
-  if (lane == 31) sm.warp_total[warp] = v;
-  __syncthreads();
-  int pos = v - n, total = 0;
-#pragma unroll
-  for (int i = 0; i < kPullWarps; ++i) {
-    if (i < warp) pos += sm.warp_total[i];
-    total += sm.warp_total[i];
-  }
-  for (int i = 0; i < n; ++i) sm.hits[pos + i] = Hit{pix[i], kp, w[i]};
-  __syncthreads();
-  if (lane < cw) {
-    float* acc = &sm.acc[warp][0][lane];
-    for (int h = warp; h < total; h += kPullWarps) {
-      const Hit hh = sm.hits[h];
-      acc[hh.pix * kCWP] = fmaf(hh.w, as_float(gcol[lay.at(hh.kp, lane)]), acc[hh.pix * kCWP]);
-    }
-  }
-  __syncthreads();  // the list is rebuilt by the next chunk
-}
-
-// The corners of one tap that land in the input brick at (bz0, by0, bx0)
-// with a nonzero weight: their pixels within the brick and their weights.
-__device__ __forceinline__ int brick_hits(const TapWeights3& t, int bz0, int by0, int bx0, int (&pix)[kHits3],
-                                          float (&w)[kHits3]) {
-  const float wv[8] = {t.lo.x, t.lo.y, t.lo.z, t.lo.w, t.hi.x, t.hi.y, t.hi.z, t.hi.w};
-  int n = 0;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int z = t.z0 + (i >> 2) - bz0, y = t.y0 + ((i >> 1) & 1) - by0, x = t.x0 + (i & 1) - bx0;
-    if (wv[i] != 0.f && z >= 0 && z < kBrick && y >= 0 && y < kBrick && x >= 0 && x < kBrick) {
-      pix[n] = (z * kBrick + y) * kBrick + x;
-      w[n] = wv[i];
-      ++n;
-    }
-  }
-  return n;
-}
-
-// Write the brick's accumulated grad_x: pixel pix of the brick at (bz0,
-// by0, bx0), channel c0 + cl, summed over the warps' copies in order.
-__device__ __forceinline__ void pull3_store(const PullSmem3& sm, float* __restrict__ gx, const Geo3& g, int b,
-                                            int c0, int cw, int bz0, int by0, int bx0) {
-  const int HW = g.H * g.W;
-  for (int e = threadIdx.x; e < kQT * kCW; e += kPullThreads) {
-    const int cl = e / kQT, pix = e % kQT;
-    const int z = bz0 + pix / 16, y = by0 + pix / 4 % 4, x = bx0 + pix % 4;
-    if (cl >= cw || z >= g.D || y >= g.H || x >= g.W) continue;
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < kPullWarps; ++w) s += sm.acc[w][pix][cl];
-    gx[(static_cast<size_t>(b) * g.C + c0 + cl) * g.D * HW + z * HW + y * g.W + x] = s;
-  }
-}
-
-// ---- the columns path's grad_x pull (gathermm3d_cols_bwd.cu) ---------------
+// ---- the gather's corner boxes ------------------------------------------------
 
 constexpr int kBoxInts = 6;  // z_lo, z_hi, y_lo, y_hi, x_lo, x_hi (inclusive)
 
@@ -150,12 +63,11 @@ __device__ __forceinline__ void store_box(int* __restrict__ bx, const int (&lo)[
 
 // One warp per (b, d, output brick): the box of the input voxels that the
 // kept corners (nonzero mask-folded weight) of its taps and positions touch,
-// and with `taps` after it the box of each tap's corners alone (1 + K boxes
-// a brick); an empty box has hi < lo.  Both 3D gather pulls read it, the
-// fused pair's with `taps`.
+// then the box of each tap's corners alone (1 + K boxes a brick); an empty
+// box has hi < lo.
 __global__ void __launch_bounds__(kThreads) boxes3_kernel(const float* __restrict__ offset,
                                                           const float* __restrict__ mask, int* __restrict__ boxes,
-                                                          Geo3 g, int taps) {
+                                                          Geo3 g) {
   const int K = taps3(g), OHW = g.OH * g.OW;
   const int nz = bricks(g.OD), ny = bricks(g.OH), nx = bricks(g.OW), NT = nz * ny * nx;
   const int wid = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5), lane = threadIdx.x & 31;
@@ -163,7 +75,7 @@ __global__ void __launch_bounds__(kThreads) boxes3_kernel(const float* __restric
   const int t = wid % NT, d = (wid / NT) % g.dg, b = wid / (NT * g.dg);
   int tz0, ty0, tx0;
   brick_origin(t, ny, nx, tz0, ty0, tx0);
-  int* bx = boxes + static_cast<size_t>(wid) * (taps ? K + 1 : 1) * kBoxInts;
+  int* bx = boxes + static_cast<size_t>(wid) * (K + 1) * kBoxInts;
   int lo[3] = {0x7fffffff, 0x7fffffff, 0x7fffffff}, hi[3] = {-1, -1, -1};
   for (int k = 0; k < K; ++k) {
     int tlo[3] = {0x7fffffff, 0x7fffffff, 0x7fffffff}, thi[3] = {-1, -1, -1};
@@ -183,10 +95,8 @@ __global__ void __launch_bounds__(kThreads) boxes3_kernel(const float* __restric
         }
       }
     }
-    if (taps) {
-      warp_box(tlo, thi);
-      if (lane == 0) store_box(bx + (1 + k) * kBoxInts, tlo, thi);
-    }
+    warp_box(tlo, thi);
+    if (lane == 0) store_box(bx + (1 + k) * kBoxInts, tlo, thi);
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
       lo[a] = min(lo[a], tlo[a]);
@@ -201,124 +111,6 @@ __global__ void __launch_bounds__(kThreads) boxes3_kernel(const float* __restric
 __device__ __forceinline__ bool box_meets(const int* __restrict__ bx, int z0, int y0, int x0) {
   return bx[0] <= z0 + kBrick - 1 && bx[1] >= z0 && bx[2] <= y0 + kBrick - 1 && bx[3] >= y0 &&
          bx[4] <= x0 + kBrick - 1 && bx[5] >= x0;
-}
-
-// grad_x of one 4 x 4 x 4 input brick x 32 channels of one (b, deformable
-// group), pulled from the output bricks whose box meets it, brick by brick
-// and tap by tap in order.
-template <class L>
-__global__ void __launch_bounds__(kPullThreads) gather_gx3_kernel(const float* __restrict__ offset,
-                                                                  const float* __restrict__ mask,
-                                                                  const typename L::T* __restrict__ gcols,
-                                                                  const int* __restrict__ boxes,
-                                                                  float* __restrict__ gx, Geo3 g, L lay) {
-  __shared__ PullSmem3 sm;
-  const int K = taps3(g), P = out_size3(g), OHW = g.OH * g.OW;
-  const int nz = bricks(g.OD), ny = bricks(g.OH), nx = bricks(g.OW), NT = nz * ny * nx;
-  const int Cdg = g.C / g.dg, cchunks = (Cdg + kCW - 1) / kCW;
-  int bz0, by0, bx0;
-  brick_origin(blockIdx.x, bricks(g.H), bricks(g.W), bz0, by0, bx0);
-  const int d = blockIdx.y / cchunks, c0 = d * Cdg + (blockIdx.y % cchunks) * kCW;
-  const int cw = min(kCW, (d + 1) * Cdg - c0);
-  const int b = blockIdx.z;
-  const typename L::T* gcol = gcols + lay.base(b, c0);
-  const int* bxs = boxes + (static_cast<size_t>(b) * g.dg + d) * NT * kBoxInts;
-  pull3_clear(sm);
-  for (int t = 0; t < NT; ++t) {
-    if (!box_meets(bxs + static_cast<size_t>(t) * kBoxInts, bz0, by0, bx0)) continue;  // uniform across the block
-    int tz0, ty0, tx0;
-    brick_origin(t, ny, nx, tz0, ty0, tx0);
-    for (int e0 = 0; e0 < K * kTP; e0 += kPullThreads) {
-      const int e = e0 + threadIdx.x;
-      const int k = e / kTP, q = e % kTP;
-      const int oz = tz0 + q / 16, oy = ty0 + q / 4 % 4, ox = tx0 + q % 4;
-      const int p = oz * OHW + oy * g.OW + ox;
-      int n = 0, pix[kHits3];
-      float w[kHits3];
-      if (e < K * kTP && oz < g.OD && oy < g.OH && ox < g.OW)
-        n = brick_hits(weights3_at(g, offset, mask, b, d, k, p), bz0, by0, bx0, pix, w);
-      pull3_hits(sm, n, pix, w, lay.hit(k, p), gcol, lay, cw);
-    }
-  }
-  pull3_store(sm, gx, g, b, c0, cw, bz0, by0, bx0);
-}
-
-// grad_x by the gather's pull over the gc.B samples of a chunk: boxes
-// (gc.B, dg, output bricks, 6) int scratch.
-template <class L>
-inline cudaError_t launch_gather_gx3(const Geo3& gc, const float* offset, const float* mask,
-                                     const typename L::T* gcols, int* boxes, float* gx, L lay, cudaStream_t s) {
-  const int NT = bricks(gc.OD) * bricks(gc.OH) * bricks(gc.OW), warps = gc.B * gc.dg * NT;
-  boxes3_kernel<<<(warps + kThreads / 32 - 1) / (kThreads / 32), kThreads, 0, s>>>(offset, mask, boxes, gc, 0);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int Cdg = gc.C / gc.dg;
-  const dim3 grid(bricks(gc.D) * bricks(gc.H) * bricks(gc.W), gc.dg * ((Cdg + kCW - 1) / kCW), gc.B);
-  gather_gx3_kernel<L><<<grid, kPullThreads, 0, s>>>(offset, mask, gcols, boxes, gx, gc, lay);
-  return cudaGetLastError();
-}
-
-// ---- grad_offset and grad_mask ---------------------------------------------
-
-// One thread per (b, deformable group, tap, position): S[corner] = sum_c
-// gcol[c] x[c, corner] over the slab's channels in order, then grad_offset
-// = mask * sum dA/dpos S per axis and grad_mask = sum A S.
-template <class L>
-__global__ void __launch_bounds__(kThreads) goff3_kernel(const float* __restrict__ x,
-                                                         const float* __restrict__ offset,
-                                                         const float* __restrict__ mask,
-                                                         const typename L::T* __restrict__ gcols,
-                                                         float* __restrict__ goff, float* __restrict__ gmask, Geo3 g,
-                                                         L lay) {
-  const int K = taps3(g), P = out_size3(g), Cdg = g.C / g.dg, HW = g.H * g.W;
-  const size_t S = static_cast<size_t>(g.D) * HW;
-  const size_t e = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (e >= static_cast<size_t>(g.B) * g.dg * K * P) return;
-  const int p = e % P, k = (e / P) % K, d = (e / (static_cast<size_t>(P) * K)) % g.dg;
-  const int b = e / (static_cast<size_t>(P) * K * g.dg);
-  const TapGrad3 t = grad3_at(g, offset, mask, b, d, k, p);
-  float s[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  if (t.keep) {
-    const typename L::T* gp = gcols + lay.base(b, d * Cdg);
-    const int h = lay.hit(k, p);
-    const float* xp = x + (static_cast<size_t>(b) * g.C + static_cast<size_t>(d) * Cdg) * S;
-    const int i0 = t.z0 * HW + t.y0 * g.W + t.x0;
-    for (int c = 0; c < Cdg; ++c) {
-      const float gv = as_float(gp[lay.at(h, c)]);
-      const float* xc = xp + static_cast<size_t>(c) * S;
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        if (t.keep >> i & 1) s[i] = fmaf(gv, xc[i0 + corner_step3(i, g.W, HW)], s[i]);
-    }
-  }
-  if (goff) {
-    float gz = 0.f, gy = 0.f, gxv = 0.f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      gz += t.dz[i] * s[i];
-      gy += t.dy[i] * s[i];
-      gxv += t.dx[i] * s[i];
-    }
-    const size_t oidx = (static_cast<size_t>(b) * g.dg * 3 * K + static_cast<size_t>(d) * 3 * K + 3 * k) * P + p;
-    goff[oidx] = t.m * gz;
-    goff[oidx + P] = t.m * gy;
-    goff[oidx + 2 * static_cast<size_t>(P)] = t.m * gxv;
-  }
-  if (gmask) {
-    float gm = 0.f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) gm += t.w[i] * s[i];
-    gmask[(static_cast<size_t>(b) * g.dg * K + static_cast<size_t>(d) * K + k) * P + p] = gm;
-  }
-}
-
-template <class L>
-inline cudaError_t launch_goff3(const Geo3& gc, const float* x, const float* offset, const float* mask,
-                                const typename L::T* gcols, float* goff, float* gmask, L lay, cudaStream_t s) {
-  const size_t n = static_cast<size_t>(gc.B) * gc.dg * taps3(gc) * out_size3(gc);
-  goff3_kernel<L><<<static_cast<unsigned>((n + kThreads - 1) / kThreads), kThreads, 0, s>>>(x, offset, mask, gcols,
-                                                                                          goff, gmask, gc, lay);
-  return cudaGetLastError();
 }
 
 // ---- the 3D backward on tensor cores (gathermm3d_bwd.cu, shiftblend3d_bwd.cu)
@@ -555,8 +347,8 @@ struct GatherPull3Block {
 };
 
 // grad_x of one 4 x 4 x 4 input brick x 64 channels of one (b, deformable
-// group) for unbounded offsets, from the corner boxes of boxes3_kernel
-// (with `taps`): the output bricks whose box meets the input brick are
+// group) for unbounded offsets, from the corner boxes of boxes3_kernel:
+// the output bricks whose box meets the input brick are
 // compacted in order, kPullT boxes at a time, one thread a box; then their
 // (brick, tap) pairs whose tap box meets it, likewise; then the pairs'
 // (tap, position) candidates are evaluated kPullT at a time, and those with
@@ -658,7 +450,7 @@ inline cudaError_t launch_shift_pull3(const Geo3& gc, const float* offset, const
 inline cudaError_t launch_gather_pull3(const Geo3& gc, const float* offset, const float* mask, const float* gcols,
                                        int* boxes, float* gx, cudaStream_t s) {
   const int warps = gc.B * gc.dg * bricks(gc.OD) * bricks(gc.OH) * bricks(gc.OW);
-  boxes3_kernel<<<(warps + kThreads / 32 - 1) / (kThreads / 32), kThreads, 0, s>>>(offset, mask, boxes, gc, 1);
+  boxes3_kernel<<<(warps + kThreads / 32 - 1) / (kThreads / 32), kThreads, 0, s>>>(offset, mask, boxes, gc);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if ((err = cudaFuncSetAttribute(gather_pull3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -70,10 +70,11 @@ __device__ __forceinline__ TapCorners tap_corners(
 
 // Corner weights of one tap at one output position: w[2*cy + cx] weighs
 // corner (y0 + cy, x0 + cx), zero where the corner is dropped; the mask is
-// folded in.
+// folded in.  keep: the kept corners, as tap_corners gives them.
 struct TapWeights {
   int y0, x0;
   float4 w;
+  int keep;
 };
 
 __device__ __forceinline__ TapWeights tap_weights(
@@ -89,6 +90,7 @@ __device__ __forceinline__ TapWeights tap_weights(
   t.w.y = c.keep & 2 ? wy0 * c.rx * m : 0.f;
   t.w.z = c.keep & 4 ? c.ry * wx0 * m : 0.f;
   t.w.w = c.keep & 8 ? c.ry * c.rx * m : 0.f;
+  t.keep = c.keep;
   return t;
 }
 

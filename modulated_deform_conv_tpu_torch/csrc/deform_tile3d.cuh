@@ -108,9 +108,11 @@ __device__ __forceinline__ TapAt3 tap_at3(const Geo3& g, const float* __restrict
 // Corner weights of one tap at one output position, the mask folded in:
 // lo weighs the four corners of plane z0 ((y0, x0), (y0, x0+1), (y0+1, x0),
 // (y0+1, x0+1)), hi those of plane z0 + 1; zero where the corner is dropped.
+// keep: the kept corners, as tap_corners3 gives them.
 struct TapWeights3 {
   int z0, y0, x0;
   float4 lo, hi;
+  int keep;
 };
 
 // From the tap's base, offsets and mask (tap_at3's fields).
@@ -121,7 +123,8 @@ __device__ __forceinline__ TapWeights3 tap_weights3(const Geo3& g, int bz, int b
   float w[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) w[i] = c.keep >> i & 1 ? wz[i >> 2] * wy[(i >> 1) & 1] * wx[i & 1] * m : 0.f;
-  return TapWeights3{c.z0, c.y0, c.x0, make_float4(w[0], w[1], w[2], w[3]), make_float4(w[4], w[5], w[6], w[7])};
+  return TapWeights3{c.z0, c.y0, c.x0, make_float4(w[0], w[1], w[2], w[3]), make_float4(w[4], w[5], w[6], w[7]),
+                     c.keep};
 }
 
 __device__ __forceinline__ TapWeights3 weights3_at(const Geo3& g, const float* __restrict__ offset,

@@ -12,52 +12,42 @@
 // config 5's c4 layer, B=32) read, x, offset and mask read, and grad_x,
 // grad_offset and grad_mask written: ~0.09 ms at 3.35 TB/s.
 //
-// What the design does about that: the gather pull and the correlation of
-// the fused backward (deform_bwd.cuh), reading gcols through the columns
-// path's layout (CKBP: (C * K, B * P), row c * K + k, float32 or bf16):
-//   1. ranges_kernel: per (batch, deformable group, 64-position output tile)
-//      the range [lo, hi) of flat input pixels its kept corners touch;
-//   2. gather_gx_kernel: grad_x as a pull, a block owning 64 input pixels x
-//      32 channels and applying the corner hits of the output tiles whose
-//      range overlaps them in a fixed order;
-//   3. goff_kernel: one owner per (batch, group, tap, position) sums the
-//      correlation over the slab's channels in order; the mask stays apart,
-//      so grad_mask is exact where the mask is 0.
+// What the design does about that (deform_cols_bwd.cuh): the (tap,
+// position) candidates are binned once per (sample, deformable group) into
+// tables of the input tiles their corners fall in (the whole plane is one
+// tile up to 256 pixels: BASELINE config 5's c4 and c5 planes); a block per
+// tile x 32 channels gathers the tabled candidates' gcols values along the
+// layout's contiguous axis into shared memory and serves both the pull
+// (grad_x, each pixel x channel summed by one owner in table order) and the
+// correlation of the candidates the tile owns, against x staged once a
+// block; the channel chunks' partial correlations are folded in order.
 // No float atomics, so two runs give the same bits.
-#include "deform_bwd.cuh"
+#include <algorithm>
 
-namespace {
-
-using namespace mdc;
-
-template <typename T>
-cudaError_t run(const Geo& g, const float* x, const float* offset, const float* mask, const T* gcols, int2* ranges,
-                float* gx, float* goff, float* gmask, cudaStream_t s) {
-  const CKBP<T> lay{g.kh * g.kw, g.B, g.OH * g.OW};
-  cudaError_t err = cudaSuccess;
-  if (gx && (err = launch_gather_gx(g, offset, mask, gcols, ranges, gx, lay, s)) != cudaSuccess) return err;
-  if (goff || gmask) err = launch_goff(g, x, offset, mask, gcols, goff, gmask, lay, s);
-  return err;
-}
-
-}  // namespace
+#include "deform_cols_bwd.cuh"
 
 // x (B, C, H, W), offset (B, dg*2*K, OH, OW), mask (B, dg*K, OH, OW) or
 // null: float32, contiguous, on the current device.  gcols (C*K, B*OH*OW):
-// float32, or bfloat16 when precision is "bfloat16".  Scratch: ranges (B,
-// dg, ceil(OH*OW/64)) int2.  Outputs, each null when not wanted: gx like x,
-// goff like offset, gmask like mask.  Returns the first CUDA error of the
-// launches, or 0.
+// float32, or bfloat16 when precision is "bfloat16".  Input tiles of ty x tx
+// pixels.  Scratch (ops/cuda/gathermm.py::cols_bwd_plan): cnt, tcount,
+// tstart, pool, csr (null when grad_x is not wanted) and part (null when
+// neither grad_offset nor grad_mask is wanted).  Outputs, each null when
+// not wanted: gx like x, goff like offset, gmask like mask.  Returns the
+// first CUDA error of the launches, or 0.
 extern "C" int gathermm_cols_bwd(const float* x, const float* offset, const float* mask, const void* gcols,
-                                 int* ranges, float* gx, float* goff, float* gmask, int B, int C, int H, int W,
-                                 int OH, int OW, int dg, int kh, int kw, int sh, int sw, int ph, int pw, int dh,
-                                 int dw, int precision, void* stream) {
+                                 int* cnt, int* tcount, long long* tstart, void* pool, void* csr, float* part,
+                                 float* gx, float* goff, float* gmask, int B, int C, int H, int W, int OH, int OW,
+                                 int dg, int kh, int kw, int sh, int sw, int ph, int pw, int dh, int dw, int ty,
+                                 int tx, int precision, void* stream) {
   using namespace mdc;
   const Geo g{B, C, H, W, 0, OH, OW, 1, dg, kh, kw, sh, sw, ph, pw, dh, dw, 0, 0, 0, 0, 0, precision};
+  const ColTiles tl{1, ty, tx, 1, (H + ty - 1) / ty, (W + tx - 1) / tx, 1, std::min(ty + 1, H), std::min(tx + 1, W)};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int2* rg = reinterpret_cast<int2*>(ranges);
+  ColEntry<Geo>* pl = static_cast<ColEntry<Geo>*>(pool);
+  unsigned short* cs = static_cast<unsigned short*>(csr);
   if (precision == kBFloat16)
-    return static_cast<int>(
-        run(g, x, offset, mask, static_cast<const __nv_bfloat16*>(gcols), rg, gx, goff, gmask, s));
-  return static_cast<int>(run(g, x, offset, mask, static_cast<const float*>(gcols), rg, gx, goff, gmask, s));
+    return static_cast<int>(run_cols_bwd(g, tl, x, offset, mask, static_cast<const __nv_bfloat16*>(gcols), cnt,
+                                         tcount, tstart, pl, cs, part, gx, goff, gmask, s));
+  return static_cast<int>(run_cols_bwd(g, tl, x, offset, mask, static_cast<const float*>(gcols), cnt, tcount,
+                                       tstart, pl, cs, part, gx, goff, gmask, s));
 }

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -36,14 +36,66 @@ from .. import core
 from . import lib
 from .plan import jax_fuse_ok
 
-# The backward kernels' corner boxes: the 2D fused one keeps one box (4 ints)
-# per 4 x 4 output tile (csrc/deform_bwd.cuh kBoxTile), the 3D ones a box (6
-# ints) per 4 x 4 x 4 output brick, the fused one followed by a box per tap;
-# the 2D columns backward one flat corner range per 64 positions
-# (csrc/deform_tile.cuh kTP).
+# The fused backward kernels' corner boxes: the 2D one keeps one box (4
+# ints) per 4 x 4 output tile (csrc/deform_bwd.cuh kBoxTile), the 3D one a
+# box (6 ints) per 4 x 4 x 4 output brick, followed by a box per tap.
 _BOX_TILE = 4
-_TILE_P = 64
 _BRICK, _BOX_INTS = 4, 6
+
+# The columns backward's tables (csrc/deform_cols_bwd.cuh): candidates a
+# warp bins (kColCB), channels a pull block takes (kColCc), entries a piece
+# (kColCap), the most pixels an input tile holds, the tiles of larger
+# planes and volumes, and the largest shared-memory block an H100 grants
+# (bytes).
+_COL_RUN, _COL_CHANS, _COL_CAP, _COL_TILE_MAX = 256, 32, 128, 256
+_COL_TILE_2D, _COL_TILE_3D = (1, 8, 16), (4, 4, 8)
+_SMEM_MAX = 232448
+
+
+class ColsBwdPlan(NamedTuple):
+    """How the column backward kernels tile and size their scratch."""
+    tile: tuple        # (tz, ty, tx) input pixels of a tile (tz = 1 in 2D)
+    tiles: int         # tiles of a plane or volume
+    runs: int          # runs of _COL_RUN candidates a (sample, group) bins
+    chunks: int        # channel chunks of a deformable group
+    pool_per_bd: int   # table entries a (sample, group) may need at most
+    entry_ints: int    # int32 words of a table entry
+    corners: int       # corners of a tap: the correlation's partials
+    rec: int           # u16 words of a piece's pixel lists
+    smem: int          # shared memory of a pull block (bytes), with x
+
+
+def cols_bwd_plan(spec: DeformConvSpec, S, OS, C: int) -> ColsBwdPlan:
+    """The column backward's tiling and scratch sizes for input sizes S,
+    output sizes OS and C channels: the whole plane (or volume) one tile
+    where it has at most 256 pixels, else tiles of 8 x 16 pixels (2D) or 4
+    x 4 x 8 voxels (3D), cut to the input.  A candidate goes to at most one
+    tile per kept corner, so a (sample, group) needs at most corners x K x
+    P entries, rounded up to whole pieces of _COL_CAP, and a piece more per
+    tile (each tile starts on a piece); a piece's pixel lists hold a first
+    hit per pixel and up to corners hits per entry."""
+    S = tuple(S)
+    if math.prod(S) <= _COL_TILE_MAX:
+        tile = (1,) * (3 - len(S)) + S
+    else:
+        full = (1,) + S if spec.ndim == 2 else S
+        tile = tuple(min(t, s) for t, s in zip(
+            _COL_TILE_2D if spec.ndim == 2 else _COL_TILE_3D, full))
+    full = (1,) * (3 - len(S)) + S
+    tiles = math.prod(-(-s // t) for s, t in zip(full, tile))
+    K, P = spec.tap_count, math.prod(OS)
+    corners = 2 ** spec.ndim
+    entry_ints = 4 + 4 * (corners // 4)
+    tq = math.prod(tile)
+    rec = -(-(tq + 1) // 8) * 8 + _COL_CAP * corners
+    xq = math.prod(min(t + 1, s) for t, s in zip(tile[3 - spec.ndim:], S))
+    floats = (xq * _COL_CHANS + 2 * _COL_CAP * _COL_CHANS
+              + 3 * _COL_CAP * entry_ints + 3 * rec // 2)
+    return ColsBwdPlan(tile, tiles, -(-K * P // _COL_RUN),
+                       -(-(C // spec.deformable_groups) // _COL_CHANS),
+                       -(-corners * K * P // _COL_CAP) * _COL_CAP
+                       + tiles * _COL_CAP, entry_ints, corners, rec,
+                       4 * floats)
 
 
 def ineligible_reason(x: torch.Tensor, spec: DeformConvSpec) -> Optional[str]:
@@ -347,23 +399,34 @@ def _cols_bwd(name, x, offset, mask, gcols, spec, precision, needs):
                          f"{_cols_dtype(precision)} {want} tensor on "
                          f"{x.device}, got {gcols.dtype} "
                          f"{tuple(gcols.shape)} on {gcols.device}")
-    B, dg = x.shape[0], spec.deformable_groups
+    B, C, dg = x.shape[0], x.shape[1], spec.deformable_groups
     OS = spec.out_sizes(x.shape[2:])
+    plan = cols_bwd_plan(spec, x.shape[2:], OS, C)
+    if plan.pool_per_bd >= 2 ** 31:
+        raise NotImplementedError(f"{name}: corners * K * P must stay below "
+                                  f"2^31")
     gx = torch.empty_like(x) if needs[0] else None
     goff = torch.empty_like(offset) if needs[1] else None
     gmask = (torch.empty_like(mask) if needs[2] and mask is not None
              else None)
-    tiles = None
-    if gx is not None:
-        # 2D: one flat corner range per 64-position output tile; 3D: one
-        # box per 4 x 4 x 4 output brick.
-        tiles = (torch.empty((B, dg, -(-math.prod(OS) // _TILE_P), 2),
-                             dtype=torch.int32, device=x.device)
-                 if spec.ndim == 2 else
-                 torch.empty((B, dg, math.prod(-(-o // _BRICK) for o in OS),
-                              _BOX_INTS), dtype=torch.int32, device=x.device))
-    lib.launch(name, x, (x, offset, mask, gcols, tiles, gx, goff, gmask), (
-        *_cols_geometry(x, spec), lib.PRECISION_CODES[precision]))
+    # Scratch (csrc/deform_cols_bwd.cuh): the binning counts, each tile's
+    # entry count and first entry, the tables, the pixel lists (for
+    # grad_x) and the correlation's partials (for grad_offset, grad_mask).
+    BD, NT = B * dg, plan.tiles
+    def empty(n, dtype):
+        return torch.empty(n, dtype=dtype, device=x.device)
+    cnt = empty(BD * NT * plan.runs, torch.int32)
+    tcount, tstart = empty(BD * NT, torch.int32), empty(BD * NT, torch.int64)
+    pool = empty(BD * plan.pool_per_bd * plan.entry_ints, torch.int32)
+    csr = (empty(BD * plan.pool_per_bd // _COL_CAP * plan.rec, torch.int16)
+           if gx is not None else None)
+    part = (empty(BD * plan.chunks * spec.tap_count * math.prod(OS)
+                  * plan.corners, torch.float32)
+            if goff is not None or gmask is not None else None)
+    lib.launch(name, x, (
+        x, offset, mask, gcols, cnt, tcount, tstart, pool, csr, part, gx,
+        goff, gmask), (*_cols_geometry(x, spec), *plan.tile[3 - spec.ndim:],
+                       lib.PRECISION_CODES[precision]))
     return gx, goff, gmask
 
 

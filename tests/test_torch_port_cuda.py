@@ -522,6 +522,15 @@ COLUMNS = [
     (2, 32, 32, (7, 7), 3, 1, 1, 1, 1, 1, True, True, 40.0),
     (2, 16, 24, (5, 7, 6), 3, 1, 1, 1, 2, 1, True, True, 3.0),
     (1, 12, 8, (7, 9, 8), 3, 2, 1, 1, 1, 3, False, False, 2.0),
+    # Planes of several input tiles (cols_bwd_plan: 8 x 16 pixels, 4 x 4 x 8
+    # voxels), channels a deformable group not a multiple of the 32 a pull
+    # block takes (12, 20), several correlation chunks (1024 channels), an
+    # unbounded 5x5x5 kernel and stride 2 with dilation 2 in 3D.
+    (1, 12, 8, (40, 36), 3, 1, 1, 1, 2, 1, True, True, 3.0),
+    (2, 40, 16, (23, 19), 5, 2, 2, 2, 1, 2, True, False, 2.5),
+    (1, 1024, 64, (5, 6), 3, 1, 1, 1, 1, 1, True, True, 2.0),
+    (1, 8, 8, (6, 7, 9), 5, 1, 2, 1, 1, 1, True, True, 3.0),
+    (2, 12, 8, (9, 10, 11), 3, 2, 2, 2, 1, 2, True, True, 2.0),
 ]
 
 
@@ -588,3 +597,25 @@ def test_columns_path_against_fused_pair_and_repeatable(dev, case):
     out.backward(gout)
     for got, want in zip(runs[0], [out.detach()] + [t.grad for t in leaves]):
         assert _rel(got, want) <= LIMITS["float32"]
+
+
+@pytest.mark.parametrize("case", [COLUMNS[5], COLUMNS[8], COLUMNS[9]])
+def test_column_backward_bitwise_deterministic_and_in_step_free(dev, case):
+    """Two runs of the column backward give the same bits, in every mode,
+    and the spec's in_step (which batch-chunks the fused 3D backward) does
+    not change them: the column kernels take the whole batch at once."""
+    spec, (x, off, mask, _, _) = _case(dev, *case)
+    _, bwd = _cols_pair(spec)
+    for precision in LIMITS:
+        cols = gm.gathermm_cols_reference(x, off, mask, spec, precision)
+        rng = np.random.default_rng(4)
+        gcols = torch.tensor(rng.standard_normal(tuple(cols.shape)),
+                             dtype=cols.dtype, device=dev)
+        first = bwd(x, off, mask, gcols, spec, precision)
+        stepped = DeformConvSpec.make(
+            spec.ndim, spec.kernel, spec.stride, spec.padding, spec.dilation,
+            spec.groups, spec.deformable_groups, 1, spec.modulated)
+        for got in (bwd(x, off, mask, gcols, spec, precision),
+                    bwd(x, off, mask, gcols, stepped, precision)):
+            assert all(a is None and b is None or torch.equal(a, b)
+                       for a, b in zip(first, got))
