@@ -140,12 +140,25 @@ COLS3D = dict(B=2, C=64, S=(16, 32, 32), groups=2)
 # fused rows at config 2, 3D rows at configs 3 and 4 B=1, column rows at
 # config 5 c4 and the 3D columns case), printed beside this run's; the
 # column rows at config 5 c5 apart.
-PREV_MS = {"shiftblend_fwd": 0.3660, "gathermm_fwd": 0.4182, "shiftblend_bwd": 1.0210,
-           "gathermm_bwd": 1.1262, "shiftblend3d_fwd": 6.1657, "gathermm3d_fwd": 0.6528,
-           "shiftblend3d_bwd": 16.7097, "gathermm3d_bwd": 2.1919, "gathermm_cols_fwd": 0.1514,
-           "gathermm_cols_bwd": 1.3474, "gathermm3d_cols_fwd": 0.3186,
-           "gathermm3d_cols_bwd": 3.9215}
-PREV_MS_C5 = {"gathermm_cols_fwd": 0.0895, "gathermm_cols_bwd": 0.9535}
+PREV_MS = {"shiftblend_fwd": 0.3563, "gathermm_fwd": 0.4025, "shiftblend_bwd": 0.9843,
+           "gathermm_bwd": 1.0807, "shiftblend3d_fwd": 5.8381, "gathermm3d_fwd": 0.6279,
+           "shiftblend3d_bwd": 16.3088, "gathermm3d_bwd": 2.2012, "gathermm_cols_fwd": 0.1503,
+           "gathermm_cols_bwd": 0.3740, "gathermm3d_cols_fwd": 0.3171,
+           "gathermm3d_cols_bwd": 0.9626}
+PREV_MS_C5 = {"gathermm_cols_fwd": 0.0881, "gathermm_cols_bwd": 0.2257}
+# SHA-256 of the columns the column forward gave before its two routes (one
+# thread per (sample, group, tap, position), 32 channels a block; nvcc 12.9,
+# sm_90a, NVIDIA H100 80GB HBM3) on config 5's c3-c5 inputs and the 3D
+# columns case's, per mode: printed beside this run's, which the routes keep.
+PREV_COLS_FWD_DIGESTS = {
+    "c3": {"float32": "9982825f5895bdd99635cebecf24beb2079ff3deeb81cabc36d12d98a919b0e7",
+           "bfloat16": "2790e81606d1aaeec6b46527f1ae235302d82272c0c5ea06846b9936dda720f2"},
+    "c4": {"float32": "4d1ec3aac038bdc90b6098087ec2d128f2a1b8c5e5f856eafb0b6b6cabc7bfc8",
+           "bfloat16": "4afc267b276a448af1931444accf8abe3c669732262523f9e53118ab7d2bc494"},
+    "c5": {"float32": "5333ed5ad2bc27c0c6d49b1dd125c3164eb8013b98162473d3188c232ee43155",
+           "bfloat16": "6c5d655eb106fa4c40c86b9d44bfa2d6fef1fb02702d6fa957d1e6f501b006e2"},
+    "3d": {"float32": "3d80663eed3a55d0effb2d84c8b70e07a401e01fd78ff4a692ad5a1459b25fb0",
+           "bfloat16": "4bb42d7bd493a97b2b47c8bc23ddc496fc0ea8ffcb3daef1904abaa7c5c2dd45"}}
 # The same release's steps and totals (ms): the config-2 training steps on
 # CUDA events, the networks' step device time and their DCN kernels (from
 # the step's profile), the device time of DCNResNet-50's 13 gathermm_fwd
@@ -393,8 +406,8 @@ def check_recorded(torch, recorded, layers, pair, label):
 
 
 DCN_KERNELS = ("fwd_mma_kernel", "fold_out_kernel", "ranges_kernel", "boxes3_kernel", "gx_kernel",
-               "gx3_kernel", "goff_kernel", "goff3_kernel", "fold_kernel", "cols_kernel",
-               "cols3_kernel", "x_cl_kernel", "gcols_mma_kernel", "gw_mma_kernel", "corr_kernel",
+               "gx3_kernel", "goff_kernel", "goff3_kernel", "fold_kernel", "cols_plane_kernel",
+               "cols_gather_kernel", "x_cl_kernel", "gcols_mma_kernel", "gw_mma_kernel", "corr_kernel",
                "boxes_kernel", "pull_kernel", "pull3_kernel", "corr3_kernel")
 
 
@@ -932,14 +945,39 @@ def cols_work(ins, cols_numel, elem_bytes):
             "bwd": (2 * in_bytes + elem_bytes * cols_numel, 4 * corners * cols_numel)}
 
 
+def cols_fwd_routes(torch, gm, label, spec, ins, key):
+    """The column forward's two routes (gathermm.cols_fwd_plan) on one
+    case in every mode: the same bits from both (checked), and the SHA-256
+    of the columns beside the previous release's (PREV_COLS_FWD_DIGESTS,
+    printed).  Returns the route the plan picks and {mode: digest equal}."""
+    import hashlib
+    x, off, mask = ins[:3]
+    name = "gathermm_cols_fwd" if spec.ndim == 2 else "gathermm3d_cols_fwd"
+    route = gm.cols_fwd_plan(spec, x.shape[2:], spec.out_sizes(x.shape[2:]), x.shape[0],
+                             x.shape[1]).route
+    same_as_prev = {}
+    for prec in LIMITS:
+        got = {r: gm._cols_fwd(name, x, off, mask, spec, prec, route=r) for r in ("plane", "gather")}
+        check(torch.equal(got["plane"], got["gather"]), f"{label} {name} {prec}: the routes differ")
+        digest = hashlib.sha256(got[route].view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+        same_as_prev[prec] = digest == PREV_COLS_FWD_DIGESTS[key][
+            "bfloat16" if prec == "bfloat16" else "float32"]
+        del got
+    print(f"{label} {name}: route {route}; plane and gather routes bitwise equal in every mode; "
+          f"the previous release's bits: " + " ".join(f"{p} {v}" for p, v in same_as_prev.items()))
+    return route, same_as_prev
+
+
 def columns_case(torch, gm, label, spec, ins, op, reset, counts, pair, fused_pair, dense,
-                 prev=PREV_MS):
+                 prev=PREV_MS, key=None):
     """One config through the public op and the columns path: the counted
     forward and training step (grads of sum(out^2) in all five inputs),
     agreement with impl='torch' and with the fused pair on the same inputs,
     bitwise-equal repeated backwards, each column kernel against its plain
-    version in every mode, and the times (main precision), the column
-    backward's beside `prev` (the previous release's) and split by kernel.
+    version in every mode, the column forward's routes (cols_fwd_routes;
+    `key` names the case's PREV_COLS_FWD_DIGESTS), and the times (main
+    precision), each column kernel's beside `prev` (the previous release's)
+    and split by kernel, the forward's gather route beside its plane route.
     Returns the launches, the kernel rows and the times."""
     from modulated_deform_conv_tpu_torch.ops.cuda import lib
     zero = {n: 0 for n in counts()}
@@ -1022,6 +1060,9 @@ def columns_case(torch, gm, label, spec, ins, op, reset, counts, pair, fused_pai
                 f"grad_{n} {v:.3e}" for n, v in errs.items()) + f" (limit {limit:g})")
             del g_got, g_want, gcols
 
+        route, same_as_prev = cols_fwd_routes(torch, gm, label, spec, ins, key)
+        rows[f"{fam}_fwd"].update(route=route, same_bits_as_previous_release=same_as_prev)
+
         # Times, in the main path's mode.
         t = {}
         cols = fwd(x, off, mask, spec, MAIN_PRECISION)
@@ -1032,6 +1073,15 @@ def columns_case(torch, gm, label, spec, ins, op, reset, counts, pair, fused_pai
         cg = cols.view(g, wg.shape[2], -1)
         go = gout.transpose(0, 1).reshape(g, Og, -1).to(cols.dtype).contiguous()
         t["cols_fwd"] = time_ms(lambda: fwd(x, off, mask, spec, MAIN_PRECISION))
+        t["cols_fwd_gather_route"] = time_ms(lambda: gm._cols_fwd(
+            f"{fam}_fwd", x, off, mask, spec, MAIN_PRECISION, route="gather"))
+        split = kernel_split(device_time_by_kernel(lambda: fwd(x, off, mask, spec, MAIN_PRECISION)))
+        rows[f"{fam}_fwd"].update(split_ms=split, device_ms=sum(split.values()) if split else None,
+                                  gather_route_ms=t["cols_fwd_gather_route"])
+        print(f"{label} {fam}_fwd: {t['cols_fwd']:.4f} ms on events, {route} route (previous release "
+              f"{prev[f'{fam}_fwd']:.4f} ms; gather route {t['cols_fwd_gather_route']:.4f} ms), "
+              + (f"{sum(split.values()):.4f} ms device: " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in split.items()) if split else "device time not measured"))
         t["cols_bwd"] = time_ms(lambda: bwd(x, off, mask, gcols, spec, MAIN_PRECISION))
         split = kernel_split(device_time_by_kernel(
             lambda: bwd(x, off, mask, gcols, spec, MAIN_PRECISION)))
@@ -1089,6 +1139,34 @@ def columns_case(torch, gm, label, spec, ins, op, reset, counts, pair, fused_pai
     del cols, gcols, gout, go, gins, leaves
     torch.cuda.empty_cache()
     return {"fwd": fwd_launches, "step": step_launches}, rows, t
+
+
+def cols_fwd_c3(torch, gm, label, spec, ins):
+    """The column forward called directly at config 5's c3 shape (which
+    the copied `_fuse_ok` keeps on the fused pair): its routes and bits
+    (cols_fwd_routes), its agreement with the plain version, and its time
+    beside its bound and `grid_sample`'s."""
+    x, off, mask = ins[:3]
+    cols_fwd_routes(torch, gm, label, spec, ins, "c3")
+    with torch.no_grad():
+        cols = gm.gathermm_cols_fwd(x, off, mask, spec, MAIN_PRECISION)
+        e = rel_err(cols, gm.gathermm_cols_reference(x, off, mask, spec, MAIN_PRECISION))
+        check(e <= LIMITS[MAIN_PRECISION], f"{label} gathermm_cols_fwd vs plain: {e:.3e}")
+        t = {"cols_fwd": time_ms(lambda: gm.gathermm_cols_fwd(x, off, mask, spec, MAIN_PRECISION)),
+             "cols_fwd_gather_route": time_ms(lambda: gm._cols_fwd(
+                 "gathermm_cols_fwd", x, off, mask, spec, MAIN_PRECISION, route="gather"))}
+        t["cols_fwd_bound"], by = bound_of(*cols_work(ins, cols.numel(), cols.element_size())["fwd"],
+                                           "float32")
+        gfn, gins = grid_sample_columns(torch, x, off, mask, spec)
+        t["cols_fwd_grid_sample"] = time_ms(lambda: gfn(*gins))
+        split = kernel_split(device_time_by_kernel(
+            lambda: gm.gathermm_cols_fwd(x, off, mask, spec, MAIN_PRECISION)))
+    print(f"{label} gathermm_cols_fwd, called directly: {t['cols_fwd']:.4f} ms on events (gather route "
+          f"{t['cols_fwd_gather_route']:.4f} ms), bound {t['cols_fwd_bound']:.4f} ms ({by}), grid_sample "
+          f"{t['cols_fwd_grid_sample']:.4f} ms; vs plain {e:.3e}; "
+          + (", ".join(f"{k} {v:.4f}" for k, v in split.items()) if split else "device time not measured"))
+    del cols, gins
+    return t
 
 
 def run_columns(torch, mdt, gm, reset, counts, dev):
@@ -1158,6 +1236,7 @@ def run_columns(torch, mdt, gm, reset, counts, dev):
                          lambda: gm.deform_conv_cols(*ins, spec, MAIN_PRECISION))}
             t["gathermm_fwd_bound"], bound_by = bound_of(
                 *work(ins, CFG5_B * C * S * S, spec)["fwd"])
+            t.update(cols_fwd_c3(torch, gm, label, spec, ins))
             print(f"{label}: gathermm_fwd {t['gathermm_fwd']:.4f} ms, bound "
                   f"{t['gathermm_fwd_bound']:.4f} ms ({bound_by}); op forward {t['op_fwd']:.4f} ms "
                   f"(previous release {PREV_STEP_MS['cfg5 c3 op_fwd']} ms)")
@@ -1174,7 +1253,7 @@ def run_columns(torch, mdt, gm, reset, counts, dev):
             launches, res["rows"][layer], t = columns_case(
                 torch, gm, label, spec, ins, op5, reset, counts,
                 (gm.gathermm_cols_fwd, gm.gathermm_cols_bwd), (gm.gathermm_fwd, gm.gathermm_bwd),
-                dense2, PREV_MS_C5 if layer == "c5" else PREV_MS)
+                dense2, PREV_MS_C5 if layer == "c5" else PREV_MS, key=layer)
             fl, sl = launches["fwd"], launches["step"]
         res["times"][f"cfg5_{layer}"] = t
         for kind, c in (("fwd", fl), ("step", sl)):
@@ -1204,7 +1283,7 @@ def run_columns(torch, mdt, gm, reset, counts, dev):
     launches3, rows3, t3 = columns_case(
         torch, gm, label3, spec3, ins3, op3, reset, counts,
         (gm.gathermm3d_cols_fwd, gm.gathermm3d_cols_bwd),
-        (gm.gathermm3d_fwd, gm.gathermm3d_bwd), dense3)
+        (gm.gathermm3d_fwd, gm.gathermm3d_bwd), dense3, key="3d")
     res["rows"]["3d"], res["times"]["cols3d"] = rows3, t3
     res["launches"]["cols3d"] = launches3
     x3 = ins3[0]

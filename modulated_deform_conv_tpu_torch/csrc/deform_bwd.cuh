@@ -56,11 +56,6 @@ __device__ __forceinline__ __nv_bfloat16 to_elem<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// The column kernels (gathermm{,3d}_cols_fwd.cu): threads a block, and
-// channels of one slab that one thread blends from its tap's corner weights.
-constexpr int kColThreads = 256;
-constexpr int kColChans = 32;
-
 // gwt[e] = sum over splits, in order, of part[split][e]; "bfloat16" rounds
 // the sum like the other products of that mode.
 __global__ void fold_kernel(const float* __restrict__ part, float* __restrict__ gwt, int n, int splits,

@@ -98,6 +98,116 @@ def cols_bwd_plan(spec: DeformConvSpec, S, OS, C: int) -> ColsBwdPlan:
                        4 * floats)
 
 
+# The column forward (csrc/deform_cols_fwd.cuh): threads a block (each
+# holds one item: a tap at 4 consecutive columns); the plane route's
+# largest plane or volume (floats: 200 KB, about a 226 x 226 plane); the
+# offset reach a tile's nominal corner box allows for; the most channels a stage holds;
+# the shared memory the stages of a block may take, 2D and 3D (four and
+# three blocks an SM, as the kernel's launch bounds); the blocks a launch
+# aims at (eight an SM).
+_COLF_THREADS = 256
+_COLF_PLANE_MAX = 51200
+_COLF_REACH = 3
+_COLF_CHANS = 32
+_COLF_SMEM = {2: 48 * 1024, 3: 72 * 1024}
+_COLF_BLOCKS = 8 * 132
+
+
+class ColsFwdPlan(NamedTuple):
+    """How the column forward kernels split their work."""
+    route: str   # "plane" (staged corner boxes) or "gather" (corners from x)
+    gt: int      # column groups (4 consecutive columns b * P + p) a tile
+    tiles: int   # tiles of the B * P columns
+    nbm: int     # samples a tile's columns may belong to
+    splits: int  # channel splits of a deformable group
+    cps: int     # channels a split
+    cc: int      # channels a stage of shared memory
+    slot: int    # floats a staged channel holds: the corner box, at most
+    smem: int    # dynamic shared memory of a block (bytes)
+
+    def ints(self):
+        """The C entries' plan arguments: plane, gt, ..., smem."""
+        return (int(self.route == "plane"),) + tuple(self)[1:]
+
+
+def _nominal_box(spec: DeformConvSpec, S, OS, n: int) -> int:
+    """Floats of the staged corner box of a tile of n consecutive output
+    positions whose offsets stay below _COLF_REACH: the input rows (2D),
+    or planes x rows (3D), that its taps' corners reach, at full width,
+    each plane's run with up to 8 more floats for 16-byte copies.  In 3D a
+    tile that divides a plane, or that whole planes divide, holds whole
+    rows of whole planes (its start is then a multiple of its size)."""
+    def reach(n_out, a):
+        return min(S[a], (n_out - 1) * spec.stride[a]
+                   + (spec.kernel[a] - 1) * spec.dilation[a] + 1
+                   + 2 * _COLF_REACH)
+    rows_of = lambda m: min(OS[-2], -(-m // OS[-1]) + 1)  # noqa: E731
+    if spec.ndim == 2:
+        return reach(rows_of(n), 0) * S[1] + 8
+    plane = OS[1] * OS[2]
+    whole = math.prod(OS) % 4 == 0 and (plane % n == 0 or n % plane == 0)
+    planes = min(OS[0], -(-n // plane) + (0 if whole else 1))
+    rows = OS[1] if planes > 1 else rows_of(n)
+    return reach(planes, 0) * (reach(rows, 1) * S[2] + 8)
+
+
+def cols_fwd_plan(spec: DeformConvSpec, S, OS, B: int, C: int,
+                  route: Optional[str] = None) -> ColsFwdPlan:
+    """The column forward's route and work split for input sizes S, output
+    sizes OS, B samples and C channels.  The plane route where one (sample,
+    channel) plane or volume has at most _COLF_PLANE_MAX values and K <=
+    256 (a tile holds every tap; the grid and its int column indices need
+    dg < 2^16 and B * P + 4 < 2^31), else the gather route; `route` forces
+    one where the shapes admit it.  A plane-route tile holds gt column
+    groups of the B * P columns over all K taps, K * gt <= 256 items (in
+    3D, where one divides a plane, whole output rows), of up to nbm
+    samples; a (channel, sample) slot holds the tile's nominal corner box
+    (_nominal_box; the whole plane where a tile spans samples), the whole
+    plane, or a 32nd of the rank's _COLF_SMEM over nbm, whichever is
+    smallest; a stage holds up to 32 channels in half of it; the group's
+    channels split over enough blocks for _COLF_BLOCKS, whole stages
+    each."""
+    S, OS = tuple(S), tuple(OS)
+    K, P, dg = spec.tap_count, math.prod(OS), spec.deformable_groups
+    plane_ok = (math.prod(S) <= _COLF_PLANE_MAX and K <= _COLF_THREADS
+                and B * P + 4 < 2 ** 31 and dg < 2 ** 16)
+    if route is None:
+        route = "plane" if plane_ok else "gather"
+    if route not in ("plane", "gather") or (route == "plane"
+                                             and not plane_ok):
+        raise ValueError(f"column forward: route {route!r} does not take "
+                         f"S={S}, K={K}")
+    if route == "gather":
+        return ColsFwdPlan("gather", *(0,) * 8)
+    groups = -(-B * P // 4)        # column groups of the B * P columns
+    cap = _COLF_THREADS // K
+    gt = cap
+    if spec.ndim == 3:
+        plane = OS[1] * OS[2]
+        gt = next((n for n in range(cap, (cap - 1) // 2, -1)
+                   if plane % (4 * n) == 0), cap)
+    gt = min(gt, groups)
+    tiles = -(-groups // gt)
+    n = 4 * gt                     # columns a tile
+    if P % n == 0 or n % P == 0:   # tiles start on samples, or inside one
+        nbm = max(1, n // P)
+    else:
+        nbm = -(-n // P) + 1
+    nbm = min(nbm, B)
+    budget = _COLF_SMEM[spec.ndim]
+    # A tile of more than one sample stages the union of their boxes.
+    box = math.prod(S) if nbm > 1 else _nominal_box(spec, S, OS, n)
+    slot = -(-min(math.prod(S), box, budget // (32 * nbm)) // 4) * 4
+    Cdg = C // dg
+    cc = max(1, min(_COLF_CHANS, Cdg, budget // (2 * 4 * nbm * slot)))
+    chunks = -(-Cdg // cc)
+    splits = min(chunks, max(1, -(-_COLF_BLOCKS // (dg * tiles))))
+    per = -(-chunks // splits)
+    splits = -(-chunks // per)
+    return ColsFwdPlan("plane", gt, tiles, nbm, splits, per * cc, cc, slot,
+                       (2 if per > 1 else 1) * cc * nbm * slot * 4)
+
+
 def ineligible_reason(x: torch.Tensor, spec: DeformConvSpec) -> Optional[str]:
     """None if the general kernel path takes this config, else a reason."""
     if spec.ndim not in (2, 3):
@@ -346,13 +456,19 @@ def _cols_check(name, x, offset, mask, spec):
         raise NotImplementedError(f"{name}: K * B * P must stay below 2^31")
 
 
-def _cols_fwd(name, x, offset, mask, spec, precision):
+def _cols_fwd(name, x, offset, mask, spec, precision, route=None):
+    """Launch a column forward kernel.  `route` ("plane" or "gather")
+    forces one, None for cols_fwd_plan's choice."""
     _cols_check(name, x, offset, mask, spec)
-    P = math.prod(spec.out_sizes(x.shape[2:]))
-    cols = torch.empty((x.shape[1] * spec.tap_count, x.shape[0] * P),
+    OS = spec.out_sizes(x.shape[2:])
+    plan = cols_fwd_plan(spec, x.shape[2:], OS, x.shape[0], x.shape[1],
+                         route)
+    cols = torch.empty((x.shape[1] * spec.tap_count,
+                        x.shape[0] * math.prod(OS)),
                        dtype=_cols_dtype(precision), device=x.device)
     lib.launch(name, x, (x, offset, mask, cols), (
-        *_cols_geometry(x, spec), lib.PRECISION_CODES[precision]))
+        *_cols_geometry(x, spec), *plan.ints(),
+        lib.PRECISION_CODES[precision]))
     return cols
 
 

@@ -619,3 +619,119 @@ def test_column_backward_bitwise_deterministic_and_in_step_free(dev, case):
                     bwd(x, off, mask, gcols, stepped, precision)):
             assert all(a is None and b is None or torch.equal(a, b)
                        for a, b in zip(first, got))
+
+
+# The column forward's two routes (gathermm.cols_fwd_plan): the plane route
+# stages each block's corner box of x in shared memory, the gather route
+# reads the corners from x.  (B, C, O, S, k, stride, pad, dil, g, dg,
+# modulated, bias, offscale), as COLUMNS.
+COLS_FWD_EXTRA = [
+    # B * P odd (3 x 63), 18 channels: ragged ends of the vector stores.
+    (3, 18, 8, (7, 9), 3, 1, 1, 1, 1, 1, True, False, 2.0),
+    # 6 channels a deformable group: C / dg not a multiple of 4.
+    (2, 30, 10, (9, 11), 3, 1, 1, 1, 1, 5, True, True, 3.0),
+    # The largest plane the plane route takes (51,200 pixels), one past it.
+    (1, 3, 3, (200, 256), 3, 1, 1, 1, 1, 1, True, False, 2.0),
+    (1, 3, 3, (200, 257), 3, 1, 1, 1, 1, 1, True, False, 2.0),
+]
+# A 3D case whose offsets at eight positions of one output row reach 7,
+# 14 and 10 voxels (z, y, x) inside the volume: the corner box of the block
+# holding them passes its slot of shared memory, and that block reads its
+# corners from x.
+FAR_BOX_3D = (1, 4, 4, (16, 32, 32), 3, 1, 1, 1, 1, 1, True, True, 1.5)
+FAR_OFFSET = (-7.0, 14.0, 10.0)
+
+
+def _far_box_case(dev):
+    spec, ins = _case(dev, *FAR_BOX_3D)
+    off = ins[1].view(1, spec.tap_count, 3, 16, 32, 32)
+    off[:, :, :, 9, 4, 8:16] = torch.tensor(FAR_OFFSET, device=dev).view(
+        1, 1, 3, 1)
+    return spec, ins
+
+
+def _cols_fwd_cases(dev):
+    """(spec, x, offset, mask) of every column-forward case the card tests
+    hold to recorded bits: COLUMNS, COLS_FWD_EXTRA, FAR_BOX_3D."""
+    cases = [_case(dev, *c) for c in COLUMNS + COLS_FWD_EXTRA]
+    cases.append(_far_box_case(dev))
+    return [(spec, *ins[:3]) for spec, ins in cases]
+
+
+def cols_fwd_digest(dev, precision):
+    """SHA-256 of the columns `gathermm{,3d}_cols_fwd` give on every case
+    of _cols_fwd_cases."""
+    h = hashlib.sha256()
+    for spec, x, off, mask in _cols_fwd_cases(dev):
+        fwd, _ = _cols_pair(spec)
+        cols = fwd(x, off, mask, spec, precision)
+        h.update(cols.view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+# cols_fwd_digest of the column forward kernels before their two routes
+# (one thread per (sample, group, tap, position), 32 channels a block),
+# built by nvcc 12.9 for sm_90a and run on an NVIDIA H100 80GB HBM3: fp32
+# columns in "float32" and "tensorfloat32", bf16 in "bfloat16".
+COLS_FWD_DIGESTS = {
+    "float32":
+        "889c278bb8ee608132066f27438f1fc0b1b4c171c81ffcef851cb6b5af0e3e1b",
+    "tensorfloat32":
+        "889c278bb8ee608132066f27438f1fc0b1b4c171c81ffcef851cb6b5af0e3e1b",
+    "bfloat16":
+        "22553eb4b68dcb5409435705098c7084d998bdc8bd072f7873665fd26234019c",
+}
+
+
+@pytest.mark.parametrize("precision", list(LIMITS))
+def test_column_fwd_bits_unchanged(dev, precision):
+    """The column forward, on the routes cols_fwd_plan picks, gives the
+    bits the kernels gave before the routes, on every case."""
+    assert cols_fwd_digest(dev, precision) == COLS_FWD_DIGESTS[precision]
+
+
+def _cols_fwd_routes(spec, x):
+    """The routes the column forward's shapes admit."""
+    routes = ["gather"]
+    try:
+        gm.cols_fwd_plan(spec, x.shape[2:], spec.out_sizes(x.shape[2:]),
+                         x.shape[0], x.shape[1], "plane")
+        routes.append("plane")
+    except ValueError:
+        pass
+    return routes
+
+
+def _cols_fwd_name(spec):
+    return "gathermm_cols_fwd" if spec.ndim == 2 else "gathermm3d_cols_fwd"
+
+
+@pytest.mark.parametrize("precision", list(LIMITS))
+@pytest.mark.parametrize("case", COLUMNS + COLS_FWD_EXTRA + ["far box"])
+def test_column_fwd_routes_same_bits(dev, case, precision):
+    """Every route a case's shapes admit gives the same bits, within the
+    mode's limit of the plain version; the plane route takes each case but
+    the plane one past its largest."""
+    spec, (x, off, mask, _, _) = (_far_box_case(dev) if case == "far box"
+                                  else _case(dev, *case))
+    routes = _cols_fwd_routes(spec, x)
+    assert ("plane" in routes) == (x[0, 0].numel() <= 51200)
+    want = gm.gathermm_cols_reference(x, off, mask, spec, precision)
+    got = {r: gm._cols_fwd(_cols_fwd_name(spec), x, off, mask, spec,
+                           precision, route=r) for r in routes}
+    for r, cols in got.items():
+        assert cols.dtype == want.dtype and cols.shape == want.shape, r
+        assert _rel(cols.float(), want.float()) <= LIMITS[precision], r
+    assert torch.equal(got["gather"], got.get("plane", got["gather"]))
+
+
+@pytest.mark.parametrize("route", ["plane", "gather"])
+def test_column_fwd_repeatable(dev, route):
+    """Two launches of either route give the same bits, 2D and 3D, fp32 and
+    bf16 columns."""
+    for case in (COLUMNS[2], COLS_FWD_EXTRA[0], COLUMNS[8]):
+        spec, (x, off, mask, _, _) = _case(dev, *case)
+        for precision in ("float32", "bfloat16"):
+            runs = [gm._cols_fwd(_cols_fwd_name(spec), x, off, mask, spec,
+                                 precision, route=route) for _ in range(2)]
+            assert torch.equal(*runs)
