@@ -26,7 +26,16 @@ Drives the port's main paths through the entry points a user calls:
    a grouped cuBLAS product), as the JAX package's `_fuse_ok` decides;
 7. the 3D columns path: `modulated_deform_conv3d` at config 3's size
    (B=2, 64 -> 64, 16x32x32) with groups=2, dg=1, forward and training
-   step, and `ModulatedDeformConv3dPack(groups=2)`.
+   step, and `ModulatedDeformConv3dPack(groups=2)`;
+8. the sharding layer's per-shard function (`sharding.block_conv`) on
+   every shard of five layouts at full width: config 2 split 4 ways on H
+   and 2 x 2 on (H, W), config 5 c4 split 2 ways on H, config 3 and the
+   3D columns case split 4 ways on D, max_offset 2: every shard's
+   exchanged block cut from the global tensors, forward and backward
+   through the gather kernels' block mode (a given output grid and a tap
+   gate at the global border), held against the same function on the
+   plain path, and stitched against the unsharded kernel op; and the
+   public `sharded_modulated_deform_conv2d` on a one-rank NCCL mesh.
 
 It builds the twelve kernels (shift-blend and gather, forward and
 backward, 2D and 3D; the gather's columns forward and backward, 2D and
@@ -36,7 +45,8 @@ against its plain PyTorch version in every precision mode (at configs 2-5,
 on small edge cases, and on the inputs and output cotangents that the DCN
 layers of both networks saw at their first and last step), holds the
 columns path against the fused pair, checks that the backward is bitwise
-deterministic, times kernels, the grouped product, cuDNN's dense
+deterministic and that every kernel's unsharded launches give the bits of
+the tree before the block mode (PREV_DIGESTS), times kernels, the grouped product, cuDNN's dense
 convolution as an anchor, `grid_sample` as the columns' library yardstick
 and steps with CUDA events (the config-2 steps also in device time), times
 the 2D shift-blend forward's two routes side by side, both 3D pairs at
@@ -168,6 +178,73 @@ PREV_STEP_MS = {"cfg2 bounded": 2.9075, "cfg2 general": 2.7959,
                 "DCNResNet-50 gathermm_fwd": 1.0975, "cfg5 c3 op_fwd": 2.5898,
                 "DCNVideoNet device": 96.287, "DCNVideoNet DCN kernels": 40.662,
                 "cfg3 step": 3.5116, "cfg4 step": 85.9156}
+
+
+# The sharded phase: the per-shard function of the sharding layer
+# (`sharding.block_conv`) on every shard's exchanged block, cut from the
+# global tensors, at full width: (the inputs, {spatial dim: shards}), with
+# max_offset 2 (a halo of 3 rows) and offsets from U[-2, 2].
+SHARDED = {"cfg2-H4": ("cfg2", {0: 4}), "cfg2-HW2x2": ("cfg2", {0: 2, 1: 2}),
+           "c4-H2": ("c4", {0: 2}), "cfg3-D4": ("cfg3", {0: 4}),
+           "cols3d-D4": ("cols3d", {0: 4})}
+SHARD_MAX_OFFSET = 2.0
+GATHER_ROWS = ("gathermm_fwd", "gathermm_bwd", "gathermm3d_fwd", "gathermm3d_bwd",
+               "gathermm_cols_fwd", "gathermm_cols_bwd", "gathermm3d_cols_fwd",
+               "gathermm3d_cols_bwd")
+# SHA-256 of every kernel's unsharded outputs (`unsharded_digests`: its
+# row's config, seeded cotangents, every mode) as the tree before the
+# gather kernels' block mode gave them (nvcc 12.8, sm_90a, NVIDIA H100 80GB
+# HBM3; tools/compare_parent_kernels.py): the default gate (-1, S) must
+# change no bit.
+PREV_DIGESTS = {
+    "shiftblend_fwd": {
+        "float32": "5ffc0e4fc39aaeeb0a6388e9892e1ed281a505f02fa61f70dadfa63c5ee38a8a",
+        "tensorfloat32": "c7ee8bbb1d7180e6f534543f55aa64e75663389a43adef341afc6f0592b2942b",
+        "bfloat16": "545d84b5075bdd40ab5d6fa06a46b505f18cd996ddbeb1d6766496f3a72e4af6"},
+    "shiftblend_bwd": {
+        "float32": "ddce7a9ff4deb8355e4b66c5cbfee767c9c4c18029f8cd1ece3590efefffeb12",
+        "tensorfloat32": "18fe3b62c92a337076390bb2da78dddbc0a23ca072e0d96caa678a05e5b45058",
+        "bfloat16": "13421bc9c8918b268ae5f771aa135152b85938f3ee622ada9bde3c0223726022"},
+    "gathermm_fwd": {
+        "float32": "5ffc0e4fc39aaeeb0a6388e9892e1ed281a505f02fa61f70dadfa63c5ee38a8a",
+        "tensorfloat32": "c7ee8bbb1d7180e6f534543f55aa64e75663389a43adef341afc6f0592b2942b",
+        "bfloat16": "545d84b5075bdd40ab5d6fa06a46b505f18cd996ddbeb1d6766496f3a72e4af6"},
+    "gathermm_bwd": {
+        "float32": "a19499383e32b1b8550f9dcc6c030aa80648b8afd06b5bf2be8c6fcc05b2b159",
+        "tensorfloat32": "fe67fd281dea1f67977788bb8fcc2cea9441a75422f455603f9d9a2ecf0f3835",
+        "bfloat16": "af94404c8f63f141857472ad9d24187c791574feb38baeb6e840e9cd008aba01"},
+    "gathermm3d_fwd": {
+        "float32": "cdef836ed67e26651bd9dfe1b4690e25ab358a6a7f6a23b5b80c3a0ae59505c7",
+        "tensorfloat32": "f52d219c02ac61f5df0b288f54c840d36aa44e98d14ddae27cbd44124335d580",
+        "bfloat16": "fb066b5e03e78aef6ffddf3580c04888cd8dba1761cba47295d51508fb839d32"},
+    "gathermm3d_bwd": {
+        "float32": "25756ea014491ba729af9bf3b8511440ea057d8eae64e5ad52325583f2707bce",
+        "tensorfloat32": "eaf72b5f3ae65aa2a65275a559670f4be21fb7f17d24af19c8dfb5c147cf56ce",
+        "bfloat16": "4df589eec2b97c474b2ef4ac8142dd38e42f14101dde93f20c6ae1cbf8531ba3"},
+    "shiftblend3d_fwd": {
+        "float32": "9dfb48c312620babc069a1a5673ffa64ed2999b1470e5c4aea7892289829c68d",
+        "tensorfloat32": "90c5d6fedeb76921c3c4c8914e5e21cacb334b29343b31f2efe6baf3fcebd5b5",
+        "bfloat16": "1970824ed5273c19bfc0a1e7ea4d74bc282e77ca58c21206ac02d33b809d5eb1"},
+    "shiftblend3d_bwd": {
+        "float32": "60c7070702718f94d71df1438bb5be0ec6ae15615169b6d586417e546c4f064d",
+        "tensorfloat32": "50cd9fa9b772cc299aa79b2317a50be186c0558771b224264b3322102c873010",
+        "bfloat16": "aa282e87c1fdc8804eaf928e669545c62287ea8366fc9f92c89bc3a57734822e"},
+    "gathermm_cols_fwd": {
+        "float32": "4d1ec3aac038bdc90b6098087ec2d128f2a1b8c5e5f856eafb0b6b6cabc7bfc8",
+        "tensorfloat32": "4d1ec3aac038bdc90b6098087ec2d128f2a1b8c5e5f856eafb0b6b6cabc7bfc8",
+        "bfloat16": "4afc267b276a448af1931444accf8abe3c669732262523f9e53118ab7d2bc494"},
+    "gathermm_cols_bwd": {
+        "float32": "89ef6b18d72776d88a1d236a969112ded67560c8cd8ac6ae58436c7bd3d0cd82",
+        "tensorfloat32": "89ef6b18d72776d88a1d236a969112ded67560c8cd8ac6ae58436c7bd3d0cd82",
+        "bfloat16": "bcdecf0f7aab3efc242d8c5efe450a48469b33a13acdb6a84b2e70109044aef5"},
+    "gathermm3d_cols_fwd": {
+        "float32": "3d80663eed3a55d0effb2d84c8b70e07a401e01fd78ff4a692ad5a1459b25fb0",
+        "tensorfloat32": "3d80663eed3a55d0effb2d84c8b70e07a401e01fd78ff4a692ad5a1459b25fb0",
+        "bfloat16": "4bb42d7bd493a97b2b47c8bc23ddc496fc0ea8ffcb3daef1904abaa7c5c2dd45"},
+    "gathermm3d_cols_bwd": {
+        "float32": "37fe2abe8e94961545d77b8724c03cfddc3f99bb1eb59dc7c9377d37aad0330b",
+        "tensorfloat32": "37fe2abe8e94961545d77b8724c03cfddc3f99bb1eb59dc7c9377d37aad0330b",
+        "bfloat16": "1d222706686afd1bdf7de20f6edb6cc5ad482174532ec74f2e9781c906d51955"}}
 
 
 class SmokeFailure(Exception):
@@ -1061,7 +1138,7 @@ def columns_case(torch, gm, label, spec, ins, op, reset, counts, pair, fused_pai
             del g_got, g_want, gcols
 
         route, same_as_prev = cols_fwd_routes(torch, gm, label, spec, ins, key)
-        rows[f"{fam}_fwd"].update(route=route, same_bits_as_previous_release=same_as_prev)
+        rows[f"{fam}_fwd"].update(cols_route=route, same_bits_as_previous_release=same_as_prev)
 
         # Times, in the main path's mode.
         t = {}
@@ -1358,6 +1435,267 @@ def run_columns(torch, mdt, gm, reset, counts, dev):
     return res
 
 
+def unsharded_digests(torch, gm, sb, dev):
+    """{kernel: {mode: SHA-256 of its outputs}} for every kernel, unsharded,
+    at its table row's config: the 2D pairs at config 2, gathermm3d at
+    config 3, shiftblend3d at config 4 with B=1, the 2D column pair at
+    config 5 c4 and the 3D one at the 3D columns case; each backward with a
+    cotangent from a seeded generator."""
+    import hashlib
+    from modulated_deform_conv_tpu_torch.ops.cuda.lib import PRECISIONS
+    from modulated_deform_conv_tpu_torch.utils.config import DeformConvSpec
+
+    def digest(ts):
+        h = hashlib.sha256()
+        for t in ts if isinstance(ts, tuple) else (ts,):
+            if t is not None:
+                h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    def cot(shape, dtype=torch.float32):
+        g = torch.Generator(device=dev).manual_seed(1)
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+    spec2 = DeformConvSpec.make(2, KS, 1, 1, 1, G, DG, modulated=True)
+    ins2 = cfg2_inputs(torch, dev)
+    spec3, ins3 = cfg3d_inputs(torch, dev, "cfg3")
+    spec4, ins4 = cfg3d_inputs(torch, dev, "cfg4")
+    ins4 = tuple(None if t is None else t[:1].contiguous() for t in ins4)
+    fused = [("shiftblend", sb.shiftblend_fwd, sb.shiftblend_bwd, spec2, ins2, (BOUND,)),
+             ("gathermm", gm.gathermm_fwd, gm.gathermm_bwd, spec2, ins2, ()),
+             ("gathermm3d", gm.gathermm3d_fwd, gm.gathermm3d_bwd, spec3, ins3, ()),
+             ("shiftblend3d", sb.shiftblend3d_fwd, sb.shiftblend3d_bwd, spec4, ins4,
+              (BOUND3D,))]
+    spec5 = DeformConvSpec.make(2, 3, 1, 1, 1, 1, 1, modulated=True)
+    spec_c3, ins_c3 = cols3d_inputs(torch, dev)
+    cols = [("gathermm_cols", spec5, cfg5_inputs(torch, dev, "c4")),
+            ("gathermm3d_cols", spec_c3, ins_c3)]
+    out = {}
+    for prec in PRECISIONS:
+        for fam, fwd, bwd, spec, (x, off, mask, w, b), ext in fused:
+            y = fwd(x, off, mask, w, b, spec, prec, *ext)
+            out.setdefault(f"{fam}_fwd", {})[prec] = digest(y)
+            out.setdefault(f"{fam}_bwd", {})[prec] = digest(
+                bwd(x, off, mask, w, cot(y.shape), spec, prec, *ext))
+            del y
+        for fam, spec, (x, off, mask, _, _) in cols:
+            fwd, bwd = getattr(gm, f"{fam}_fwd"), getattr(gm, f"{fam}_bwd")
+            c = fwd(x, off, mask, spec, prec)
+            out.setdefault(f"{fam}_fwd", {})[prec] = digest(c)
+            out.setdefault(f"{fam}_bwd", {})[prec] = digest(
+                bwd(x, off, mask, cot(c.shape, c.dtype), spec, prec))
+            del c
+    torch.cuda.synchronize()
+    return out
+
+
+def sharded_case(torch, dev, which):
+    """A sharded case's spec, global inputs (x, offset, mask or None,
+    weight, bias or None) and its public op."""
+    import modulated_deform_conv_tpu_torch as mdt
+    from modulated_deform_conv_tpu_torch.utils.config import DeformConvSpec
+    if which == "cfg2":
+        spec = DeformConvSpec.make(2, KS, 1, 1, 1, G, DG, modulated=True)
+        ins = cfg2_inputs(torch, dev)
+    elif which == "c4":
+        spec = DeformConvSpec.make(2, 3, 1, 1, 1, 1, 1, modulated=True)
+        ins = cfg5_inputs(torch, dev, "c4")
+    elif which == "cfg3":
+        spec, ins = cfg3d_inputs(torch, dev, "cfg3")
+    else:
+        spec, ins = cols3d_inputs(torch, dev)
+    name = ("modulated_" if spec.modulated else "") + f"deform_conv{spec.ndim}d"
+
+    def op(x, off, mask, w, b, **kw):
+        args = (x, off) + ((mask,) if spec.modulated else ()) + (w, b)
+        return getattr(mdt, name)(*args, spec.stride, spec.padding, spec.dilation,
+                                  spec.groups, spec.deformable_groups, spec.in_step, **kw)
+    return spec, list(ins), op
+
+
+def add_block(gx, gxb, shards, coords):
+    """The halo exchange's backward, on one device: each row of a block's
+    gradient added onto the global row it holds (rows past the image
+    dropped)."""
+    src, dst = gxb, gx
+    for s, i in zip(shards, coords):
+        axis, lo = 2 + s.dim, i * s.in_local - s.halo
+        a, b = max(lo, 0), min(lo + gxb.shape[axis], gx.shape[axis])
+        src, dst = src.narrow(axis, a - lo, b - a), dst.narrow(axis, a, b - a)
+    dst.add_(src)
+
+
+def run_sharded(torch, sh, gm, reset, counts, dev):
+    """The sharded phase.  Per case and shard: the exchanged block cut from
+    the global tensors (zero rows past the image), `sharding.block_conv`
+    forward and backward of sum(out^2) on CUDA tensors ("auto": the gather
+    kernels' block mode), (a) against block_conv at impl="torch" on the
+    same block (main mode); (b) the outputs stitched and the block
+    gradients summed back as the exchange's backward does, against the
+    unsharded kernel op on the global tensors, in the main mode and
+    "float32"; (c) the kernels each shard launched (a shard that launched
+    no gather kernel fails); (d) one shard's step time beside the
+    unsharded step's.  Where the column forward runs, its time on the
+    block placed in the whole input beside its time in the JAX package's
+    form, the shift folded into the offsets.  Returns {row: {case:
+    launches and times}}."""
+    import itertools
+    rows = {n: {} for n in GATHER_ROWS}
+    t_phase = time.time()
+    for label, (which, split) in SHARDED.items():
+        spec, ins, op = sharded_case(torch, dev, which)
+        x, off, mask, w, b = ins
+        nd = spec.ndim
+        names, sizes = [None] * nd, {}
+        for d, n in split.items():
+            names[d], sizes[f"s{d}"] = f"s{d}", n
+        plan = sh.shard_plan(x.shape, off.shape, w.shape, None if mask is None else mask.shape,
+                             None if b is None else b.shape, spec, sizes, None, names,
+                             SHARD_MAX_OFFSET)
+        lay = {2 + s.dim: s.axis_name for s in plan.shards}
+        axes = [s.axis_name for s in plan.shards]
+        grid = list(itertools.product(*[range(s.n_shards) for s in plan.shards]))
+
+        def block(coords, **kw):
+            """The shard's leaves (block, offset, mask, weight, bias)."""
+            sl = sh.shard_slices(off.shape, lay, dict(zip(axes, coords)), sizes)
+            return [None if t is None else t.detach().clone().requires_grad_(True)
+                    for t in (sh.cut_block(x, plan.shards, coords), off[sl],
+                              None if mask is None else mask[sl], w, b)], sl
+
+        def step(leaves, coords, impl, prec):
+            y = sh.block_conv(*leaves, spec, plan.shards, coords, impl, prec)
+            live = [t for t in leaves if t is not None]
+            grads = iter(torch.autograd.grad((y * y).sum(), live))
+            return y.detach(), [None if t is None else next(grads) for t in leaves]
+
+        launched = {}
+        for prec in (MAIN_PRECISION, "float32"):
+            out = torch.empty((x.shape[0], w.shape[0]) + tuple(off.shape[2:]), device=dev)
+            g_sum = [torch.zeros_like(t) if t is not None else None for t in ins]
+            for coords in grid:
+                leaves, sl = block(coords)
+                reset()
+                y, g = step(leaves, coords, "auto", prec)
+                torch.cuda.synchronize()
+                if prec == MAIN_PRECISION:
+                    c = {n: v for n, v in counts().items() if v}
+                    launched[coords] = c
+                    check(any(c.get(n) for n in GATHER_ROWS),
+                          f"{label} shard {coords}: no gather kernel launched ({c})")
+                    for n, v in c.items():
+                        if n in rows:
+                            rows[n].setdefault(label, {"launches": 0})["launches"] += v
+                    # (a) the kernels against the same function's plain path.
+                    yt, gt = step(block(coords)[0], coords, "torch", prec)
+                    for what, got, want in zip(("out", "x", "offset", "mask", "weight", "bias"),
+                                               [y] + g, [yt] + gt):
+                        if got is not None:
+                            e = rel_err(got, want)
+                            check(e <= LIMITS[prec], f"{label} shard {coords} {what}: "
+                                  f"kernels vs impl='torch' rel err {e:.3e}")
+                    del yt, gt
+                out[sh.shard_slices(out.shape, lay, dict(zip(axes, coords)), sizes)] = y
+                add_block(g_sum[0], g[0], plan.shards, coords)
+                for k in (1, 2):
+                    if g[k] is not None:
+                        g_sum[k][sl] = g[k]
+                for k in (3, 4):
+                    if g[k] is not None:
+                        g_sum[k] += g[k]
+                del leaves, y, g
+            # (b) stitched against the unsharded kernel op.
+            leaves = [None if t is None else t.detach().clone().requires_grad_(True) for t in ins]
+            y0 = op(*leaves, impl="cuda", precision=prec)
+            live = [t for t in leaves if t is not None]
+            g0 = iter(torch.autograd.grad((y0 * y0).sum(), live))
+            errs = {"out": rel_err(out, y0.detach())}
+            for what, got, t in zip(("x", "offset", "mask", "weight", "bias"), g_sum, leaves):
+                if t is not None:
+                    errs[what] = rel_err(got, next(g0))
+            print(f"sharded {label} {prec}: stitched vs unsharded kernel op rel err "
+                  + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+            for what, e in errs.items():
+                check(e <= LIMITS[prec], f"{label} {prec} stitched {what} vs unsharded: {e:.3e}")
+            del out, g_sum, leaves, y0, live
+        kernels_hit = sorted({n for c in launched.values() for n in c})
+        print(f"sharded {label}: {len(grid)} shards of block "
+              f"{tuple(sh.cut_block(x, plan.shards, grid[0]).shape)}, output grid "
+              f"{tuple(off.shape[2:])} / {tuple(s.n_shards for s in plan.shards)}, halo "
+              f"{[s.halo for s in plan.shards]}; launched per shard: "
+              + "; ".join(f"{c}: " + ", ".join(f"{n} {v}" for n, v in sorted(launched[c].items()))
+                          for c in grid))
+        # (d) one interior shard's step beside the unsharded step (main mode).
+        mid = grid[len(grid) // 2]
+        leaves = block(mid)[0]
+        shard_ms = time_ms(lambda: step(leaves, mid, "auto", MAIN_PRECISION), 5, 2, 1)
+        full = [None if t is None else t.detach().clone().requires_grad_(True) for t in ins]
+
+        def full_step():
+            y0 = op(*full, impl="cuda")
+            return torch.autograd.grad((y0 * y0).sum(), [t for t in full if t is not None])
+        full_ms = time_ms(full_step, 5, 2, 1)
+        print(f"sharded {label}: shard {mid} step {shard_ms:.4f} ms, unsharded step "
+              f"{full_ms:.4f} ms ({len(grid)} shards: {shard_ms * len(grid) / full_ms:.3f}x "
+              "the unsharded step's work on one card)")
+        for n in kernels_hit:
+            if n in rows:
+                rows[n][label].update(shard_step_ms=shard_ms, unsharded_step_ms=full_ms,
+                                      shards=len(grid))
+        cols_fwd = [n for n in kernels_hit if n.endswith("cols_fwd")]
+        if cols_fwd:
+            # The column forward on the block in the port's form (offsets as
+            # they are, the block placed in the whole input) and in the JAX
+            # package's (the global-to-local shift folded into the offsets:
+            # [0, 4] here, past the plane route's nominal reach of 3).
+            xb, off_l, mask_l = (t.detach() for t in leaves[:3])
+            local, placement, gates = sh.block_args(spec, plan.shards, mid,
+                                                    tuple(xb.shape[2:]))
+            delta = torch.tensor([a - o for a, o in placement], device=dev)
+            folded = (off_l + delta.repeat(off_l.shape[1] // nd).reshape(
+                (1, -1) + (1,) * nd)).contiguous()
+            OS = tuple(off_l.shape[2:])
+            fwd = getattr(gm, cols_fwd[0])
+            t_p = time_ms(lambda: fwd(xb, off_l, mask_l, local, MAIN_PRECISION, OS, gates,
+                                      placement))
+            t_f = time_ms(lambda: fwd(xb, folded, mask_l, local, MAIN_PRECISION, OS, gates))
+            print(f"sharded {label}: {cols_fwd[0]} on the block, placed {t_p:.4f} ms, "
+                  f"offsets folded (+{[v for v in delta.tolist() if v]}) {t_f:.4f} ms")
+            rows[cols_fwd[0]][label].update(cols_fwd_placed_ms=t_p, cols_fwd_folded_ms=t_f)
+        del leaves, full, ins, x, off, mask, w, b
+        torch.cuda.empty_cache()
+    print(f"sharded phase: {time.time() - t_phase:.1f} s")
+    return rows
+
+
+def nccl_one_rank(torch, mdt, dev):
+    """The public sharded entry on a one-rank NCCL DeviceMesh, initialised
+    through a file:// store: config 2 with max_offset 2 (every axis of size
+    1, so the call dispatches with offset_bound=2, the shift-blend kernel),
+    against the unsharded op with offset_bound=2."""
+    import tempfile
+    import torch.distributed as dist
+    from modulated_deform_conv_tpu_torch.parallel import (
+        device_summary, initialize_distributed, make_mesh,
+        sharded_modulated_deform_conv2d)
+    store = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_nccl_"), "store")
+    initialize_distributed(f"file://{store}", world_size=1, rank=0, backend="nccl")
+    try:
+        mesh = make_mesh((1, 1), ("data", "space"), device_type="cuda")
+        x, off, mask, w, b = cfg2_inputs(torch, dev)
+        with torch.no_grad():
+            y = sharded_modulated_deform_conv2d(
+                x, off, mask, w, b, mesh=mesh, stride=1, padding=1, groups=G,
+                deformable_groups=DG, max_offset=BOUND)
+            y0 = mdt.modulated_deform_conv2d(x, off, mask, w, b, 1, 1, 1, G, DG,
+                                             offset_bound=BOUND)
+        e = rel_err(y, y0)
+        print(f"one-rank NCCL mesh ({device_summary()}): "
+              f"sharded_modulated_deform_conv2d vs the op, rel err {e:.3e}")
+        check(e == 0.0, f"one-rank sharded entry differs from the op: {e:.3e}")
+    finally:
+        dist.destroy_process_group()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1371,6 +1709,7 @@ def main() -> int:
         from modulated_deform_conv_tpu_torch.ops.cuda import gathermm as gm
         from modulated_deform_conv_tpu_torch.ops.cuda import lib
         from modulated_deform_conv_tpu_torch.ops.cuda import shiftblend as sb
+        from modulated_deform_conv_tpu_torch.parallel import sharding as sh
         from modulated_deform_conv_tpu_torch.utils.config import DeformConvSpec
     except ImportError as e:
         print(f"chip_smoke: the port package is not beside this script: {e}",
@@ -1706,6 +2045,26 @@ def main() -> int:
     r5 = run_columns(torch, mdt, gm, reset, counts, dev)
     sweep5 = r5["launches"]["cfg5"]
 
+    # Phase 18: every kernel's unsharded launches give the bits of the tree
+    # before the gather kernels' block mode: the default gate (-1, S) that
+    # the geometry now carries changes nothing.
+    torch.cuda.empty_cache()
+    digests = unsharded_digests(torch, gm, sb, dev)
+    same = {n: {m: d == PREV_DIGESTS.get(n, {}).get(m) for m, d in by.items()}
+            for n, by in digests.items()}
+    print("unsharded launches, SHA-256 against the previous tree's: " + "; ".join(
+        f"{n} " + "/".join("same" if s else "DIFFERENT" for s in by.values())
+        for n, by in same.items()))
+    check(all(all(by.values()) for by in same.values()),
+          f"unsharded bits changed: {json.dumps(digests)}")
+
+    # Phase 19: the sharded phase (the sharding layer's per-shard function
+    # on every shard of five layouts, the gather kernels' block mode), and
+    # the public sharded entry on a one-rank NCCL mesh.
+    torch.cuda.empty_cache()
+    sharded = run_sharded(torch, sh, gm, reset, counts, dev)
+    nccl_one_rank(torch, mdt, dev)
+
     # Phase 17: the kernel table.  The 2D column kernels' row is config 5's
     # c4 layer (launches: the whole sweep), the 3D one the 3D columns case.
     table = []
@@ -1745,7 +2104,9 @@ def main() -> int:
             "bound_by": row.pop("bound_by"), "library_ms": row.pop("library_ms", None), **row,
             "precision": MAIN_PRECISION, "resnet_launches": net_launches[n],
             "videonet_launches": video_launches[n],
-            "cfg5_launches": sweep5["fwd" if kind == "fwd" else "step"][n]})
+            "cfg5_launches": sweep5["fwd" if kind == "fwd" else "step"][n],
+            **({"sharded_launches": sum(c["launches"] for c in sharded[n].values()),
+                "sharded": sharded[n]} if n in sharded else {})})
     print("every row against the previous release (ms, this run / previous): " + "; ".join(
         f"{r['name']} {r['ms']:.4f} / {PREV_MS[r['name']]:.4f} ({r['ms'] / PREV_MS[r['name']]:.3f}x)"
         for r in table))

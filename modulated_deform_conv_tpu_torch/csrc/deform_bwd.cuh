@@ -418,8 +418,7 @@ __global__ void __launch_bounds__(256, 4) corr_kernel(const float* __restrict__ 
     const size_t oidx = (static_cast<size_t>(b) * g.dg * 2 * K + static_cast<size_t>(d) * 2 * K + 2 * k) * P + p;
     TapGrad t{};
     if (p < P)
-      t = tap_grad(oy * g.sh - g.ph + ky * g.dh, ox * g.sw - g.pw + kx * g.dw, offset[oidx], offset[oidx + P], g.H,
-                   g.W, g.windowed, g.lo_y, g.win_y, g.lo_x, g.win_x);
+      t = tap_grad(g, oy * g.sh - g.ph + ky * g.dh, ox * g.sw - g.pw + kx * g.dw, offset[oidx], offset[oidx + P]);
     tg[threadIdx.x] = t;
     tm[threadIdx.x] = p < P ? mask_at(g, mask, b, d, k, p) : 0.f;
   }

@@ -26,8 +26,9 @@ namespace mdc {
 // channels, taps (kh * kw) and positions (OH * OW), so any stride, padding
 // and dilation pass through it unchanged.
 inline Geo flat_geo(const Geo3& g) {
-  return Geo{g.B, g.C, 1, 1, g.O, out_size3(g), 1, g.groups, g.dg, taps3(g), 1, 1, 1, 0, 0, 1, 1,
-             0,   0,   0, 0, 0,   g.precision};
+  return Geo{g.B, g.C, 1,   1,   g.O, out_size3(g), 1,   g.groups, g.dg, taps3(g), 1, 1, 1, 0, 0, 1, 1,
+             0,   0,   0,   0,   0,   g.precision,  -1.f, 1.f,      -1.f, static_cast<float>(out_size3(g)),
+             0.f, 0.f, 0.f, 0.f};
 }
 
 // ---- the gather's corner boxes ------------------------------------------------

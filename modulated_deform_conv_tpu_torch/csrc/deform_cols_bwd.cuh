@@ -598,8 +598,8 @@ __device__ __forceinline__ void col_fold_one(const Geo& g, const float* __restri
   const int K = g.kh * g.kw, P = g.OH * g.OW;
   const int oy = p / g.OW, ox = p % g.OW, ky = k / g.kw, kx = k % g.kw;
   const size_t oidx = (static_cast<size_t>(b) * g.dg * 2 * K + static_cast<size_t>(d) * 2 * K + 2 * k) * P + p;
-  const TapGrad t = tap_grad(oy * g.sh - g.ph + ky * g.dh, ox * g.sw - g.pw + kx * g.dw, offset[oidx],
-                             offset[oidx + P], g.H, g.W, g.windowed, g.lo_y, g.win_y, g.lo_x, g.win_x);
+  const TapGrad t = tap_grad(g, oy * g.sh - g.ph + ky * g.dh, ox * g.sw - g.pw + kx * g.dw, offset[oidx],
+                             offset[oidx + P]);
   float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
   if (t.keep) {
     const float4* src = reinterpret_cast<const float4*>(part) +

@@ -303,8 +303,8 @@ __global__ void __launch_bounds__(kMmaThreads, 2) fwd_mma_kernel(
           TapWeights tap{0, 0, make_float4(0.f, 0.f, 0.f, 0.f)};
           if (ok[u]) {
             const int ky = k[u] / g.kw, kx = k[u] % g.kw, oyp = p[u] / g.OW, oxp = p[u] % g.OW;
-            tap = tap_weights(oyp * g.sh - g.ph + ky * g.dh, oxp * g.sw - g.pw + kx * g.dw, o[u][0], o[u][1], m[u],
-                              g.H, g.W, g.windowed, g.lo_y, g.win_y, g.lo_x, g.win_x);
+            tap = tap_weights(g, oyp * g.sh - g.ph + ky * g.dh, oxp * g.sw - g.pw + kx * g.dw, o[u][0], o[u][1],
+                              m[u]);
           }
           tw[e] = tap.w;
           tq[e] = !ok[u] ? 0

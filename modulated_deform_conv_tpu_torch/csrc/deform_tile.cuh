@@ -24,10 +24,29 @@ __device__ __forceinline__ float operand(float v, int precision) {
   return precision == kBFloat16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
 }
 
+// Geometry of one call, passed by value to every kernel.  (gy0, gy1) and
+// (gx0, gx1) are the tap gate per axis: (-1, H) and (-1, W), or, for a
+// sharded block, the global image border in the block's coordinates, with
+// -1 <= lo < hi <= S per axis (the host checks it).  shy / ory (shx / orx)
+// place a sharded block in the whole input: a tap's position is taken in
+// the whole input's coordinates, (base + sh) + off, rounded as the
+// unsharded op rounds it; the gate is compared there (the host passes it
+// moved by the origin), and only the integer low corner moves to the
+// block's, floor - or; 0 and 0 for a whole input.
+struct Geo {
+  int B, C, H, W, O, OH, OW, groups, dg, kh, kw, sh, sw, ph, pw, dh, dw;
+  int windowed, lo_y, win_y, lo_x, win_x;
+  int precision;
+  float gy0, gy1, gx0, gx1;
+  float shy, ory, shx, orx;
+};
+
 // The four bilinear corners of one tap at one output position.
-//   pos = base + off per axis, in fp32 like the reference;
-//   the whole tap is closed unless -1 < pos < S on both axes (the gate);
-//   a corner outside the image is dropped;
+//   pos = base + off per axis, in fp32 like the reference (on a sharded
+//   block in the whole input's coordinates: Geo);
+//   the whole tap is closed unless g0 < pos < g1 on both axes (the gate,
+//   Geo's (gy0, gy1) and (gx0, gx1));
+//   a corner outside the image (the block) is dropped;
 //   with `windowed`, the bounded-offset contract also drops, per axis, the
 //   corner c unless lo <= floor(pos) - base + c <= lo + win - 1.
 // keep bit 2*cy + cx says whether corner (y0 + cy, x0 + cx) is kept.
@@ -37,30 +56,28 @@ struct TapCorners {
   int keep;      // 0 when the gate is closed
 };
 
-__device__ __forceinline__ TapCorners tap_corners(
-    int base_y, int base_x, float off_y, float off_x, int H, int W,
-    bool windowed, int lo_y, int win_y, int lo_x, int win_x) {
+__device__ __forceinline__ TapCorners tap_corners(const Geo& g, int base_y,
+                                                  int base_x, float off_y,
+                                                  float off_x) {
   TapCorners t{0, 0, 0.f, 0.f, 0};
-  const float py = static_cast<float>(base_y) + off_y;
-  const float px = static_cast<float>(base_x) + off_x;
-  if (!(py > -1.f && py < static_cast<float>(H) && px > -1.f &&
-        px < static_cast<float>(W)))
-    return t;
+  const float py = (static_cast<float>(base_y) + g.shy) + off_y;
+  const float px = (static_cast<float>(base_x) + g.shx) + off_x;
+  if (!(py > g.gy0 && py < g.gy1 && px > g.gx0 && px < g.gx1)) return t;
   const float fy = floorf(py), fx = floorf(px);
   t.ry = py - fy;
   t.rx = px - fx;
-  t.y0 = static_cast<int>(fy);
-  t.x0 = static_cast<int>(fx);
+  t.y0 = static_cast<int>(fy - g.ory);
+  t.x0 = static_cast<int>(fx - g.orx);
   bool ky[2], kx[2];
 #pragma unroll
   for (int c = 0; c < 2; ++c) {
-    ky[c] = t.y0 + c >= 0 && t.y0 + c <= H - 1;
-    kx[c] = t.x0 + c >= 0 && t.x0 + c <= W - 1;
-    if (windowed) {
+    ky[c] = t.y0 + c >= 0 && t.y0 + c <= g.H - 1;
+    kx[c] = t.x0 + c >= 0 && t.x0 + c <= g.W - 1;
+    if (g.windowed) {
       const float rel_y = fy - static_cast<float>(base_y) + c;
       const float rel_x = fx - static_cast<float>(base_x) + c;
-      ky[c] = ky[c] && rel_y >= lo_y && rel_y <= lo_y + win_y - 1;
-      kx[c] = kx[c] && rel_x >= lo_x && rel_x <= lo_x + win_x - 1;
+      ky[c] = ky[c] && rel_y >= g.lo_y && rel_y <= g.lo_y + g.win_y - 1;
+      kx[c] = kx[c] && rel_x >= g.lo_x && rel_x <= g.lo_x + g.win_x - 1;
     }
   }
   t.keep = (ky[0] && kx[0]) | (ky[0] && kx[1]) << 1 | (ky[1] && kx[0]) << 2 |
@@ -77,11 +94,10 @@ struct TapWeights {
   int keep;
 };
 
-__device__ __forceinline__ TapWeights tap_weights(
-    int base_y, int base_x, float off_y, float off_x, float m, int H, int W,
-    bool windowed, int lo_y, int win_y, int lo_x, int win_x) {
-  const TapCorners c = tap_corners(base_y, base_x, off_y, off_x, H, W,
-                                   windowed, lo_y, win_y, lo_x, win_x);
+__device__ __forceinline__ TapWeights tap_weights(const Geo& g, int base_y,
+                                                  int base_x, float off_y,
+                                                  float off_x, float m) {
+  const TapCorners c = tap_corners(g, base_y, base_x, off_y, off_x);
   const float wy0 = 1.f - c.ry, wx0 = 1.f - c.rx;
   TapWeights t;
   t.y0 = c.y0;
@@ -94,13 +110,6 @@ __device__ __forceinline__ TapWeights tap_weights(
   return t;
 }
 
-// Geometry of one call, passed by value to every kernel.
-struct Geo {
-  int B, C, H, W, O, OH, OW, groups, dg, kh, kw, sh, sw, ph, pw, dh, dw;
-  int windowed, lo_y, win_y, lo_x, win_x;
-  int precision;
-};
-
 __device__ __forceinline__ float mask_at(const Geo& g, const float* __restrict__ mask, int b, int d, int k, int p) {
   const int K = g.kh * g.kw, P = g.OH * g.OW;
   return mask ? mask[(static_cast<size_t>(b) * g.dg * K + static_cast<size_t>(d) * K + k) * P + p] : 1.f;
@@ -112,8 +121,8 @@ __device__ __forceinline__ TapWeights weights_at(const Geo& g, const float* __re
   const int K = g.kh * g.kw, P = g.OH * g.OW;
   const int oy = p / g.OW, ox = p % g.OW, ky = k / g.kw, kx = k % g.kw;
   const size_t oidx = (static_cast<size_t>(b) * g.dg * 2 * K + static_cast<size_t>(d) * 2 * K + 2 * k) * P + p;
-  return tap_weights(oy * g.sh - g.ph + ky * g.dh, ox * g.sw - g.pw + kx * g.dw, offset[oidx], offset[oidx + P],
-                     mask_at(g, mask, b, d, k, p), g.H, g.W, g.windowed, g.lo_y, g.win_y, g.lo_x, g.win_x);
+  return tap_weights(g, oy * g.sh - g.ph + ky * g.dh, ox * g.sw - g.pw + kx * g.dw, offset[oidx], offset[oidx + P],
+                     mask_at(g, mask, b, d, k, p));
 }
 
 // The corner weights without the mask, and their derivatives with respect
@@ -129,11 +138,10 @@ struct TapGrad {
   float4 w, dy, dx;
 };
 
-__device__ __forceinline__ TapGrad tap_grad(
-    int base_y, int base_x, float off_y, float off_x, int H, int W,
-    bool windowed, int lo_y, int win_y, int lo_x, int win_x) {
-  const TapCorners c = tap_corners(base_y, base_x, off_y, off_x, H, W,
-                                   windowed, lo_y, win_y, lo_x, win_x);
+__device__ __forceinline__ TapGrad tap_grad(const Geo& g, int base_y,
+                                            int base_x, float off_y,
+                                            float off_x) {
+  const TapCorners c = tap_corners(g, base_y, base_x, off_y, off_x);
   const float wy[2] = {1.f - c.ry, c.ry}, dwy[2] = {-1.f, 1.f};
   const float wx[2] = {1.f - c.rx, c.rx}, dwx[2] = {-1.f, 1.f};
   float w[4], dy[4], dx[4];

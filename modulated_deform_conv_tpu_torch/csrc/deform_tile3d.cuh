@@ -12,12 +12,15 @@ namespace mdc {
 
 // Geometry of one 3D call, passed by value to every 3D kernel.  Axis order
 // is (z, y, x) = the input's (D, H, W); (lo, win) per axis is the
-// bounded-offset window when `windowed`.
+// bounded-offset window when `windowed`; (g*0, g*1) per axis is the tap
+// gate and sh* / or* the block's placement, as Geo's.
 struct Geo3 {
   int B, C, D, H, W, O, OD, OH, OW, groups, dg;
   int kd, kh, kw, sd, sh, sw, pd, ph, pw, dd, dh, dw;
   int windowed, lo_z, win_z, lo_y, win_y, lo_x, win_x;
   int precision;
+  float gz0, gz1, gy0, gy1, gx0, gx1;
+  float shz, orz, shy, ory, shx, orx;
 };
 
 __host__ __device__ inline int taps3(const Geo3& g) { return g.kd * g.kh * g.kw; }
@@ -25,8 +28,9 @@ __host__ __device__ inline int out_size3(const Geo3& g) { return g.OD * g.OH * g
 
 // The eight trilinear corners of one tap at one output position.
 //   pos = base + off per axis, in fp32 like the reference;
-//   the whole tap is closed unless -1 < pos < S on all three axes (the gate);
-//   a corner outside the volume is dropped;
+//   the whole tap is closed unless g0 < pos < g1 on all three axes (the
+//   gate, Geo3's);
+//   a corner outside the volume (the block) is dropped;
 //   with `windowed`, the bounded-offset contract also drops, per axis, the
 //   corner c unless lo <= floor(pos) - base + c <= lo + win - 1.
 // keep bit 4*cz + 2*cy + cx says whether corner (z0+cz, y0+cy, x0+cx) is kept.
@@ -36,8 +40,12 @@ struct TapCorners3 {
   int keep;          // 0 when the gate is closed
 };
 
-__device__ __forceinline__ bool axis_keeps(float fl, int base, int c, int S, bool windowed, int lo, int win) {
-  const int i = static_cast<int>(fl) + c;
+// Is corner c of an axis kept: its index i0 + c in the volume (i0 the low
+// corner's, in the block's coordinates) and, with `windowed`, its place
+// floor(pos) - base + c in the window.
+__device__ __forceinline__ bool axis_keeps(float fl, int i0, int base, int c, int S, bool windowed, int lo,
+                                           int win) {
+  const int i = i0 + c;
   bool k = i >= 0 && i <= S - 1;
   if (windowed) {
     const float rel = fl - static_cast<float>(base) + c;
@@ -49,26 +57,24 @@ __device__ __forceinline__ bool axis_keeps(float fl, int base, int c, int S, boo
 __device__ __forceinline__ TapCorners3 tap_corners3(const Geo3& g, int bz, int by, int bx, float off_z, float off_y,
                                                     float off_x) {
   TapCorners3 t{0, 0, 0, 0.f, 0.f, 0.f, 0};
-  const float pz = static_cast<float>(bz) + off_z;
-  const float py = static_cast<float>(by) + off_y;
-  const float px = static_cast<float>(bx) + off_x;
-  if (!(pz > -1.f && pz < static_cast<float>(g.D) && py > -1.f && py < static_cast<float>(g.H) && px > -1.f &&
-        px < static_cast<float>(g.W)))
-    return t;
+  const float pz = (static_cast<float>(bz) + g.shz) + off_z;
+  const float py = (static_cast<float>(by) + g.shy) + off_y;
+  const float px = (static_cast<float>(bx) + g.shx) + off_x;
+  if (!(pz > g.gz0 && pz < g.gz1 && py > g.gy0 && py < g.gy1 && px > g.gx0 && px < g.gx1)) return t;
   const float fz = floorf(pz), fy = floorf(py), fx = floorf(px);
   t.rz = pz - fz;
   t.ry = py - fy;
   t.rx = px - fx;
-  t.z0 = static_cast<int>(fz);
-  t.y0 = static_cast<int>(fy);
-  t.x0 = static_cast<int>(fx);
+  t.z0 = static_cast<int>(fz - g.orz);
+  t.y0 = static_cast<int>(fy - g.ory);
+  t.x0 = static_cast<int>(fx - g.orx);
   const bool w = g.windowed != 0;
   bool kz[2], ky[2], kx[2];
 #pragma unroll
   for (int c = 0; c < 2; ++c) {
-    kz[c] = axis_keeps(fz, bz, c, g.D, w, g.lo_z, g.win_z);
-    ky[c] = axis_keeps(fy, by, c, g.H, w, g.lo_y, g.win_y);
-    kx[c] = axis_keeps(fx, bx, c, g.W, w, g.lo_x, g.win_x);
+    kz[c] = axis_keeps(fz, t.z0, bz, c, g.D, w, g.lo_z, g.win_z);
+    ky[c] = axis_keeps(fy, t.y0, by, c, g.H, w, g.lo_y, g.win_y);
+    kx[c] = axis_keeps(fx, t.x0, bx, c, g.W, w, g.lo_x, g.win_x);
   }
 #pragma unroll
   for (int i = 0; i < 8; ++i) t.keep |= (kz[i >> 2] && ky[(i >> 1) & 1] && kx[i & 1]) << i;

@@ -42,16 +42,20 @@
 // Outputs, each null when not wanted: gx like x, goff like offset, gmask
 // like mask, gwt (groups, C/groups*K, O/groups).  Returns the first CUDA
 // error of the launches, or 0.
+// gz0 .. orx: the tap gate per axis and the block's placement (Geo3): (-1,
+// D), (-1, H), (-1, W) and zeros but on a sharded block.
 extern "C" int gathermm3d_bwd(const float* x, const float* offset, const float* mask, const float* wk,
                               const float* gout, float* gcols, float* xt, int* boxes, float* part, float* gx,
                               float* goff, float* gmask, float* gwt, int B, int C, int D, int H, int W, int O, int OD,
                               int OH, int OW, int groups, int dg, int kd, int kh, int kw, int sd, int sh, int sw,
                               int pd, int ph, int pw, int dd, int dh, int dw, int b_step, int splits, int precision,
-                              void* stream) {
+                              float gz0, float gz1, float gy0, float gy1, float gx0, float gx1, float shz,
+                              float orz, float shy, float ory, float shx, float orx, void* stream) {
   using namespace mdc;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Geo3 g{B,  C,  D,  H,  W,  O,  OD, OH, OW, groups, dg, kd, kh, kw, sd, sh,
-               sw, pd, ph, pw, dd, dh, dw, 0,  0,  0,      0,  0,  0,  0,  precision};
+               sw, pd, ph, pw, dd, dh, dw, 0,  0,  0,      0,  0,  0,  0,  precision,
+               gz0, gz1, gy0, gy1, gx0, gx1, shz, orz, shy, ory, shx, orx};
   const auto pull = [&](const Geo3& gc, const float* off_c, const float* mask_c, const float* gcols_c,
                         float* gx_c) { return launch_gather_pull3(gc, off_c, mask_c, gcols_c, boxes, gx_c, s); };
   switch (precision) {

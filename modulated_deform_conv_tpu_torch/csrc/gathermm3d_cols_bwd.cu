@@ -32,15 +32,19 @@
 // wanted).  Outputs, each null when not wanted: gx like x, goff like
 // offset, gmask like mask.  Returns the first CUDA error of the launches, or
 // 0.
+// gz0 .. orx: the tap gate per axis and the block's placement (Geo3): (-1,
+// D), (-1, H), (-1, W) and zeros but on a sharded block.
 extern "C" int gathermm3d_cols_bwd(const float* x, const float* offset, const float* mask, const void* gcols,
                                    int* cnt, int* tcount, long long* tstart, void* pool, void* csr, float* part,
                                    float* gx, float* goff, float* gmask, int B, int C, int D, int H, int W, int OD,
                                    int OH, int OW, int dg, int kd, int kh, int kw, int sd, int sh, int sw, int pd,
                                    int ph, int pw, int dd, int dh, int dw, int tz, int ty, int tx, int precision,
-                                   void* stream) {
+                                   float gz0, float gz1, float gy0, float gy1, float gx0, float gx1, float shz,
+                              float orz, float shy, float ory, float shx, float orx, void* stream) {
   using namespace mdc;
   const Geo3 g{B,  C,  D,  H,  W,  0,  OD, OH, OW, 1, dg, kd, kh, kw, sd, sh,
-               sw, pd, ph, pw, dd, dh, dw, 0,  0,  0,  0, 0,  0,  0,  precision};
+               sw, pd, ph, pw, dd, dh, dw, 0,  0,  0,  0, 0,  0,  0,  precision,
+               gz0, gz1, gy0, gy1, gx0, gx1, shz, orz, shy, ory, shx, orx};
   const ColTiles tl{tz, ty, tx, (D + tz - 1) / tz, (H + ty - 1) / ty, (W + tx - 1) / tx,
                     std::min(tz + 1, D), std::min(ty + 1, H), std::min(tx + 1, W)};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -25,14 +25,19 @@
 // B*OD*OH*OW): float32, or bfloat16 when precision is "bfloat16".  plane ..
 // smem: the route and its plan (gathermm.cols_fwd_plan).  Returns
 // cudaGetLastError().
-extern "C" int gathermm3d_cols_fwd(const float* x, const float* offset, const float* mask, void* cols, int B,
-                                   int C, int D, int H, int W, int OD, int OH, int OW, int dg, int kd, int kh, int kw,
-                                   int sd, int sh, int sw, int pd, int ph, int pw, int dd, int dh, int dw, int plane,
-                                   int gt, int tiles, int nbm, int splits, int cps, int cc, int slot, int smem,
-                                   int precision, void* stream) {
+// gz0 .. orx: the tap gate per axis and the block's placement (Geo3): (-1,
+// D), (-1, H), (-1, W) and zeros but on a sharded block.
+extern "C" int gathermm3d_cols_fwd(const float* x, const float* offset, const float* mask, void* cols, int B, int C,
+                                   int D, int H, int W, int OD, int OH, int OW, int dg, int kd, int kh, int kw,
+                                   int sd, int sh, int sw, int pd, int ph, int pw, int dd, int dh, int dw,
+                                   int plane, int gt, int tiles, int nbm, int splits, int cps, int cc, int slot,
+                                   int smem, int precision, float gz0, float gz1, float gy0, float gy1, float gx0,
+                                   float gx1, float shz, float orz, float shy, float ory, float shx, float orx,
+                                   void* stream) {
   using namespace mdc;
   const Geo3 g{B,  C,  D,  H,  W,  0,  OD, OH, OW, 1, dg, kd, kh, kw, sd, sh,
-               sw, pd, ph, pw, dd, dh, dw, 0,  0,  0,  0, 0,  0,  0,  precision};
+               sw, pd, ph, pw, dd, dh, dw, 0,  0,  0,  0, 0,  0,  0,  precision,
+               gz0, gz1, gy0, gy1, gx0, gx1, shz, orz, shy, ory, shx, orx};
   const ColPlan pl{plane, gt, tiles, nbm, splits, cps, cc, slot, smem};
   return launch_cols_fwd(x, offset, mask, cols, g, pl, static_cast<cudaStream_t>(stream));
 }

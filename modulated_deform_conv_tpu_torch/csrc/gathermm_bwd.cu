@@ -62,14 +62,18 @@ int run(const Geo& g, const float* x, const float* offset, const float* mask, co
 // C/groups*K, O/groups).  Outputs, each null when not wanted: gx like x,
 // goff like offset, gmask like mask, gwt (groups, C/groups*K, O/groups).
 // Returns the first CUDA error of the launches, or 0.
+// gy0 .. orx: the tap gate per axis and the block's placement (Geo): (-1, H),
+// (-1, W) and zeros but on a sharded block.
 extern "C" int gathermm_bwd(const float* x, const float* offset, const float* mask, const float* wk,
                             const float* gout, float* gcols, float* xt, int* boxes, float* part, float* gx,
-                            float* goff, float* gmask, float* gwt, int B, int C, int H, int W, int O, int OH, int OW,
-                            int groups, int dg, int kh, int kw, int sh, int sw, int ph, int pw, int dh, int dw,
-                            int splits, int precision, void* stream) {
+                            float* goff, float* gmask, float* gwt, int B, int C, int H, int W, int O, int OH,
+                            int OW, int groups, int dg, int kh, int kw, int sh, int sw, int ph, int pw, int dh,
+                            int dw, int splits, int precision, float gy0, float gy1, float gx0, float gx1,
+                            float shy, float ory, float shx, float orx, void* stream) {
   using namespace mdc;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Geo g{B, C, H, W, O, OH, OW, groups, dg, kh, kw, sh, sw, ph, pw, dh, dw, 0, 0, 0, 0, 0, precision};
+  const Geo g{B, C, H, W, O, OH, OW, groups, dg, kh, kw, sh, sw, ph, pw, dh, dw, 0, 0, 0, 0, 0, precision,
+              gy0, gy1, gx0, gx1, shy, ory, shx, orx};
   switch (precision) {
     case kFloat32:
       return run<kFloat32>(g, x, offset, mask, wk, gout, gcols, xt, boxes, part, gx, goff, gmask, gwt, splits,

@@ -34,13 +34,17 @@
 // neither grad_offset nor grad_mask is wanted).  Outputs, each null when
 // not wanted: gx like x, goff like offset, gmask like mask.  Returns the
 // first CUDA error of the launches, or 0.
+// gy0 .. orx: the tap gate per axis and the block's placement (Geo): (-1, H),
+// (-1, W) and zeros but on a sharded block.
 extern "C" int gathermm_cols_bwd(const float* x, const float* offset, const float* mask, const void* gcols,
                                  int* cnt, int* tcount, long long* tstart, void* pool, void* csr, float* part,
                                  float* gx, float* goff, float* gmask, int B, int C, int H, int W, int OH, int OW,
                                  int dg, int kh, int kw, int sh, int sw, int ph, int pw, int dh, int dw, int ty,
-                                 int tx, int precision, void* stream) {
+                                 int tx, int precision, float gy0, float gy1, float gx0, float gx1, float shy,
+                                 float ory, float shx, float orx, void* stream) {
   using namespace mdc;
-  const Geo g{B, C, H, W, 0, OH, OW, 1, dg, kh, kw, sh, sw, ph, pw, dh, dw, 0, 0, 0, 0, 0, precision};
+  const Geo g{B, C, H, W, 0, OH, OW, 1, dg, kh, kw, sh, sw, ph, pw, dh, dw, 0, 0, 0, 0, 0, precision,
+              gy0, gy1, gx0, gx1, shy, ory, shx, orx};
   const ColTiles tl{1, ty, tx, 1, (H + ty - 1) / ty, (W + tx - 1) / tx, 1, std::min(ty + 1, H), std::min(tx + 1, W)};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   ColEntry<Geo>* pl = static_cast<ColEntry<Geo>*>(pool);

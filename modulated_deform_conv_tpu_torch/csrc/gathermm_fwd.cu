@@ -34,12 +34,17 @@
 // float32, contiguous, on the current device.  Scratch, allocated by the
 // caller: xt (B, H*W, C); part (splits, B, O, OH, OW), unused when splits
 // is 1.  Returns the first CUDA error of the launches, or 0.
+// gy0 .. orx: the tap gate per axis and the block's placement (Geo): (-1, H),
+// (-1, W) and zeros but on a sharded block.
 extern "C" int gathermm_fwd(const float* x, const float* offset, const float* mask, const float* wf,
                             const float* bias, float* out, float* xt, float* part, int B, int C, int H, int W,
                             int O, int OH, int OW, int groups, int dg, int kh, int kw, int sh, int sw, int ph,
-                            int pw, int dh, int dw, int splits, int precision, void* stream) {
+                            int pw, int dh, int dw, int splits, int precision, float gy0, float gy1,
+                            float gx0, float gx1, float shy, float ory,
+                            float shx, float orx, void* stream) {
   using namespace mdc;
-  const Geo g{B, C, H, W, O, OH, OW, groups, dg, kh, kw, sh, sw, ph, pw, dh, dw, 0, 0, 0, 0, 0, precision};
+  const Geo g{B, C, H, W, O, OH, OW, groups, dg, kh, kw, sh, sw, ph, pw, dh, dw, 0, 0, 0, 0, 0, precision,
+              gy0, gy1, gx0, gx1, shy, ory, shx, orx};
   return static_cast<int>(
       run_fwd(g, x, offset, mask, wf, bias, out, xt, part, splits, nullptr, static_cast<cudaStream_t>(stream)));
 }

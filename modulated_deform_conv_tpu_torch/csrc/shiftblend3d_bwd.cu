@@ -51,7 +51,9 @@ extern "C" int shiftblend3d_bwd(const float* x, const float* offset, const float
   using namespace mdc;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Geo3 g{B,  C,  D,  H,  W,  O,  D,  H,    W,     groups, dg,    kd,   kh,    kw, 1, 1,
-               1,  pd, ph, pw, dd, dh, dw, 1, lo_z, win_z, lo_y,   win_y, lo_x, win_x, precision};
+               1,  pd, ph, pw, dd, dh, dw, 1, lo_z, win_z, lo_y,   win_y, lo_x, win_x, precision,
+               -1.f, static_cast<float>(D), -1.f, static_cast<float>(H), -1.f, static_cast<float>(W),
+               0.f,  0.f,  0.f,  0.f,  0.f,  0.f};
   const auto pull = [&](const Geo3& gc, const float* off_c, const float* mask_c, const float* gcols_c,
                         float* gx_c) { return launch_shift_pull3(gc, off_c, mask_c, gcols_c, gx_c, s); };
   switch (precision) {

@@ -47,7 +47,9 @@ extern "C" int shiftblend3d_fwd(const float* x, const float* offset, const float
                                 int win_x, int splits, int precision, void* stream) {
   using namespace mdc;
   const Geo3 g{B,  C,  D,  H,  W,  O,  D,  H,    W,     groups, dg,    kd,   kh,    kw, 1, 1,
-               1,  pd, ph, pw, dd, dh, dw, 1, lo_z, win_z, lo_y,   win_y, lo_x, win_x, precision};
+               1,  pd, ph, pw, dd, dh, dw, 1, lo_z, win_z, lo_y,   win_y, lo_x, win_x, precision,
+               -1.f, static_cast<float>(D), -1.f, static_cast<float>(H), -1.f, static_cast<float>(W),
+               0.f,  0.f,  0.f,  0.f,  0.f,  0.f};
   return static_cast<int>(
       run_fwd(g, x, offset, mask, wf, bias, out, xt, part, splits, nullptr, static_cast<cudaStream_t>(stream)));
 }

@@ -65,7 +65,8 @@ extern "C" int shiftblend_bwd(const float* x, const float* offset, const float* 
   using namespace mdc;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Geo g{B, C, H, W, O, H, W, groups, dg, kh, kw, 1, 1, ph, pw, dh, dw, 1, lo_y, win_y, lo_x, win_x,
-              precision};
+              precision, -1.f, static_cast<float>(H), -1.f, static_cast<float>(W),
+              0.f, 0.f, 0.f, 0.f};
   switch (precision) {
     case kFloat32:
       return run<kFloat32>(g, x, offset, mask, wk, gout, gcols, xt, part, gx, goff, gmask, gwt, Ry, Rx,

@@ -56,7 +56,8 @@ extern "C" int shiftblend_fwd(const float* x, const float* offset, const float* 
                               int win_y, int lo_x, int win_x, int Ry, int Rx, int halo, int splits, int precision,
                               void* stream) {
   using namespace mdc;
-  const Geo g{B, C, H, W, O, H, W, groups, dg, kh, kw, 1, 1, ph, pw, dh, dw, 1, lo_y, win_y, lo_x, win_x, precision};
+  const Geo g{B, C, H, W, O, H, W, groups, dg, kh, kw, 1, 1, ph, pw, dh, dw, 1, lo_y, win_y, lo_x, win_x, precision,
+              -1.f, static_cast<float>(H), -1.f, static_cast<float>(W), 0.f, 0.f, 0.f, 0.f};
   const Halo h{Ry, Rx, 8};
   return static_cast<int>(run_fwd(g, x, offset, mask, wf, bias, out, xt, part, splits, halo ? &h : nullptr,
                                     static_cast<cudaStream_t>(stream)));

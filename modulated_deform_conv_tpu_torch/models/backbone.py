@@ -38,10 +38,13 @@ def _promote(x: torch.Tensor, param: torch.Tensor) -> torch.Tensor:
 
 class ConvBN(nn.Module):
     """kxk conv (no bias, pad k//2) + GroupNorm(min(32, C)) + optional
-    ReLU."""
+    ReLU.  With `mesh`, on the rank's shard of the (batch, spatial) split:
+    the conv with a halo exchange, the norm with the whole sample's
+    statistics (parallel/sharding.py)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int = 1,
-                 stride: int = 1, relu: bool = True, *, device="cuda",
+                 stride: int = 1, relu: bool = True, *, mesh=None,
+                 batch_axis="data", spatial_axis="space", device="cuda",
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         factory = dict(device=device, dtype=dtype)
@@ -50,34 +53,55 @@ class ConvBN(nn.Module):
         self.norm = nn.GroupNorm(min(32, out_channels), out_channels,
                                  eps=1e-6, **factory)
         self.relu = relu
+        self.mesh, self.batch_axis = mesh, batch_axis
+        self.spatial_axis = spatial_axis
 
     def forward(self, x):
-        y = self.norm(self.conv(_promote(x, self.conv.weight)))
+        x = _promote(x, self.conv.weight)
+        if self.mesh is None:
+            y = self.norm(self.conv(x))
+        else:
+            from ..parallel import sharding
+            c = self.conv
+            y = sharding.sharded_conv(x, c.weight, None, c.stride, c.padding,
+                                      c.dilation, self.mesh, self.batch_axis,
+                                      self.spatial_axis)
+            y = sharding.sharded_group_norm(y, self.norm, self.mesh,
+                                            self.batch_axis,
+                                            self.spatial_axis)
         return F.relu(y) if self.relu else y
 
 
 class DCNBottleneck(nn.Module):
     """ResNet bottleneck whose 3x3 conv is a DCNv2 Pack module (zero-init
     offsets + sigmoid mask), or a plain 3x3 ConvBN when
-    `deformable=False`."""
+    `deformable=False`.  `mesh`, `max_offset`, `batch_axis` and
+    `spatial_axis` go to every layer (models/modules.py)."""
 
     def __init__(self, in_channels: int, channels: int, out_channels: int,
                  deformable_groups: int = 1, stride: int = 1,
-                 deformable: bool = True, impl: str = "auto", *,
-                 device="cuda", dtype: torch.dtype = torch.float32):
+                 deformable: bool = True, impl: str = "auto", *, mesh=None,
+                 max_offset: float = 0.0, batch_axis="data",
+                 spatial_axis="space", device="cuda",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         factory = dict(device=device, dtype=dtype)
-        self.conv1 = ConvBN(in_channels, channels, 1, **factory)
+        shard = dict(mesh=mesh, batch_axis=batch_axis,
+                     spatial_axis=spatial_axis)
+        self.conv1 = ConvBN(in_channels, channels, 1, **shard, **factory)
         if deformable:
             self.dcn = ModulatedDeformConv2dPack(
                 channels, channels, 3, stride=stride, padding=1,
                 deformable_groups=deformable_groups, impl=impl,
-                zero_init_offset=True, sigmoid_mask=True, **factory)
+                zero_init_offset=True, sigmoid_mask=True,
+                max_offset=max_offset, **shard, **factory)
         else:
-            self.conv2 = ConvBN(channels, channels, 3, stride, **factory)
-        self.conv3 = ConvBN(channels, out_channels, 1, relu=False, **factory)
-        self.proj = (ConvBN(in_channels, out_channels, 1, stride, relu=False,
+            self.conv2 = ConvBN(channels, channels, 3, stride, **shard,
+                                **factory)
+        self.conv3 = ConvBN(channels, out_channels, 1, relu=False, **shard,
                             **factory)
+        self.proj = (ConvBN(in_channels, out_channels, 1, stride, relu=False,
+                            **shard, **factory)
                      if in_channels != out_channels or stride != 1 else None)
 
     def forward(self, x):
@@ -90,19 +114,22 @@ class DCNBottleneck(nn.Module):
 
 class DCNStage(nn.Sequential):
     """`blocks` bottlenecks (one ResNet stage), the first with `stride`,
-    named block0, block1, ..."""
+    named block0, block1, ...; the mesh fields go to every block."""
 
     def __init__(self, blocks: int, in_channels: int, channels: int,
                  out_channels: int, deformable_groups: int = 1,
                  stride: int = 1, deformable: bool = True,
-                 impl: str = "auto", *, device="cuda",
+                 impl: str = "auto", *, mesh=None, max_offset: float = 0.0,
+                 batch_axis="data", spatial_axis="space", device="cuda",
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         for i in range(blocks):
             self.add_module(f"block{i}", DCNBottleneck(
                 in_channels if i == 0 else out_channels, channels,
                 out_channels, deformable_groups, stride if i == 0 else 1,
-                deformable, impl, device=device, dtype=dtype))
+                deformable, impl, mesh=mesh, max_offset=max_offset,
+                batch_axis=batch_axis, spatial_axis=spatial_axis,
+                device=device, dtype=dtype))
 
 
 class DCNResNet(nn.Module):

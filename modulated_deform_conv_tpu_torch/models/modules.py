@@ -21,6 +21,16 @@ Initialization follows the flax modules:
 
 Constructors take `device=` (default "cuda") and `dtype=`; nothing is moved
 to another device silently.
+
+Mesh-sharded execution: with `mesh` (a named DeviceMesh, parallel.make_mesh)
+the op runs through parallel/sharding.py (batch sharding, spatial halo
+exchange, group tensor parallelism), `max_offset` being its bounded-offset
+contract.  SPMD: every rank calls the module on its own shard, as
+`sharded_deform_conv` takes it, and the parameters stay whole on every rank;
+their gradients are summed over the axes the data is split over, so every
+rank holds the same, global, gradient.  A Pack module takes x with all
+channels on every rank of `group_axis`, and its predictors run on the
+spatial shards with a halo exchange of their own (`sharding.sharded_conv`).
 """
 from __future__ import annotations
 
@@ -31,7 +41,7 @@ import torch
 from torch import nn
 
 from ..ops import api as ops_api
-from ..utils.config import ntuple
+from ..utils.config import DeformConvSpec, ntuple
 
 IntOrSeq = Union[int, Sequence[int]]
 
@@ -52,8 +62,10 @@ class _DeformConvBase(nn.Module):
                  padding: IntOrSeq = 0, dilation: IntOrSeq = 1,
                  groups: int = 1, deformable_groups: int = 1,
                  bias: bool = False, in_step: int = 64, impl: str = "auto",
-                 offset_bound: Optional[float] = None, *, device="cuda",
-                 dtype: torch.dtype = torch.float32):
+                 offset_bound: Optional[float] = None, *, mesh=None,
+                 batch_axis: Optional[str] = "data", spatial_axis="space",
+                 group_axis: Optional[str] = None, max_offset: float = 0.0,
+                 device="cuda", dtype: torch.dtype = torch.float32):
         super().__init__()
         if in_channels % groups:
             raise ValueError("in_channels not divisible by groups")
@@ -72,6 +84,9 @@ class _DeformConvBase(nn.Module):
         # Bounded-offset contract enabling the shift-blend kernel; None
         # keeps the general kernel.
         self.offset_bound = offset_bound
+        self.mesh, self.batch_axis = mesh, batch_axis
+        self.spatial_axis, self.group_axis = spatial_axis, group_axis
+        self.max_offset = max_offset
         self.weight = nn.Parameter(torch.empty(
             (out_channels, in_channels // groups) + self.kernel_size,
             device=device, dtype=dtype))
@@ -83,7 +98,40 @@ class _DeformConvBase(nn.Module):
         _fan_in_uniform_(self.weight,
                          in_channels * math.prod(self.kernel_size))
 
+    def _spec(self) -> DeformConvSpec:
+        return DeformConvSpec.make(
+            self._ndim, self.kernel_size, self.stride, self.padding,
+            self.dilation, self.groups, self.deformable_groups, self.in_step,
+            modulated=self._modulated)
+
+    def _group_split(self):
+        """(size, coordinate) of group_axis on the mesh, (1, 0) without."""
+        if self.mesh is None or self.group_axis is None:
+            return 1, 0
+        from ..parallel.sharding import axis_sizes
+        return (axis_sizes(self.mesh)[self.group_axis],
+                self.mesh.get_local_rank(self.group_axis))
+
+    def _sharded_conv(self, x, offset, mask):
+        """The op on this rank's shards; weight and bias cut to the rank's
+        output channels where group_axis splits them."""
+        from ..parallel import sharding
+        weight, bias = self.weight, self.bias
+        n_g, i_g = self._group_split()
+        if n_g > 1:
+            rows = self.out_channels // n_g
+            weight, bias = (None if t is None else sharding.sum_grad(
+                t, self.mesh, [self.group_axis]).narrow(0, i_g * rows, rows)
+                for t in (weight, bias))
+        return sharding.sharded_deform_conv(
+            x, offset, mask if self._modulated else None, weight, bias,
+            self._spec(), self.mesh, batch_axis=self.batch_axis,
+            spatial_axis=self.spatial_axis, max_offset=self.max_offset,
+            group_axis=self.group_axis, impl=self.impl)
+
     def _conv(self, x, offset, mask):
+        if self.mesh is not None:
+            return self._sharded_conv(x, offset, mask)
         kwargs = dict(stride=self.stride, padding=self.padding,
                       dilation=self.dilation, groups=self.groups,
                       deformable_groups=self.deformable_groups,
@@ -165,18 +213,46 @@ class _PackBase(_DeformConvBase):
 
     def _predict(self, conv: nn.Module, x):
         """A predictor conv in x's dtype, as the JAX package's
-        `_PredictorConv`: weight and bias cast to x's dtype."""
-        return conv._conv_forward(x, conv.weight.to(x.dtype),
-                                  conv.bias.to(x.dtype))
+        `_PredictorConv`: weight and bias cast to x's dtype.  With a mesh,
+        on the rank's spatial shard (`sharding.sharded_conv`)."""
+        w, b = conv.weight.to(x.dtype), conv.bias.to(x.dtype)
+        if self.mesh is None:
+            return conv._conv_forward(x, w, b)
+        from ..parallel import sharding
+        if self._aligned():
+            # Each rank of the group axis reads its own channels of the
+            # prediction.
+            w, b = (sharding.sum_grad(t, self.mesh, [self.group_axis])
+                    for t in (w, b))
+        return sharding.sharded_conv(x, w, b, self.stride, self.padding,
+                                     self.dilation, self.mesh,
+                                     self.batch_axis, self.spatial_axis)
+
+    def _aligned(self) -> bool:
+        """Does group_axis split the groups (group-aligned mode)?"""
+        n_g, _ = self._group_split()
+        return (n_g > 1 and self.groups % n_g == 0
+                and self.deformable_groups % n_g == 0)
 
     def forward(self, x):
+        aligned = self._aligned()
+        if aligned:
+            # Every rank of the group axis holds all of x and uses its own
+            # channels of it: its gradient is summed over the axis.
+            from ..parallel.sharding import sum_grad
+            x = sum_grad(x, self.mesh, [self.group_axis])
         offset = self._predict(self.conv_offset, x)
+        mask = None
         if self._modulated:
             mask = self._predict(self.conv_mask, x)
             if self.sigmoid_mask:
                 mask = torch.sigmoid(mask)
-            return self._conv(x, offset, mask)
-        return self._conv(x, offset, None)
+        if aligned:
+            n_g, i_g = self._group_split()
+            x, offset, mask = (None if t is None else t.narrow(
+                1, i_g * (t.shape[1] // n_g), t.shape[1] // n_g)
+                for t in (x, offset, mask))
+        return self._conv(x, offset, mask)
 
 
 class DeformConv2dPack(_PackBase):

@@ -44,8 +44,17 @@ _IMPLS = ("auto", "torch", "cuda", "shiftblend")
 
 
 def _dispatch(x, offset, mask, weight, bias, spec: DeformConvSpec, impl: str,
-              precision: str = "tensorfloat32", offset_bound=None,
-              gate_bounds=None, debug_check_bounds: bool = False):
+              precision: str = "tensorfloat32", out_sizes=None,
+              offset_bound=None, gate_bounds=None,
+              debug_check_bounds: bool = False, block_origin=None):
+    """The op on every path.  `out_sizes` (an output grid given rather than
+    derived from x), `gate_bounds` (a per-dim (lo, hi) tap gate in place of
+    (-1, S_d), in x's coordinates) and `block_origin` (a per-dim (shift,
+    origin): x is a block of a larger input, whose row 0 is the input's row
+    `origin`; a sample's position is taken and gated in the input's
+    coordinates, (base + shift) + offset) are the sharding layer's block
+    mode, taken by the plain path and the gather kernels; with `out_sizes`
+    the shapes are not validated here, as in the JAX package."""
     if impl not in _IMPLS:
         raise ValueError(f"impl must be one of {_IMPLS}, got {impl!r}")
     if precision not in PRECISIONS:
@@ -62,18 +71,22 @@ def _dispatch(x, offset, mask, weight, bias, spec: DeformConvSpec, impl: str,
                 f"offset_bound = {offset_bound}; out-of-bound tap "
                 "contributions are dropped (bounded-offset contract)",
                 stacklevel=3)
-    spec.validate(x.shape, offset.shape, weight.shape,
-                  None if mask is None else mask.shape,
-                  None if bias is None else bias.shape)
+    if out_sizes is None:
+        spec.validate(x.shape, offset.shape, weight.shape,
+                      None if mask is None else mask.shape,
+                      None if bias is None else bias.shape)
     if impl != "torch":
         out = maybe_cuda(x, offset, mask, weight, bias, spec,
                          require=impl in ("cuda", "shiftblend"),
                          precision=precision, offset_bound=offset_bound,
-                         impl=impl, gate_bounds=gate_bounds)
+                         impl=impl, gate_bounds=gate_bounds,
+                         out_sizes=out_sizes, block_origin=block_origin)
         if out is not None:
             return out
     return core.deform_conv_nd(x, offset, mask, weight, bias, spec,
-                               precision=precision, gate_bounds=gate_bounds)
+                               out_sizes=out_sizes, precision=precision,
+                               gate_bounds=gate_bounds,
+                               block_origin=block_origin)
 
 
 def deform_conv2d(input: torch.Tensor, offset: torch.Tensor,

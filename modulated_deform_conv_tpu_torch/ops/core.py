@@ -69,7 +69,8 @@ def _base_positions(spec: DeformConvSpec, out_sizes: Tuple[int, ...],
 def deform_conv_columns(x: torch.Tensor, offset: torch.Tensor,
                         mask: Optional[torch.Tensor], spec: DeformConvSpec,
                         out_sizes: Optional[Tuple[int, ...]] = None,
-                        gate_bounds=None, corner_window=None) -> torch.Tensor:
+                        gate_bounds=None, corner_window=None,
+                        block_origin=None) -> torch.Tensor:
     """Offset-driven gather producing the column tensor.
 
     Args:
@@ -83,6 +84,12 @@ def deform_conv_columns(x: torch.Tensor, offset: torch.Tensor,
       corner_window: optional per-dim (lo, W) of the bounded-offset
         contract (the shift-blend kernel's): along axis d, corner c of a tap
         is kept only if lo <= floor(pos_d) - base_d + c <= lo + W - 1.
+      block_origin: optional per-dim (shift, origin) placing x, a block of a
+        larger input, in it: the position is taken in the whole input,
+        (base_d + shift) + offset, rounded as it rounds there, and gated
+        there (the gate moved by the origin); only the integer low corner
+        moves to the block, floor(pos_d) - origin.  The sharding layer's
+        blocks.
 
     Returns:
       columns (B, P, C, K), sampled in >= fp32 and cast back to x.dtype.
@@ -97,17 +104,26 @@ def deform_conv_columns(x: torch.Tensor, offset: torch.Tensor,
 
     base = _base_positions(spec, OS, x.device).permute(1, 0, 2)  # (K, nd, P)
     off = offset.reshape(B, dg, K, nd, P).to(acc)
-    pos = base[None, None] + off                              # (B, dg, K, nd, P)
+    if block_origin is not None:
+        shift, origin = (torch.tensor(v, dtype=torch.float32,
+                                      device=x.device).reshape(nd, 1)
+                         for v in zip(*block_origin))
+        base = base + shift
+    pos = base[None, None] + off                          # (B, dg, K, nd, P)
 
     gate = torch.ones(pos.shape[:3] + pos.shape[4:], dtype=torch.bool,
                       device=x.device)                        # (B, dg, K, P)
     for d in range(nd):
         lo = -1.0 if gate_bounds is None else gate_bounds[d][0]
         hi = float(S[d]) if gate_bounds is None else gate_bounds[d][1]
-        gate = gate & (pos[:, :, :, d] > lo) & (pos[:, :, :, d] < hi)
+        o = 0.0 if block_origin is None else float(block_origin[d][1])
+        gate = (gate & (pos[:, :, :, d] > lo + o)
+                & (pos[:, :, :, d] < hi + o))
 
     low = torch.floor(pos)
     frac = pos - low
+    if block_origin is not None:
+        low = low - origin.to(low.dtype)
     ilow = low.to(torch.int64)
     rel = None if corner_window is None else low - base[None, None]
 
@@ -156,7 +172,7 @@ def _round_bf16(t: torch.Tensor) -> torch.Tensor:
 def _deform_conv_nd(x, offset, mask, weight, bias, spec: DeformConvSpec,
                     out_sizes: Optional[Tuple[int, ...]] = None,
                     precision: str = "tensorfloat32", gate_bounds=None,
-                    corner_window=None) -> torch.Tensor:
+                    corner_window=None, block_origin=None) -> torch.Tensor:
     """One un-chunked forward: column gather, grouped contraction with
     >= fp32 accumulation, bias in >= fp32, cast to x.dtype.
 
@@ -172,7 +188,8 @@ def _deform_conv_nd(x, offset, mask, weight, bias, spec: DeformConvSpec,
 
     cols = deform_conv_columns(x, offset, mask, spec, OS,
                                gate_bounds=gate_bounds,
-                               corner_window=corner_window)   # (B, P, C, K)
+                               corner_window=corner_window,
+                               block_origin=block_origin)     # (B, P, C, K)
     cols = cols.reshape(B, P, g, C // g, K).to(acc)
     w = weight.reshape(g, O // g, C // g, K).to(x.dtype).to(acc)
     if precision == "bfloat16":
@@ -185,7 +202,8 @@ def _deform_conv_nd(x, offset, mask, weight, bias, spec: DeformConvSpec,
 
 
 def conv_vjp(x, offset, mask, weight, grad_out, spec: DeformConvSpec,
-             precision: str = "tensorfloat32", corner_window=None):
+             precision: str = "tensorfloat32", corner_window=None,
+             out_sizes=None, gate_bounds=None, block_origin=None):
     """(grad_x, grad_offset, grad_mask, grad_weight) of the bias-free
     `_deform_conv_nd` at these inputs for the cotangent `grad_out`, by
     autograd; grad_mask is None without a mask.  The kernels' backward
@@ -194,8 +212,10 @@ def conv_vjp(x, offset, mask, weight, grad_out, spec: DeformConvSpec,
         ins = [None if t is None else t.detach().requires_grad_(True)
                for t in (x, offset, mask, weight)]
         out = _deform_conv_nd(ins[0], ins[1], ins[2], ins[3], None, spec,
-                              precision=precision,
-                              corner_window=corner_window)
+                              out_sizes=out_sizes, precision=precision,
+                              gate_bounds=gate_bounds,
+                              corner_window=corner_window,
+                              block_origin=block_origin)
         live = [t for t in ins if t is not None]
         grads = iter(torch.autograd.grad(out, live, grad_out))
     return tuple(None if t is None else next(grads) for t in ins)
@@ -256,7 +276,7 @@ def deform_conv_nd(x: torch.Tensor, offset: torch.Tensor,
                    bias: Optional[torch.Tensor], spec: DeformConvSpec,
                    out_sizes: Optional[Tuple[int, ...]] = None,
                    precision: str = "tensorfloat32",
-                   gate_bounds=None) -> torch.Tensor:
+                   gate_bounds=None, block_origin=None) -> torch.Tensor:
     """Full forward with `in_step` micro-batch chunking.
 
     `in_step` is a pure memory knob: the chunk is gcd(batch, in_step),
@@ -284,11 +304,13 @@ def deform_conv_nd(x: torch.Tensor, offset: torch.Tensor,
         step -= 1
     if step >= B or step <= 0:
         return _deform_conv_nd(x, offset, mask, weight, bias, spec,
-                               out_sizes, precision, gate_bounds)
+                               out_sizes, precision, gate_bounds,
+                               block_origin=block_origin)
 
     def chunk(xc, oc, mc, weight, bias):
         return _deform_conv_nd(xc, oc, mc, weight, bias, spec, out_sizes,
-                               precision, gate_bounds)
+                               precision, gate_bounds,
+                               block_origin=block_origin)
 
     outs = []
     for i in range(0, B, step):

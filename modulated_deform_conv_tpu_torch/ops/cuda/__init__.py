@@ -60,15 +60,25 @@ def select_kernel(x, spec: DeformConvSpec, offset_bound=None
 
 def maybe_cuda(x, offset, mask, weight, bias, spec: DeformConvSpec,
                require: bool = False, precision: str = "tensorfloat32",
-               offset_bound=None, impl: str = "auto", gate_bounds=None):
+               offset_bound=None, impl: str = "auto", gate_bounds=None,
+               out_sizes=None, block_origin=None):
     """Return a kernel's output, or None for the plain PyTorch path.
 
     With require=True (impl="cuda" / "shiftblend") raises instead of
-    falling back when no kernel takes the config.  `gate_bounds` that would
-    take a kernel raise: that mode of the kernels is not ported yet, and
-    the plain path would hide that."""
+    falling back when no kernel takes the config.  The sharding layer's
+    block mode (`out_sizes`, a given output grid; `gate_bounds`, a per-dim
+    (lo, hi) tap gate; `block_origin`, the block's placement in the whole
+    input) routes to the gather kernels only, as the JAX package's
+    `maybe_pallas` routes `gate_bounds`: shift-blend's own sharded mode is
+    its lead mode, which the sharding layer would call directly."""
+    block_mode = (gate_bounds is not None or block_origin is not None
+                  or out_sizes is not None)
     if impl == "shiftblend":
-        reason = shiftblend.ineligible_reason(x, spec, offset_bound)
+        reason = shiftblend.ineligible_reason(x, spec, offset_bound,
+                                              out_sizes)
+        if gate_bounds is not None or block_origin is not None:
+            reason = reason or ("gate_bounds / block_origin overrides not "
+                                "supported")
         if reason is not None:
             raise NotImplementedError(
                 f"shiftblend path unavailable: {reason}")
@@ -76,18 +86,19 @@ def maybe_cuda(x, offset, mask, weight, bias, spec: DeformConvSpec,
     else:
         if not require and not x.is_cuda:
             return None
-        name, reason = select_kernel(x, spec, offset_bound)
+        if block_mode:
+            reason = gathermm.ineligible_reason(x, spec, out_sizes)
+            name = "gathermm" if reason is None else None
+        else:
+            name, reason = select_kernel(x, spec, offset_bound)
         if name is None:
             if require:
                 raise NotImplementedError(
                     f"cuda path unavailable for this config: {reason}")
             return None
-    if gate_bounds is not None:
-        raise NotImplementedError(
-            "gate_bounds on the kernel path is not ported yet (the sharding "
-            "slice of the port); pass impl='torch'")
     if name == "shiftblend":
         return shiftblend.deform_conv_shift(x, offset, mask, weight, bias,
                                             spec, precision, offset_bound)
     return gathermm.deform_conv_fused(x, offset, mask, weight, bias, spec,
-                                      precision)
+                                      precision, out_sizes, gate_bounds,
+                                      block_origin)

@@ -17,7 +17,12 @@ corner weights) are the corner rules the CUDA kernels apply
 and tap_grad / grad3_at for their derivatives).
 
 Each wrapper launches its kernel on CUDA tensors and runs its plain PyTorch
-version (`*_reference`, one for both ranks) on CPU tensors only.
+version (`*_reference`, one for both ranks) on CPU tensors only.  Every
+wrapper also takes the JAX package's sharded-block mode (`_prep(gates)`,
+gathermm.py:374-405): `out_sizes`, an output grid given rather than derived
+from x, and `gate_bounds`, a per-dim (lo, hi) tap gate in place of the open
+interval (-1, S_d), with -1 <= lo < hi <= S_d (lib.gates checks it).
+Corners outside the block still count zero.
 `_GathermmFwd` joins the fused pair as one differentiable op, and
 `_GathermmCols` the column pair; `_ColumnsGemm` is the columns path's
 grouped product (cuBLAS), in the precision mode asked for.
@@ -208,8 +213,10 @@ def cols_fwd_plan(spec: DeformConvSpec, S, OS, B: int, C: int,
                        (2 if per > 1 else 1) * cc * nbm * slot * 4)
 
 
-def ineligible_reason(x: torch.Tensor, spec: DeformConvSpec) -> Optional[str]:
-    """None if the general kernel path takes this config, else a reason."""
+def ineligible_reason(x: torch.Tensor, spec: DeformConvSpec,
+                      out_sizes=None) -> Optional[str]:
+    """None if the general kernel path takes this config, else a reason.
+    Any output grid `out_sizes` is taken."""
     if spec.ndim not in (2, 3):
         return "cuda kernels support 2D and 3D only"
     if x.dtype not in (torch.float32, torch.bfloat16, torch.float16):
@@ -221,49 +228,66 @@ def ineligible_reason(x: torch.Tensor, spec: DeformConvSpec) -> Optional[str]:
 
 def gathermm_fwd_reference(x, offset, mask, weight, bias,
                            spec: DeformConvSpec,
-                           precision: str = "tensorfloat32") -> torch.Tensor:
+                           precision: str = "tensorfloat32", out_sizes=None,
+                           gate_bounds=None,
+                           block_origin=None) -> torch.Tensor:
     """Plain PyTorch version of the kernel: the same function on the same
     float32 tensors (columns by gather, grouped contraction with fp32
     accumulation; "bfloat16" rounds both operands to bf16)."""
     return core._deform_conv_nd(x, offset, mask, weight, bias, spec,
-                                precision=precision)
+                                out_sizes=out_sizes, precision=precision,
+                                gate_bounds=gate_bounds,
+                                block_origin=block_origin)
 
 
-def _geometry(x, weight, spec: DeformConvSpec):
+def _out_sizes(x, spec: DeformConvSpec, out_sizes=None):
+    """The output grid: `out_sizes` where given, else derived from x."""
+    return (spec.out_sizes(x.shape[2:]) if out_sizes is None
+            else tuple(int(o) for o in out_sizes))
+
+
+def _geometry(x, weight, spec: DeformConvSpec, out_sizes=None):
     """The kernels' leading int arguments: B, C, *S, O, *OS, groups, dg,
     *kernel, *stride, *padding, *dilation."""
-    return (*x.shape, weight.shape[0], *spec.out_sizes(x.shape[2:]),
+    return (*x.shape, weight.shape[0], *_out_sizes(x, spec, out_sizes),
             spec.groups, spec.deformable_groups, *spec.kernel, *spec.stride,
             *spec.padding, *spec.dilation)
 
 
-def _fwd(name, x, offset, mask, weight, bias, spec, precision):
-    lib.check_inputs(name, x, offset, mask, weight, bias, spec)
-    reason = ineligible_reason(x, spec)
+def _fwd(name, x, offset, mask, weight, bias, spec, precision, out_sizes,
+         gate_bounds, block_origin):
+    lib.check_inputs(name, x, offset, mask, weight, bias, spec, out_sizes)
+    reason = ineligible_reason(x, spec, out_sizes)
     if reason is not None:
         raise NotImplementedError(f"{name}: {reason}")
     out = torch.empty((x.shape[0], weight.shape[0])
-                      + spec.out_sizes(x.shape[2:]), dtype=torch.float32,
+                      + _out_sizes(x, spec, out_sizes), dtype=torch.float32,
                       device=x.device)
     xt, part, splits = lib.fwd_buffers(x, weight, spec, out)
     lib.launch(name, x, (x, offset, mask, lib.fwd_weight(weight, spec.groups),
                          bias, out, xt, part),
-               (*_geometry(x, weight, spec), splits,
-                lib.PRECISION_CODES[precision]))
+               (*_geometry(x, weight, spec, out_sizes), splits,
+                lib.PRECISION_CODES[precision]),
+               lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin))
     return out
 
 
 def gathermm_fwd(x, offset, mask, weight, bias, spec: DeformConvSpec,
-                 precision: str = "tensorfloat32") -> torch.Tensor:
-    """General-offset 2D DCN forward, (B, O, OH, OW) float32.
+                 precision: str = "tensorfloat32", out_sizes=None,
+                 gate_bounds=None, block_origin=None) -> torch.Tensor:
+    """General-offset 2D DCN forward, (B, O, OH, OW) float32, on the output
+    grid `out_sizes` (None: derived from x) with the tap gate `gate_bounds`
+    (None: the open interval (-1, S_d)).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel or
     raise.  Inputs: float32, contiguous, on one device."""
     if x.device.type == "cpu":
+        lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin)
         return gathermm_fwd_reference(x, offset, mask, weight, bias, spec,
-                                      precision)
+                                      precision, out_sizes, gate_bounds,
+                                      block_origin)
     out = _fwd("gathermm_fwd", x, offset, mask, weight, bias, spec,
-               precision)
+               precision, out_sizes, gate_bounds, block_origin)
     gathermm_fwd.launches += 1
     return out
 
@@ -272,16 +296,20 @@ gathermm_fwd.launches = 0
 
 
 def gathermm3d_fwd(x, offset, mask, weight, bias, spec: DeformConvSpec,
-                   precision: str = "tensorfloat32") -> torch.Tensor:
-    """General-offset 3D DCN forward, (B, O, OD, OH, OW) float32.
+                   precision: str = "tensorfloat32", out_sizes=None,
+                   gate_bounds=None, block_origin=None) -> torch.Tensor:
+    """General-offset 3D DCN forward, (B, O, OD, OH, OW) float32, as
+    `gathermm_fwd`.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel or
     raise.  Inputs: float32, contiguous, on one device."""
     if x.device.type == "cpu":
+        lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin)
         return gathermm3d_fwd_reference(x, offset, mask, weight, bias, spec,
-                                        precision)
+                                        precision, out_sizes, gate_bounds,
+                                        block_origin)
     out = _fwd("gathermm3d_fwd", x, offset, mask, weight, bias, spec,
-               precision)
+               precision, out_sizes, gate_bounds, block_origin)
     gathermm3d_fwd.launches += 1
     return out
 
@@ -291,11 +319,14 @@ gathermm3d_fwd.launches = 0
 
 def gathermm_bwd_reference(x, offset, mask, weight, grad_out,
                            spec: DeformConvSpec,
-                           precision: str = "tensorfloat32"):
+                           precision: str = "tensorfloat32", out_sizes=None,
+                           gate_bounds=None, block_origin=None):
     """Plain PyTorch version of the backward kernel: autograd through
     `gathermm_fwd_reference` without bias.  Returns (grad_x, grad_offset,
     grad_mask or None, grad_weight)."""
-    return core.conv_vjp(x, offset, mask, weight, grad_out, spec, precision)
+    return core.conv_vjp(x, offset, mask, weight, grad_out, spec, precision,
+                         out_sizes=out_sizes, gate_bounds=gate_bounds,
+                         block_origin=block_origin)
 
 
 # The plain versions take either rank.
@@ -303,13 +334,14 @@ gathermm3d_fwd_reference = gathermm_fwd_reference
 gathermm3d_bwd_reference = gathermm_bwd_reference
 
 
-def _bwd(name, x, offset, mask, weight, grad_out, spec, precision, needs):
-    lib.check_inputs(name, x, offset, mask, weight, None, spec)
-    reason = ineligible_reason(x, spec)
+def _bwd(name, x, offset, mask, weight, grad_out, spec, precision, needs,
+         out_sizes, gate_bounds, block_origin):
+    lib.check_inputs(name, x, offset, mask, weight, None, spec, out_sizes)
+    reason = ineligible_reason(x, spec, out_sizes)
     if reason is not None:
         raise NotImplementedError(f"{name}: {reason}")
     B, dg = x.shape[0], spec.deformable_groups
-    OS = spec.out_sizes(x.shape[2:])
+    OS = _out_sizes(x, spec, out_sizes)
     lib.check_grad_out(name, grad_out, x, (B, weight.shape[0]) + OS)
     # The 3D kernel runs gcols and the gradients read from it in batch
     # chunks of gcd(B, in_step): a memory knob that does not change the
@@ -330,15 +362,17 @@ def _bwd(name, x, offset, mask, weight, grad_out, spec, precision, needs):
     wk = lib.tap_major_weight(weight, spec.groups)
     lib.launch(name, x, (
         x, offset, mask, wk, grad_out, gcols, xt, tiles, part, gx, goff,
-        gmask, gwt), (*_geometry(x, weight, spec),
+        gmask, gwt), (*_geometry(x, weight, spec, out_sizes),
                *(() if b_step is None else (b_step,)), splits,
-               lib.PRECISION_CODES[precision]))
+               lib.PRECISION_CODES[precision]),
+        lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin))
     gw = None if gwt is None else lib.ungrouped_weight(gwt, weight.shape)
     return gx, goff, gmask, gw
 
 
 def gathermm_bwd(x, offset, mask, weight, grad_out, spec: DeformConvSpec,
-                 precision: str = "tensorfloat32", needs=(True,) * 4):
+                 precision: str = "tensorfloat32", needs=(True,) * 4,
+                 out_sizes=None, gate_bounds=None, block_origin=None):
     """General-offset 2D DCN backward without the bias: (grad_x,
     grad_offset, grad_mask, grad_weight), float32, each None where `needs`
     says it is not wanted (grad_mask also without a mask).
@@ -346,11 +380,13 @@ def gathermm_bwd(x, offset, mask, weight, grad_out, spec: DeformConvSpec,
     CPU tensors run the plain version; CUDA tensors launch the kernel or
     raise.  Inputs: float32, contiguous, on one device."""
     if x.device.type == "cpu":
+        lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin)
         grads = gathermm_bwd_reference(x, offset, mask, weight, grad_out,
-                                       spec, precision)
+                                       spec, precision, out_sizes,
+                                       gate_bounds, block_origin)
         return tuple(g if n else None for g, n in zip(grads, needs))
     grads = _bwd("gathermm_bwd", x, offset, mask, weight, grad_out, spec,
-                 precision, needs)
+                 precision, needs, out_sizes, gate_bounds, block_origin)
     gathermm_bwd.launches += 1
     return grads
 
@@ -359,17 +395,20 @@ gathermm_bwd.launches = 0
 
 
 def gathermm3d_bwd(x, offset, mask, weight, grad_out, spec: DeformConvSpec,
-                   precision: str = "tensorfloat32", needs=(True,) * 4):
+                   precision: str = "tensorfloat32", needs=(True,) * 4,
+                   out_sizes=None, gate_bounds=None, block_origin=None):
     """General-offset 3D DCN backward without the bias, as `gathermm_bwd`.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel or
     raise.  Inputs: float32, contiguous, on one device."""
     if x.device.type == "cpu":
+        lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin)
         grads = gathermm3d_bwd_reference(x, offset, mask, weight, grad_out,
-                                         spec, precision)
+                                         spec, precision, out_sizes,
+                                         gate_bounds, block_origin)
         return tuple(g if n else None for g, n in zip(grads, needs))
     grads = _bwd("gathermm3d_bwd", x, offset, mask, weight, grad_out, spec,
-                 precision, needs)
+                 precision, needs, out_sizes, gate_bounds, block_origin)
     gathermm3d_bwd.launches += 1
     return grads
 
@@ -379,15 +418,21 @@ gathermm3d_bwd.launches = 0
 
 class _GathermmFwd(torch.autograd.Function):
     """The general-offset op without its dtype casts: the forward and
-    backward kernels of the config's rank.  x, offset, mask and weight are
-    saved; the columns are recomputed in the backward, never saved."""
+    backward kernels of the config's rank, on the output grid `out_sizes`
+    with the tap gate `gate_bounds` (None: the defaults).  x, offset, mask
+    and weight are saved; the columns are recomputed in the backward, never
+    saved."""
 
     @staticmethod
-    def forward(ctx, x, offset, mask, weight, bias, spec, precision):
+    def forward(ctx, x, offset, mask, weight, bias, spec, precision,
+                out_sizes=None, gate_bounds=None, block_origin=None):
         ctx.save_for_backward(x, offset, mask, weight)
         ctx.spec, ctx.precision = spec, precision
+        ctx.out_sizes, ctx.gate_bounds = out_sizes, gate_bounds
+        ctx.block_origin = block_origin
         fwd = gathermm_fwd if spec.ndim == 2 else gathermm3d_fwd
-        return fwd(x, offset, mask, weight, bias, spec, precision)
+        return fwd(x, offset, mask, weight, bias, spec, precision, out_sizes,
+                   gate_bounds, block_origin)
 
     @staticmethod
     @once_differentiable
@@ -397,10 +442,11 @@ class _GathermmFwd(torch.autograd.Function):
         bwd = gathermm_bwd if ctx.spec.ndim == 2 else gathermm3d_bwd
         gx, goff, gmask, gw = bwd(
             x, offset, mask, weight, grad_out.contiguous(), ctx.spec,
-            ctx.precision, needs[:4])
+            ctx.precision, needs[:4], ctx.out_sizes, ctx.gate_bounds,
+            ctx.block_origin)
         gb = (grad_out.sum((0,) + tuple(range(2, grad_out.ndim)))
               if needs[4] else None)
-        return gx, goff, gmask, gw, gb, None, None
+        return gx, goff, gmask, gw, gb, None, None, None, None, None
 
 
 # ---- the columns path ------------------------------------------------------
@@ -413,25 +459,32 @@ def _cols_dtype(precision: str) -> torch.dtype:
 
 
 def gathermm_cols_reference(x, offset, mask, spec: DeformConvSpec,
-                            precision: str = "tensorfloat32") -> torch.Tensor:
+                            precision: str = "tensorfloat32", out_sizes=None,
+                            gate_bounds=None,
+                            block_origin=None) -> torch.Tensor:
     """Plain PyTorch version of the column kernels, either rank:
     `core.deform_conv_columns` laid out as the kernels lay the columns out,
     (C * K, B * P) with row c * K + k and column b * P + p, in the mode's
     columns dtype."""
-    cols = core.deform_conv_columns(x, offset, mask, spec)      # (B, P, C, K)
+    cols = core.deform_conv_columns(x, offset, mask, spec, out_sizes,
+                                    gate_bounds=gate_bounds,
+                                    block_origin=block_origin)  # (B, P, C, K)
     cols = cols.permute(2, 3, 0, 1).reshape(x.shape[1] * spec.tap_count, -1)
     return cols.to(_cols_dtype(precision)).contiguous()
 
 
 def gathermm_cols_bwd_reference(x, offset, mask, gcols, spec: DeformConvSpec,
-                                precision: str = "tensorfloat32"):
+                                precision: str = "tensorfloat32",
+                                out_sizes=None, gate_bounds=None,
+                                block_origin=None):
     """Plain PyTorch version of the column backward kernels: autograd's VJP
     of `gathermm_cols_reference` for the cotangent gcols.  Returns (grad_x,
     grad_offset, grad_mask or None)."""
     with torch.enable_grad():
         ins = [None if t is None else t.detach().requires_grad_(True)
                for t in (x, offset, mask)]
-        cols = gathermm_cols_reference(*ins, spec, precision)
+        cols = gathermm_cols_reference(*ins, spec, precision, out_sizes,
+                                       gate_bounds, block_origin)
         live = [t for t in ins if t is not None]
         grads = iter(torch.autograd.grad(cols, live, gcols))
     return tuple(None if t is None else next(grads) for t in ins)
@@ -441,47 +494,57 @@ gathermm3d_cols_reference = gathermm_cols_reference
 gathermm3d_cols_bwd_reference = gathermm_cols_bwd_reference
 
 
-def _cols_geometry(x, spec: DeformConvSpec):
+def _cols_geometry(x, spec: DeformConvSpec, out_sizes=None):
     """The column kernels' int arguments: B, C, *S, *OS, dg, *kernel,
     *stride, *padding, *dilation."""
-    return (*x.shape, *spec.out_sizes(x.shape[2:]), spec.deformable_groups,
-            *spec.kernel, *spec.stride, *spec.padding, *spec.dilation)
+    return (*x.shape, *_out_sizes(x, spec, out_sizes),
+            spec.deformable_groups, *spec.kernel, *spec.stride,
+            *spec.padding, *spec.dilation)
 
 
-def _cols_check(name, x, offset, mask, spec):
-    lib.check_inputs(name, x, offset, mask, None, None, spec)
+def _cols_check(name, x, offset, mask, spec, out_sizes=None):
+    lib.check_inputs(name, x, offset, mask, None, None, spec, out_sizes)
     # The kernels keep a (tap, batch, position) index in an int.
     if spec.tap_count * x.shape[0] * math.prod(
-            spec.out_sizes(x.shape[2:])) >= 2 ** 31:
+            _out_sizes(x, spec, out_sizes)) >= 2 ** 31:
         raise NotImplementedError(f"{name}: K * B * P must stay below 2^31")
 
 
-def _cols_fwd(name, x, offset, mask, spec, precision, route=None):
+def _cols_fwd(name, x, offset, mask, spec, precision, route=None,
+              out_sizes=None, gate_bounds=None, block_origin=None):
     """Launch a column forward kernel.  `route` ("plane" or "gather")
     forces one, None for cols_fwd_plan's choice."""
-    _cols_check(name, x, offset, mask, spec)
-    OS = spec.out_sizes(x.shape[2:])
+    _cols_check(name, x, offset, mask, spec, out_sizes)
+    OS = _out_sizes(x, spec, out_sizes)
     plan = cols_fwd_plan(spec, x.shape[2:], OS, x.shape[0], x.shape[1],
                          route)
     cols = torch.empty((x.shape[1] * spec.tap_count,
                         x.shape[0] * math.prod(OS)),
                        dtype=_cols_dtype(precision), device=x.device)
     lib.launch(name, x, (x, offset, mask, cols), (
-        *_cols_geometry(x, spec), *plan.ints(),
-        lib.PRECISION_CODES[precision]))
+        *_cols_geometry(x, spec, OS), *plan.ints(),
+        lib.PRECISION_CODES[precision]),
+        lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin))
     return cols
 
 
 def gathermm_cols_fwd(x, offset, mask, spec: DeformConvSpec,
-                      precision: str = "tensorfloat32") -> torch.Tensor:
+                      precision: str = "tensorfloat32", out_sizes=None,
+                      gate_bounds=None, block_origin=None) -> torch.Tensor:
     """The deformable columns (2D) of the unfused path, (C * K, B * P) with
-    row c * K + k and column b * P + p: float32, bf16 in "bfloat16".
+    row c * K + k and column b * P + p: float32, bf16 in "bfloat16", on
+    the output grid `out_sizes` with the tap gate `gate_bounds` (None: the
+    defaults).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel or
     raise.  Inputs: float32, contiguous, on one device."""
     if x.device.type == "cpu":
-        return gathermm_cols_reference(x, offset, mask, spec, precision)
-    cols = _cols_fwd("gathermm_cols_fwd", x, offset, mask, spec, precision)
+        lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin)
+        return gathermm_cols_reference(x, offset, mask, spec, precision,
+                                       out_sizes, gate_bounds, block_origin)
+    cols = _cols_fwd("gathermm_cols_fwd", x, offset, mask, spec, precision,
+                     out_sizes=out_sizes, gate_bounds=gate_bounds,
+                     block_origin=block_origin)
     gathermm_cols_fwd.launches += 1
     return cols
 
@@ -490,14 +553,19 @@ gathermm_cols_fwd.launches = 0
 
 
 def gathermm3d_cols_fwd(x, offset, mask, spec: DeformConvSpec,
-                        precision: str = "tensorfloat32") -> torch.Tensor:
+                        precision: str = "tensorfloat32", out_sizes=None,
+                        gate_bounds=None, block_origin=None) -> torch.Tensor:
     """The deformable columns (3D), as `gathermm_cols_fwd`.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel or
     raise.  Inputs: float32, contiguous, on one device."""
     if x.device.type == "cpu":
-        return gathermm3d_cols_reference(x, offset, mask, spec, precision)
-    cols = _cols_fwd("gathermm3d_cols_fwd", x, offset, mask, spec, precision)
+        lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin)
+        return gathermm3d_cols_reference(x, offset, mask, spec, precision,
+                                         out_sizes, gate_bounds, block_origin)
+    cols = _cols_fwd("gathermm3d_cols_fwd", x, offset, mask, spec, precision,
+                     out_sizes=out_sizes, gate_bounds=gate_bounds,
+                     block_origin=block_origin)
     gathermm3d_cols_fwd.launches += 1
     return cols
 
@@ -505,10 +573,11 @@ def gathermm3d_cols_fwd(x, offset, mask, spec: DeformConvSpec,
 gathermm3d_cols_fwd.launches = 0
 
 
-def _cols_bwd(name, x, offset, mask, gcols, spec, precision, needs):
-    _cols_check(name, x, offset, mask, spec)
-    want = (x.shape[1] * spec.tap_count,
-            x.shape[0] * math.prod(spec.out_sizes(x.shape[2:])))
+def _cols_bwd(name, x, offset, mask, gcols, spec, precision, needs,
+              out_sizes=None, gate_bounds=None, block_origin=None):
+    _cols_check(name, x, offset, mask, spec, out_sizes)
+    OS = _out_sizes(x, spec, out_sizes)
+    want = (x.shape[1] * spec.tap_count, x.shape[0] * math.prod(OS))
     if (tuple(gcols.shape) != want or gcols.dtype != _cols_dtype(precision)
             or gcols.device != x.device or not gcols.is_contiguous()):
         raise ValueError(f"{name}: gcols must be a contiguous "
@@ -516,7 +585,6 @@ def _cols_bwd(name, x, offset, mask, gcols, spec, precision, needs):
                          f"{x.device}, got {gcols.dtype} "
                          f"{tuple(gcols.shape)} on {gcols.device}")
     B, C, dg = x.shape[0], x.shape[1], spec.deformable_groups
-    OS = spec.out_sizes(x.shape[2:])
     plan = cols_bwd_plan(spec, x.shape[2:], OS, C)
     if plan.pool_per_bd >= 2 ** 31:
         raise NotImplementedError(f"{name}: corners * K * P must stay below "
@@ -541,13 +609,16 @@ def _cols_bwd(name, x, offset, mask, gcols, spec, precision, needs):
             if goff is not None or gmask is not None else None)
     lib.launch(name, x, (
         x, offset, mask, gcols, cnt, tcount, tstart, pool, csr, part, gx,
-        goff, gmask), (*_cols_geometry(x, spec), *plan.tile[3 - spec.ndim:],
-                       lib.PRECISION_CODES[precision]))
+        goff, gmask), (*_cols_geometry(x, spec, OS),
+                       *plan.tile[3 - spec.ndim:],
+                       lib.PRECISION_CODES[precision]),
+        lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin))
     return gx, goff, gmask
 
 
 def gathermm_cols_bwd(x, offset, mask, gcols, spec: DeformConvSpec,
-                      precision: str = "tensorfloat32", needs=(True,) * 3):
+                      precision: str = "tensorfloat32", needs=(True,) * 3,
+                      out_sizes=None, gate_bounds=None, block_origin=None):
     """The VJP of the 2D columns for the cotangent gcols (the columns'
     layout and dtype): (grad_x, grad_offset, grad_mask), float32, each None
     where `needs` says it is not wanted (grad_mask also without a mask).
@@ -555,11 +626,13 @@ def gathermm_cols_bwd(x, offset, mask, gcols, spec: DeformConvSpec,
     CPU tensors run the plain version; CUDA tensors launch the kernel or
     raise.  Inputs: float32, contiguous, on one device."""
     if x.device.type == "cpu":
+        lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin)
         grads = gathermm_cols_bwd_reference(x, offset, mask, gcols, spec,
-                                            precision)
+                                            precision, out_sizes,
+                                            gate_bounds, block_origin)
         return tuple(g if n else None for g, n in zip(grads, needs))
     grads = _cols_bwd("gathermm_cols_bwd", x, offset, mask, gcols, spec,
-                      precision, needs)
+                      precision, needs, out_sizes, gate_bounds, block_origin)
     gathermm_cols_bwd.launches += 1
     return grads
 
@@ -568,17 +641,20 @@ gathermm_cols_bwd.launches = 0
 
 
 def gathermm3d_cols_bwd(x, offset, mask, gcols, spec: DeformConvSpec,
-                        precision: str = "tensorfloat32", needs=(True,) * 3):
+                        precision: str = "tensorfloat32", needs=(True,) * 3,
+                        out_sizes=None, gate_bounds=None, block_origin=None):
     """The VJP of the 3D columns, as `gathermm_cols_bwd`.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel or
     raise.  Inputs: float32, contiguous, on one device."""
     if x.device.type == "cpu":
+        lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin)
         grads = gathermm3d_cols_bwd_reference(x, offset, mask, gcols, spec,
-                                              precision)
+                                              precision, out_sizes,
+                                              gate_bounds, block_origin)
         return tuple(g if n else None for g, n in zip(grads, needs))
     grads = _cols_bwd("gathermm3d_cols_bwd", x, offset, mask, gcols, spec,
-                      precision, needs)
+                      precision, needs, out_sizes, gate_bounds, block_origin)
     gathermm3d_cols_bwd.launches += 1
     return grads
 
@@ -588,15 +664,20 @@ gathermm3d_cols_bwd.launches = 0
 
 class _GathermmCols(torch.autograd.Function):
     """(x, offset, mask) -> columns through the column kernels of the
-    config's rank; the counterpart of the JAX package's `fused_columns`.
+    config's rank, on the output grid `out_sizes` with the tap gate
+    `gate_bounds`; the counterpart of the JAX package's `fused_columns`.
     x, offset and mask are saved."""
 
     @staticmethod
-    def forward(ctx, x, offset, mask, spec, precision):
+    def forward(ctx, x, offset, mask, spec, precision, out_sizes=None,
+                gate_bounds=None, block_origin=None):
         ctx.save_for_backward(x, offset, mask)
         ctx.spec, ctx.precision = spec, precision
+        ctx.out_sizes, ctx.gate_bounds = out_sizes, gate_bounds
+        ctx.block_origin = block_origin
         fwd = gathermm_cols_fwd if spec.ndim == 2 else gathermm3d_cols_fwd
-        return fwd(x, offset, mask, spec, precision)
+        return fwd(x, offset, mask, spec, precision, out_sizes, gate_bounds,
+        block_origin)
 
     @staticmethod
     @once_differentiable
@@ -604,8 +685,9 @@ class _GathermmCols(torch.autograd.Function):
         x, offset, mask = ctx.saved_tensors
         bwd = gathermm_cols_bwd if ctx.spec.ndim == 2 else gathermm3d_cols_bwd
         gx, goff, gmask = bwd(x, offset, mask, gcols.contiguous(), ctx.spec,
-                              ctx.precision, ctx.needs_input_grad[:3])
-        return gx, goff, gmask, None, None
+                              ctx.precision, ctx.needs_input_grad[:3],
+                              ctx.out_sizes, ctx.gate_bounds, ctx.block_origin)
+        return gx, goff, gmask, None, None, None, None, None
 
 
 @contextlib.contextmanager
@@ -672,34 +754,46 @@ class _ColumnsGemm(torch.autograd.Function):
 
 
 def deform_conv_cols(x, offset, mask, weight, bias, spec: DeformConvSpec,
-                     precision: str = "tensorfloat32") -> torch.Tensor:
+                     precision: str = "tensorfloat32", out_sizes=None,
+                     gate_bounds=None, block_origin=None) -> torch.Tensor:
     """General-offset deformable conv with bias by the columns path: the
     column kernels, the grouped product, then the bias, as the JAX
-    package's unfused branch (gathermm.py:1087-1100).  Dtypes as in
-    `deform_conv_fused`."""
+    package's unfused branch (gathermm.py:1087-1100).  Dtypes, `out_sizes`
+    and `gate_bounds` as in `deform_conv_fused`."""
     f32 = lib.as_f32
     cols = _GathermmCols.apply(f32(x), f32(offset), f32(mask), spec,
-                               precision)
+                               precision, out_sizes, gate_bounds, block_origin)
     out = _ColumnsGemm.apply(cols, f32(weight), spec.groups, precision,
-                             x.shape[0], spec.out_sizes(x.shape[2:]))
+                             x.shape[0], _out_sizes(x, spec, out_sizes))
     if bias is not None:
         out = out + f32(bias).reshape((1, -1) + (1,) * spec.ndim)
     return out.to(x.dtype)
 
 
 def deform_conv_fused(x, offset, mask, weight, bias, spec: DeformConvSpec,
-                      precision: str = "tensorfloat32") -> torch.Tensor:
+                      precision: str = "tensorfloat32", out_sizes=None,
+                      gate_bounds=None, block_origin=None) -> torch.Tensor:
     """Full general-offset deformable conv with bias (dispatch entry).
 
-    The fused pair where the JAX package's `_fuse_ok` holds, the columns
-    path (`deform_conv_cols`) elsewhere, as the JAX package's
-    `deform_conv_fused` decides (gathermm.py:1068).  bf16 and fp16 inputs
-    are upcast to fp32 for the kernels; the result has x's dtype, and so do
-    the gradients of each input."""
-    if not jax_fuse_ok(x, spec, weight.shape[0]):
+    The fused pair where the JAX package's `_fuse_ok` holds on the output
+    grid, the columns path (`deform_conv_cols`) elsewhere, as the JAX
+    package's `deform_conv_fused` decides (gathermm.py:1068).  `out_sizes`
+    gives the output grid (None: derived from x) and `gate_bounds` the
+    per-dim (lo, hi) tap gate (None: (-1, S_d)): the sharding layer's block
+    mode.  bf16 and fp16 inputs are upcast to fp32 for the kernels; the
+    result has x's dtype, and so do the gradients of each input."""
+    if out_sizes is not None:
+        out_sizes = tuple(int(o) for o in out_sizes)
+    if gate_bounds is not None:
+        gate_bounds = tuple((float(lo), float(hi)) for lo, hi in gate_bounds)
+    if block_origin is not None:
+        block_origin = tuple((float(a), float(o)) for a, o in block_origin)
+    if not jax_fuse_ok(x, spec, weight.shape[0], out_sizes):
         return deform_conv_cols(x, offset, mask, weight, bias, spec,
-                                precision)
+                                precision, out_sizes, gate_bounds,
+                                block_origin)
     f32 = lib.as_f32
     out = _GathermmFwd.apply(f32(x), f32(offset), f32(mask), f32(weight),
-                             f32(bias), spec, precision)
+                             f32(bias), spec, precision, out_sizes,
+                             gate_bounds, block_origin)
     return out.to(x.dtype)

@@ -94,11 +94,13 @@ def kernel(name: str):
     return fn
 
 
-def check_inputs(name: str, x, offset, mask, weight, bias, spec) -> None:
+def check_inputs(name: str, x, offset, mask, weight, bias, spec,
+                 out_sizes=None) -> None:
     """Raise unless the kernel can take these tensors as they are: of the
     kernel's rank (the `*3d_*` kernels 3D, the others 2D), float32,
-    contiguous, all on x's CUDA device, shapes per `spec`.  The column
-    kernels take no weight (None)."""
+    contiguous, all on x's CUDA device, shapes per `spec` on the output grid
+    `out_sizes` (None: derived from x).  The column kernels take no weight
+    (None)."""
     if not x.is_cuda:
         raise ValueError(f"{name}: the kernel takes CUDA tensors, got "
                          f"{x.device}")
@@ -110,7 +112,7 @@ def check_inputs(name: str, x, offset, mask, weight, bias, spec) -> None:
                     if weight is None else weight.shape)
     spec.validate(x.shape, offset.shape, weight_shape,
                   None if mask is None else mask.shape,
-                  None if bias is None else bias.shape)
+                  None if bias is None else bias.shape, out_sizes)
     for label, t in (("input", x), ("offset", offset), ("mask", mask),
                      ("weight", weight), ("bias", bias)):
         if t is None:
@@ -122,6 +124,33 @@ def check_inputs(name: str, x, offset, mask, weight, bias, spec) -> None:
             raise TypeError(f"{name}: {label} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {label} must be contiguous")
+
+
+def block_floats(spec, S, gate_bounds=None, block_origin=None):
+    """The gather kernels' block-mode floats (csrc/deform_tile.cuh, Geo):
+    the tap gate (lo, hi) per spatial dim, (-1, S_d) where `gate_bounds` is
+    None, moved by the block's origin (the kernels compare it in the whole
+    input's coordinates), then the block's placement (shift, origin) per
+    dim, (0, 0) where `block_origin` is None.  Raises unless -1 <= lo < hi
+    <= S_d on every dim: a tap then passes the gate only where its first
+    kept corner (per dim max(floor(pos), 0)) lies in the block, which the
+    column backward's owner tile relies on."""
+    gate_bounds = gate_bounds or [(-1.0, float(s)) for s in S]
+    block_origin = block_origin or [(0.0, 0.0)] * spec.ndim
+    if len(gate_bounds) != spec.ndim or len(block_origin) != spec.ndim:
+        raise ValueError(f"gate_bounds / block_origin need one pair per dim "
+                         f"of a {spec.ndim}D op")
+    out = []
+    for d, ((lo, hi), s, (_, origin)) in enumerate(zip(gate_bounds, S,
+                                                       block_origin)):
+        lo, hi = float(lo), float(hi)
+        if not -1.0 <= lo < hi <= s:
+            raise ValueError(f"gate_bounds dim {d}: need -1 <= lo < hi <= "
+                             f"{s}, got ({lo}, {hi})")
+        out += [lo + origin, hi + origin]
+    for shift, origin in block_origin:
+        out += [float(shift), float(origin)]
+    return tuple(out)
 
 
 def check_grad_out(name: str, grad_out, x, shape) -> None:
@@ -228,19 +257,20 @@ def bwd_buffers(x, offset, mask, weight, spec, P: int, needs,
     return gx, goff, gmask, gwt, gcols, xt, part, splits
 
 
-def launch(name: str, x: torch.Tensor, tensors, ints) -> None:
+def launch(name: str, x: torch.Tensor, tensors, ints, floats=()) -> None:
     """Launch kernel `name` on x's device and current stream: the C entry
-    takes the tensors' pointers, the ints, then the stream.  Raise with the
-    CUDA error if the launch was refused."""
+    takes the tensors' pointers, the ints, the floats, then the stream.
+    Raise with the CUDA error if the launch was refused."""
     fn = kernel(name)
     # Every pointer and the stream as c_void_p: an undeclared argument
     # would pass as a 32-bit int and cut the pointer.
     fn.argtypes = ([ctypes.c_void_p] * len(tensors)
-                   + [ctypes.c_int] * len(ints) + [ctypes.c_void_p])
+                   + [ctypes.c_int] * len(ints)
+                   + [ctypes.c_float] * len(floats) + [ctypes.c_void_p])
     ptrs = [None if t is None else t.data_ptr() for t in tensors]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(*ptrs, *ints, stream)
+        err = fn(*ptrs, *ints, *floats, stream)
     if err:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{err}")

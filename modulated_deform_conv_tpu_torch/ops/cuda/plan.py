@@ -117,10 +117,13 @@ def _planar_tiling(spec: DeformConvSpec, S, OS):
     return pt, spec.tap_count // ki, ki, sch, math.prod(S)
 
 
-def jax_plan(x, spec: DeformConvSpec) -> Plan:
+def jax_plan(x, spec: DeformConvSpec, out_sizes=None) -> Plan:
     """The JAX package's `_Plan` fields that its dispatch reads, for input
-    x (any tensor with x.shape) under spec."""
-    S, OS = tuple(x.shape[2:]), spec.out_sizes(x.shape[2:])
+    x (any tensor with x.shape) under spec, on the output grid `out_sizes`
+    (None: derived from x, as the JAX package's `_plan_for`)."""
+    S = tuple(x.shape[2:])
+    OS = (spec.out_sizes(S) if out_sizes is None
+          else tuple(int(o) for o in out_sizes))
     cg = x.shape[1] // spec.deformable_groups
     flat = _flat_tiling(spec, S, OS)
     tiling = (_planar_tiling(spec, S, OS) if spec.ndim == 3 else None) or flat
@@ -144,12 +147,13 @@ def jax_planar(x, spec: DeformConvSpec) -> bool:
     return spec.ndim == 3 and jax_plan(x, spec).planar
 
 
-def jax_fuse_ok(x, spec: DeformConvSpec, O: int) -> bool:
+def jax_fuse_ok(x, spec: DeformConvSpec, O: int, out_sizes=None) -> bool:
     """Would the JAX package run its fused gathermm pair here (`_fuse_ok`),
     rather than the columns kernels and a separate GEMM?  False where a
     channel part straddles conv groups, or where the fused backward's
-    blocks (double-buffered) and scratch would pass 80 MB of VMEM."""
-    p = jax_plan(x, spec)
+    blocks (double-buffered) and scratch would pass 80 MB of VMEM.
+    `out_sizes`: the output grid (a sharded block's), None to derive it."""
+    p = jax_plan(x, spec, out_sizes)
     if (x.shape[1] // spec.groups) % p.CgP:
         return False
     og = O // spec.groups

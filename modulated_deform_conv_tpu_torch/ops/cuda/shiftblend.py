@@ -102,7 +102,7 @@ def _loop_path_reason(spec: DeformConvSpec, S, windows) -> Optional[str]:
 
 
 def ineligible_reason(x: torch.Tensor, spec: DeformConvSpec,
-                      offset_bound) -> Optional[str]:
+                      offset_bound, out_sizes=None) -> Optional[str]:
     """None if the shift-blend kernel takes this config, else a reason.
 
     The semantic rules of the JAX package's `SBPlan.ineligible_reason`
@@ -111,7 +111,8 @@ def ineligible_reason(x: torch.Tensor, spec: DeformConvSpec,
     packages pick the same path for the same config.  The kernels fit any
     tap count and window, so they add no rule of their own; JAX's VMEM
     residency and residual budgets are the TPU's and have no counterpart
-    here."""
+    here.  An output grid `out_sizes` other than the derived one is not
+    taken, as in the JAX package."""
     if offset_bound is None:
         return "no offset_bound provided (shiftblend needs bounded offsets)"
     if spec.ndim not in (2, 3):
@@ -121,6 +122,8 @@ def ineligible_reason(x: torch.Tensor, spec: DeformConvSpec,
     C, S = x.shape[1], tuple(x.shape[2:])
     if C % spec.deformable_groups:
         return "channels not divisible by deformable_groups"
+    if out_sizes is not None and tuple(out_sizes) != spec.out_sizes(S):
+        return "out_sizes overrides not supported by shiftblend"
     if any(s != 1 for s in spec.stride):
         return "shiftblend requires stride=1"
     if spec.out_sizes(S) != S:

@@ -86,11 +86,13 @@ class DeformConvSpec:
         return tuple(out)
 
     def validate(self, x_shape, offset_shape, weight_shape, mask_shape=None,
-                 bias_shape=None) -> Tuple[int, ...]:
+                 bias_shape=None, out_sizes=None) -> Tuple[int, ...]:
         """Check the shape contract; returns the output spatial sizes.
 
         Contract: input (B, C, *S); weight (O, C/g, *k);
-        offset (B, dg*ndim*K, *OS); mask (B, dg*K, *OS); bias (O,)."""
+        offset (B, dg*ndim*K, *OS); mask (B, dg*K, *OS); bias (O,).  OS is
+        `out_sizes` where given (a sharded block's output grid), else
+        derived from S."""
         nd = self.ndim
         if len(x_shape) != nd + 2:
             raise ValueError(f"input must be rank {nd + 2}, got {x_shape}")
@@ -108,7 +110,8 @@ class DeformConvSpec:
         if C % self.deformable_groups:
             raise ValueError(f"C={C} not divisible by deformable_groups="
                              f"{self.deformable_groups}")
-        OS = self.out_sizes(S)
+        OS = (self.out_sizes(S) if out_sizes is None
+              else tuple(int(o) for o in out_sizes))
         K = self.tap_count
         want_off = (B, self.deformable_groups * nd * K) + OS
         if tuple(offset_shape) != want_off:

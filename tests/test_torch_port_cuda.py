@@ -307,10 +307,19 @@ def test_auto_dispatch_and_raises(dev):
             grads.append([t.grad for t in ins])
         for g, r in zip(*grads):
             assert _rel(g, r) <= LIMITS["tensorfloat32"]
-    x.requires_grad_(True)
+    # gate_bounds take the gather kernel; shift-blend refuses them.
+    gates = ((1.0, 15.0), (-1.0, 7.5))
+    gm.gathermm_fwd.launches = 0
+    with torch.no_grad():
+        out = api._dispatch(x, off, mask, w, b, spec, "auto",
+                            gate_bounds=gates)
+        ref = api._dispatch(x, off, mask, w, b, spec, "torch",
+                            gate_bounds=gates)
+    assert gm.gathermm_fwd.launches == 1
+    assert _rel(out, ref) <= LIMITS["tensorfloat32"]
     with pytest.raises(NotImplementedError, match="gate_bounds"):
-        api._dispatch(x, off, mask, w, b, spec, "auto",
-                      gate_bounds=((-1.0, 15.0), (-1.0, 9.0)))
+        api._dispatch(x, off, mask, w, b, spec, "shiftblend",
+                      offset_bound=3.0, gate_bounds=gates)
     with pytest.raises(ValueError, match="cpu"):
         gm.gathermm_fwd(x.detach(), off.cpu(), mask, w, b, spec)
     # A 3D call launches the 3D kernel.

@@ -217,7 +217,8 @@ def test_kernel_path_raises_where_not_ported():
     spec, arrs = _inputs(5, 1, 8, (5, 5), 3, 1, True, 0.8)
     x, off, mask, w, bias = _t(arrs)
     # The kernel path's backward is ported, in 2D and 3D: it runs and
-    # matches autograd of the plain path.  gate_bounds still raises.
+    # matches autograd of the plain path.  gate_bounds take the gather
+    # kernels (their plain versions here), shift-blend refuses them.
     grads = []
     for impl in ("cuda", "torch"):
         xg = x.clone().requires_grad_(True)
@@ -226,10 +227,15 @@ def test_kernel_path_raises_where_not_ported():
         (out * out).sum().backward()
         grads.append(xg.grad)
     torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-5)
-    x.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="gate_bounds"):
+    gates = ((0.5, 5.0), (-1.0, 3.5))
+    torch.testing.assert_close(
         api._dispatch(x, off, mask, w, bias, spec, "cuda",
-                      gate_bounds=((-1.0, 5.0), (-1.0, 5.0)))
+                      gate_bounds=gates),
+        api._dispatch(x, off, mask, w, bias, spec, "torch",
+                      gate_bounds=gates), rtol=1e-5, atol=1e-5)
+    with pytest.raises(NotImplementedError, match="gate_bounds"):
+        api._dispatch(x, off, mask, w, bias, spec, "shiftblend",
+                      offset_bound=1.0, gate_bounds=gates)
     x3 = torch.ones((1, 8, 3, 3, 3))
     off3 = torch.zeros((1, 81, 3, 3, 3))
     w3 = torch.ones((8, 8, 3, 3, 3))
