@@ -27,15 +27,23 @@ Drives the port's main paths through the entry points a user calls:
 7. the 3D columns path: `modulated_deform_conv3d` at config 3's size
    (B=2, 64 -> 64, 16x32x32) with groups=2, dg=1, forward and training
    step, and `ModulatedDeformConv3dPack(groups=2)`;
-8. the sharding layer's per-shard function (`sharding.block_conv`) on
-   every shard of five layouts at full width: config 2 split 4 ways on H
-   and 2 x 2 on (H, W), config 5 c4 split 2 ways on H, config 3 and the
-   3D columns case split 4 ways on D, max_offset 2: every shard's
-   exchanged block cut from the global tensors, forward and backward
-   through the gather kernels' block mode (a given output grid and a tap
-   gate at the global border), held against the same function on the
-   plain path, and stitched against the unsharded kernel op; and the
-   public `sharded_modulated_deform_conv2d` on a one-rank NCCL mesh.
+8. the sharding layer's per-shard function (`sharding.shard_conv`) on
+   every shard of six layouts at full width: config 2 split 4 ways on H
+   and 2 x 2 on (H, W), config 5 c4 split 2 ways on H, configs 3 and 4
+   (B=1) and the 3D columns case split 4 ways on D, max_offset 2: every
+   shard's exchanged block cut from the global tensors, forward and
+   backward under "auto": shift-blend's lead mode on the single
+   leading-dim splits of configs 2, 3 and 4 (rows 1, 4, 5, 6), the gather
+   kernels' block mode (a given output grid and a tap gate at the global
+   border) on the others, and the lead layouts a second time at
+   impl="cuda" on the fused gather pair's block mode; the lead mode's
+   kernels held against their plain versions in every mode, the gather
+   passes against the same function on the plain path, the shards
+   stitched against the unsharded kernel op, and the lead mode's shard
+   step timed beside the gather
+   kernels' on the same shard (`utils.profiling.Timer`, `annotate`,
+   `trace`); and the public `sharded_modulated_deform_conv2d` on a
+   one-rank NCCL mesh.
 
 It builds the twelve kernels (shift-blend and gather, forward and
 backward, 2D and 3D; the gather's columns forward and backward, 2D and
@@ -181,16 +189,24 @@ PREV_STEP_MS = {"cfg2 bounded": 2.9075, "cfg2 general": 2.7959,
 
 
 # The sharded phase: the per-shard function of the sharding layer
-# (`sharding.block_conv`) on every shard's exchanged block, cut from the
+# (`sharding.shard_conv`) on every shard's exchanged block, cut from the
 # global tensors, at full width: (the inputs, {spatial dim: shards}), with
-# max_offset 2 (a halo of 3 rows) and offsets from U[-2, 2].
+# max_offset 2 (a halo of 3 rows) and offsets from U[-2, 2].  Under "auto"
+# the single leading-dim splits of the narrow slabs (configs 2, 3 and 4,
+# C/dg <= 128) run shift-blend's lead mode (LEAD_LAYOUTS), the others the
+# gather kernels' block mode; LEAD_LAYOUTS run again at impl="cuda", the
+# fused gather pair in block mode.  Config 4 at B=1, as its plain checks.
 SHARDED = {"cfg2-H4": ("cfg2", {0: 4}), "cfg2-HW2x2": ("cfg2", {0: 2, 1: 2}),
            "c4-H2": ("c4", {0: 2}), "cfg3-D4": ("cfg3", {0: 4}),
-           "cols3d-D4": ("cols3d", {0: 4})}
+           "cfg4-D4": ("cfg4", {0: 4}), "cols3d-D4": ("cols3d", {0: 4})}
+LEAD_LAYOUTS = ("cfg2-H4", "cfg3-D4", "cfg4-D4")
 SHARD_MAX_OFFSET = 2.0
 GATHER_ROWS = ("gathermm_fwd", "gathermm_bwd", "gathermm3d_fwd", "gathermm3d_bwd",
                "gathermm_cols_fwd", "gathermm_cols_bwd", "gathermm3d_cols_fwd",
                "gathermm3d_cols_bwd")
+LEAD_ROWS = ("shiftblend_fwd", "shiftblend_bwd", "shiftblend3d_fwd", "shiftblend3d_bwd")
+# (samples, calls a sample) of the lead-mode layouts' shard step timings.
+LEAD_TIMING = (7, 3)
 # SHA-256 of every kernel's unsharded outputs (`unsharded_digests`: its
 # row's config, seeded cotangents, every mode) as the tree before the
 # gather kernels' block mode gave them (nvcc 12.8, sm_90a, NVIDIA H100 80GB
@@ -1499,8 +1515,9 @@ def sharded_case(torch, dev, which):
     elif which == "c4":
         spec = DeformConvSpec.make(2, 3, 1, 1, 1, 1, 1, modulated=True)
         ins = cfg5_inputs(torch, dev, "c4")
-    elif which == "cfg3":
-        spec, ins = cfg3d_inputs(torch, dev, "cfg3")
+    elif which in ("cfg3", "cfg4"):
+        spec, ins = cfg3d_inputs(torch, dev, which)
+        ins = tuple(None if t is None else t[:PLAIN_BATCH[which]].contiguous() for t in ins)
     else:
         spec, ins = cols3d_inputs(torch, dev)
     name = ("modulated_" if spec.modulated else "") + f"deform_conv{spec.ndim}d"
@@ -1524,24 +1541,94 @@ def add_block(gx, gxb, shards, coords):
     dst.add_(src)
 
 
-def run_sharded(torch, sh, gm, reset, counts, dev):
+def lead_kernel_checks(torch, sb, label, spec, leaves, shards, coords, sh):
+    """One lead-mode shard's kernels against their plain versions on the
+    card, forward and backward, in every mode at LIMITS, on the shard's
+    block arguments (`sharding.block_args`) and a seeded cotangent (the 2D
+    forward on both its routes, the halo tile and channels-last x); the
+    worst relative error per mode and the main mode's max |d|."""
+    xb, off_l, mask_l, w, b = (None if t is None else t.detach() for t in leaves)
+    local, placement, gates = sh.block_args(spec, shards, coords, tuple(xb.shape[2:]))
+    OS = tuple(off_l.shape[2:])
+    fam = "shiftblend" if spec.ndim == 2 else "shiftblend3d"
+    fwd, bwd = getattr(sb, f"{fam}_fwd"), getattr(sb, f"{fam}_bwd")
+    fwd_ref, bwd_ref = getattr(sb, f"{fam}_fwd_reference"), getattr(sb, f"{fam}_bwd_reference")
+    blk = (OS, gates, placement)
+    g = torch.Generator(device=xb.device).manual_seed(3)
+    cot = torch.randn((xb.shape[0], w.shape[0]) + OS, generator=g, device=xb.device)
+    worst, max_abs_err = {}, {}
+    for prec, limit in LIMITS.items():
+        args = (xb, off_l, mask_l, w, b, local, prec, SHARD_MAX_OFFSET)
+        got, want = fwd(*args, *blk), fwd_ref(*args, *blk)
+        errs = {"out": rel_err(got, want)}
+        abs_errs = [float((got - want).abs().max())]
+        if spec.ndim == 2:
+            for route in (True, False):
+                got = sb._fwd("shiftblend_fwd", *args, *blk, halo=route)
+                errs["out " + ("halo" if route else "xt") + " route"] = rel_err(got, want)
+        del got, want
+        bargs = (xb, off_l, mask_l, w, cot, local, prec, SHARD_MAX_OFFSET)
+        got = bwd(*bargs, (True,) * 4, *blk)
+        want = bwd_ref(*bargs, *blk)
+        errs.update({f"grad_{n}": e for n, e in grad_rel_errs(got, want).items()
+                     if e is not None})
+        abs_errs.append(max_abs(got, want))
+        del got, want
+        for what, e in errs.items():
+            check(e <= limit, f"{label} shard {coords} {fam} {what} {prec}: "
+                  f"kernel vs plain rel err {e:.3e} (limit {limit:g})")
+        worst[prec] = max(errs.values())
+        max_abs_err[prec] = max(abs_errs)
+    return worst, max_abs_err
+
+
+def timer_ms(torch, prof, dev, fn, label):
+    """Median of LEAD_TIMING samples of fn()'s time, each a Timer (CUDA
+    events on the card) around LEAD_TIMING[1] calls inside an annotated
+    range, after one warm-up call."""
+    samples, per = LEAD_TIMING
+    fn()
+    times = []
+    for _ in range(samples):
+        with prof.annotate(label), prof.Timer(dev, name=label) as t:
+            for _ in range(per):
+                fn()
+        times.append(t.elapsed_ms / per)
+    return statistics.median(times)
+
+
+def run_sharded(torch, sh, sb, reset, counts, dev):
     """The sharded phase.  Per case and shard: the exchanged block cut from
-    the global tensors (zero rows past the image), `sharding.block_conv`
-    forward and backward of sum(out^2) on CUDA tensors ("auto": the gather
-    kernels' block mode), (a) against block_conv at impl="torch" on the
-    same block (main mode); (b) the outputs stitched and the block
+    the global tensors (zero rows past the image), `sharding.shard_conv`
+    forward and backward of sum(out^2) on CUDA tensors ("auto": on
+    LEAD_LAYOUTS shift-blend's lead mode, else the gather kernels' block
+    mode), and on LEAD_LAYOUTS a second time at impl="cuda" (the fused
+    gather pair in block mode, with the global border's gates on the edge
+    shards); (a) the lead mode's kernels against their plain versions on
+    the shard's block arguments in every mode, or a gather pass's step
+    against shard_conv at impl="torch", and for the lead mode a second
+    step's gradients bit for bit; (b) the outputs stitched and the block
     gradients summed back as the exchange's backward does, against the
-    unsharded kernel op on the global tensors, in the main mode and
-    "float32"; (c) the kernels each shard launched (a shard that launched
-    no gather kernel fails); (d) one shard's step time beside the
-    unsharded step's.  Where the column forward runs, its time on the
-    block placed in the whole input beside its time in the JAX package's
-    form, the shift folded into the offsets.  Returns {row: {case:
-    launches and times}}."""
+    unsharded kernel op on the global tensors (the shift-blend op at
+    offset_bound 2 for the lead mode, else impl="cuda"), in the main mode
+    and "float32"; (c) the kernels each shard launched (a lead-mode or
+    impl="cuda" pass on a lead layout must launch the shift-blend or the
+    fused gather pair of its rank once each and nothing else, another
+    layout's shard a gather kernel); (d) one interior shard's step time beside the
+    unsharded step's, and on LEAD_LAYOUTS beside the same shard on the
+    gather kernels with gates (impl="cuda"), on `profiling.Timer`, and its
+    device time by kernel from a `profiling.trace`.  Where the column
+    forward runs, its time on the block placed in the whole input beside
+    its time in the JAX package's form, the shift folded into the offsets.
+    Returns {row: {case: launches and times}}."""
     import itertools
-    rows = {n: {} for n in GATHER_ROWS}
+    import tempfile
+    from modulated_deform_conv_tpu_torch.ops.cuda import gathermm as gm
+    from modulated_deform_conv_tpu_torch.utils import profiling as prof
+    rows = {n: {} for n in GATHER_ROWS + LEAD_ROWS}
     t_phase = time.time()
     for label, (which, split) in SHARDED.items():
+        lead = label in LEAD_LAYOUTS
         spec, ins, op = sharded_case(torch, dev, which)
         x, off, mask, w, b = ins
         nd = spec.ndim
@@ -1554,6 +1641,11 @@ def run_sharded(torch, sh, gm, reset, counts, dev):
         lay = {2 + s.dim: s.axis_name for s in plan.shards}
         axes = [s.axis_name for s in plan.shards]
         grid = list(itertools.product(*[range(s.n_shards) for s in plan.shards]))
+        fams = ("shiftblend", "gathermm") if nd == 2 else ("shiftblend3d", "gathermm3d")
+        # A lead layout runs twice: "auto" takes the lead mode, "cuda" the
+        # fused gather pair in block mode on the same shards.
+        passes = {"auto": tuple(fams[0] + k for k in ("_fwd", "_bwd")),
+                  "cuda": tuple(fams[1] + k for k in ("_fwd", "_bwd"))} if lead else {"auto": None}
 
         def block(coords, **kw):
             """The shard's leaves (block, offset, mask, weight, bias)."""
@@ -1563,37 +1655,59 @@ def run_sharded(torch, sh, gm, reset, counts, dev):
                               None if mask is None else mask[sl], w, b)], sl
 
         def step(leaves, coords, impl, prec):
-            y = sh.block_conv(*leaves, spec, plan.shards, coords, impl, prec)
+            y = sh.shard_conv(*leaves, spec, plan.shards, coords, SHARD_MAX_OFFSET, impl, prec)
             live = [t for t in leaves if t is not None]
             grads = iter(torch.autograd.grad((y * y).sum(), live))
             return y.detach(), [None if t is None else next(grads) for t in leaves]
 
-        launched = {}
-        for prec in (MAIN_PRECISION, "float32"):
+        launched, kernel_err = {}, {}
+        for (impl, want_rows), prec in itertools.product(passes.items(),
+                                                         (MAIN_PRECISION, "float32")):
+            on_lead = lead and impl == "auto"
+            row_label = label if impl == "auto" else f"{label} impl={impl}"
             out = torch.empty((x.shape[0], w.shape[0]) + tuple(off.shape[2:]), device=dev)
             g_sum = [torch.zeros_like(t) if t is not None else None for t in ins]
             for coords in grid:
                 leaves, sl = block(coords)
                 reset()
-                y, g = step(leaves, coords, "auto", prec)
+                y, g = step(leaves, coords, impl, prec)
                 torch.cuda.synchronize()
                 if prec == MAIN_PRECISION:
                     c = {n: v for n, v in counts().items() if v}
-                    launched[coords] = c
-                    check(any(c.get(n) for n in GATHER_ROWS),
-                          f"{label} shard {coords}: no gather kernel launched ({c})")
+                    launched.setdefault(impl, {})[coords] = c
+                    if want_rows:
+                        check(c == {n: 1 for n in want_rows}, f"{label} shard {coords} "
+                              f"impl={impl}: launched {c}, want {want_rows} once each")
+                    else:
+                        check(any(c.get(n) for n in GATHER_ROWS),
+                              f"{label} shard {coords}: no gather kernel launched ({c})")
                     for n, v in c.items():
                         if n in rows:
-                            rows[n].setdefault(label, {"launches": 0})["launches"] += v
-                    # (a) the kernels against the same function's plain path.
-                    yt, gt = step(block(coords)[0], coords, "torch", prec)
-                    for what, got, want in zip(("out", "x", "offset", "mask", "weight", "bias"),
-                                               [y] + g, [yt] + gt):
-                        if got is not None:
-                            e = rel_err(got, want)
-                            check(e <= LIMITS[prec], f"{label} shard {coords} {what}: "
-                                  f"kernels vs impl='torch' rel err {e:.3e}")
-                    del yt, gt
+                            rows[n].setdefault(row_label, {"launches": 0})["launches"] += v
+                    if on_lead:
+                        # (a) the lead mode's kernels against their plain
+                        # versions, every mode, and the backward's bits.
+                        worst, abs_err = lead_kernel_checks(torch, sb, label, spec, leaves,
+                                                            plan.shards, coords, sh)
+                        for p_, e in worst.items():
+                            kernel_err[p_] = max(kernel_err.get(p_, 0.0), e)
+                        kernel_err["max_abs_err"] = max(kernel_err.get("max_abs_err", 0.0),
+                                                        abs_err[MAIN_PRECISION])
+                        _, g2 = step(block(coords)[0], coords, "auto", prec)
+                        check(all(a is None or torch.equal(a, b_) for a, b_ in zip(g, g2)),
+                              f"{label} shard {coords}: two lead-mode backward runs differ")
+                        del g2
+                    else:
+                        # (a) the kernels against the same function's plain path.
+                        yt, gt = step(block(coords)[0], coords, "torch", prec)
+                        for what, got, want in zip(("out", "x", "offset", "mask", "weight", "bias"),
+                                                   [y] + g, [yt] + gt):
+                            if got is not None:
+                                e = rel_err(got, want)
+                                check(e <= LIMITS[prec], f"{label} shard {coords} impl={impl} "
+                                      f"{what}: kernels vs impl='torch' rel err {e:.3e}")
+                                kernel_err[impl] = max(kernel_err.get(impl, 0.0), e)
+                        del yt, gt
                 out[sh.shard_slices(out.shape, lay, dict(zip(axes, coords)), sizes)] = y
                 add_block(g_sum[0], g[0], plan.shards, coords)
                 for k in (1, 2):
@@ -1605,18 +1719,26 @@ def run_sharded(torch, sh, gm, reset, counts, dev):
                 del leaves, y, g
             # (b) stitched against the unsharded kernel op.
             leaves = [None if t is None else t.detach().clone().requires_grad_(True) for t in ins]
-            y0 = op(*leaves, impl="cuda", precision=prec)
+            kw = (dict(impl="shiftblend", offset_bound=SHARD_MAX_OFFSET) if on_lead
+                  else dict(impl="cuda"))
+            y0 = op(*leaves, precision=prec, **kw)
             live = [t for t in leaves if t is not None]
             g0 = iter(torch.autograd.grad((y0 * y0).sum(), live))
             errs = {"out": rel_err(out, y0.detach())}
             for what, got, t in zip(("x", "offset", "mask", "weight", "bias"), g_sum, leaves):
                 if t is not None:
                     errs[what] = rel_err(got, next(g0))
-            print(f"sharded {label} {prec}: stitched vs unsharded kernel op rel err "
+            print(f"sharded {row_label} {prec}: stitched vs unsharded {kw['impl']} op rel err "
                   + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
             for what, e in errs.items():
-                check(e <= LIMITS[prec], f"{label} {prec} stitched {what} vs unsharded: {e:.3e}")
+                check(e <= LIMITS[prec], f"{row_label} {prec} stitched {what} vs unsharded: "
+                      f"{e:.3e}")
             del out, g_sum, leaves, y0, live
+        if lead:
+            print(f"sharded {label} impl=cuda: {'/'.join(passes['cuda'])} in block mode on every "
+                  f"shard vs impl='torch', worst rel err {kernel_err['cuda']:.2e} (main mode and "
+                  "float32)")
+        launched = launched["auto"]
         kernels_hit = sorted({n for c in launched.values() for n in c})
         print(f"sharded {label}: {len(grid)} shards of block "
               f"{tuple(sh.cut_block(x, plan.shards, grid[0]).shape)}, output grid "
@@ -1624,23 +1746,97 @@ def run_sharded(torch, sh, gm, reset, counts, dev):
               f"{[s.halo for s in plan.shards]}; launched per shard: "
               + "; ".join(f"{c}: " + ", ".join(f"{n} {v}" for n, v in sorted(launched[c].items()))
                           for c in grid))
+        if lead:
+            print(f"sharded {label}: lead-mode kernels vs plain versions on every shard, worst rel "
+                  "err " + ", ".join(f"{p_} {kernel_err[p_]:.2e}" for p_ in LIMITS)
+                  + "; two backward runs bitwise equal on every shard")
         # (d) one interior shard's step beside the unsharded step (main mode).
         mid = grid[len(grid) // 2]
         leaves = block(mid)[0]
-        shard_ms = time_ms(lambda: step(leaves, mid, "auto", MAIN_PRECISION), 5, 2, 1)
         full = [None if t is None else t.detach().clone().requires_grad_(True) for t in ins]
+        full_kw = (dict(impl="shiftblend", offset_bound=SHARD_MAX_OFFSET) if lead
+                   else dict(impl="cuda"))
 
         def full_step():
-            y0 = op(*full, impl="cuda")
+            y0 = op(*full, **full_kw)
             return torch.autograd.grad((y0 * y0).sum(), [t for t in full if t is not None])
-        full_ms = time_ms(full_step, 5, 2, 1)
-        print(f"sharded {label}: shard {mid} step {shard_ms:.4f} ms, unsharded step "
-              f"{full_ms:.4f} ms ({len(grid)} shards: {shard_ms * len(grid) / full_ms:.3f}x "
-              "the unsharded step's work on one card)")
+        times = {}
+        if lead:
+            # The same shard on the gather kernels with gates computes the
+            # same function (the offsets keep within the bound), grad_x of
+            # the block's rows inside the image included (the lead mode
+            # drops the corners past it, the gather kernels keep them on
+            # the zero rows, whose gradient the exchange drops).
+            y_l, g_l = step(leaves, mid, "auto", MAIN_PRECISION)
+            y_g, g_g = step(leaves, mid, "cuda", MAIN_PRECISION)
+            (s0,) = plan.shards
+            lo = s0.halo - mid[0] * s0.in_local
+            rows_in = slice(max(0, lo), min(g_l[0].shape[2], lo + s0.in_local * s0.n_shards))
+            g_l[0], g_g[0] = g_l[0][:, :, rows_in], g_g[0][:, :, rows_in]
+            e = max([rel_err(y_g, y_l)] + [rel_err(a, b_) for a, b_ in zip(g_g, g_l)
+                                           if a is not None])
+            print(f"sharded {label}: shard {mid} on the gather kernels with gates vs the lead "
+                  f"mode, worst rel err {e:.2e} over the output and the gradients")
+            check(e <= LIMITS[MAIN_PRECISION], f"{label}: gather kernels vs lead mode {e:.3e}")
+            del y_l, g_l, y_g, g_g
+            # The kernels alone on the shard's block, lead mode beside the
+            # gather kernels with gates, on the same inputs.
+            xb, off_l, mask_l, w_l, b_l = (None if t is None else t.detach() for t in leaves)
+            local, placement, gates = sh.block_args(spec, plan.shards, mid, tuple(xb.shape[2:]))
+            blk = (tuple(off_l.shape[2:]), gates, placement)
+            cot = torch.randn((xb.shape[0], w_l.shape[0]) + blk[0], device=dev)
+            sbf, gmf = ("shiftblend", "gathermm") if nd == 2 else ("shiftblend3d", "gathermm3d")
+            fb = (xb, off_l, mask_l, w_l, b_l, local, MAIN_PRECISION)
+            bb = (xb, off_l, mask_l, w_l, cot, local, MAIN_PRECISION)
+            for key, fn, args in (
+                    ("lead_fwd_ms", getattr(sb, f"{sbf}_fwd"), fb + (SHARD_MAX_OFFSET, *blk)),
+                    ("lead_bwd_ms", getattr(sb, f"{sbf}_bwd"), bb + (SHARD_MAX_OFFSET, (True,) * 4, *blk)),
+                    ("gather_fwd_ms", getattr(gm, f"{gmf}_fwd"), fb + blk),
+                    ("gather_bwd_ms", getattr(gm, f"{gmf}_bwd"), bb + ((True,) * 4, *blk))):
+                times[key] = timer_ms(torch, prof, dev, lambda: fn(*args), f"{label} {key}")
+            print(f"sharded {label}: shard {mid} kernels alone (Timer): lead mode forward "
+                  f"{times['lead_fwd_ms']:.4f} / backward {times['lead_bwd_ms']:.4f} ms, gather "
+                  f"kernels with gates {times['gather_fwd_ms']:.4f} / {times['gather_bwd_ms']:.4f} ms")
+            del xb, off_l, mask_l, w_l, b_l, cot
+            times["shard_step_ms"] = timer_ms(torch, prof, dev, lambda: step(
+                leaves, mid, "auto", MAIN_PRECISION), f"{label} lead shard step")
+            times["gather_shard_step_ms"] = timer_ms(torch, prof, dev, lambda: step(
+                leaves, mid, "cuda", MAIN_PRECISION), f"{label} gather shard step")
+            times["unsharded_step_ms"] = timer_ms(torch, prof, dev, full_step,
+                                                  f"{label} unsharded shift-blend step")
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as logdir:
+                with prof.trace(logdir) as tr:
+                    with prof.annotate(f"{label} lead shard step"):
+                        step(leaves, mid, "auto", MAIN_PRECISION)
+                trace_kb = os.path.getsize(tr.path) / 1e3
+            by_kernel = {}
+            from torch.autograd import DeviceType
+            for e in tr.key_averages():
+                if (e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                        and not e.is_user_annotation):
+                    by_kernel[e.key] = e.self_device_time_total / 1e3
+            times["shard_step_device_ms"] = sum(by_kernel.values()) if by_kernel else None
+            print_breakdown(f"sharded {label} lead shard {mid} step (a {trace_kb:.0f} kB "
+                            "trace)", by_kernel, top=6)
+            print(f"sharded {label}: shard {mid} step on the lead mode {times['shard_step_ms']:.4f} ms, "
+                  f"on the gather kernels with gates {times['gather_shard_step_ms']:.4f} ms "
+                  f"({times['gather_shard_step_ms'] / times['shard_step_ms']:.3f}x), unsharded "
+                  f"shift-blend step {times['unsharded_step_ms']:.4f} ms ({len(grid)} shards: "
+                  f"{times['shard_step_ms'] * len(grid) / times['unsharded_step_ms']:.3f}x the "
+                  "unsharded step's work on one card; Timer, CUDA events)")
+        else:
+            times["shard_step_ms"] = time_ms(lambda: step(leaves, mid, "auto", MAIN_PRECISION), 5, 2, 1)
+            times["unsharded_step_ms"] = time_ms(full_step, 5, 2, 1)
+            print(f"sharded {label}: shard {mid} step {times['shard_step_ms']:.4f} ms, unsharded "
+                  f"step {times['unsharded_step_ms']:.4f} ms ({len(grid)} shards: "
+                  f"{times['shard_step_ms'] * len(grid) / times['unsharded_step_ms']:.3f}x the "
+                  "unsharded step's work on one card)")
         for n in kernels_hit:
             if n in rows:
-                rows[n][label].update(shard_step_ms=shard_ms, unsharded_step_ms=full_ms,
-                                      shards=len(grid))
+                rows[n][label].update(times, shards=len(grid))
+                if lead:
+                    rows[n][label].update(rel_err_vs_plain={p_: kernel_err[p_] for p_ in LIMITS},
+                                          max_abs_err=kernel_err["max_abs_err"])
         cols_fwd = [n for n in kernels_hit if n.endswith("cols_fwd")]
         if cols_fwd:
             # The column forward on the block in the port's form (offsets as
@@ -1664,7 +1860,7 @@ def run_sharded(torch, sh, gm, reset, counts, dev):
         del leaves, full, ins, x, off, mask, w, b
         torch.cuda.empty_cache()
     print(f"sharded phase: {time.time() - t_phase:.1f} s")
-    return rows
+    return {n: r for n, r in rows.items() if r}
 
 
 def nccl_one_rank(torch, mdt, dev):
@@ -2059,10 +2255,11 @@ def main() -> int:
           f"unsharded bits changed: {json.dumps(digests)}")
 
     # Phase 19: the sharded phase (the sharding layer's per-shard function
-    # on every shard of five layouts, the gather kernels' block mode), and
-    # the public sharded entry on a one-rank NCCL mesh.
+    # on every shard of six layouts: shift-blend's lead mode and the gather
+    # kernels' block mode), and the public sharded entry on a one-rank NCCL
+    # mesh.
     torch.cuda.empty_cache()
-    sharded = run_sharded(torch, sh, gm, reset, counts, dev)
+    sharded = run_sharded(torch, sh, sb, reset, counts, dev)
     nccl_one_rank(torch, mdt, dev)
 
     # Phase 17: the kernel table.  The 2D column kernels' row is config 5's

@@ -629,7 +629,10 @@ inline dim3 pull_grid(const Geo& g) {
 
 // The bounded pull: every (tap, position) whose kept corners can land in the
 // tile lies in the (8 + 2 Ry) x (8 + 2 Rx) halo around it (the static reach
-// of the bounded-offset contract); the candidates are those, tap-major.
+// of the bounded-offset contract), moved back by the reach shift (Halo:
+// the output rows of a sharded leading-dim block sit halo - pad rows below
+// the input rows they reach); the candidates are those, tap-major.  The
+// grid covers every pixel of the input, a block's halo rows included.
 __global__ void __launch_bounds__(kPullT) shift_pull_kernel(const float* __restrict__ offset,
                                                            const float* __restrict__ mask,
                                                            const float* __restrict__ gcols, float* __restrict__ gx,
@@ -637,12 +640,13 @@ __global__ void __launch_bounds__(kPullT) shift_pull_kernel(const float* __restr
   __shared__ PullBlock sm;
   const PullCoords pc = pull_coords(g);
   const int K = g.kh * g.kw, HS = 8 + 2 * Ry, WS = 8 + 2 * Rx, n_cand = K * HS * WS;
+  const int ay = reach_shift(g.shy, g.ory, g.ph, g.kh, g.dh), ax = reach_shift(g.shx, g.orx, g.pw, g.kw, g.dw);
   const float* gcol = gcols + static_cast<size_t>(pc.b) * K * g.OH * g.OW * g.C + pc.c0;
   pull_zero(sm);
   for (int e0 = 0; e0 < n_cand; e0 += kCand) {
     for (int e = threadIdx.x; e < kCand; e += kPullT) {
       const int c = e0 + e, k = c / (HS * WS), rem = c % (HS * WS);
-      const int oy = pc.ty0 - Ry + rem / WS, ox = pc.tx0 - Rx + rem % WS;
+      const int oy = pc.ty0 - ay - Ry + rem / WS, ox = pc.tx0 - ax - Rx + rem % WS;
       pull_entry(sm, e, c < n_cand && oy >= 0 && oy < g.OH && ox >= 0 && ox < g.OW, g, offset, mask, pc.b, pc.d,
                  k, oy * g.OW + ox, pc.ty0, pc.tx0);
     }

@@ -278,7 +278,9 @@ __device__ __forceinline__ void pull3_write(const Pull3Block& sm, float* __restr
 // group).  The bounded contract keeps a tap's corners within rows [lo, lo +
 // win - 1] of its anchor per axis, so the (tap, output position) pairs
 // whose corners can land in the brick are, per tap, a box of (win + 3)
-// positions per axis (8^3 = 512 at bound 2); the candidates are those,
+// positions per axis (8^3 = 512 at bound 2), moved back on a sharded block
+// by the block's shift (sh - or: its output rows sit halo - pad rows below
+// the input rows they reach); the candidates are those,
 // tap-major, evaluated kCand at a time into a table, which every warp scans
 // for its rows (pull3_scan).
 __global__ void __launch_bounds__(kPullT) shift_pull3_kernel(const float* __restrict__ offset,
@@ -291,17 +293,19 @@ __global__ void __launch_bounds__(kPullT) shift_pull3_kernel(const float* __rest
   const int K = taps3(g), P = out_size3(g);
   const int Lz = g.win_z + kBrick - 1, Ly = g.win_y + kBrick - 1, Lx = g.win_x + kBrick - 1;
   const int n_cand = K * Lz * Ly * Lx;
+  const int sz = static_cast<int>(g.shz - g.orz), sy = static_cast<int>(g.shy - g.ory),
+            sx = static_cast<int>(g.shx - g.orx);
   const float* gcol = gcols + static_cast<size_t>(pc.b) * K * P * g.C + pc.c0;
   pull3_zero(sm);
   for (int e0 = 0; e0 < n_cand; e0 += kCand) {
     for (int e = threadIdx.x; e < kCand; e += kPullT) {
       const int c = e0 + e, k = c / (Lz * Ly * Lx), rem = c % (Lz * Ly * Lx);
       const int kz = k / (g.kh * g.kw), ky = k / g.kw % g.kh, kx = k % g.kw;
-      // Output rows o whose corners o + anchor + [lo, lo + win - 1] meet the
-      // brick's rows [i0, i0 + 3].
-      const int oz = pc.bz0 - (kz * g.dd - g.pd) - (g.lo_z + g.win_z - 1) + rem / (Ly * Lx);
-      const int oy = pc.by0 - (ky * g.dh - g.ph) - (g.lo_y + g.win_y - 1) + rem / Lx % Ly;
-      const int ox = pc.bx0 - (kx * g.dw - g.pw) - (g.lo_x + g.win_x - 1) + rem % Lx;
+      // Output rows o whose corners o + anchor + shift + [lo, lo + win - 1]
+      // meet the brick's rows [i0, i0 + 3].
+      const int oz = pc.bz0 - (kz * g.dd - g.pd) - sz - (g.lo_z + g.win_z - 1) + rem / (Ly * Lx);
+      const int oy = pc.by0 - (ky * g.dh - g.ph) - sy - (g.lo_y + g.win_y - 1) + rem / Lx % Ly;
+      const int ox = pc.bx0 - (kx * g.dw - g.pw) - sx - (g.lo_x + g.win_x - 1) + rem % Lx;
       TapWeights3 t{0, 0, 0, make_float4(0.f, 0.f, 0.f, 0.f), make_float4(0.f, 0.f, 0.f, 0.f)};
       if (c < n_cand && oz >= 0 && oz < g.OD && oy >= 0 && oy < g.OH && ox >= 0 && ox < g.OW)
         t = weights3_at(g, offset, mask, pc.b, pc.d, k, (oz * g.OH + oy) * g.OW + ox);

@@ -31,9 +31,11 @@
 //         corner, 16 bytes, straight from xt (one channel, 4 bytes, where
 //         4 channels do not share a conv group and a deformable group);
 //   halo  (shiftblend_fwd, 2D only): the positions are an 8 x 8 tile of one
-//         sample;
+//         sample's output grid;
 //         the bounded contract keeps every kept corner inside the tile's
-//         (8 + 2 Ry) x (8 + 2 Rx) halo, so the halo of `ch` channels is
+//         (8 + 2 Ry) x (8 + 2 Rx) halo, centred `reach_shift` rows and
+//         columns from the tile (0 on a whole input, halo - pad rows on a
+//         sharded leading-dim block), so the halo of `ch` channels is
 //         staged with cp.async, channels innermost, before the offsets are
 //         read, one chunk of channels ahead of the chunk in use, in two
 //         buffers.
@@ -57,9 +59,11 @@ constexpr int kFwdTaps = 9;  // taps a corner table spans (a 3x3 kernel's)
 constexpr int kHaloTile = 8;  // the halo path's tile: 8 x 8 output positions
 
 // The halo path's staging: reach beyond the tile per axis, channels a
-// chunk (two buffers: the next chunk's copy overlaps the current chunk).
+// chunk (two buffers: the next chunk's copy overlaps the current chunk),
+// and the shift from the output tile to the centre of its reach in x per
+// axis (reach_shift).
 struct Halo {
-  int ry, rx, ch;
+  int ry, rx, ch, ay, ax;
 };
 
 // Output tiles of 64 a block holds for O/groups output channels.
@@ -168,7 +172,7 @@ __global__ void __launch_bounds__(kMmaThreads, 2) fwd_mma_kernel(
   // 8 x 8 tile at (ty0, tx0) of sample bh.
   int n0 = 0, bh = 0, ty0 = 0, tx0 = 0;
   if constexpr (kHalo) {
-    const int tiles_x = (g.W + kHaloTile - 1) / kHaloTile, tiles = tiles_x * ((g.H + kHaloTile - 1) / kHaloTile);
+    const int tiles_x = (g.OW + kHaloTile - 1) / kHaloTile, tiles = tiles_x * ((g.OH + kHaloTile - 1) / kHaloTile);
     bh = blockIdx.x / tiles;
     ty0 = blockIdx.x % tiles / tiles_x * kHaloTile;
     tx0 = blockIdx.x % tiles % tiles_x * kHaloTile;
@@ -179,8 +183,8 @@ __global__ void __launch_bounds__(kMmaThreads, 2) fwd_mma_kernel(
     if constexpr (kHalo) {
       const int y = ty0 + nl / kHaloTile, x = tx0 + nl % kHaloTile;
       b = bh;
-      p = y * g.W + x;
-      return y < g.H && x < g.W;
+      p = y * g.OW + x;
+      return y < g.OH && x < g.OW;
     }
     const int n = n0 + nl;
     b = n / P;
@@ -230,14 +234,15 @@ __global__ void __launch_bounds__(kMmaThreads, 2) fwd_mma_kernel(
     }
   };
 
-  // The halo of chunk t into buffer t % 2; zeros outside the image.
+  // The halo of chunk t into buffer t % 2; zeros outside the image (the
+  // block).
   auto load_halo = [&](int t) {
     float* dst = halo + static_cast<size_t>(t & 1) * HS * WS * chp;
     const int quads = h.ch / 4;
     const float* src0 = xt + static_cast<size_t>(bh) * HW * g.C + gi * Cgc + t * h.ch;
     for (int e = threadIdx.x; e < HS * WS * quads; e += kMmaThreads) {
       const int pix = e / quads, q = e % quads;
-      const int y = ty0 - h.ry + pix / WS, x = tx0 - h.rx + pix % WS;
+      const int y = ty0 + h.ay - h.ry + pix / WS, x = tx0 + h.ax - h.rx + pix % WS;
       const bool ok = y >= 0 && y < g.H && x >= 0 && x < g.W;
       cp_async16(dst + pix * chp + 4 * q, ok ? src0 + static_cast<size_t>(y * g.W + x) * g.C + 4 * q : xt, ok);
     }
@@ -308,7 +313,7 @@ __global__ void __launch_bounds__(kMmaThreads, 2) fwd_mma_kernel(
           }
           tw[e] = tap.w;
           tq[e] = !ok[u] ? 0
-                  : kHalo ? (tap.y0 - ty0 + h.ry) * WS + tap.x0 - tx0 + h.rx
+                  : kHalo ? (tap.y0 - ty0 - h.ay + h.ry) * WS + tap.x0 - tx0 - h.ax + h.rx
                           : b[u] * HW + tap.y0 * g.W + tap.x0;
         }
       }
@@ -519,7 +524,7 @@ inline cudaError_t launch_fwd_mma(const G& g, const float* xt, const float* offs
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int Og = g.O / g.groups;
-  const int blocks = kHalo ? g.B * ((g.H + kHaloTile - 1) / kHaloTile) * ((g.W + kHaloTile - 1) / kHaloTile)
+  const int blocks = kHalo ? g.B * ((g.OH + kHaloTile - 1) / kHaloTile) * ((g.OW + kHaloTile - 1) / kHaloTile)
                            : (g.B * out_positions(g) + NH * kMT - 1) / (NH * kMT);
   const dim3 grid(blocks, g.groups * ((Og + OT * kMT - 1) / (OT * kMT)), splits);
   kern<<<grid, kMmaThreads, smem, s>>>(xt, offset, mask, wf, bias, out, splits > 1 ? part : nullptr, cw_log2,
@@ -608,7 +613,7 @@ inline cudaError_t run_fwd(const G& g, const float* x, const float* offset, cons
   if (!done) {
     const int nd = chunk_groups(g, kMK);
     const FwdSmem sm{max(1, min(K, kFwdTaps / nd)), nd, 0, kPlanes<G>};
-    if ((err = launch_fwd<false>(g, xt, offset, mask, wf, bias, out, part, splits, kMK, sm, Halo{0, 0, 8}, s)) !=
+    if ((err = launch_fwd<false>(g, xt, offset, mask, wf, bias, out, part, splits, kMK, sm, Halo{0, 0, 8, 0, 0}, s)) !=
         cudaSuccess)
       return err;
   }

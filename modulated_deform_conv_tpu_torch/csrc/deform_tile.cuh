@@ -41,14 +41,27 @@ struct Geo {
   float shy, ory, shx, orx;
 };
 
+// The shift, in rows of the block, from an output row to the centre of the
+// rows its taps' kept corners can reach under the bounded contract (a tap's
+// reach spans dil * (k - 1) rows, 2 * pad == dil * (k - 1) on the whole
+// input): (sh - or) - pad + dil * (k - 1) / 2, 0 on a whole input.  The
+// shift-blend halo tile and its pull are centred by it.
+__host__ __device__ inline int reach_shift(float sh, float origin, int pad, int k, int dil) {
+  return static_cast<int>(sh - origin) - pad + dil * (k - 1) / 2;
+}
+
 // The four bilinear corners of one tap at one output position.
 //   pos = base + off per axis, in fp32 like the reference (on a sharded
 //   block in the whole input's coordinates: Geo);
 //   the whole tap is closed unless g0 < pos < g1 on both axes (the gate,
 //   Geo's (gy0, gy1) and (gx0, gx1));
 //   a corner outside the image (the block) is dropped;
-//   with `windowed`, the bounded-offset contract also drops, per axis, the
-//   corner c unless lo <= floor(pos) - base + c <= lo + win - 1.
+//   with `windowed`, a corner is kept only inside the gate (on a sharded
+//   block: inside the whole input's image, as the shift-blend op checks its
+//   corners; the gate lies inside the block, and on a whole input its
+//   (-1, S) keeps what the image keeps), and the bounded-offset contract
+//   drops, per axis, the corner c unless lo <= floor(pos) - anchor + c <=
+//   lo + win - 1, the anchor base + sh taken in the whole input.
 // keep bit 2*cy + cx says whether corner (y0 + cy, x0 + cx) is kept.
 struct TapCorners {
   int y0, x0;
@@ -71,13 +84,14 @@ __device__ __forceinline__ TapCorners tap_corners(const Geo& g, int base_y,
   bool ky[2], kx[2];
 #pragma unroll
   for (int c = 0; c < 2; ++c) {
-    ky[c] = t.y0 + c >= 0 && t.y0 + c <= g.H - 1;
-    kx[c] = t.x0 + c >= 0 && t.x0 + c <= g.W - 1;
     if (g.windowed) {
-      const float rel_y = fy - static_cast<float>(base_y) + c;
-      const float rel_x = fx - static_cast<float>(base_x) + c;
-      ky[c] = ky[c] && rel_y >= g.lo_y && rel_y <= g.lo_y + g.win_y - 1;
-      kx[c] = kx[c] && rel_x >= g.lo_x && rel_x <= g.lo_x + g.win_x - 1;
+      const float rel_y = fy - (static_cast<float>(base_y) + g.shy) + c;
+      const float rel_x = fx - (static_cast<float>(base_x) + g.shx) + c;
+      ky[c] = fy + c > g.gy0 && fy + c < g.gy1 && rel_y >= g.lo_y && rel_y <= g.lo_y + g.win_y - 1;
+      kx[c] = fx + c > g.gx0 && fx + c < g.gx1 && rel_x >= g.lo_x && rel_x <= g.lo_x + g.win_x - 1;
+    } else {
+      ky[c] = t.y0 + c >= 0 && t.y0 + c <= g.H - 1;
+      kx[c] = t.x0 + c >= 0 && t.x0 + c <= g.W - 1;
     }
   }
   t.keep = (ky[0] && kx[0]) | (ky[0] && kx[1]) << 1 | (ky[1] && kx[0]) << 2 |

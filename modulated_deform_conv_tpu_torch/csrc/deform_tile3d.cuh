@@ -32,7 +32,9 @@ __host__ __device__ inline int out_size3(const Geo3& g) { return g.OD * g.OH * g
 //   gate, Geo3's);
 //   a corner outside the volume (the block) is dropped;
 //   with `windowed`, the bounded-offset contract also drops, per axis, the
-//   corner c unless lo <= floor(pos) - base + c <= lo + win - 1.
+//   corner c unless lo <= floor(pos) - anchor + c <= lo + win - 1 and the
+//   corner lies inside the gate, as tap_corners (deform_tile.cuh) keeps
+//   them.
 // keep bit 4*cz + 2*cy + cx says whether corner (z0+cz, y0+cy, x0+cx) is kept.
 struct TapCorners3 {
   int z0, y0, x0;
@@ -41,17 +43,17 @@ struct TapCorners3 {
 };
 
 // Is corner c of an axis kept: its index i0 + c in the volume (i0 the low
-// corner's, in the block's coordinates) and, with `windowed`, its place
-// floor(pos) - base + c in the window.
-__device__ __forceinline__ bool axis_keeps(float fl, int i0, int base, int c, int S, bool windowed, int lo,
-                                           int win) {
-  const int i = i0 + c;
-  bool k = i >= 0 && i <= S - 1;
+// corner's, in the block's coordinates), or with `windowed` floor(pos) + c
+// inside the gate (g0, g1), which lies inside the block, and its place
+// floor(pos) - (base + sh) + c in the window, both in the whole input's
+// coordinates.
+__device__ __forceinline__ bool axis_keeps(float fl, int i0, int base, float sh, int c, int S, bool windowed,
+                                           int lo, int win, float g0, float g1) {
   if (windowed) {
-    const float rel = fl - static_cast<float>(base) + c;
-    k = k && rel >= lo && rel <= lo + win - 1;
+    const float rel = fl - (static_cast<float>(base) + sh) + c;
+    return fl + c > g0 && fl + c < g1 && rel >= lo && rel <= lo + win - 1;
   }
-  return k;
+  return i0 + c >= 0 && i0 + c <= S - 1;
 }
 
 __device__ __forceinline__ TapCorners3 tap_corners3(const Geo3& g, int bz, int by, int bx, float off_z, float off_y,
@@ -72,9 +74,9 @@ __device__ __forceinline__ TapCorners3 tap_corners3(const Geo3& g, int bz, int b
   bool kz[2], ky[2], kx[2];
 #pragma unroll
   for (int c = 0; c < 2; ++c) {
-    kz[c] = axis_keeps(fz, t.z0, bz, c, g.D, w, g.lo_z, g.win_z);
-    ky[c] = axis_keeps(fy, t.y0, by, c, g.H, w, g.lo_y, g.win_y);
-    kx[c] = axis_keeps(fx, t.x0, bx, c, g.W, w, g.lo_x, g.win_x);
+    kz[c] = axis_keeps(fz, t.z0, bz, g.shz, c, g.D, w, g.lo_z, g.win_z, g.gz0, g.gz1);
+    ky[c] = axis_keeps(fy, t.y0, by, g.shy, c, g.H, w, g.lo_y, g.win_y, g.gy0, g.gy1);
+    kx[c] = axis_keeps(fx, t.x0, bx, g.shx, c, g.W, w, g.lo_x, g.win_x, g.gx0, g.gx1);
   }
 #pragma unroll
   for (int i = 0; i < 8; ++i) t.keep |= (kz[i >> 2] && ky[(i >> 1) & 1] && kx[i & 1]) << i;

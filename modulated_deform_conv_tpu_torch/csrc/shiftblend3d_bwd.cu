@@ -31,29 +31,37 @@
 // fixed order, so no atomics and no data-dependent bounds are needed.
 // gcols and the gradients read from it run in batch chunks (b_step) that
 // bound its size and do not change the bits.
+//
+// The lead mode (the TPU kernel's `lead`): on a sharded leading-dim block
+// the output grid is OD x H x W, the gate, the window and the kept corners
+// are the whole input's (Geo3's placement), and the pull covers every plane
+// of the block, its halo planes included, each brick's candidates moved
+// back by the block's shift.
 #include "deform_bwd3d.cuh"
 
-// x (B, C, D, H, W), offset (B, dg*3*K, D, H, W), mask (B, dg*K, D, H, W) or
-// null, wk (groups, O/groups, K, C/groups), gout (B, O, D, H, W): float32,
-// contiguous, on the current device.  (lo, win) per axis is the
-// bounded-offset window.  Scratch, allocated by the caller: gcols (b_step,
-// K, D*H*W, C); xt (B, D*H*W, C); part (splits, groups, C/groups*K,
-// O/groups).  Outputs, each null when not wanted: gx like x, goff like
-// offset, gmask like mask, gwt (groups, C/groups*K, O/groups).  Needs
-// stride 1, 2*pad == dilation*(k-1) and dg % groups == 0.
+// x (B, C, D, H, W), offset (B, dg*3*K, OD, OH, OW), mask (B, dg*K, OD, OH,
+// OW) or null, wk (groups, O/groups, K, C/groups), gout (B, O, OD, OH, OW):
+// float32, contiguous, on the current device.  (lo, win) per axis is the
+// bounded-offset window.  gz0 .. orx: the tap gate per axis and the block's
+// placement (Geo3): (-1, D), (-1, H), (-1, W) and zeros but on a sharded
+// block.  Scratch, allocated by the caller: gcols (b_step, K, OD*OH*OW, C);
+// xt (B, D*H*W, C); part (splits, groups, C/groups*K, O/groups).  Outputs,
+// each null when not wanted: gx like x, goff like offset, gmask like mask,
+// gwt (groups, C/groups*K, O/groups).  Needs what shiftblend3d_fwd needs.
 // Returns the first CUDA error of the launches, or 0.
 extern "C" int shiftblend3d_bwd(const float* x, const float* offset, const float* mask, const float* wk,
                                 const float* gout, float* gcols, float* xt, float* part, float* gx, float* goff,
-                                float* gmask, float* gwt, int B, int C, int D, int H, int W, int O, int groups,
-                                int dg, int kd, int kh, int kw, int pd, int ph, int pw, int dd, int dh, int dw,
-                                int lo_z, int win_z, int lo_y, int win_y, int lo_x, int win_x, int b_step,
-                                int splits, int precision, void* stream) {
+                                float* gmask, float* gwt, int B, int C, int D, int H, int W, int O, int OD, int OH,
+                                int OW, int groups, int dg, int kd, int kh, int kw, int pd, int ph, int pw, int dd,
+                                int dh, int dw, int lo_z, int win_z, int lo_y, int win_y, int lo_x, int win_x,
+                                int b_step, int splits, int precision, float gz0, float gz1, float gy0, float gy1,
+                                float gx0, float gx1, float shz, float orz, float shy, float ory, float shx,
+                                float orx, void* stream) {
   using namespace mdc;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Geo3 g{B,  C,  D,  H,  W,  O,  D,  H,    W,     groups, dg,    kd,   kh,    kw, 1, 1,
-               1,  pd, ph, pw, dd, dh, dw, 1, lo_z, win_z, lo_y,   win_y, lo_x, win_x, precision,
-               -1.f, static_cast<float>(D), -1.f, static_cast<float>(H), -1.f, static_cast<float>(W),
-               0.f,  0.f,  0.f,  0.f,  0.f,  0.f};
+  const Geo3 g{B, C,  D,  H,  W,  O,  OD, OH, OW, groups, dg,    kd,   kh,    kw,   1,     1,
+               1, pd, ph, pw, dd, dh, dw, 1,  lo_z, win_z,  lo_y, win_y, lo_x, win_x, precision,
+               gz0, gz1, gy0, gy1, gx0, gx1, shz, orz, shy, ory, shx, orx};
   const auto pull = [&](const Geo3& gc, const float* off_c, const float* mask_c, const float* gcols_c,
                         float* gx_c) { return launch_shift_pull3(gc, off_c, mask_c, gcols_c, gx_c, s); };
   switch (precision) {

@@ -31,25 +31,35 @@
 // positions), the parts are folded in order: no float atomics.
 // Eligibility (Python side) gives C/dg % 8 == 0 and dg % groups == 0, so a
 // channel quad never straddles a slab or a conv group.
+//
+// The lead mode (the TPU kernel's `lead`, shiftblend.py:1478, which the
+// sharding layer enters for a leading-dim split): on a sharded block of OD
+// output planes plus halo planes of each neighbour the output grid is OD x
+// H x W, and the gate, the window and the kept corners are the whole
+// input's (Geo3's placement), as in shiftblend_fwd.cu.
 #include "deform_fwd.cuh"
 
-// x (B, C, D, H, W), offset (B, dg*3*K, D, H, W), mask (B, dg*K, D, H, W) or
-// null, wf (groups, K, C/groups, O/groups), bias (O) or null, out (B, O, D,
-// H, W): float32, contiguous, on the current device.  (lo, win) per axis is
-// the bounded-offset window.  Scratch, allocated by the caller: xt (B,
-// D*H*W, C); part (splits, B, O, D, H, W), unused when splits is 1.  Needs
-// stride 1, 2*pad == dilation*(k-1) and dg % groups == 0.
+// x (B, C, D, H, W), offset (B, dg*3*K, OD, OH, OW), mask (B, dg*K, OD, OH,
+// OW) or null, wf (groups, K, C/groups, O/groups), bias (O) or null, out (B,
+// O, OD, OH, OW): float32, contiguous, on the current device.  (lo, win) per
+// axis is the bounded-offset window.  gz0 .. orx: the tap gate per axis and
+// the block's placement (Geo3): (-1, D), (-1, H), (-1, W) and zeros but on a
+// sharded block.  Scratch, allocated by the caller: xt (B, D*H*W, C); part
+// (splits, B, O, OD, OH, OW), unused when splits is 1.  Needs stride 1,
+// (OH, OW) == (H, W), and OD == D with 2*pad == dilation*(k-1), or a
+// lead-mode block, and dg % groups == 0.
 // Returns the first CUDA error of the launches, or 0.
 extern "C" int shiftblend3d_fwd(const float* x, const float* offset, const float* mask, const float* wf,
                                 const float* bias, float* out, float* xt, float* part, int B, int C, int D, int H,
-                                int W, int O, int groups, int dg, int kd, int kh, int kw, int pd, int ph, int pw,
-                                int dd, int dh, int dw, int lo_z, int win_z, int lo_y, int win_y, int lo_x,
-                                int win_x, int splits, int precision, void* stream) {
+                                int W, int O, int OD, int OH, int OW, int groups, int dg, int kd, int kh, int kw,
+                                int pd, int ph, int pw, int dd, int dh, int dw, int lo_z, int win_z, int lo_y,
+                                int win_y, int lo_x, int win_x, int splits, int precision, float gz0, float gz1,
+                                float gy0, float gy1, float gx0, float gx1, float shz, float orz, float shy,
+                                float ory, float shx, float orx, void* stream) {
   using namespace mdc;
-  const Geo3 g{B,  C,  D,  H,  W,  O,  D,  H,    W,     groups, dg,    kd,   kh,    kw, 1, 1,
-               1,  pd, ph, pw, dd, dh, dw, 1, lo_z, win_z, lo_y,   win_y, lo_x, win_x, precision,
-               -1.f, static_cast<float>(D), -1.f, static_cast<float>(H), -1.f, static_cast<float>(W),
-               0.f,  0.f,  0.f,  0.f,  0.f,  0.f};
+  const Geo3 g{B, C,  D,  H,  W,  O,  OD, OH, OW, groups, dg,    kd,   kh,    kw,   1,     1,
+               1, pd, ph, pw, dd, dh, dw, 1,  lo_z, win_z,  lo_y, win_y, lo_x, win_x, precision,
+               gz0, gz1, gy0, gy1, gx0, gx1, shz, orz, shy, ory, shx, orx};
   return static_cast<int>(
       run_fwd(g, x, offset, mask, wf, bias, out, xt, part, splits, nullptr, static_cast<cudaStream_t>(stream)));
 }

@@ -28,6 +28,13 @@
 // owns such a tile x 64 channels and takes the taps and the halo positions
 // as candidates in a fixed order, so no atomics and no data-dependent bounds
 // are needed.  Two runs give the same bits.
+//
+// The lead mode (the TPU kernel's `lead`): on a sharded leading-dim block
+// the output grid is OH x W, the gate and the window are the whole input's
+// (Geo's placement, as shiftblend_fwd.cu), and the pull covers every row of
+// the block, its halo rows included, each tile's candidates moved back by
+// the block's reach shift; the sharding layer's exchange sends the halo
+// rows' gradient back to their owners.
 #include "deform_bwd.cuh"
 
 namespace {
@@ -48,25 +55,28 @@ int run(const Geo& g, const float* x, const float* offset, const float* mask, co
 
 }  // namespace
 
-// x (B, C, H, W), offset (B, dg*2*K, H, W), mask (B, dg*K, H, W) or null,
-// wk (groups, O/groups, K, C/groups), gout (B, O, H, W): float32, contiguous,
-// on the current device.  (lo, win) per axis is the bounded-offset window;
-// R per axis the halo reach pad + max(-lo, lo+win-1).  Scratch, allocated by
-// the caller: gcols (B, K, H*W, C); xt (B, H*W, C); part (splits, groups,
-// C/groups*K, O/groups).  Outputs, each null when not wanted: gx like x,
-// goff like offset, gmask like mask, gwt (groups, C/groups*K, O/groups).
-// Needs stride 1 and 2*pad == dilation*(k-1).  Returns the first CUDA error
-// of the launches, or 0.
+// x (B, C, H, W), offset (B, dg*2*K, OH, OW), mask (B, dg*K, OH, OW) or
+// null, wk (groups, O/groups, K, C/groups), gout (B, O, OH, OW): float32,
+// contiguous, on the current device.  (lo, win) per axis is the
+// bounded-offset window; R per axis the halo reach dil*(k-1)/2 + max(-lo,
+// lo+win-1).  gy0 .. orx: the tap gate per axis and the block's placement
+// (Geo): (-1, H), (-1, W) and zeros but on a sharded block.  Scratch,
+// allocated by the caller: gcols (B, K, OH*OW, C); xt (B, H*W, C); part
+// (splits, groups, C/groups*K, O/groups).  Outputs, each null when not
+// wanted: gx like x, goff like offset, gmask like mask, gwt (groups,
+// C/groups*K, O/groups).  Needs what shiftblend_fwd needs.  Returns the
+// first CUDA error of the launches, or 0.
 extern "C" int shiftblend_bwd(const float* x, const float* offset, const float* mask, const float* wk,
                               const float* gout, float* gcols, float* xt, float* part, float* gx, float* goff,
-                              float* gmask, float* gwt, int B, int C, int H, int W, int O, int groups, int dg, int kh,
-                              int kw, int ph, int pw, int dh, int dw, int lo_y, int win_y, int lo_x, int win_x,
-                              int Ry, int Rx, int splits, int precision, void* stream) {
+                              float* gmask, float* gwt, int B, int C, int H, int W, int O, int OH, int OW,
+                              int groups, int dg, int kh, int kw, int ph, int pw, int dh, int dw, int lo_y,
+                              int win_y, int lo_x, int win_x, int Ry, int Rx, int splits, int precision, float gy0,
+                              float gy1, float gx0, float gx1, float shy, float ory, float shx, float orx,
+                              void* stream) {
   using namespace mdc;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Geo g{B, C, H, W, O, H, W, groups, dg, kh, kw, 1, 1, ph, pw, dh, dw, 1, lo_y, win_y, lo_x, win_x,
-              precision, -1.f, static_cast<float>(H), -1.f, static_cast<float>(W),
-              0.f, 0.f, 0.f, 0.f};
+  const Geo g{B, C, H, W, O, OH, OW, groups, dg, kh, kw, 1, 1, ph, pw, dh, dw, 1, lo_y, win_y, lo_x, win_x, precision,
+              gy0, gy1, gx0, gx1, shy, ory, shx, orx};
   switch (precision) {
     case kFloat32:
       return run<kFloat32>(g, x, offset, mask, wk, gout, gcols, xt, part, gx, goff, gmask, gwt, Ry, Rx,

@@ -39,26 +39,39 @@
 // halo.
 // Eligibility (Python side) gives C/dg % 8 == 0 and dg % groups == 0, so a
 // chunk never straddles a slab or a conv group.
+//
+// The lead mode (the TPU kernel's `lead`, shiftblend.py:1478): on a sharded
+// leading-dim block (the shard's OH output rows plus halo rows of each
+// neighbour, zeros past the image) the output grid is OH x W, the tap gate is
+// the whole input's border, and a position is taken in the whole input's
+// coordinates (Geo's placement), so the window stays around the tap's anchor
+// there and only kept corners inside the whole input's image count.  The
+// halo tile is then centred halo - pad rows below its output tile
+// (reach_shift).
 #include "deform_fwd.cuh"
 
-// x (B, C, H, W), offset (B, dg*2*K, H, W), mask (B, dg*K, H, W) or null,
-// wf (groups, K, C/groups, O/groups), bias (O) or null, out (B, O, H, W):
-// float32, contiguous, on the current device.  (lo, win) per axis is the
-// bounded-offset window; R per axis the halo reach pad + max(-lo, lo+win-1);
-// halo 1 to stage the halo tile where it fits, 0 for the xt path.
-// Scratch, allocated by the caller: xt (B, H*W, C); part (splits, B, O, H,
-// W), unused when splits is 1.  Needs stride 1, 2*pad == dilation*(k-1),
-// C/dg % 8 == 0, dg % groups == 0.  Returns the first CUDA error of the
-// launches, or 0.
+// x (B, C, H, W), offset (B, dg*2*K, OH, OW), mask (B, dg*K, OH, OW) or
+// null, wf (groups, K, C/groups, O/groups), bias (O) or null, out (B, O, OH,
+// OW): float32, contiguous, on the current device.  (lo, win) per axis is
+// the bounded-offset window; R per axis the halo reach dil*(k-1)/2 +
+// max(-lo, lo+win-1); halo 1 to stage the halo tile where it fits, 0 for the
+// xt path.  gy0 .. orx: the tap gate per axis and the block's placement
+// (Geo): (-1, H), (-1, W) and zeros but on a sharded block.  Scratch,
+// allocated by the caller: xt (B, H*W, C); part (splits, B, O, OH, OW),
+// unused when splits is 1.  Needs stride 1, OW == W, and OH == H with
+// 2*pad == dilation*(k-1), or a lead-mode block (pad 0 on H, dilation*(k-1)
+// even), C/dg % 8 == 0, dg % groups == 0.  Returns the first CUDA error of
+// the launches, or 0.
 extern "C" int shiftblend_fwd(const float* x, const float* offset, const float* mask, const float* wf,
                               const float* bias, float* out, float* xt, float* part, int B, int C, int H, int W,
-                              int O, int groups, int dg, int kh, int kw, int ph, int pw, int dh, int dw, int lo_y,
-                              int win_y, int lo_x, int win_x, int Ry, int Rx, int halo, int splits, int precision,
-                              void* stream) {
+                              int O, int OH, int OW, int groups, int dg, int kh, int kw, int ph, int pw, int dh,
+                              int dw, int lo_y, int win_y, int lo_x, int win_x, int Ry, int Rx, int halo,
+                              int splits, int precision, float gy0, float gy1, float gx0, float gx1, float shy,
+                              float ory, float shx, float orx, void* stream) {
   using namespace mdc;
-  const Geo g{B, C, H, W, O, H, W, groups, dg, kh, kw, 1, 1, ph, pw, dh, dw, 1, lo_y, win_y, lo_x, win_x, precision,
-              -1.f, static_cast<float>(H), -1.f, static_cast<float>(W), 0.f, 0.f, 0.f, 0.f};
-  const Halo h{Ry, Rx, 8};
+  const Geo g{B, C, H, W, O, OH, OW, groups, dg, kh, kw, 1, 1, ph, pw, dh, dw, 1, lo_y, win_y, lo_x, win_x, precision,
+              gy0, gy1, gx0, gx1, shy, ory, shx, orx};
+  const Halo h{Ry, Rx, 8, reach_shift(shy, ory, ph, kh, dh), reach_shift(shx, orx, pw, kw, dw)};
   return static_cast<int>(run_fwd(g, x, offset, mask, wf, bias, out, xt, part, splits, halo ? &h : nullptr,
                                     static_cast<cudaStream_t>(stream)));
 }

@@ -83,7 +83,10 @@ def deform_conv_columns(x: torch.Tensor, offset: torch.Tensor,
         halo-extended blocks at the global border with it.
       corner_window: optional per-dim (lo, W) of the bounded-offset
         contract (the shift-blend kernel's): along axis d, corner c of a tap
-        is kept only if lo <= floor(pos_d) - base_d + c <= lo + W - 1.
+        is kept only if lo <= floor(pos_d) - anchor_d + c <= lo + W - 1,
+        the anchor base_d + shift in the whole input, and only inside the
+        gate, as the shift-blend op checks its corners against the image it
+        gates at (in a block: the whole input's image).
       block_origin: optional per-dim (shift, origin) placing x, a block of a
         larger input, in it: the position is taken in the whole input,
         (base_d + shift) + offset, rounded as it rounds there, and gated
@@ -113,19 +116,24 @@ def deform_conv_columns(x: torch.Tensor, offset: torch.Tensor,
 
     gate = torch.ones(pos.shape[:3] + pos.shape[4:], dtype=torch.bool,
                       device=x.device)                        # (B, dg, K, P)
+    gates = []        # per dim, the gate in the whole input's coordinates
     for d in range(nd):
         lo = -1.0 if gate_bounds is None else gate_bounds[d][0]
         hi = float(S[d]) if gate_bounds is None else gate_bounds[d][1]
         o = 0.0 if block_origin is None else float(block_origin[d][1])
+        gates.append((lo + o, hi + o))
         gate = (gate & (pos[:, :, :, d] > lo + o)
                 & (pos[:, :, :, d] < hi + o))
 
     low = torch.floor(pos)
     frac = pos - low
+    # The window is taken in the whole input, around the tap's anchor there
+    # (base + shift), before the low corner moves to the block.
+    glow = low if corner_window is not None else None
+    rel = None if corner_window is None else low - base[None, None]
     if block_origin is not None:
         low = low - origin.to(low.dtype)
     ilow = low.to(torch.int64)
-    rel = None if corner_window is None else low - base[None, None]
 
     s_flat = math.prod(S)
     x_cl = x.movedim(1, -1).reshape(B, s_flat, dg, Cg)
@@ -146,7 +154,9 @@ def deform_conv_columns(x: torch.Tensor, offset: torch.Tensor,
             if rel is not None:
                 lo_d, win_d = corner_window[d]
                 row = rel[:, :, :, d] + corner[d]
-                valid &= (row >= lo_d) & (row <= lo_d + win_d - 1)
+                g_d = glow[:, :, :, d] + corner[d]
+                valid &= ((row >= lo_d) & (row <= lo_d + win_d - 1)
+                          & (g_d > gates[d][0]) & (g_d < gates[d][1]))
             w = w * (frac[:, :, :, d] if corner[d]
                      else 1.0 - frac[:, :, :, d])
             flat_idx = flat_idx + idx_d.clamp(0, S[d] - 1) * spatial_stride[d]

@@ -70,7 +70,8 @@ def maybe_cuda(x, offset, mask, weight, bias, spec: DeformConvSpec,
     (lo, hi) tap gate; `block_origin`, the block's placement in the whole
     input) routes to the gather kernels only, as the JAX package's
     `maybe_pallas` routes `gate_bounds`: shift-blend's own sharded mode is
-    its lead mode, which the sharding layer would call directly."""
+    its lead mode, which the sharding layer calls directly
+    (`shiftblend.deform_conv_shift_sharded`)."""
     block_mode = (gate_bounds is not None or block_origin is not None
                   or out_sizes is not None)
     if impl == "shiftblend":

@@ -240,16 +240,10 @@ def gathermm_fwd_reference(x, offset, mask, weight, bias,
                                 block_origin=block_origin)
 
 
-def _out_sizes(x, spec: DeformConvSpec, out_sizes=None):
-    """The output grid: `out_sizes` where given, else derived from x."""
-    return (spec.out_sizes(x.shape[2:]) if out_sizes is None
-            else tuple(int(o) for o in out_sizes))
-
-
 def _geometry(x, weight, spec: DeformConvSpec, out_sizes=None):
     """The kernels' leading int arguments: B, C, *S, O, *OS, groups, dg,
     *kernel, *stride, *padding, *dilation."""
-    return (*x.shape, weight.shape[0], *_out_sizes(x, spec, out_sizes),
+    return (*x.shape, weight.shape[0], *lib.out_grid(x, spec, out_sizes),
             spec.groups, spec.deformable_groups, *spec.kernel, *spec.stride,
             *spec.padding, *spec.dilation)
 
@@ -261,7 +255,7 @@ def _fwd(name, x, offset, mask, weight, bias, spec, precision, out_sizes,
     if reason is not None:
         raise NotImplementedError(f"{name}: {reason}")
     out = torch.empty((x.shape[0], weight.shape[0])
-                      + _out_sizes(x, spec, out_sizes), dtype=torch.float32,
+                      + lib.out_grid(x, spec, out_sizes), dtype=torch.float32,
                       device=x.device)
     xt, part, splits = lib.fwd_buffers(x, weight, spec, out)
     lib.launch(name, x, (x, offset, mask, lib.fwd_weight(weight, spec.groups),
@@ -341,7 +335,7 @@ def _bwd(name, x, offset, mask, weight, grad_out, spec, precision, needs,
     if reason is not None:
         raise NotImplementedError(f"{name}: {reason}")
     B, dg = x.shape[0], spec.deformable_groups
-    OS = _out_sizes(x, spec, out_sizes)
+    OS = lib.out_grid(x, spec, out_sizes)
     lib.check_grad_out(name, grad_out, x, (B, weight.shape[0]) + OS)
     # The 3D kernel runs gcols and the gradients read from it in batch
     # chunks of gcd(B, in_step): a memory knob that does not change the
@@ -497,7 +491,7 @@ gathermm3d_cols_bwd_reference = gathermm_cols_bwd_reference
 def _cols_geometry(x, spec: DeformConvSpec, out_sizes=None):
     """The column kernels' int arguments: B, C, *S, *OS, dg, *kernel,
     *stride, *padding, *dilation."""
-    return (*x.shape, *_out_sizes(x, spec, out_sizes),
+    return (*x.shape, *lib.out_grid(x, spec, out_sizes),
             spec.deformable_groups, *spec.kernel, *spec.stride,
             *spec.padding, *spec.dilation)
 
@@ -506,7 +500,7 @@ def _cols_check(name, x, offset, mask, spec, out_sizes=None):
     lib.check_inputs(name, x, offset, mask, None, None, spec, out_sizes)
     # The kernels keep a (tap, batch, position) index in an int.
     if spec.tap_count * x.shape[0] * math.prod(
-            _out_sizes(x, spec, out_sizes)) >= 2 ** 31:
+            lib.out_grid(x, spec, out_sizes)) >= 2 ** 31:
         raise NotImplementedError(f"{name}: K * B * P must stay below 2^31")
 
 
@@ -515,7 +509,7 @@ def _cols_fwd(name, x, offset, mask, spec, precision, route=None,
     """Launch a column forward kernel.  `route` ("plane" or "gather")
     forces one, None for cols_fwd_plan's choice."""
     _cols_check(name, x, offset, mask, spec, out_sizes)
-    OS = _out_sizes(x, spec, out_sizes)
+    OS = lib.out_grid(x, spec, out_sizes)
     plan = cols_fwd_plan(spec, x.shape[2:], OS, x.shape[0], x.shape[1],
                          route)
     cols = torch.empty((x.shape[1] * spec.tap_count,
@@ -576,7 +570,7 @@ gathermm3d_cols_fwd.launches = 0
 def _cols_bwd(name, x, offset, mask, gcols, spec, precision, needs,
               out_sizes=None, gate_bounds=None, block_origin=None):
     _cols_check(name, x, offset, mask, spec, out_sizes)
-    OS = _out_sizes(x, spec, out_sizes)
+    OS = lib.out_grid(x, spec, out_sizes)
     want = (x.shape[1] * spec.tap_count, x.shape[0] * math.prod(OS))
     if (tuple(gcols.shape) != want or gcols.dtype != _cols_dtype(precision)
             or gcols.device != x.device or not gcols.is_contiguous()):
@@ -764,7 +758,7 @@ def deform_conv_cols(x, offset, mask, weight, bias, spec: DeformConvSpec,
     cols = _GathermmCols.apply(f32(x), f32(offset), f32(mask), spec,
                                precision, out_sizes, gate_bounds, block_origin)
     out = _ColumnsGemm.apply(cols, f32(weight), spec.groups, precision,
-                             x.shape[0], _out_sizes(x, spec, out_sizes))
+                             x.shape[0], lib.out_grid(x, spec, out_sizes))
     if bias is not None:
         out = out + f32(bias).reshape((1, -1) + (1,) * spec.ndim)
     return out.to(x.dtype)

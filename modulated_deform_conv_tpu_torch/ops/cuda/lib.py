@@ -126,6 +126,12 @@ def check_inputs(name: str, x, offset, mask, weight, bias, spec,
             raise ValueError(f"{name}: {label} must be contiguous")
 
 
+def out_grid(x, spec, out_sizes=None):
+    """The output grid: `out_sizes` where given, else derived from x."""
+    return (spec.out_sizes(x.shape[2:]) if out_sizes is None
+            else tuple(int(o) for o in out_sizes))
+
+
 def block_floats(spec, S, gate_bounds=None, block_origin=None):
     """The gather kernels' block-mode floats (csrc/deform_tile.cuh, Geo):
     the tap gate (lo, hi) per spatial dim, (-1, S_d) where `gate_bounds` is

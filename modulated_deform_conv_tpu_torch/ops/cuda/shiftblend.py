@@ -18,11 +18,28 @@ therefore lose their corners (all of them past b + 1), like taps outside
 the image lose theirs, in value and in gradient.  `offsets_within_bound`
 checks the contract.
 
+**The lead mode** (the JAX package's `shift_conv(..., lead=(R, S0))`,
+which its sharding layer enters through `sharded_lead_reason` and
+`deform_conv_shift_sharded`): the op on one shard's halo-extended
+leading-dim block, the shard's output rows plus R = halo rows of each
+neighbour (zeros past the image), inner dims whole, stride 1.  Here it is
+the sharding layer's block mode (`sharding.block_args`): the local spec
+with padding 0 on the leading dim, the shard's output grid `out_sizes`, the
+tap gate `gate_bounds` at the whole input's border and the block's
+placement `block_origin`.  A position is taken in the whole input's
+coordinates, so the window stays around the tap's anchor there, and a
+kept corner must also lie inside the whole input's image, as the JAX
+kernel checks its corners against the global leading extent.  The four
+kernels take it (csrc/shiftblend*.cu); `deform_conv_shift_sharded` is its
+entry, which the sharding layer calls directly.
+
 Each wrapper launches its kernel on CUDA tensors and runs its plain PyTorch
 version (`*_reference`, one for both ranks) on CPU tensors only.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 import itertools
 import math
 from typing import Optional, Tuple
@@ -72,19 +89,24 @@ def corner_windows(spec: DeformConvSpec, offset_bound):
 
 
 def _halo(spec: DeformConvSpec, windows) -> Tuple[int, ...]:
-    """Per-axis reach of a tile's corners beyond the tile: pad plus the
-    window's farthest row (the tap anchors span [-pad, pad] when 2*pad ==
-    dilation*(k-1))."""
-    return tuple(p + max(-lo, lo + w - 1)
-                 for p, (lo, w) in zip(spec.padding, windows))
+    """Per-axis reach of a tile's corners beyond the centre of its taps'
+    rows (csrc/deform_tile.cuh, reach_shift): half the taps' span,
+    dilation*(k-1)/2 (the pad of a size-preserving config, whose anchors
+    span [-pad, pad]), plus the window's farthest row."""
+    return tuple(dl * (k - 1) // 2 + max(-lo, lo + w - 1)
+                 for k, dl, (lo, w) in zip(spec.kernel, spec.dilation,
+                                           windows))
 
 
+@functools.lru_cache(maxsize=256)
 def _loop_path_reason(spec: DeformConvSpec, S, windows) -> Optional[str]:
     """The JAX package's rules on the window (SBPlan.ineligible_reason):
     more than 640 (tap, window) pairs need the rolled-loop kernel, which
     takes only 3D configs whose plane stride is a multiple of 128 (a 2D
     plan is never loopable), and the distinct flat shifts stay within
-    4096."""
+    4096.  Cached: counting the shift set takes about 0.5 ms of host time
+    at a 3x3x3 kernel and bound 2, and a training step checks it up to
+    three times."""
     loopable = spec.ndim == 3 and (S[1] * S[2]) % 128 == 0
     if (spec.tap_count * math.prod(w for _, w in windows) > _UNROLL_PAIRS
             and not loopable):
@@ -102,7 +124,8 @@ def _loop_path_reason(spec: DeformConvSpec, S, windows) -> Optional[str]:
 
 
 def ineligible_reason(x: torch.Tensor, spec: DeformConvSpec,
-                      offset_bound, out_sizes=None) -> Optional[str]:
+                      offset_bound, out_sizes=None,
+                      lead=None) -> Optional[str]:
     """None if the shift-blend kernel takes this config, else a reason.
 
     The semantic rules of the JAX package's `SBPlan.ineligible_reason`
@@ -111,8 +134,15 @@ def ineligible_reason(x: torch.Tensor, spec: DeformConvSpec,
     packages pick the same path for the same config.  The kernels fit any
     tap count and window, so they add no rule of their own; JAX's VMEM
     residency and residual budgets are the TPU's and have no counterpart
-    here.  An output grid `out_sizes` other than the derived one is not
-    taken, as in the JAX package."""
+    here.  An output grid `out_sizes` other than the plan's is not taken,
+    as in the JAX package.
+
+    `lead` = (R, S0_global): x is a lead-mode block of the whole op `spec`
+    (R halo rows each side of the S[0] - 2R output rows; S0_global, the
+    whole input's leading extent, sets no rule).  Every dim of `spec` must
+    then be size-preserving, the leading one as the sharding layer's
+    alignment contract makes it and the inner ones because the block keeps
+    them whole."""
     if offset_bound is None:
         return "no offset_bound provided (shiftblend needs bounded offsets)"
     if spec.ndim not in (2, 3):
@@ -122,7 +152,14 @@ def ineligible_reason(x: torch.Tensor, spec: DeformConvSpec,
     C, S = x.shape[1], tuple(x.shape[2:])
     if C % spec.deformable_groups:
         return "channels not divisible by deformable_groups"
-    if out_sizes is not None and tuple(out_sizes) != spec.out_sizes(S):
+    OS = spec.out_sizes(S)
+    if lead is not None:
+        R = int(lead[0])
+        if R < 0 or S[0] - 2 * R < 1:
+            return (f"lead mode needs R >= 0 halo rows each side of at least "
+                    f"one output row (R={R}, leading extent {S[0]})")
+        OS = (S[0] - 2 * R,) + S[1:]
+    if out_sizes is not None and tuple(out_sizes) != OS:
         return "out_sizes overrides not supported by shiftblend"
     if any(s != 1 for s in spec.stride):
         return "shiftblend requires stride=1"
@@ -138,6 +175,46 @@ def ineligible_reason(x: torch.Tensor, spec: DeformConvSpec,
         return "deformable_groups must be a multiple of groups"
     windows = corner_windows(spec, offset_bound)
     return _loop_path_reason(spec, S, windows)
+
+
+def sharded_lead_reason(x_ext_shape, dtype, spec: DeformConvSpec,
+                        offset_bound, halo: int,
+                        S0_global: int) -> Optional[str]:
+    """None if the lead mode takes a halo-extended spatial shard, else a
+    reason: the JAX package's `sharded_lead_reason` (shiftblend.py:1676).
+    `x_ext_shape` is the local block's shape (B, C, Hs + 2*halo, *inner)
+    and `spec` the whole op's."""
+    if offset_bound is None or (not isinstance(offset_bound, (tuple, list))
+                                and offset_bound <= 0):
+        return "no offset_bound (shiftblend needs bounded offsets)"
+    x = torch.empty(tuple(x_ext_shape), dtype=dtype, device="meta")
+    return ineligible_reason(x, spec, offset_bound, lead=(halo, S0_global))
+
+
+def _launch_reason(x, spec: DeformConvSpec, offset_bound, out_sizes=None,
+                   block_origin=None) -> Optional[str]:
+    """None if the kernels take this launch, else a reason: the unsharded
+    rules, or on a block (`out_sizes` or `block_origin` given) the lead
+    mode's (`sharded_lead_reason`), with the halo and the whole op read off
+    the block as `sharding.block_args` builds it: the leading dim's padding
+    0 there, the whole op's the size-preserving dilation*(k-1)/2."""
+    if out_sizes is None and block_origin is None:
+        return ineligible_reason(x, spec, offset_bound)
+    S = tuple(x.shape[2:])
+    OS = S if out_sizes is None else tuple(int(o) for o in out_sizes)
+    placed = block_origin or [(0.0, 0.0)] * spec.ndim
+    if (len(OS) != len(S) or OS[1:] != S[1:] or (S[0] - OS[0]) % 2
+            or spec.padding[0] != 0
+            or any(tuple(p) != (0.0, 0.0) for p in placed[1:])):
+        return ("shiftblend's block mode takes leading-dim blocks only "
+                "(sharding.block_args' form: padding 0 and the halo on the "
+                "leading dim, inner dims whole)")
+    span = spec.dilation[0] * (spec.kernel[0] - 1)
+    if span % 2:
+        return "shiftblend requires size-preserving padding (OS == S)"
+    whole = dataclasses.replace(spec, padding=(span // 2,) + spec.padding[1:])
+    return sharded_lead_reason(x.shape, x.dtype, whole, offset_bound,
+                               (S[0] - OS[0]) // 2, None)
 
 
 def offsets_within_bound(offset: torch.Tensor, offset_bound) -> torch.Tensor:
@@ -161,21 +238,26 @@ def offsets_within_bound(offset: torch.Tensor, offset_bound) -> torch.Tensor:
 
 def shiftblend_fwd_reference(x, offset, mask, weight, bias,
                              spec: DeformConvSpec, precision: str,
-                             offset_bound) -> torch.Tensor:
+                             offset_bound, out_sizes=None, gate_bounds=None,
+                             block_origin=None) -> torch.Tensor:
     """Plain PyTorch version of the kernel: the reference gather with the
-    bounded contract's per-axis corner window, then the grouped
-    contraction with fp32 accumulation ("bfloat16" rounds both operands)."""
+    bounded contract's per-axis corner window (on a lead-mode block: the
+    block's output grid, gate and placement), then the grouped contraction
+    with fp32 accumulation ("bfloat16" rounds both operands)."""
     return core._deform_conv_nd(
-        x, offset, mask, weight, bias, spec, precision=precision,
-        corner_window=corner_windows(spec, offset_bound))
+        x, offset, mask, weight, bias, spec, out_sizes=out_sizes,
+        precision=precision, gate_bounds=gate_bounds,
+        corner_window=corner_windows(spec, offset_bound),
+        block_origin=block_origin)
 
 
-def _geometry(x, weight, spec: DeformConvSpec, offset_bound):
-    """The kernels' leading int arguments: B, C, *S, O, groups, dg,
+def _geometry(x, weight, spec: DeformConvSpec, offset_bound, out_sizes):
+    """The kernels' leading int arguments: B, C, *S, O, *OS, groups, dg,
     *kernel, *padding, *dilation, (lo, win) per axis, and in 2D the halo
     reach per axis (the 3D kernels find each tap's reach themselves)."""
     windows = corner_windows(spec, offset_bound)
-    return (*x.shape, weight.shape[0], spec.groups, spec.deformable_groups,
+    return (*x.shape, weight.shape[0], *lib.out_grid(x, spec, out_sizes),
+            spec.groups, spec.deformable_groups,
             *spec.kernel, *spec.padding, *spec.dilation,
             *(v for w in windows for v in w),
             *(_halo(spec, windows) if spec.ndim == 2 else ()))
@@ -189,7 +271,8 @@ _HALO_MIN_POSITIONS = 2048
 def halo_route(S) -> bool:
     """Whether the 2D forward stages the halo of its 8 x 8 output tiles
     (else it reads the corners from channels-last x, as gathermm_fwd does,
-    with the bounded window): only on planes of at least 2048 positions.
+    with the bounded window): only on output grids of at least 2048
+    positions.
     Timed side by side on an H100 at B=8, bound 2 (chip_smoke.py, its route
     phase), the halo route ran 10-24% faster at 56 x 56 and 48 x 48; from
     32 x 32 down to 14 x 14 the two routes came within 16% of each other,
@@ -198,37 +281,44 @@ def halo_route(S) -> bool:
 
 
 def _fwd(name, x, offset, mask, weight, bias, spec, precision, offset_bound,
-         halo=None):
+         out_sizes=None, gate_bounds=None, block_origin=None, halo=None):
     """Launch a forward kernel.  `halo` (2D only) picks the route, None
     for halo_route's choice."""
-    lib.check_inputs(name, x, offset, mask, weight, bias, spec)
-    reason = ineligible_reason(x, spec, offset_bound)
+    lib.check_inputs(name, x, offset, mask, weight, bias, spec, out_sizes)
+    reason = _launch_reason(x, spec, offset_bound, out_sizes, block_origin)
     if reason is not None:
         raise NotImplementedError(f"{name}: {reason}")
-    out = torch.empty((x.shape[0], weight.shape[0]) + tuple(x.shape[2:]),
+    OS = lib.out_grid(x, spec, out_sizes)
+    out = torch.empty((x.shape[0], weight.shape[0]) + OS,
                       dtype=torch.float32, device=x.device)
     route = ()
     if spec.ndim == 2:
-        route = (int(halo_route(x.shape[2:]) if halo is None else halo),)
+        route = (int(halo_route(OS) if halo is None else halo),)
     xt, part, splits = lib.fwd_buffers(x, weight, spec, out)
     lib.launch(name, x, (x, offset, mask, lib.fwd_weight(weight, spec.groups),
                          bias, out, xt, part),
-               (*_geometry(x, weight, spec, offset_bound), *route, splits,
-                lib.PRECISION_CODES[precision]))
+               (*_geometry(x, weight, spec, offset_bound, out_sizes), *route,
+                splits, lib.PRECISION_CODES[precision]),
+               lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin))
     return out
 
 
 def shiftblend_fwd(x, offset, mask, weight, bias, spec: DeformConvSpec,
-                   precision: str, offset_bound) -> torch.Tensor:
-    """Bounded-offset 2D DCN forward, (B, O, H, W) float32.
+                   precision: str, offset_bound, out_sizes=None,
+                   gate_bounds=None, block_origin=None) -> torch.Tensor:
+    """Bounded-offset 2D DCN forward, (B, O, OH, OW) float32: OH, OW = H,
+    W, or on a lead-mode block (`out_sizes`, `gate_bounds`,
+    `block_origin` as `sharding.block_args` gives them) its output grid.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel or
     raise.  Inputs: float32, contiguous, on one device."""
     if x.device.type == "cpu":
+        lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin)
         return shiftblend_fwd_reference(x, offset, mask, weight, bias, spec,
-                                        precision, offset_bound)
+                                        precision, offset_bound, out_sizes,
+                                        gate_bounds, block_origin)
     out = _fwd("shiftblend_fwd", x, offset, mask, weight, bias, spec,
-               precision, offset_bound)
+               precision, offset_bound, out_sizes, gate_bounds, block_origin)
     shiftblend_fwd.launches += 1
     return out
 
@@ -237,17 +327,20 @@ shiftblend_fwd.launches = 0
 
 
 def shiftblend3d_fwd(x, offset, mask, weight, bias, spec: DeformConvSpec,
-                     precision: str, offset_bound) -> torch.Tensor:
-    """Bounded-offset 3D DCN forward, (B, O, D, H, W) float32, the whole
-    volume in one launch.
+                     precision: str, offset_bound, out_sizes=None,
+                     gate_bounds=None, block_origin=None) -> torch.Tensor:
+    """Bounded-offset 3D DCN forward, (B, O, OD, OH, OW) float32, the whole
+    volume (or lead-mode block) in one launch, as `shiftblend_fwd`.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel or
     raise.  Inputs: float32, contiguous, on one device."""
     if x.device.type == "cpu":
+        lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin)
         return shiftblend3d_fwd_reference(x, offset, mask, weight, bias, spec,
-                                          precision, offset_bound)
+                                          precision, offset_bound, out_sizes,
+                                          gate_bounds, block_origin)
     out = _fwd("shiftblend3d_fwd", x, offset, mask, weight, bias, spec,
-               precision, offset_bound)
+               precision, offset_bound, out_sizes, gate_bounds, block_origin)
     shiftblend3d_fwd.launches += 1
     return out
 
@@ -257,13 +350,16 @@ shiftblend3d_fwd.launches = 0
 
 def shiftblend_bwd_reference(x, offset, mask, weight, grad_out,
                              spec: DeformConvSpec, precision: str,
-                             offset_bound):
+                             offset_bound, out_sizes=None, gate_bounds=None,
+                             block_origin=None):
     """Plain PyTorch version of the backward kernel: autograd through
     `shiftblend_fwd_reference` without bias, so dropped corners carry no
     gradient.  Returns (grad_x, grad_offset, grad_mask or None,
     grad_weight)."""
     return core.conv_vjp(x, offset, mask, weight, grad_out, spec, precision,
-                         corner_window=corner_windows(spec, offset_bound))
+                         corner_window=corner_windows(spec, offset_bound),
+                         out_sizes=out_sizes, gate_bounds=gate_bounds,
+                         block_origin=block_origin)
 
 
 # The plain versions take either rank.
@@ -272,14 +368,14 @@ shiftblend3d_bwd_reference = shiftblend_bwd_reference
 
 
 def _bwd(name, x, offset, mask, weight, grad_out, spec, precision,
-         offset_bound, needs):
-    lib.check_inputs(name, x, offset, mask, weight, None, spec)
-    reason = ineligible_reason(x, spec, offset_bound)
+         offset_bound, needs, out_sizes, gate_bounds, block_origin):
+    lib.check_inputs(name, x, offset, mask, weight, None, spec, out_sizes)
+    reason = _launch_reason(x, spec, offset_bound, out_sizes, block_origin)
     if reason is not None:
         raise NotImplementedError(f"{name}: {reason}")
-    B, P = x.shape[0], math.prod(x.shape[2:])
-    lib.check_grad_out(name, grad_out, x,
-                       (B, weight.shape[0]) + tuple(x.shape[2:]))
+    OS = lib.out_grid(x, spec, out_sizes)
+    B, P = x.shape[0], math.prod(OS)
+    lib.check_grad_out(name, grad_out, x, (B, weight.shape[0]) + OS)
     # The 3D kernel runs gcols and the gradients read from it in batch
     # chunks of gcd(B, in_step): a memory knob that does not change the
     # result, since each of those gradients belongs to one sample.
@@ -290,27 +386,33 @@ def _bwd(name, x, offset, mask, weight, grad_out, spec, precision,
     lib.launch(name, x, (
         x, offset, mask, wk, grad_out, gcols, xt, part, gx, goff, gmask,
         gwt), (
-        *_geometry(x, weight, spec, offset_bound),
+        *_geometry(x, weight, spec, offset_bound, out_sizes),
         *(() if b_step is None else (b_step,)), splits,
-        lib.PRECISION_CODES[precision]))
+        lib.PRECISION_CODES[precision]),
+        lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin))
     gw = None if gwt is None else lib.ungrouped_weight(gwt, weight.shape)
     return gx, goff, gmask, gw
 
 
 def shiftblend_bwd(x, offset, mask, weight, grad_out, spec: DeformConvSpec,
-                   precision: str, offset_bound, needs=(True,) * 4):
+                   precision: str, offset_bound, needs=(True,) * 4,
+                   out_sizes=None, gate_bounds=None, block_origin=None):
     """Bounded-offset 2D DCN backward without the bias: (grad_x,
     grad_offset, grad_mask, grad_weight), float32, each None where `needs`
-    says it is not wanted (grad_mask also without a mask).
+    says it is not wanted (grad_mask also without a mask); on a lead-mode
+    block as `shiftblend_fwd`, grad_x over the whole block.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel or
     raise.  Inputs: float32, contiguous, on one device."""
     if x.device.type == "cpu":
+        lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin)
         grads = shiftblend_bwd_reference(x, offset, mask, weight, grad_out,
-                                         spec, precision, offset_bound)
+                                         spec, precision, offset_bound,
+                                         out_sizes, gate_bounds, block_origin)
         return tuple(g if n else None for g, n in zip(grads, needs))
     grads = _bwd("shiftblend_bwd", x, offset, mask, weight, grad_out, spec,
-                 precision, offset_bound, needs)
+                 precision, offset_bound, needs, out_sizes, gate_bounds,
+                 block_origin)
     shiftblend_bwd.launches += 1
     return grads
 
@@ -319,18 +421,23 @@ shiftblend_bwd.launches = 0
 
 
 def shiftblend3d_bwd(x, offset, mask, weight, grad_out, spec: DeformConvSpec,
-                     precision: str, offset_bound, needs=(True,) * 4):
+                     precision: str, offset_bound, needs=(True,) * 4,
+                     out_sizes=None, gate_bounds=None, block_origin=None):
     """Bounded-offset 3D DCN backward without the bias, as
     `shiftblend_bwd`.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel or
     raise.  Inputs: float32, contiguous, on one device."""
     if x.device.type == "cpu":
+        lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin)
         grads = shiftblend3d_bwd_reference(x, offset, mask, weight, grad_out,
-                                           spec, precision, offset_bound)
+                                           spec, precision, offset_bound,
+                                           out_sizes, gate_bounds,
+                                           block_origin)
         return tuple(g if n else None for g, n in zip(grads, needs))
     grads = _bwd("shiftblend3d_bwd", x, offset, mask, weight, grad_out, spec,
-                 precision, offset_bound, needs)
+                 precision, offset_bound, needs, out_sizes, gate_bounds,
+                 block_origin)
     shiftblend3d_bwd.launches += 1
     return grads
 
@@ -340,18 +447,22 @@ shiftblend3d_bwd.launches = 0
 
 class _ShiftblendFwd(torch.autograd.Function):
     """The bounded-offset op without its dtype casts: the forward and
-    backward kernels of the config's rank.  x, offset, mask and weight are
-    saved; the columns are recomputed in the backward, never saved."""
+    backward kernels of the config's rank, on a lead-mode block where
+    `out_sizes`, `gate_bounds` and `block_origin` are given.  x, offset,
+    mask and weight are saved; the columns are recomputed in the backward,
+    never saved."""
 
     @staticmethod
     def forward(ctx, x, offset, mask, weight, bias, spec, precision,
-                offset_bound):
+                offset_bound, out_sizes=None, gate_bounds=None,
+                block_origin=None):
         ctx.save_for_backward(x, offset, mask, weight)
         ctx.spec, ctx.precision, ctx.offset_bound = (spec, precision,
                                                      offset_bound)
+        ctx.block = (out_sizes, gate_bounds, block_origin)
         fwd = shiftblend_fwd if spec.ndim == 2 else shiftblend3d_fwd
         return fwd(x, offset, mask, weight, bias, spec, precision,
-                   offset_bound)
+                   offset_bound, *ctx.block)
 
     @staticmethod
     @once_differentiable
@@ -361,10 +472,10 @@ class _ShiftblendFwd(torch.autograd.Function):
         bwd = shiftblend_bwd if ctx.spec.ndim == 2 else shiftblend3d_bwd
         gx, goff, gmask, gw = bwd(
             x, offset, mask, weight, grad_out.contiguous(), ctx.spec,
-            ctx.precision, ctx.offset_bound, needs[:4])
+            ctx.precision, ctx.offset_bound, needs[:4], *ctx.block)
         gb = (grad_out.sum((0,) + tuple(range(2, grad_out.ndim)))
               if needs[4] else None)
-        return gx, goff, gmask, gw, gb, None, None, None
+        return gx, goff, gmask, gw, gb, None, None, None, None, None, None
 
 
 def deform_conv_shift(x, offset, mask, weight, bias, spec: DeformConvSpec,
@@ -382,3 +493,25 @@ def deform_conv_shift(x, offset, mask, weight, bias, spec: DeformConvSpec,
     out = _ShiftblendFwd.apply(f32(x), f32(offset), f32(mask), f32(weight),
                                f32(bias), spec, precision, offset_bound)
     return out.to(x.dtype)
+
+
+def deform_conv_shift_sharded(x_ext, offset, mask, weight, bias,
+                              spec: DeformConvSpec, precision: str,
+                              offset_bound, out_sizes, gate_bounds,
+                              block_origin) -> torch.Tensor:
+    """The lead mode on one shard's halo-extended leading-dim block, with
+    bias: the JAX package's `deform_conv_shift_sharded` (shiftblend.py:
+    1702).  `spec`, `out_sizes`, `gate_bounds` and `block_origin` are the
+    block's, as `sharding.block_args` builds them (the JAX entry takes the
+    halo, the global extent and the shard's origin and builds the same
+    plan).  Dtypes as `deform_conv_shift`; grad_x covers the whole block.
+
+    The caller decides that the lead mode takes the block, as the sharding
+    layer does once per shard (`sharded_lead_reason`); on CUDA tensors the
+    kernels' wrappers raise where it does not."""
+    f32 = lib.as_f32
+    out = _ShiftblendFwd.apply(f32(x_ext), f32(offset), f32(mask),
+                               f32(weight), f32(bias), spec, precision,
+                               offset_bound, tuple(out_sizes), gate_bounds,
+                               block_origin)
+    return out.to(x_ext.dtype)

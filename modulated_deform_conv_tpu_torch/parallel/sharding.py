@@ -55,10 +55,18 @@ offsets instead, offset + delta in fp32, which can move a position by an
 ulp across a grid line, where the offset gradient jumps.)  On CUDA tensors
 it runs the gather kernels' block mode (`out_sizes`, `gate_bounds`,
 `block_origin`): the fused pair or the columns path as the JAX package's
-`_fuse_ok` decides on the local grid.  Where the JAX package would take
-shift-blend's lead mode on its accelerator (one leading-dim split,
-max_offset > 0), this port takes the gather kernels with gates: the lead
-mode is not ported yet.
+`_fuse_ok` decides on the local grid.
+
+**Shift-blend's lead mode** (`_local_conv`, the JAX package's
+sharding.py:179-210): with one split, of the leading spatial dim, and
+max_offset > 0, a narrow slab (C/dg <= 128, `SB_CROSSOVER_CG`) whose
+block the lead mode takes (`shiftblend.sharded_lead_reason`) runs the
+shift-blend kernels on the same block arguments
+(`shiftblend.deform_conv_shift_sharded`) under impl="auto" on CUDA
+tensors, the counterpart of the JAX package's on-TPU rule; impl=
+"shiftblend" forces it (on CPU tensors its plain version) and raises
+where it does not apply.  impl="cuda" keeps the gather kernels' block
+mode, so both pairs can run on one layout.
 """
 from __future__ import annotations
 
@@ -70,6 +78,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..ops import api as ops_api
+from ..ops.cuda import SB_CROSSOVER_CG
+from ..ops.cuda import shiftblend as _sb
 from ..utils import profiling as _prof
 from ..utils.config import DeformConvSpec
 
@@ -493,27 +503,76 @@ def all_sum(t: torch.Tensor, mesh, axes) -> torch.Tensor:
 # ---- the sharded op --------------------------------------------------------
 
 
+def _lead_mode(x_l, spec: DeformConvSpec, shards, max_offset: float,
+               impl: str) -> bool:
+    """Whether the shard runs shift-blend's lead mode (the JAX package's
+    rule, sharding.py:179-203): one split, of the leading spatial dim,
+    max_offset > 0, a block the lead mode takes, a narrow slab or the mode
+    forced, and CUDA tensors under "auto" (the JAX package's on-TPU
+    condition).  Forced "shiftblend" raises, before any exchange, where it
+    does not apply."""
+    if not (max_offset > 0 and impl in ("auto", "shiftblend")
+            and len(shards) == 1 and shards[0].dim == 0):
+        if impl == "shiftblend":
+            raise NotImplementedError(
+                "shiftblend shard path covers single-axis leading-dim "
+                "spatial sharding with max_offset > 0 only, in its lead "
+                f"mode (got dims {[s.dim for s in shards]}, max_offset "
+                f"{max_offset}); use impl='auto' or 'cuda'")
+        return False
+    sh = shards[0]
+    ext = ((x_l.shape[0], x_l.shape[1], x_l.shape[2] + 2 * sh.halo)
+           + tuple(x_l.shape[3:]))
+    reason = _sb.sharded_lead_reason(ext, x_l.dtype, spec, float(max_offset),
+                                     sh.halo, sh.out_local * sh.n_shards)
+    prefer = (x_l.shape[1] // spec.deformable_groups <= SB_CROSSOVER_CG
+              or impl == "shiftblend")
+    if reason is None and prefer and (x_l.is_cuda or impl == "shiftblend"):
+        return True
+    if impl == "shiftblend":
+        raise NotImplementedError(
+            f"shiftblend shard path (lead mode) unavailable: {reason}")
+    return False
+
+
+def shard_conv(x_ext, off_l, mask_l, weight, bias, spec: DeformConvSpec,
+               shards, coords, max_offset: float = 0.0, impl: str = "auto",
+               precision: str = "tensorfloat32", lead=None):
+    """The sharded op's per-shard function on the exchanged block of the
+    shard at `coords`: where `lead` (`_lead_mode`'s decision, taken here
+    when None) holds, shift-blend's lead mode on `block_conv`'s block
+    arguments with the bounded-offset contract at `max_offset`, else
+    `block_conv`.  One card can run every shard with it on blocks cut by
+    `cut_block`."""
+    if lead is None:
+        x_l = x_ext
+        for sh in shards:
+            x_l = x_l.narrow(2 + sh.dim, sh.halo, sh.in_local)
+        lead = _lead_mode(x_l, spec, shards, max_offset, impl)
+    if lead:
+        local, placement, gates = block_args(spec, shards, coords,
+                                             tuple(x_ext.shape[2:]))
+        return _sb.deform_conv_shift_sharded(
+            x_ext, off_l, mask_l, weight, bias, local, precision,
+            float(max_offset), tuple(off_l.shape[2:]), gates, placement)
+    return block_conv(x_ext, off_l, mask_l, weight, bias, spec, shards,
+                      coords, impl, precision)
+
+
 def _local_conv(x_l, off_l, mask_l, weight, bias, spec: DeformConvSpec,
                 shards, mesh, max_offset: float = 0.0, impl: str = "auto",
                 precision: str = "tensorfloat32"):
     """Per-shard computation with spatial shards: the exchanges in dim
-    order, then `block_conv`."""
-    if impl == "shiftblend":
-        if max_offset > 0 and len(shards) == 1 and shards[0].dim == 0:
-            raise NotImplementedError(
-                "shiftblend shard path: shift-blend's lead mode (sharded "
-                "leading-dim blocks, global-coordinate gates) is not ported "
-                "yet; use impl='auto' or 'cuda'")
-        raise NotImplementedError(
-            "shiftblend shard path covers single-axis leading-dim spatial "
-            f"sharding only, in its lead mode (got dims "
-            f"{[s.dim for s in shards]}); use impl='auto' or 'cuda'")
+    order, then `shard_conv`.  The lead mode is decided once, before any
+    exchange (`_lead_mode`), so a forced "shiftblend" it does not take
+    raises there."""
+    lead = _lead_mode(x_l, spec, shards, max_offset, impl)
     x_ext = x_l
     for sh in shards:
         x_ext = halo_exchange(x_ext, sh.halo, 2 + sh.dim, mesh, sh.axis_name)
     coords = [mesh.get_local_rank(sh.axis_name) for sh in shards]
-    return block_conv(x_ext, off_l, mask_l, weight, bias, spec, shards,
-                      coords, impl, precision)
+    return shard_conv(x_ext, off_l, mask_l, weight, bias, spec, shards,
+                      coords, max_offset, impl, precision, lead)
 
 
 def _count(spec, x_shape, O, shards) -> None:
@@ -543,8 +602,9 @@ def sharded_deform_conv(x: torch.Tensor, offset: torch.Tensor,
     """Deformable conv over a (batch, spatial..., group) sharded mesh.
 
     SPMD: every argument is this rank's shard (module docstring), and so is
-    the result.  `impl` is the per-shard path ("auto", "torch", "cuda";
-    "shiftblend" raises for spatial splits: its lead mode is not ported).
+    the result.  `impl` is the per-shard path ("auto", "torch", "cuda",
+    "shiftblend"; with a spatial split "shiftblend" is the lead mode, which
+    takes one leading-dim split with max_offset > 0 and raises otherwise).
     With a positive `max_offset` the contract doubles as the bounded-offset
     declaration: batch- or group-only layouts dispatch with
     `offset_bound=max_offset`.

@@ -1,21 +1,118 @@
-"""Analytic cost model and process-wide counters.
+"""Tracing, timing, an analytic cost model and process-wide counters.
 
-The part of the JAX package's `utils/profiling.py` that the sharding layer
-calls (`op_stats`, `Counters` / `counters`, `halo_stats`), copied: that
-module imports jax.  The sharding layer adds, per call, the analytic halo
-traffic and GEMM FLOPs of the global op; a harness divides them by the
-time it measures.  Everything is plain Python state, with no device
-traffic.
+The port's counterpart of the JAX package's `utils/profiling.py` (which
+imports jax, so nothing of it is imported here):
+
+* `trace(logdir)`: a `torch.profiler` trace of the block, written as a
+  Chrome trace file under `logdir`;
+* `annotate(name)`: a named range in that trace (`record_function`) and,
+  with a CUDA device, an NVTX range;
+* `Timer(device)`: the elapsed time of a block, on CUDA events of the
+  named CUDA device, or on the host clock for device="cpu" only;
+* `op_stats`, `halo_stats` and `Counters` / `counters`: the sharding layer
+  adds, per call, the analytic halo traffic and GEMM FLOPs of the global
+  op; a harness divides them by the time it measures.  These are plain
+  Python state, with no device traffic.
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import math
-from typing import Dict, Sequence
+import os
+import time
+from typing import Dict, Iterator, Optional, Sequence
+
+import torch
 
 from .config import DeformConvSpec
 
 logger = logging.getLogger("modulated_deform_conv_tpu_torch")
+
+
+@contextlib.contextmanager
+def trace(logdir: str) -> Iterator["torch.profiler.profile"]:
+    """Profile the block with `torch.profiler` (CPU activity, and the
+    CUDA devices' kernels where CUDA is available) and write the trace to
+    `logdir/trace-<pid>-<n>.json` (Chrome trace format: Perfetto or
+    chrome://tracing open it).  Yields the profiler, whose
+    `key_averages()` the caller may read after the block; its `path`
+    attribute holds the file written."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    prof = torch.profiler.profile(activities=acts)
+    prof.start()
+    try:
+        yield prof
+    finally:
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        prof.stop()
+        n = len([f for f in os.listdir(logdir) if f.startswith("trace-")])
+        prof.path = os.path.join(logdir, f"trace-{os.getpid()}-{n}.json")
+        prof.export_chrome_trace(prof.path)
+
+
+@contextlib.contextmanager
+def annotate(name: str) -> Iterator[None]:
+    """A named range: `torch.profiler.record_function` (seen by `trace`)
+    and, where CUDA is available, an NVTX range of the same name."""
+    nvtx = torch.cuda.is_available()
+    with torch.profiler.record_function(name):
+        if nvtx:
+            torch.cuda.nvtx.range_push(name)
+        try:
+            yield
+        finally:
+            if nvtx:
+                torch.cuda.nvtx.range_pop()
+
+
+class Timer:
+    """The elapsed time of a block on the named device, `elapsed_ms`.
+
+    On a CUDA device, CUDA events are recorded on its current stream
+    around the block and the exit synchronises on the end event, so the
+    time is the device's time from the first to the last work queued in
+    the block.  The host clock is used only for device="cpu", where the
+    caller asked for it; a CUDA device that is not there raises."""
+
+    def __init__(self, device, name: str = "timer"):
+        self.device = torch.device(device)
+        self.name = name
+        if self.device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError(f"Timer({str(self.device)!r}): no CUDA "
+                                   "device is visible")
+        elif self.device.type != "cpu":
+            raise ValueError(f"Timer: device 'cuda[:n]' or 'cpu', got "
+                             f"{self.device}")
+        self.elapsed_ms: Optional[float] = None
+        self._start = self._end = None
+        self._t0 = 0.0
+
+    def __enter__(self):
+        if self.device.type == "cuda":
+            stream = torch.cuda.current_stream(self.device)
+            self._start = torch.cuda.Event(enable_timing=True)
+            self._end = torch.cuda.Event(enable_timing=True)
+            self._start.record(stream)
+        else:
+            self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if self.device.type == "cuda":
+            self._end.record(torch.cuda.current_stream(self.device))
+            self._end.synchronize()
+            self.elapsed_ms = self._start.elapsed_time(self._end)
+        else:
+            self.elapsed_ms = (time.perf_counter() - self._t0) * 1e3
+        logger.info("%s: %.4f ms on %s", self.name, self.elapsed_ms,
+                    self.device)
+        return False
 
 
 def op_stats(spec: DeformConvSpec, x_shape: Sequence[int],

@@ -5,10 +5,12 @@ The cases of tests/test_sharding.py: the mesh shapes (2, 4), (4, 2),
 contract (held against the JAX package's sharded result on the same mesh,
 since there sharded and unsharded differ on purpose); the W axis with
 gradients; the (H, W) 2-axis mesh with gradients; the batch-sharded
-offset bound (impl="shiftblend"); zero offsets on the gate's edge; and the
-forced shift-blend layouts, which raise.  `test_spatial_shiftblend_lead_
-matches` has no counterpart here: it forces shift-blend's lead mode,
-which the port raises on until it is ported.
+offset bound (impl="shiftblend"); zero offsets on the gate's edge;
+shift-blend's lead mode forced on a (1, 4) mesh with gradients (the
+counterpart of `test_spatial_shiftblend_lead_matches`, held as it is
+against the unsharded op; on these CPU ranks the lead mode's plain
+version); and the forced shift-blend layouts the lead mode does not take,
+which raise.
 
 The ranks are spawned once for the file (torch_sharding_ranks.spawn) and
 run every case; each case is its own test.  Tolerances
@@ -79,6 +81,9 @@ def _cases():
         [x, np.zeros_like(off), mask, w, b], ((1, 8), DS),
         np.full((4, 4, 8, 8), 1.0 / (4 * 4 * 8 * 8), np.float32),
         max_offset=1.0)
+    cases["forced_shiftblend_lead_mode"] = _op(
+        _case(C=16, O=16, g=2, dg=2), ((1, 4), DS), _cot((4, 16, 16, 8), 41),
+        max_offset=1.5, impl="shiftblend")
     return cases
 
 
@@ -90,9 +95,6 @@ RAISES = {
     "forced_shiftblend_w_axis": _op(
         _case(C=16, O=16, W=16, dg=2), ((1, 8), DS), max_offset=1.0,
         spatial_axis=(None, "space"), impl="shiftblend"),
-    "forced_shiftblend_lead_mode": _op(
-        _case(C=16, O=16, g=2, dg=2), ((1, 4), DS), max_offset=1.5,
-        impl="shiftblend"),
 }
 
 
@@ -125,8 +127,9 @@ def test_out_of_halo_taps_are_dropped(results):
 
 @pytest.mark.parametrize("name", list(RAISES))
 def test_forced_shiftblend_layouts_raise(results, name):
-    """impl="shiftblend" with a spatial split raises NotImplementedError
-    naming the lead mode (on every rank, before any exchange)."""
+    """impl="shiftblend" with a spatial split the lead mode does not take
+    raises NotImplementedError naming the lead mode (on every rank, before
+    any exchange)."""
     kind, msg = refs.errors(results, name)
     assert kind == "NotImplementedError"
     assert "lead mode" in msg

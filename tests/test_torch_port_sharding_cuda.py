@@ -1,6 +1,7 @@
-"""The gather kernels' sharded-block mode on the card: a given output grid
-(`out_sizes`), a per-dim tap gate (`gate_bounds`) and the block's placement
-in the whole input (`block_origin`).
+"""The sharded-block modes on the card: the gather kernels' (a given output
+grid `out_sizes`, a per-dim tap gate `gate_bounds` and the block's
+placement in the whole input `block_origin`) and shift-blend's lead mode
+(the same arguments on a halo-extended leading-dim block).
 
 Every gated kernel (2D and 3D, the fused pair and the column pair) against
 its plain PyTorch version on the blocks the sharding layer builds (the
@@ -9,7 +10,11 @@ hand, one of them closing exactly at integer sample points; gates equal
 to (-1, S) and a zero placement must give the bits of the launch without
 them; and the per-shard
 function `sharding.block_conv` through the dispatch, forward and backward,
-against its "torch" self and, stitched, against the unsharded op.  Marked
+against its "torch" self and, stitched, against the unsharded op.  The
+lead mode's four kernels against their plain versions on every shard
+(offsets past the bound included, the 2D forward on both routes), the
+per-shard function `sharding.shard_conv` stitched against the unsharded
+shift-blend op, and its backward run twice for the same bits.  Marked
 `cuda`: each test skips without an NVIDIA GPU.  This file imports no JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_sharding_cuda.py -q
@@ -23,6 +28,7 @@ import torch
 
 from modulated_deform_conv_tpu_torch.ops import api
 from modulated_deform_conv_tpu_torch.ops.cuda import gathermm as gm
+from modulated_deform_conv_tpu_torch.ops.cuda import shiftblend as sb
 from modulated_deform_conv_tpu_torch.parallel import sharding as sh
 from modulated_deform_conv_tpu_torch.utils.config import DeformConvSpec
 
@@ -278,3 +284,119 @@ def test_block_conv_on_the_card_matches_torch_and_stitches(dev, case):
     assert _rel(torch.cat(outs, 2 + dim), y.detach()) <= LIMITS["float32"]
     for got, t in zip((gx, goff, gmask, gw, gb), ins):
         assert _rel(got, t.grad) <= LIMITS["float32"]
+
+
+# ---- shift-blend's lead mode ------------------------------------------------
+
+# (nd, B, C, O, S, k, g, dg, shards, bound): config 2's widths at B=2, and a
+# small 3D block on the loop rule's 128-lane plane.
+LEAD_CASES = {
+    "cfg2": (2, 2, 256, 256, (56, 56), 3, 4, 4, 4, 2.0),
+    "2d_small": (2, 2, 16, 24, (16, 9), 3, 2, 2, 4, 1.5),
+    "3d": (3, 1, 16, 16, (8, 8, 16), 3, 1, 2, 2, 2.0),
+}
+
+
+def _lead_blocks(dev, case, offscale):
+    """The spec, global inputs, plan and every shard's block arguments of a
+    lead case, offsets from U[-offscale, offscale]."""
+    nd, B, C, O, S, k, g, dg, n, bound = LEAD_CASES[case]
+    spec, ts = _global(dev, nd, B, C, O, S, k, g, dg, offscale)
+    plan = _plan(spec, ts, 0, n, bound)
+    return spec, ts, plan, [_block(spec, ts, plan, i) for i in range(n)]
+
+
+def _lead_wrappers(nd):
+    fam = "shiftblend" if nd == 2 else "shiftblend3d"
+    return (getattr(sb, f"{fam}_fwd"), getattr(sb, f"{fam}_bwd"),
+            getattr(sb, f"{fam}_fwd_reference"),
+            getattr(sb, f"{fam}_bwd_reference"))
+
+
+@pytest.mark.parametrize("precision", list(LIMITS))
+@pytest.mark.parametrize("case", list(LEAD_CASES))
+def test_lead_kernels_match_plain_on_every_shard(dev, case, precision):
+    """The lead mode's forward (in 2D on both routes) and backward on every
+    shard's block against their plain versions, offsets up to 1.3 times
+    the bound (corners past the window dropped around the tap's anchor in
+    the whole input)."""
+    bound = LEAD_CASES[case][-1]
+    spec, ts, plan, blocks = _lead_blocks(dev, case, 1.3 * bound)
+    w, b = ts[3], ts[4]
+    fwd, bwd, fwd_ref, bwd_ref = _lead_wrappers(spec.ndim)
+    for i, (x_ext, off_l, mask_l, local, OS, gates, placement) in enumerate(
+            blocks):
+        mode = (OS, gates, placement)
+        args = (x_ext, off_l, mask_l, w, b, local, precision, bound)
+        want = fwd_ref(*args, *mode)
+        outs = [fwd(*args, *mode)]
+        if spec.ndim == 2:
+            outs += [sb._fwd("shiftblend_fwd", *args, *mode, halo=r)
+                     for r in (True, False)]
+        for got in outs:
+            assert got.shape == want.shape
+            assert _rel(got, want) <= LIMITS[precision], i
+        gout = torch.randn(want.shape, device=dev)
+        bargs = (x_ext, off_l, mask_l, w, gout, local, precision, bound)
+        for got, ref in zip(bwd(*bargs, (True,) * 4, *mode),
+                            bwd_ref(*bargs, *mode)):
+            assert _rel(got, ref) <= LIMITS[precision], i
+
+
+@pytest.mark.parametrize("case", list(LEAD_CASES))
+def test_lead_mode_stitches_to_the_unsharded_op(dev, case):
+    """`sharding.shard_conv` under "auto" on CUDA tensors takes the lead
+    mode (one forward and one backward launch a shard), and the stitched
+    outputs and summed block gradients of sum(out^2) equal the unsharded
+    shift-blend op's (float32 limit)."""
+    nd, B, C, O, S, k, g, dg, n, bound = LEAD_CASES[case]
+    spec, ts, plan, _ = _lead_blocks(dev, case, bound)
+    (shd,) = plan.shards
+    x, off, mask, w, b = ts
+    fwd, bwd = _lead_wrappers(nd)[:2]
+    lay, sizes = {2: "space"}, {"space": n}
+    outs, gx = [], torch.zeros_like(x)
+    goff, gmask = torch.zeros_like(off), torch.zeros_like(mask)
+    gw, gb = torch.zeros_like(w), torch.zeros_like(b)
+    for i in range(n):
+        sl = sh.shard_slices(off.shape, lay, {"space": i}, sizes)
+        ins = [sh.cut_block(x, plan.shards, [i]).requires_grad_(True)] + [
+            t.clone().requires_grad_(True)
+            for t in (off[sl].contiguous(), mask[sl].contiguous(), w, b)]
+        f0, b0 = fwd.launches, bwd.launches
+        y = sh.shard_conv(*ins, spec, plan.shards, [i], bound, "auto",
+                          "float32")
+        (y * y).sum().backward()
+        assert (fwd.launches - f0, bwd.launches - b0) == (1, 1)
+        outs.append(y.detach())
+        goff[sl], gmask[sl] = ins[1].grad, ins[2].grad
+        gw += ins[3].grad
+        gb += ins[4].grad
+        lo = i * shd.in_local - shd.halo
+        rows = range(max(lo, 0), min(lo + ins[0].shape[2], x.shape[2]))
+        gx.narrow(2, rows.start, len(rows)).add_(
+            ins[0].grad.narrow(2, rows.start - lo, len(rows)))
+    ins = [t.clone().requires_grad_(True) for t in ts]
+    op = api.modulated_deform_conv2d if nd == 2 else \
+        api.modulated_deform_conv3d
+    y = op(*ins, 1, 1, 1, g, dg, impl="shiftblend", precision="float32",
+           offset_bound=bound)
+    (y * y).sum().backward()
+    assert _rel(torch.cat(outs, 2), y.detach()) <= LIMITS["float32"]
+    for got, t in zip((gx, goff, gmask, gw, gb), ins):
+        assert _rel(got, t.grad) <= LIMITS["float32"]
+
+
+@pytest.mark.parametrize("case", list(LEAD_CASES))
+def test_lead_backward_is_bitwise_repeatable(dev, case):
+    """Two runs of the lead-mode backward on an interior shard give the
+    same bits: the pulls are fixed-order, with no float atomics."""
+    bound = LEAD_CASES[case][-1]
+    spec, ts, plan, blocks = _lead_blocks(dev, case, bound)
+    x_ext, off_l, mask_l, local, OS, gates, placement = blocks[1]
+    bwd = _lead_wrappers(spec.ndim)[1]
+    gout = torch.randn((x_ext.shape[0], ts[3].shape[0]) + OS, device=dev)
+    runs = [bwd(x_ext, off_l, mask_l, ts[3], gout, local, "tensorfloat32",
+                bound, (True,) * 4, OS, gates, placement) for _ in range(2)]
+    for a, c in zip(*runs):
+        assert torch.equal(a, c)

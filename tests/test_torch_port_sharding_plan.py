@@ -278,12 +278,13 @@ def test_gate_invariant_raises(gates):
 
 
 def test_shiftblend_shard_layouts_raise():
-    """impl="shiftblend" with a spatial split raises NotImplementedError
-    naming the lead mode, before any exchange, as the JAX package raises
-    for the layouts its lead mode does not take."""
+    """impl="shiftblend" with a spatial split the lead mode does not take
+    (max_offset 0, a W split) raises NotImplementedError naming the lead
+    mode, before any exchange, as the JAX package raises for the layouts
+    its lead mode does not take."""
     shards = (sh._SpatialShard(0, "space", 4, 3, 4, 4),)
     spec, (x, off, mask, w, b) = _small(S=(4, 6))
-    for shards_, max_off in ((shards, 2.0), (shards, 0.0),
+    for shards_, max_off in ((shards, 0.0),
                              ((sh._SpatialShard(1, "space", 2, 3, 3, 3),),
                               2.0)):
         with pytest.raises(NotImplementedError, match="lead mode"):

@@ -9,7 +9,8 @@ unpacked with `git archive`), runs chip_smoke.unsharded_digests (every
 kernel at its table row's config, every mode) under each and requires the
 same SHA-256 digests, then times each kernel's forward and backward in the
 main mode, earlier, this, this, earlier, with CUDA events.  The earlier
-tree's C entries take no gate arguments: its launches drop them.  Prints
+tree's shift-blend entries take no output grid and no gate arguments (the
+trees before the lead mode): its shift-blend launches drop them.  Prints
 the earlier tree's digests (chip_smoke.PREV_DIGESTS) and writes everything
 to chiprun_out/compare_parent_kernels.json.  Needs one NVIDIA GPU.
 """
@@ -57,7 +58,12 @@ def main():
         lib._FUNCS.clear()
         if which == "parent":
             lib._FUNCS.update(parent)
-            lib.launch = lambda name, x, tensors, ints, floats=(): launch(name, x, tensors, ints)
+            def parent_launch(name, x, tensors, ints, floats=()):
+                if name.startswith("shiftblend"):      # ints: *x.shape, O, *OS, ...
+                    at = x.ndim + 1
+                    ints, floats = ints[:at] + ints[at + x.ndim - 2:], ()
+                return launch(name, x, tensors, ints, floats)
+            lib.launch = parent_launch
         else:
             lib._FUNCS.update(mine)
             lib.launch = launch
