@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch / CUDA port on one NVIDIA GPU.
 
-Drives the port's main paths through the entry points a user calls:
+Drives the port's main paths through the entry points a user calls, each
+on the kernel pair "auto" takes under the card's device profile
+(utils/device.py: the H100's measured entry, else the JAX package's v5e
+rules), which every launch check reads:
 
 1. inference: the DCNv2 2D forward at the bench's config 2 (B=8, 256->256
    channels, 56x56, 3x3, stride 1, pad 1, groups = deformable_groups = 4,
@@ -14,16 +17,17 @@ Drives the port's main paths through the entry points a user calls:
 4. the 3D ops at BASELINE configs 3 (`deform_conv3d`, B=2, 64 ch,
    16x32x32) and 4 (`modulated_deform_conv3d`, B=4, 128 ch, 32x64x64,
    in_step=2), both with `offset_bound=2.0`: the forward and the training
-   step (gradients of sum(out^2) in every input), through the 3D gather
-   pair and the 3D shift-blend pair respectively;
+   step (gradients of sum(out^2) in every input), each 3D pair held and
+   timed at both;
 5. DCNVideoNet at its published defaults (width 32, blocks (1, 1, 1), 400
    classes) on B=8 clips of 16x112x112, trained for a few AdamW steps by
    the in-package trainer;
 6. BASELINE config 5 (benchmarks/suite.py:64-70): the ResNet-50 stage
    sweep c3 / c4 / c5 (512 / 1024 / 2048 channels at 28x28 / 14x14 / 7x7,
-   B=32, g = dg = 1, bias), forward and training step: c3 on the fused
-   gather pair, c4 and c5 on the unfused columns path (column kernels and
-   a grouped cuBLAS product), as the JAX package's `_fuse_ok` decides;
+   B=32, g = dg = 1, bias), forward and training step, on the fused
+   gather pair or the unfused columns path (column kernels and a grouped
+   cuBLAS product) as the card's fuse rule decides (the JAX package's
+   `_fuse_ok` keeps c3 on the fused pair);
 7. the 3D columns path: `modulated_deform_conv3d` at config 3's size
    (B=2, 64 -> 64, 16x32x32) with groups=2, dg=1, forward and training
    step, and `ModulatedDeformConv3dPack(groups=2)`;
@@ -32,18 +36,24 @@ Drives the port's main paths through the entry points a user calls:
    and 2 x 2 on (H, W), config 5 c4 split 2 ways on H, configs 3 and 4
    (B=1) and the 3D columns case split 4 ways on D, max_offset 2: every
    shard's exchanged block cut from the global tensors, forward and
-   backward under "auto": shift-blend's lead mode on the single
-   leading-dim splits of configs 2, 3 and 4 (rows 1, 4, 5, 6), the gather
-   kernels' block mode (a given output grid and a tap gate at the global
-   border) on the others, and the lead layouts a second time at
-   impl="cuda" on the fused gather pair's block mode; the lead mode's
+   backward: the single leading-dim splits of configs 2, 3 and 4 twice,
+   on shift-blend's lead mode (rows 1, 4, 5, 6) and on the gather kernels'
+   block mode (a given output grid and a tap gate at the global border),
+   then under "auto", which must take the one the card's profile names;
+   the other layouts under "auto", the gather kernels' block mode; the
+   lead mode's
    kernels held against their plain versions in every mode, the gather
    passes against the same function on the plain path, the shards
    stitched against the unsharded kernel op, and the lead mode's shard
    step timed beside the gather
    kernels' on the same shard (`utils.profiling.Timer`, `annotate`,
    `trace`); and the public `sharded_modulated_deform_conv2d` on a
-   one-rank NCCL mesh.
+   one-rank NCCL mesh;
+9. the device layer: `calibrate --quick` (the card's raw rates, and one
+   point either side of each reference value of the dispatch rules, which
+   must not contradict the committed profile), the smoke example through
+   the kernels, and `autotune` of the column forward's knobs at config 5
+   c4, every variant giving the same bits.
 
 It builds the twelve kernels (shift-blend and gather, forward and
 backward, 2D and 3D; the gather's columns forward and backward, 2D and
@@ -135,9 +145,9 @@ VIDEO_DCN_LAYERS = 2
 # BASELINE config 5 (benchmarks/suite.py:64-70): modulated_deform_conv2d at
 # the ResNet-50 stage shapes, B=32, 3x3, stride 1, pad 1, g = dg = 1, zero
 # bias, offsets U[-2, 2], mask U[0, 1], weights N(0, 0.05^2); per layer
-# (channels, size, the pair the JAX package's `_fuse_ok` picks).
-CFG5 = {"c3": (512, 28, "gathermm"), "c4": (1024, 14, "gathermm_cols"),
-        "c5": (2048, 7, "gathermm_cols")}
+# (channels, size); the pair "auto" takes follows the card's profile (the
+# JAX package's `_fuse_ok` keeps c3 on the fused pair).
+CFG5 = {"c3": (512, 28), "c4": (1024, 14), "c5": (2048, 7)}
 CFG5_B = 32
 # (iters, per_sample, warmup) of time_ms for config 5's plain path.
 TIMING_PLAIN5 = (5, 2, 1)
@@ -164,6 +174,9 @@ PREV_MS = {"shiftblend_fwd": 0.3563, "gathermm_fwd": 0.4025, "shiftblend_bwd": 0
            "gathermm_cols_bwd": 0.3740, "gathermm3d_cols_fwd": 0.3171,
            "gathermm3d_cols_bwd": 0.9626}
 PREV_MS_C5 = {"gathermm_cols_fwd": 0.0881, "gathermm_cols_bwd": 0.2257}
+# Config 5 c3's column forward called directly (this script's previous
+# release; its backward was not timed then).
+PREV_MS_C3 = {"gathermm_cols_fwd": 0.2337}
 # SHA-256 of the columns the column forward gave before its two routes (one
 # thread per (sample, group, tap, position), 32 channels a block; nvcc 12.9,
 # sm_90a, NVIDIA H100 80GB HBM3) on config 5's c3-c5 inputs and the 3D
@@ -373,6 +386,39 @@ def launched(c):
     return {n: v for n, v in c.items() if v}
 
 
+def auto_pair(x, spec, O, bound=None):
+    """The kernel pair "auto" takes for input x on the card, as the device
+    profile of x's card decides (utils/device.py): "shiftblend" or
+    "gathermm" (the fused pair) or "gathermm_cols" (the columns path), with
+    "3d" after the family name in 3D."""
+    from modulated_deform_conv_tpu_torch.ops.cuda import plan, select_kernel
+    name, reason = select_kernel(x, spec, bound)
+    check(name is not None, f"no kernel takes {tuple(x.shape)}: {reason}")
+    d = "3d" if spec.ndim == 3 else ""
+    if name == "shiftblend":
+        return f"shiftblend{d}"
+    return f"gathermm{d}" if plan.fuse_ok(x, spec, O) else f"gathermm{d}_cols"
+
+
+def current_profile_of(x):
+    """The device profile of x's card."""
+    from modulated_deform_conv_tpu_torch.utils.device import current_profile
+    return current_profile(x)
+
+
+def recorded_pairs(recorded, steps, kernels):
+    """The launches a trainer's run must make: per DCN layer recorded at
+    the first step, `steps` of its "auto" pair's forward and backward."""
+    want = {n: 0 for n in kernels}
+    for rec in recorded:
+        if rec["step"] == 0:
+            xs, ws = rec["ins"][0], rec["ins"][3]
+            fam = auto_pair(xs, rec["spec"], ws.shape[0])
+            want[f"{fam}_fwd"] += steps
+            want[f"{fam}_bwd"] += steps
+    return want
+
+
 def grad_rel_errs(got, want):
     """Per-gradient relative error of a backward kernel against its plain
     version (None where the gradient does not exist)."""
@@ -498,10 +544,42 @@ def check_recorded(torch, recorded, layers, pair, label):
     print(f"{label} layer checks: peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
 
+def check_recorded_cols(torch, recorded, gm, label, batch=2):
+    """Hold the column pair of the layers' rank against its plain versions,
+    every mode, on the first `batch` samples of every DCN layer's recorded
+    inputs (the plain versions hold every corner of the columns at once),
+    with a seeded cotangent of the columns."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    with torch.no_grad():
+        for rec in recorded:
+            xs, offs, masks = (t[:batch].contiguous() for t in rec["ins"][:3])
+            sspec = rec["spec"]
+            d = "3d" if sspec.ndim == 3 else ""
+            fwd = getattr(gm, f"gathermm{d}_cols_fwd")
+            bwd = getattr(gm, f"gathermm{d}_cols_bwd")
+            worst = {}
+            for prec, limit in LIMITS.items():
+                got = fwd(xs, offs, masks, sspec, prec)
+                errs = [rel_err(got, gm.gathermm_cols_reference(xs, offs, masks, sspec, prec))]
+                gcols = torch.randn(got.shape, generator=gen, device=xs.device).to(got.dtype)
+                del got
+                errs += [rel_err(a, r) for a, r in zip(
+                    bwd(xs, offs, masks, gcols, sspec, prec),
+                    gm.gathermm_cols_bwd_reference(xs, offs, masks, gcols, sspec, prec))
+                    if r is not None]
+                worst[prec] = max(errs)
+                check(worst[prec] <= limit, f"{label} step {rec['step']} {rec['name']} {prec}: "
+                      f"{fwd.__name__} / {bwd.__name__} vs plain, rel err {worst[prec]:.3e}")
+                del gcols
+            print(f"{label} step {rec['step']} {rec['name']} x {tuple(xs.shape)} (first {batch} "
+                  f"samples): {fwd.__name__} + {bwd.__name__} vs plain, worst rel err "
+                  + " ".join(f"{p} {e:.2e}" for p, e in worst.items()))
+
+
 DCN_KERNELS = ("fwd_mma_kernel", "fold_out_kernel", "ranges_kernel", "boxes3_kernel", "gx_kernel",
                "gx3_kernel", "goff_kernel", "goff3_kernel", "fold_kernel", "cols_plane_kernel",
                "cols_gather_kernel", "x_cl_kernel", "gcols_mma_kernel", "gw_mma_kernel", "corr_kernel",
-               "boxes_kernel", "pull_kernel", "pull3_kernel", "corr3_kernel")
+               "boxes_kernel", "pull_kernel", "pull3_kernel", "corr3_kernel", "col_")
 
 
 def time_recorded(torch, recorded, fwd, label, bwd=None):
@@ -696,20 +774,22 @@ def far(got, ref, frac=1e-3):
     return int(((got - ref).abs() > frac * ref.abs().max()).sum())
 
 
-def on_bound(torch, off, spec, bound):
+def on_bound(torch, off, spec, bound, origin=None):
     """How many fp32 sampling positions floor to exactly anchor + bound, where
-    the bounded contract's derivative is one-sided (stride 1, dg = 1)."""
-    S = off.shape[2:]
-    taps = torch.cartesian_prod(*[torch.arange(k) for k in spec.kernel])  # (K, 3)
-    off = off.reshape(off.shape[0], spec.tap_count, 3, *S)
+    the bounded contract's derivative is one-sided (stride 1).  `origin`:
+    the whole output's index of off's first row per dim (a shard's)."""
+    nd, S = spec.ndim, off.shape[2:]
+    origin = origin or (0,) * nd
+    taps = torch.cartesian_prod(*[torch.arange(k) for k in spec.kernel])  # (K, nd)
+    off = off.reshape(off.shape[0], -1, spec.tap_count, nd, *S)
     n = 0
-    for a in range(3):
-        shape = [1, 1, 1, 1, 1]
-        shape[2 + a] = S[a]
-        coord = torch.arange(S[a], device=off.device).reshape(shape)
+    for a in range(nd):
+        shape = [1] * (3 + nd)
+        shape[3 + a] = S[a]
+        coord = (torch.arange(S[a], device=off.device) + origin[a]).reshape(shape)
         tap = (taps[:, a] * spec.dilation[a] - spec.padding[a]).to(off.device)
-        base = (coord + tap.reshape(1, -1, 1, 1, 1)).float()
-        n += int(((torch.floor(base + off[:, :, a]) - base) == bound).sum())
+        base = (coord + tap.reshape([1, 1, -1] + [1] * nd)).float()
+        n += int(((torch.floor(base + off[:, :, :, a]) - base) == bound).sum())
     return n
 
 
@@ -740,11 +820,14 @@ def run_3d(torch, mdt, families3d, reset, counts, dev):
     cases, and the times.  Returns the table rows of the 3D kernels (each
     pair's at its own config), the training-step times and both pairs'
     kernel times at both configs."""
-    rows, steps, cross = {}, {}, {}
+    rows, steps, cross, main = {}, {}, {}, {}
     for name, c in CFG3D.items():
         spec, ins = cfg3d_inputs(torch, dev, name)
+        # `fam`: the pair whose table rows this config gives; `auto_fam`:
+        # the pair "auto" takes here, as the card's profile decides.
         fam = c["family"]
         B, O = ins[0].shape[0], ins[3].shape[0]
+        auto_fam = auto_pair(ins[0], spec, O, BOUND3D)
         OS = spec.out_sizes(ins[0].shape[2:])
         zero = {n: 0 for n in counts()}
         # Phase 9: the forward and the training step through the public op.
@@ -753,8 +836,8 @@ def run_3d(torch, mdt, families3d, reset, counts, dev):
             out = op3d(mdt, name, ins, impl="auto", offset_bound=BOUND3D)
             torch.cuda.synchronize()
             fwd_launches = counts()
-            check(fwd_launches == {**zero, f"{fam}_fwd": 1},
-                  f"{name} forward did not run through {fam}_fwd alone: {fwd_launches}")
+            check(fwd_launches == {**zero, f"{auto_fam}_fwd": 1},
+                  f"{name} forward did not run through {auto_fam}_fwd alone: {fwd_launches}")
             torch.cuda.reset_peak_memory_stats()
             ref = op3d(mdt, name, ins, impl="torch")
             e = rel_err(out, ref)
@@ -776,9 +859,11 @@ def run_3d(torch, mdt, families3d, reset, counts, dev):
         grads = step(impl="auto", offset_bound=BOUND3D)
         torch.cuda.synchronize()
         step_launches = counts()
-        check(step_launches == {**zero, f"{fam}_fwd": 1, f"{fam}_bwd": 1},
-              f"{name} training step did not run through the {fam} pair alone: {step_launches}")
-        if fam == "gathermm3d":
+        check(step_launches == {**zero, f"{auto_fam}_fwd": 1, f"{auto_fam}_bwd": 1},
+              f"{name} training step did not run through the {auto_fam} pair alone: "
+              f"{step_launches}")
+        main[name] = {n: fwd_launches[n] + step_launches[n] for n in zero}
+        if auto_fam.startswith("gathermm3d"):
             g_ref, against = step(impl="torch"), "impl='torch'"
         else:
             # The bounded pair is held against its own plain version, which
@@ -788,7 +873,7 @@ def run_3d(torch, mdt, families3d, reset, counts, dev):
             # impl='torch' (no window) takes the other side.  Sample by
             # sample, because the plain version holds a sample's columns at
             # once.
-            g_ref = plain_grads_by_sample(torch, ins, spec, families3d[fam], BOUND3D)
+            g_ref = plain_grads_by_sample(torch, ins, spec, families3d[auto_fam], BOUND3D)
             against = "its plain version"
             g_path = step(impl="torch")
             print(f"{name} training step vs impl='torch': " + " ".join(
@@ -812,7 +897,7 @@ def run_3d(torch, mdt, families3d, reset, counts, dev):
         steps[name] = {"auto": time_ms(lambda: step(impl="auto", offset_bound=BOUND3D), *it_k),
                        "plain": time_ms(lambda: step(impl="torch"), *it_p)}
         print(f"{name} training step (fwd + bwd of sum(out^2), {len(leaves)} grads): "
-              f"{steps[name]['auto']:.4f} ms through {fam} (previous release "
+              f"{steps[name]['auto']:.4f} ms through {auto_fam} (previous release "
               f"{PREV_STEP_MS[name + ' step']} ms), {steps[name]['plain']:.4f} ms plain")
         del leaves
 
@@ -879,10 +964,12 @@ def run_3d(torch, mdt, families3d, reset, counts, dev):
                 f"{n} {ms:.4f} ms" for n, ms in cross[name].items())
                 + f"; dense conv3d anchors {anchors3d}")
             pair_ms = {f: cross[name][f"{f}_fwd"] + cross[name][f"{f}_bwd"] for f in families3d}
-            print(f"{name} SB_WIDE_BOUND_3D: the pair 'auto' takes ({fam}) fwd + bwd "
-                  f"{pair_ms[fam]:.4f} ms; " + ", ".join(
+            print(f"{name} (profile sb_wide_bound_3d {current_profile_of(ins[0]).sb_wide_bound_3d}, "
+                  f"bound {BOUND3D}): 'auto' takes {auto_fam}; fwd + bwd " + ", ".join(
                       f"{f} {ms:.4f} ms" for f, ms in pair_ms.items())
-                  + f"; the other pair / the taken one {min(pair_ms.values()) / pair_ms[fam]:.3f}x")
+                  + (f"; the faster / the taken one "
+                     f"{min(pair_ms.values()) / pair_ms[auto_fam]:.3f}x" if auto_fam in pair_ms
+                     else ""))
             fwd, fwd_ref, bwd, bwd_ref = families3d[fam]
             args = (*cut, spec, MAIN_PRECISION, BOUND3D)[:7 if fam == "gathermm3d" else 8]
             bargs = (*cut[:4], gout[:pb], *args[5:])
@@ -897,7 +984,7 @@ def run_3d(torch, mdt, families3d, reset, counts, dev):
                 plain_ms = time_ms(lambda: ref_fn(*a), *it_p)
                 bound_ms, bound_by = bound_of(*w_pb[kind])
                 rows[n].update(
-                    launches=(fwd_launches if kind == "fwd" else step_launches)[n], ms=ms,
+                    config_launches=(fwd_launches if kind == "fwd" else step_launches)[n], ms=ms,
                     plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                     at=f"{name} B={pb}")
                 rows[n][f"dense_conv_{kind}_anchor_ms"] = anchors3d[pb][kind]
@@ -936,13 +1023,13 @@ def run_3d(torch, mdt, families3d, reset, counts, dev):
                   f"d={sspec.dilation} g={sspec.groups} dg={sspec.deformable_groups} "
                   f"bound={bound} max|off|={float(offs.abs().max()):.2f} mask={masks is not None}: "
                   "fwd + bwd ok, backward bitwise repeatable")
-    return {"rows": rows, "steps": steps, "cross": cross}
+    return {"rows": rows, "steps": steps, "cross": cross, "main_launches": main}
 
 
 def cfg5_inputs(torch, dev, layer):
     """A config-5 layer's inputs (x, offset, mask, weight, bias) as
     benchmarks/suite.py builds them, from numpy seed 0."""
-    C, S, _ = CFG5[layer]
+    C, S = CFG5[layer]
     rng = np.random.default_rng(0)
     f32 = np.float32
     arrs = (rng.standard_normal((CFG5_B, C, S, S), dtype=f32),
@@ -1061,6 +1148,11 @@ def cols_fwd_routes(torch, gm, label, spec, ins, key):
     return route, same_as_prev
 
 
+def prev_ms(prev, name):
+    """The previous release's time of a kernel, printed."""
+    return f"{prev[name]:.4f} ms" if name in prev else "not timed"
+
+
 def columns_case(torch, gm, label, spec, ins, op, reset, counts, pair, fused_pair, dense,
                  prev=PREV_MS, key=None):
     """One config through the public op and the columns path: the counted
@@ -1172,7 +1264,7 @@ def columns_case(torch, gm, label, spec, ins, op, reset, counts, pair, fused_pai
         rows[f"{fam}_fwd"].update(split_ms=split, device_ms=sum(split.values()) if split else None,
                                   gather_route_ms=t["cols_fwd_gather_route"])
         print(f"{label} {fam}_fwd: {t['cols_fwd']:.4f} ms on events, {route} route (previous release "
-              f"{prev[f'{fam}_fwd']:.4f} ms; gather route {t['cols_fwd_gather_route']:.4f} ms), "
+              f"{prev_ms(prev, f'{fam}_fwd')}; gather route {t['cols_fwd_gather_route']:.4f} ms), "
               + (f"{sum(split.values()):.4f} ms device: " + ", ".join(
                   f"{k} {v:.4f}" for k, v in split.items()) if split else "device time not measured"))
         t["cols_bwd"] = time_ms(lambda: bwd(x, off, mask, gcols, spec, MAIN_PRECISION))
@@ -1180,7 +1272,7 @@ def columns_case(torch, gm, label, spec, ins, op, reset, counts, pair, fused_pai
             lambda: bwd(x, off, mask, gcols, spec, MAIN_PRECISION)))
         rows[f"{fam}_bwd"].update(split_ms=split, device_ms=sum(split.values()) if split else None)
         print(f"{label} {fam}_bwd: {t['cols_bwd']:.4f} ms on events (previous release "
-              f"{prev[f'{fam}_bwd']:.4f} ms), "
+              f"{prev_ms(prev, f'{fam}_bwd')}), "
               + (f"{sum(split.values()):.4f} ms device: " + ", ".join(
                   f"{k} {v:.4f}" for k, v in split.items()) if split else "device time not measured"))
         t["cols_fwd_plain"] = time_ms(lambda: fwd_ref(x, off, mask, spec, MAIN_PRECISION),
@@ -1217,7 +1309,7 @@ def columns_case(torch, gm, label, spec, ins, op, reset, counts, pair, fused_pai
     for kind in ("fwd", "bwd"):
         bound_ms, bound_by = bound_of(*work[kind], "float32")
         rows[f"{fam}_{kind}"].update(
-            launches=(fwd_launches if kind == "fwd" else step_launches)[f"{fam}_{kind}"],
+            config_launches=(fwd_launches if kind == "fwd" else step_launches)[f"{fam}_{kind}"],
             ms=t[f"cols_{kind}"], plain_ms=t[f"cols_{kind}_plain"], bound_ms=bound_ms,
             bound_by=bound_by, library_ms=t[f"grid_sample_{kind}"], at=label,
             library="torch.nn.functional.grid_sample (+ mask), one call over all taps",
@@ -1264,10 +1356,12 @@ def cols_fwd_c3(torch, gm, label, spec, ins):
 
 def run_columns(torch, mdt, gm, reset, counts, dev):
     """Phases 14-16: the unfused columns path.  BASELINE config 5's sweep
-    through the public op (c3 on the fused pair, c4 and c5 on the column
-    kernels), the 3D columns case and its Pack module, and small cases of
-    the column kernels and of the op."""
+    through the public op (each layer on the pair the card's profile takes:
+    the JAX package's rule keeps c3 on the fused pair, the H100's sends it
+    to the column kernels as c4 and c5), the 3D columns case and its Pack
+    module, and small cases of the column kernels and of the op."""
     from modulated_deform_conv_tpu_torch.utils.config import DeformConvSpec
+    from modulated_deform_conv_tpu_torch.utils.device import reference_profile
     F = torch.nn.functional
     res = {"rows": {}, "times": {}, "launches": {}}
     spec = DeformConvSpec.make(2, 3, 1, 1, 1, 1, 1, modulated=True)
@@ -1285,9 +1379,12 @@ def run_columns(torch, mdt, gm, reset, counts, dev):
     # Phase 14: the config-5 sweep: forward, then training step, each layer
     # counted; the counts are set to 0 before each run of the sweep.
     sweep = {"fwd": dict(zero), "step": dict(zero)}
-    for layer, (C, S, pair) in CFG5.items():
+    for layer, (C, S) in CFG5.items():
         ins = cfg5_inputs(torch, dev, layer)
         label = f"cfg5 {layer} ({C} ch, {S}x{S}, B={CFG5_B})"
+        pair = auto_pair(ins[0], spec, C)
+        print(f"{label}: 'auto' takes {pair} (JAX's `_fuse_ok`: "
+              f"{gm.jax_fuse_ok(ins[0], spec, C, None, reference_profile())})")
         if pair == "gathermm":
             with torch.no_grad():
                 reset()
@@ -1346,8 +1443,13 @@ def run_columns(torch, mdt, gm, reset, counts, dev):
             launches, res["rows"][layer], t = columns_case(
                 torch, gm, label, spec, ins, op5, reset, counts,
                 (gm.gathermm_cols_fwd, gm.gathermm_cols_bwd), (gm.gathermm_fwd, gm.gathermm_bwd),
-                dense2, PREV_MS_C5 if layer == "c5" else PREV_MS, key=layer)
+                dense2, {"c3": PREV_MS_C3, "c5": PREV_MS_C5}.get(layer, PREV_MS), key=layer)
             fl, sl = launches["fwd"], launches["step"]
+            if layer == "c3":
+                # The fused forward at c3 beside its bound, as the fused
+                # branch records it.
+                t["gathermm_fwd"] = t["fused_fwd"]
+                t["gathermm_fwd_bound"] = bound_of(*work(ins, CFG5_B * C * S * S, spec)["fwd"])[0]
         res["times"][f"cfg5_{layer}"] = t
         for kind, c in (("fwd", fl), ("step", sl)):
             sweep[kind] = {n: sweep[kind][n] + v for n, v in c.items()}
@@ -1398,9 +1500,9 @@ def run_columns(torch, mdt, gm, reset, counts, dev):
     torch.cuda.empty_cache()
 
     # Phase 16: small cases, every mode: the column kernels against their
-    # plain versions (and bitwise-repeated backwards), and where the JAX
-    # package's `_fuse_ok` is false the op through "auto" (counted) against
-    # impl='torch'.
+    # plain versions (and bitwise-repeated backwards), and where the card's
+    # fuse rule (`plan.fuse_ok`) is false the op through "auto" (counted)
+    # against impl='torch'.
     gen = torch.Generator(device=dev).manual_seed(5)
     for sspec, ins, gout in small_cases_cols(torch, dev):
         x, off, mask, w, b = ins
@@ -1419,8 +1521,8 @@ def run_columns(torch, mdt, gm, reset, counts, dev):
                 check(all(torch.equal(a, r) for a, r in zip(
                     g_got, bwd(x, off, mask, gcols, sspec, prec)) if a is not None),
                     f"column backward small case {sspec}: two runs differ")
-        fused = gm.jax_fuse_ok(x, sspec, w.shape[0])
-        msg = "fused pair under auto (the JAX package's too)"
+        fused = gm.fuse_ok(x, sspec, w.shape[0])
+        msg = "fused pair under auto"
         if not fused:
             fn = mdt.modulated_deform_conv2d if sspec.ndim == 2 else mdt.modulated_deform_conv3d
             if mask is None:
@@ -1516,8 +1618,11 @@ def sharded_case(torch, dev, which):
         spec = DeformConvSpec.make(2, 3, 1, 1, 1, 1, 1, modulated=True)
         ins = cfg5_inputs(torch, dev, "c4")
     elif which in ("cfg3", "cfg4"):
+        # The config's batch cut to its plain versions' (x, offset and
+        # mask; the weight keeps its output channels).
         spec, ins = cfg3d_inputs(torch, dev, which)
-        ins = tuple(None if t is None else t[:PLAIN_BATCH[which]].contiguous() for t in ins)
+        ins = tuple(t if t is None or i > 2 else t[:PLAIN_BATCH[which]].contiguous()
+                    for i, t in enumerate(ins))
     else:
         spec, ins = cols3d_inputs(torch, dev)
     name = ("modulated_" if spec.modulated else "") + f"deform_conv{spec.ndim}d"
@@ -1600,11 +1705,13 @@ def timer_ms(torch, prof, dev, fn, label):
 def run_sharded(torch, sh, sb, reset, counts, dev):
     """The sharded phase.  Per case and shard: the exchanged block cut from
     the global tensors (zero rows past the image), `sharding.shard_conv`
-    forward and backward of sum(out^2) on CUDA tensors ("auto": on
-    LEAD_LAYOUTS shift-blend's lead mode, else the gather kernels' block
-    mode), and on LEAD_LAYOUTS a second time at impl="cuda" (the fused
-    gather pair in block mode, with the global border's gates on the edge
-    shards); (a) the lead mode's kernels against their plain versions on
+    forward and backward of sum(out^2) on CUDA tensors (on LEAD_LAYOUTS
+    twice: impl="shiftblend", shift-blend's lead mode, and impl="cuda", the
+    gather kernels' block mode, the fused pair or the column kernels as the
+    card's fuse rule decides, with the global border's gates on the edge
+    shards; then "auto" once more on every shard, which must take the pass
+    the card's profile names; elsewhere "auto", the gather kernels' block
+    mode); (a) the lead mode's kernels against their plain versions on
     the shard's block arguments in every mode, or a gather pass's step
     against shard_conv at impl="torch", and for the lead mode a second
     step's gradients bit for bit; (b) the outputs stitched and the block
@@ -1613,19 +1720,22 @@ def run_sharded(torch, sh, sb, reset, counts, dev):
     offset_bound 2 for the lead mode, else impl="cuda"), in the main mode
     and "float32"; (c) the kernels each shard launched (a lead-mode or
     impl="cuda" pass on a lead layout must launch the shift-blend or the
-    fused gather pair of its rank once each and nothing else, another
-    layout's shard a gather kernel); (d) one interior shard's step time beside the
+    gather pair of its rank once each and nothing else, another layout's
+    shard a gather kernel); (d) one interior shard's step time beside the
     unsharded step's, and on LEAD_LAYOUTS beside the same shard on the
     gather kernels with gates (impl="cuda"), on `profiling.Timer`, and its
     device time by kernel from a `profiling.trace`.  Where the column
     forward runs, its time on the block placed in the whole input beside
     its time in the JAX package's form, the shift folded into the offsets.
-    Returns {row: {case: launches and times}}."""
+    Returns {row: {case: launches and times}} and, per layout, the
+    kernels "auto" launched over its shards."""
     import itertools
     import tempfile
     from modulated_deform_conv_tpu_torch.ops.cuda import gathermm as gm
     from modulated_deform_conv_tpu_torch.utils import profiling as prof
+    from modulated_deform_conv_tpu_torch.ops.cuda import plan as plan_mod
     rows = {n: {} for n in GATHER_ROWS + LEAD_ROWS}
+    main_auto = {}
     t_phase = time.time()
     for label, (which, split) in SHARDED.items():
         lead = label in LEAD_LAYOUTS
@@ -1642,10 +1752,11 @@ def run_sharded(torch, sh, sb, reset, counts, dev):
         axes = [s.axis_name for s in plan.shards]
         grid = list(itertools.product(*[range(s.n_shards) for s in plan.shards]))
         fams = ("shiftblend", "gathermm") if nd == 2 else ("shiftblend3d", "gathermm3d")
-        # A lead layout runs twice: "auto" takes the lead mode, "cuda" the
-        # fused gather pair in block mode on the same shards.
-        passes = {"auto": tuple(fams[0] + k for k in ("_fwd", "_bwd")),
-                  "cuda": tuple(fams[1] + k for k in ("_fwd", "_bwd"))} if lead else {"auto": None}
+        # A lead layout runs twice: forced shift-blend takes the lead mode,
+        # "cuda" the gather kernels' block mode (the fused pair or the
+        # column kernels, as the card's fuse rule decides on the block) on
+        # the same shards; "auto" takes one of the two, as the card's
+        # profile decides (sb_lead_crossover_cg), checked on one shard.
 
         def block(coords, **kw):
             """The shard's leaves (block, offset, mask, weight, bias)."""
@@ -1660,11 +1771,23 @@ def run_sharded(torch, sh, sb, reset, counts, dev):
             grads = iter(torch.autograd.grad((y * y).sum(), live))
             return y.detach(), [None if t is None else next(grads) for t in leaves]
 
+        passes = {"auto": None}
+        if lead:
+            # The gather kernels' block mode takes the fused pair or the
+            # column kernels as the card's fuse rule decides on the block.
+            b0, sl0 = block(grid[0])
+            local0 = sh.block_args(spec, plan.shards, grid[0], tuple(b0[0].shape[2:]))[0]
+            gfam = fams[1] + ("" if plan_mod.fuse_ok(b0[0], local0, w.shape[0],
+                                                     tuple(off[sl0].shape[2:])) else "_cols")
+            passes = {"shiftblend": tuple(fams[0] + k for k in ("_fwd", "_bwd")),
+                      "cuda": tuple(gfam + k for k in ("_fwd", "_bwd"))}
+            del b0
+
         launched, kernel_err = {}, {}
         for (impl, want_rows), prec in itertools.product(passes.items(),
                                                          (MAIN_PRECISION, "float32")):
-            on_lead = lead and impl == "auto"
-            row_label = label if impl == "auto" else f"{label} impl={impl}"
+            on_lead = impl == "shiftblend"
+            row_label = label if impl in ("auto", "shiftblend") else f"{label} impl={impl}"
             out = torch.empty((x.shape[0], w.shape[0]) + tuple(off.shape[2:]), device=dev)
             g_sum = [torch.zeros_like(t) if t is not None else None for t in ins]
             for coords in grid:
@@ -1693,7 +1816,7 @@ def run_sharded(torch, sh, sb, reset, counts, dev):
                             kernel_err[p_] = max(kernel_err.get(p_, 0.0), e)
                         kernel_err["max_abs_err"] = max(kernel_err.get("max_abs_err", 0.0),
                                                         abs_err[MAIN_PRECISION])
-                        _, g2 = step(block(coords)[0], coords, "auto", prec)
+                        _, g2 = step(block(coords)[0], coords, impl, prec)
                         check(all(a is None or torch.equal(a, b_) for a, b_ in zip(g, g2)),
                               f"{label} shard {coords}: two lead-mode backward runs differ")
                         del g2
@@ -1734,11 +1857,37 @@ def run_sharded(torch, sh, sb, reset, counts, dev):
                 check(e <= LIMITS[prec], f"{row_label} {prec} stitched {what} vs unsharded: "
                       f"{e:.3e}")
             del out, g_sum, leaves, y0, live
+        auto_launched = {}
         if lead:
             print(f"sharded {label} impl=cuda: {'/'.join(passes['cuda'])} in block mode on every "
                   f"shard vs impl='torch', worst rel err {kernel_err['cuda']:.2e} (main mode and "
                   "float32)")
-        launched = launched["auto"]
+            # "auto" on every shard: the pair of the pass the profile names.
+            takes_lead = sh._lead_mode(x.narrow(2, 0, plan.shards[0].in_local), spec,
+                                       plan.shards, SHARD_MAX_OFFSET, "auto")
+            want_rows = passes["shiftblend" if takes_lead else "cuda"]
+            for coords in grid:
+                reset()
+                step(block(coords)[0], coords, "auto", MAIN_PRECISION)
+                torch.cuda.synchronize()
+                c = launched_now = {n: v for n, v in counts().items() if v}
+                check(c == {n: 1 for n in want_rows}, f"{label} shard {coords} impl=auto: "
+                      f"launched {launched_now}, want {want_rows} once each (the profile's "
+                      f"sb_lead_crossover_cg {current_profile_of(x).sb_lead_crossover_cg}, C/dg "
+                      f"{x.shape[1] // spec.deformable_groups})")
+                for n, v in c.items():
+                    auto_launched[n] = auto_launched.get(n, 0) + v
+            print(f"sharded {label}: 'auto' takes "
+                  f"{'the lead mode' if takes_lead else 'the gather kernels in block mode'} on "
+                  f"every shard ({'/'.join(want_rows)}; profile sb_lead_crossover_cg "
+                  f"{current_profile_of(x).sb_lead_crossover_cg}, C/dg "
+                  f"{x.shape[1] // spec.deformable_groups})")
+        else:
+            for c in launched["auto"].values():
+                for n, v in c.items():
+                    auto_launched[n] = auto_launched.get(n, 0) + v
+        main_auto[label] = auto_launched
+        launched = launched["shiftblend" if lead else "auto"]
         kernels_hit = sorted({n for c in launched.values() for n in c})
         print(f"sharded {label}: {len(grid)} shards of block "
               f"{tuple(sh.cut_block(x, plan.shards, grid[0]).shape)}, output grid "
@@ -1767,17 +1916,30 @@ def run_sharded(torch, sh, sb, reset, counts, dev):
             # the block's rows inside the image included (the lead mode
             # drops the corners past it, the gather kernels keep them on
             # the zero rows, whose gradient the exchange drops).
-            y_l, g_l = step(leaves, mid, "auto", MAIN_PRECISION)
+            y_l, g_l = step(leaves, mid, "shiftblend", MAIN_PRECISION)
             y_g, g_g = step(leaves, mid, "cuda", MAIN_PRECISION)
             (s0,) = plan.shards
             lo = s0.halo - mid[0] * s0.in_local
             rows_in = slice(max(0, lo), min(g_l[0].shape[2], lo + s0.in_local * s0.n_shards))
             g_l[0], g_g[0] = g_l[0][:, :, rows_in], g_g[0][:, :, rows_in]
-            e = max([rel_err(y_g, y_l)] + [rel_err(a, b_) for a, b_ in zip(g_g, g_l)
-                                           if a is not None])
+            errs = {"out": rel_err(y_g, y_l)}
+            errs.update({n: rel_err(a, b_) for n, a, b_ in zip(
+                ("x", "offset", "mask", "weight", "bias"), g_g, g_l) if a is not None})
+            # Where an fp32 position lands exactly on anchor + bound the
+            # bounded contract's offset derivative is one-sided (as at the
+            # unsharded config 4): each such position may move one offset
+            # gradient element, and no more may move.
+            n_on = on_bound(torch, leaves[1].detach(), spec, SHARD_MAX_OFFSET,
+                            (mid[0] * s0.out_local,) + (0,) * (nd - 1))
+            n_far = far(g_g[1], g_l[1])
             print(f"sharded {label}: shard {mid} on the gather kernels with gates vs the lead "
-                  f"mode, worst rel err {e:.2e} over the output and the gradients")
-            check(e <= LIMITS[MAIN_PRECISION], f"{label}: gather kernels vs lead mode {e:.3e}")
+                  "mode, rel err " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+                  + f"; offset gradient elements off by > 1e-3 of max {n_far}, positions on "
+                  f"anchor + bound {n_on}")
+            check(all(v <= LIMITS[MAIN_PRECISION] for k, v in errs.items() if k != "offset")
+                  and (errs["offset"] <= LIMITS[MAIN_PRECISION] or n_far <= n_on),
+                  f"{label}: gather kernels vs lead mode {errs}, {n_far} offset gradient "
+                  f"elements off, {n_on} positions on the bound")
             del y_l, g_l, y_g, g_g
             # The kernels alone on the shard's block, lead mode beside the
             # gather kernels with gates, on the same inputs.
@@ -1799,7 +1961,7 @@ def run_sharded(torch, sh, sb, reset, counts, dev):
                   f"kernels with gates {times['gather_fwd_ms']:.4f} / {times['gather_bwd_ms']:.4f} ms")
             del xb, off_l, mask_l, w_l, b_l, cot
             times["shard_step_ms"] = timer_ms(torch, prof, dev, lambda: step(
-                leaves, mid, "auto", MAIN_PRECISION), f"{label} lead shard step")
+                leaves, mid, "shiftblend", MAIN_PRECISION), f"{label} lead shard step")
             times["gather_shard_step_ms"] = timer_ms(torch, prof, dev, lambda: step(
                 leaves, mid, "cuda", MAIN_PRECISION), f"{label} gather shard step")
             times["unsharded_step_ms"] = timer_ms(torch, prof, dev, full_step,
@@ -1807,7 +1969,7 @@ def run_sharded(torch, sh, sb, reset, counts, dev):
             with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as logdir:
                 with prof.trace(logdir) as tr:
                     with prof.annotate(f"{label} lead shard step"):
-                        step(leaves, mid, "auto", MAIN_PRECISION)
+                        step(leaves, mid, "shiftblend", MAIN_PRECISION)
                 trace_kb = os.path.getsize(tr.path) / 1e3
             by_kernel = {}
             from torch.autograd import DeviceType
@@ -1860,7 +2022,88 @@ def run_sharded(torch, sh, sb, reset, counts, dev):
         del leaves, full, ins, x, off, mask, w, b
         torch.cuda.empty_cache()
     print(f"sharded phase: {time.time() - t_phase:.1f} s")
-    return {n: r for n, r in rows.items() if r}
+    return {n: r for n, r in rows.items() if r}, main_auto
+
+
+def run_calibration(torch, dev):
+    """calibrate --quick on the card: the raw rates beside the pinned peaks,
+    the quick points, and the profile they derive beside the H100 entry of
+    the table and the profile in force; fails where a point moves a
+    committed value."""
+    from modulated_deform_conv_tpu_torch import calibrate
+    from modulated_deform_conv_tpu_torch.utils.device import table_entry
+    t0 = time.time()
+    res = calibrate.calibrate(dev, quick=True, log=lambda m: print(f"  calibrate: {m}"))
+    kind = res["kind"]
+    m = res["measured"]
+    print(f"calibrate --quick ({time.time() - t0:.1f} s): TF32 matmul "
+          f"{m['tf32_matmul_flops'] / 1e12:.1f} TFLOP/s (pinned peak "
+          f"{PEAK_OPS['tensorfloat32'] / 1e12:.0f}), bf16 {m['bf16_matmul_flops'] / 1e12:.1f} "
+          f"({PEAK_OPS['bfloat16'] / 1e12:.0f}), FP32 FMA {m['fp32_fma_flops'] / 1e12:.1f} "
+          f"({PEAK_OPS['float32'] / 1e12:.0f}), HBM copy {m['hbm_copy_bytes_per_s'] / 1e12:.2f} TB/s "
+          f"({HBM_BYTES_PER_S / 1e12:.2f})")
+    print(f"calibrate --quick on {kind}: derived {json.dumps(res['profile'])}; the table's entry "
+          f"{json.dumps(table_entry(kind))}; the profile in force {json.dumps(res['base'])}")
+    check(not res["contradicts"], f"calibrate --quick contradicts the committed profile at "
+          f"{res['contradicts']}: {json.dumps(res['profile'])} against {json.dumps(res['base'])}")
+    return {"kind": kind, "measured": m, "derived": res["profile"], "committed": res["base"],
+            "points": {rule: [{k: (v["ms"] if isinstance(v, dict) else v) for k, v in r.items()}
+                              for r in rows] for rule, rows in res["timings"].items()}}
+
+
+def run_smoke_example(torch, reset, counts, dev):
+    """examples/smoke.py on the card: both 2D ops through the kernels
+    (impl="cuda"), outputs and grad_x 9 / 6 / 4, and the pair its launches
+    name."""
+    from modulated_deform_conv_tpu_torch.examples import smoke
+    from modulated_deform_conv_tpu_torch.utils.config import DeformConvSpec
+    reset()
+    smoke.run(dev)
+    torch.cuda.synchronize()
+    c = launched(counts())
+    spec = DeformConvSpec.make(2, 3, 1, 1, 1, 1, 1, modulated=True)
+    fam = auto_pair(torch.empty((1, 1, 5, 5), device=dev), spec, 1)
+    check(c == {f"{fam}_fwd": 2, f"{fam}_bwd": 2},
+          f"smoke example launched {c}, want {fam} twice each")
+    print(f"smoke example on the card: out and grad_x 9 / 6 / 4 for both 2D ops; launches {c}")
+
+
+def run_autotune(torch, gm, dev):
+    """utils/autotune.py on the column forward at config 5 c4: every knob
+    variant gives the same bits (SHA-256), then the tuned winner, each
+    variant's time beside it; the knobs are reset afterwards."""
+    import hashlib
+    from modulated_deform_conv_tpu_torch.utils import autotune
+    from modulated_deform_conv_tpu_torch.utils.config import DeformConvSpec
+    spec = DeformConvSpec.make(2, 3, 1, 1, 1, 1, 1, modulated=True)
+    x, off, mask = cfg5_inputs(torch, dev, "c4")[:3]
+
+    def fn():
+        return gm.gathermm_cols_fwd(x, off, mask, spec, MAIN_PRECISION)
+    digests = {}
+    with torch.no_grad():
+        for v in autotune.DEFAULT_VARIANTS:
+            autotune.apply(v)
+            plan = gm.cols_fwd_plan(spec, x.shape[2:], x.shape[2:], x.shape[0], x.shape[1])
+            digests[json.dumps(v)] = (hashlib.sha256(fn().view(torch.uint8).cpu().numpy()
+                                                     .tobytes()).hexdigest(), plan.route,
+                                      plan.splits)
+        autotune.reset()
+        check(len({d for d, _, _ in digests.values()}) == 1,
+              f"autotune variants give other bits: {digests}")
+        times, base = {}, autotune.cuda_timer(10)
+
+        def timer(f):
+            t = base(f)
+            times[json.dumps({k: v for k, v in autotune.current().items() if v})] = t
+            return t
+        best = autotune.autotune(fn, "cfg5 c4 gathermm_cols_fwd", device=dev, timer=timer)
+        autotune.reset()
+    print("autotune cfg5 c4 gathermm_cols_fwd: every variant the same bits ("
+          + "; ".join(f"{v}: route {r}, {s_} splits" for v, (_, r, s_) in digests.items())
+          + "); times " + ", ".join(f"{v} {t:.4f} ms" for v, t in times.items())
+          + f"; winner {best}")
+    return {"winner": best, "ms": times}
 
 
 def nccl_one_rank(torch, mdt, dev):
@@ -1949,9 +2192,10 @@ def main() -> int:
     def counts():
         return {n: fn.launches for n, (fn, _) in kernels.items()}
 
-    # Phase 2: build the twelve kernels from the sources, in parallel.
+    # Phase 2: build the twelve kernels (and calibrate's FMA probe) from the
+    # sources, in parallel.
     t0 = time.time()
-    logs = lib.build(lib.KERNELS, verbose=True)
+    logs = lib.build(lib.KERNELS + lib.PROBES, verbose=True)
     print(f"build: {time.time() - t0:.1f} s for {sorted(logs) or 'nothing (cached)'}")
     for name, log in logs.items():
         for line in log.splitlines():
@@ -1966,6 +2210,19 @@ def main() -> int:
     def op(*ins, **kw):
         return mdt.modulated_deform_conv2d(*ins, 1, 1, 1, G, DG, **kw)
 
+    # Which pair "auto" takes at config 2, bounded and general, from the
+    # card's device profile (utils/device.py).
+    print(f"device profile: {current_profile_of(x)}")
+    cfg2_pairs = {"bounded": auto_pair(x, spec, O, BOUND), "general": auto_pair(x, spec, O)}
+    print(f"config 2 under 'auto': bounded {cfg2_pairs['bounded']}, general "
+          f"{cfg2_pairs['general']}")
+    main_launches = {n: 0 for n in kernels}
+
+    def add_main(c):
+        """Count a main-path run's launches into the kernel table's."""
+        for n, v in c.items():
+            main_launches[n] += v
+
     # Phase 3: main path 1, the forward at config 2 through the public op.
     with torch.no_grad():
         reset()
@@ -1973,8 +2230,9 @@ def main() -> int:
         out_general = op(x, off, mask, w, bias, impl="auto")
         torch.cuda.synchronize()
         fwd_launches = counts()
+        add_main(fwd_launches)
         print(f"forward path launches: {fwd_launches}")
-        for n in ("shiftblend_fwd", "gathermm_fwd"):
+        for n in (f"{p}_fwd" for p in cfg2_pairs.values()):
             check(fwd_launches[n] >= 1, f"{n} was not launched on the forward path")
         ref = op(x, off, mask, w, bias, impl="torch")
         for label, out in (("bounded", out_bounded), ("general", out_general)):
@@ -1993,17 +2251,17 @@ def main() -> int:
         out = op(*leaves, **kw)
         return torch.autograd.grad((out * out).sum(), leaves)
 
-    step_launches, step_grads = {}, {}
-    for label, kw, fam in (("bounded", dict(offset_bound=BOUND), "shiftblend"),
-                           ("general", {}, "gathermm")):
+    step_grads = {}
+    for label, kw in (("bounded", dict(offset_bound=BOUND)), ("general", {})):
+        fam = cfg2_pairs[label]
         reset()
         step_grads[label] = cfg2_step(impl="auto", **kw)
         torch.cuda.synchronize()
-        launched = counts()
-        print(f"training-step path {label} launches: {launched}")
+        lc = counts()
+        add_main(lc)
+        print(f"training-step path {label} launches: {lc}")
         for n in (f"{fam}_fwd", f"{fam}_bwd"):
-            check(launched[n] == 1, f"{n} was not launched once on the {label} training step")
-            step_launches[n] = launched[n]
+            check(lc[n] == 1, f"{n} was not launched once on the {label} training step")
     g_ref = cfg2_step(impl="torch")
     names5 = ("x", "offset", "mask", "weight", "bias")
     for label, kw in (("bounded", dict(offset_bound=BOUND)), ("general", {})):
@@ -2073,23 +2331,28 @@ def main() -> int:
 
         # Phase 6: the Pack module at config 2, with and without the bound.
         torch.manual_seed(0)
-        for bound, want_kernel in ((BOUND, "shiftblend_fwd"), (None, "gathermm_fwd")):
+        for bound, label in ((BOUND, "bounded"), (None, "general")):
+            want_kernel = f"{cfg2_pairs[label]}_fwd"
             mod = mdt.ModulatedDeformConv2dPack(
                 C, O, KS, padding=1, groups=G, deformable_groups=DG,
                 offset_bound=bound, device="cuda")
             reset()
             y = mod(x)
             torch.cuda.synchronize()
-            launched = counts()
-            check(launched[want_kernel] >= 1, f"Pack (bound={bound}) did not launch {want_kernel}")
+            lc = counts()
+            check(lc[want_kernel] >= 1, f"Pack (bound={bound}) did not launch {want_kernel}")
             check(y.shape == (B, O, H, W) and bool(torch.isfinite(y).all()),
                   f"Pack (bound={bound}) output bad")
             p_off, p_mask = mod.conv_offset(x), mod.conv_mask(x)
-            fn, ref_fn = kernels[want_kernel]
             ext = (bound,) if bound is not None else ()
-            want = ref_fn(x, p_off, p_mask, mod.weight, mod.bias, spec, MAIN_PRECISION, *ext)
+            if want_kernel == "gathermm_cols_fwd":
+                # The columns path's plain version is the plain op's own.
+                want = op(x, p_off, p_mask, mod.weight, mod.bias, impl="torch")
+            else:
+                want = kernels[want_kernel][1](x, p_off, p_mask, mod.weight, mod.bias, spec,
+                                               MAIN_PRECISION, *ext)
             e = rel_err(y, want)
-            print(f"Pack bound={bound}: launches {launched}, rel err {e:.3e}, "
+            print(f"Pack bound={bound}: launches {lc}, rel err {e:.3e}, "
                   f"max|offset| {float(p_off.abs().max()):.3f}")
             check(e <= LIMITS[MAIN_PRECISION], f"Pack (bound={bound}) disagrees")
 
@@ -2176,10 +2439,13 @@ def main() -> int:
         torch, train, mdt.ModulatedDeformConv2dPack, DeformConvSpec, r["steps"],
         batch=r["batch"], width=r["width"], classes=r["classes"], size=r["size"])
     net_launches = counts()
+    add_main(net_launches)
     print(f"DCNResNet-50 launches over {r['steps']} steps: {net_launches}")
-    for n in kernels:
-        want = DCN_LAYERS * r["steps"] if n in ("gathermm_fwd", "gathermm_bwd") else 0
-        check(net_launches[n] == want, f"{n}: {net_launches[n]} launches, want {want}")
+    check(len([rec for rec in recorded if rec["step"] == 0]) == DCN_LAYERS,
+          "DCNResNet-50: not every DCN layer recorded")
+    want = recorded_pairs(recorded, r["steps"], kernels)
+    check(net_launches == want, f"DCNResNet-50 launches {launched(net_launches)}, want the "
+          f"profile's pairs {launched(want)}")
     check(all(np.isfinite(res["losses"])), "DCNResNet loss not finite")
     step_ms = statistics.median(res["step_s"][1:]) * 1e3
     print(f"DCNResNet-50 width {r['width']} B={r['batch']} {r['size']}x{r['size']}: "
@@ -2199,6 +2465,8 @@ def main() -> int:
     # Phases 9-12: the 3D paths, BASELINE configs 3 and 4 and DCNVideoNet.
     torch.cuda.empty_cache()
     r3 = run_3d(torch, mdt, families3d, reset, counts, dev)
+    for c in r3["main_launches"].values():
+        add_main(c)
     torch.cuda.empty_cache()
     v = VIDEO
     reset()
@@ -2207,10 +2475,11 @@ def main() -> int:
         batch=v["batch"], width=v["width"], classes=v["classes"], size=v["size"],
         arch="video", frames=v["frames"])
     video_launches = counts()
+    add_main(video_launches)
     print(f"DCNVideoNet launches over {v['steps']} steps: {video_launches}")
-    for n in kernels:
-        want = VIDEO_DCN_LAYERS * v["steps"] if n in ("gathermm3d_fwd", "gathermm3d_bwd") else 0
-        check(video_launches[n] == want, f"{n}: {video_launches[n]} launches, want {want}")
+    want = recorded_pairs(recorded, v["steps"], kernels)
+    check(video_launches == want, f"DCNVideoNet launches {launched(video_launches)}, want the "
+          f"profile's pairs {launched(want)}")
     check(all(np.isfinite(res["losses"])) and res["losses"][-1] < res["losses"][0],
           f"DCNVideoNet loss did not fall: {res['losses']}")
     video_ms = statistics.median(res["step_s"][1:]) * 1e3
@@ -2218,10 +2487,10 @@ def main() -> int:
           f"{v['frames']}x{v['size']}x{v['size']}: loss {res['losses'][0]:.4f} -> "
           f"{res['losses'][-1]:.4f}, step {video_ms:.2f} ms (median of steps 2-{v['steps']}; "
           f"first {res['step_s'][0] * 1e3:.1f} ms)")
-    print("DCNVideoNet 3D gather launches over "
-          f"{v['steps']} steps: gathermm3d_fwd {video_launches['gathermm3d_fwd']}, "
-          f"gathermm3d_bwd {video_launches['gathermm3d_bwd']}")
+    print(f"DCNVideoNet DCN launches over {v['steps']} steps: {launched(video_launches)}")
     check_recorded(torch, recorded, VIDEO_DCN_LAYERS, families3d["gathermm3d"], "DCNVideoNet")
+    if video_launches["gathermm3d_cols_fwd"]:
+        check_recorded_cols(torch, recorded, gm, "DCNVideoNet")
     video_dcn = time_recorded(torch, recorded, gm.gathermm3d_fwd, "DCNVideoNet",
                               bwd=gm.gathermm3d_bwd)
     print("DCNVideoNet: its DCN calls a step (forward and backward of each layer) "
@@ -2240,6 +2509,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     r5 = run_columns(torch, mdt, gm, reset, counts, dev)
     sweep5 = r5["launches"]["cfg5"]
+    for c in (sweep5["fwd"], sweep5["step"], r5["launches"]["cols3d"]["fwd"],
+              r5["launches"]["cols3d"]["step"]):
+        add_main(c)
 
     # Phase 18: every kernel's unsharded launches give the bits of the tree
     # before the gather kernels' block mode: the default gate (-1, S) that
@@ -2259,28 +2531,43 @@ def main() -> int:
     # kernels' block mode), and the public sharded entry on a one-rank NCCL
     # mesh.
     torch.cuda.empty_cache()
-    sharded = run_sharded(torch, sh, sb, reset, counts, dev)
+    sharded, sharded_auto = run_sharded(torch, sh, sb, reset, counts, dev)
+    for c in sharded_auto.values():
+        add_main(c)
     nccl_one_rank(torch, mdt, dev)
 
+    # Phase 20: the device layer.  calibrate --quick: the raw rates, and one
+    # point either side of each reference value, where the card's profile
+    # parts from the JAX package's; a point that contradicts the committed
+    # profile by more than its spread fails.
+    calibration = run_calibration(torch, dev)
+    # Phase 21: the smoke example through the kernels.
+    run_smoke_example(torch, reset, counts, dev)
+    # Phase 22: autotune of the column forward's knobs at config 5 c4.
+    tuned = run_autotune(torch, gm, dev)
+
     # Phase 17: the kernel table.  The 2D column kernels' row is config 5's
-    # c4 layer (launches: the whole sweep), the 3D one the 3D columns case.
+    # c4 layer, the 3D one the 3D columns case; `launches` sums every
+    # main-path run's (config 2's forward and step, both networks, configs
+    # 3-5, the 3D columns case, the sharded layouts under "auto").
     table = []
     for n in kernels:
         kind = n.rsplit("_", 1)[1]
         if n.startswith("gathermm_cols"):
             row = r5["rows"]["c4"][n]
-            row["launches"] = sweep5["fwd" if kind == "fwd" else "step"][n]
-            c5 = r5["rows"]["c5"][n]
-            row.update({f"{k}_cfg5_c5": c5[k] for k in (
-                "ms", "plain_ms", "bound_ms", "library_ms", "gemm_ms", "fused_pair_ms",
-                "dense_conv_anchor_ms", "max_abs_err", "split_ms", "device_ms") if k in c5})
+            for lay in ("c5", "c3"):
+                if lay in r5["rows"]:
+                    c_ = r5["rows"][lay][n]
+                    row.update({f"{k}_cfg5_{lay}": c_[k] for k in (
+                        "ms", "plain_ms", "bound_ms", "library_ms", "gemm_ms", "fused_pair_ms",
+                        "dense_conv_anchor_ms", "max_abs_err", "split_ms", "device_ms")
+                        if k in c_})
         elif n.startswith("gathermm3d_cols"):
             row = r5["rows"]["3d"][n]
         elif n in r3["rows"]:
             row = r3["rows"][n]
         else:
-            row = dict(launches=(fwd_launches if kind == "fwd" else step_launches)[n],
-                       max_abs_err=results[n]["max_abs_err"], ms=results[n]["ms"],
+            row = dict(max_abs_err=results[n]["max_abs_err"], ms=results[n]["ms"],
                        plain_ms=results[n]["plain_ms"], bound_ms=bounds[kind][0],
                        bound_by=bounds[kind][1], at="cfg2 B=8",
                        rel_err=results[n]["rel_err"])
@@ -2292,10 +2579,12 @@ def main() -> int:
                 c3 = r5["times"]["cfg5_c3"]
                 row.update(ms_cfg5_c3=c3["gathermm_fwd"], bound_ms_cfg5_c3=c3["gathermm_fwd_bound"])
             row[f"dense_conv_{kind}_anchor_ms"] = anchors[kind]
+        check(main_launches[n] >= 1, f"{n} was launched on no main path of this run")
+        row.pop("launches", None)
         table.append({
             "name": n, "route": "cuda",
             "source": f"modulated_deform_conv_tpu_torch/csrc/{n}.cu",
-            "replaces": REPLACES[n], "launches": row.pop("launches"),
+            "replaces": REPLACES[n], "launches": main_launches[n],
             "max_abs_err": row.pop("max_abs_err"), "ms": row.pop("ms"),
             "plain_ms": row.pop("plain_ms"), "bound_ms": row.pop("bound_ms"),
             "bound_by": row.pop("bound_by"), "library_ms": row.pop("library_ms", None), **row,
@@ -2312,7 +2601,8 @@ def main() -> int:
                       "shiftblend_fwd_routes_ms": routes,
                       "dcn_resnet50_step_ms": step_ms, "train_step3d_ms": r3["steps"],
                       "both_kernels3d_ms": r3["cross"], "dcn_videonet_step_ms": video_ms,
-                      "columns_path_ms": r5["times"]}))
+                      "columns_path_ms": r5["times"], "calibration": calibration,
+                      "autotune_cfg5_c4": tuned}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,8 @@ from .models import (DCNResNet, DCNVideoNet, DeformConv2d, DeformConv2dPack,
                      DeformConv3d, DeformConv3dPack, ModulatedDeformConv2d,
                      ModulatedDeformConv2dPack, ModulatedDeformConv3d,
                      ModulatedDeformConv3dPack, flax_to_state_dict,
-                     load_flax_params)
+                     load_flax_params, state_dict_to_flax,
+                     validate_against_module)
 from .ops import (deform_conv2d, deform_conv3d, modulated_deform_conv2d,
                   modulated_deform_conv3d)
 
@@ -24,4 +25,5 @@ __all__ = [
     "DeformConv2dPack", "ModulatedDeformConv2dPack", "DeformConv3d",
     "ModulatedDeformConv3d", "DeformConv3dPack", "ModulatedDeformConv3dPack",
     "DCNResNet", "DCNVideoNet", "flax_to_state_dict", "load_flax_params",
+    "state_dict_to_flax", "validate_against_module",
 ]

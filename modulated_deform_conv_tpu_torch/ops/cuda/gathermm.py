@@ -9,8 +9,9 @@ Counterparts of the JAX package's `ops/pallas/gathermm.py`: its fused pair
 VJP `fused_conv`) and its columns path (kernels `_fwd_kernel` and
 `_bwd_kernel`, joined by `fused_columns`, with the grouped GEMM outside
 them), in its 2D mode and its 3D flat and planar modes.
-`deform_conv_fused` takes the columns path where the JAX package's
-`_fuse_ok` is false (plan.py).  The row semantics of its `_prep` (floor and
+`deform_conv_fused` takes the columns path where the device profile's
+fuse rule is false (plan.py::fuse_ok: the JAX package's `_fuse_ok` under
+the reference profile).  The row semantics of its `_prep` (floor and
 fraction per dim, the open-interval gate folded with the mask into the
 corner weights) are the corner rules the CUDA kernels apply
 (csrc/deform_tile.cuh::tap_weights and csrc/deform_tile3d.cuh::weights3_at,
@@ -39,7 +40,7 @@ from torch.autograd.function import once_differentiable
 from ...utils.config import DeformConvSpec, effective_step
 from .. import core
 from . import lib
-from .plan import jax_fuse_ok
+from .plan import fuse_ok, jax_fuse_ok  # noqa: F401  (tests)
 
 # The fused backward kernels' corner boxes: the 2D one keeps one box (4
 # ints) per 4 x 4 output tile (csrc/deform_bwd.cuh kBoxTile), the 3D one a
@@ -116,6 +117,12 @@ _COLF_REACH = 3
 _COLF_CHANS = 32
 _COLF_SMEM = {2: 48 * 1024, 3: 72 * 1024}
 _COLF_BLOCKS = 8 * 132
+# Process-wide knobs of the column forward that leave its bits as they are
+# (each column value is written once, whatever the route or split), set by
+# utils/autotune.py: the route where the shapes admit it (None: the plan's
+# choice) and the block target (0: _COLF_BLOCKS).
+_COLF_ROUTE_OVERRIDE: Optional[str] = None
+_COLF_BLOCKS_OVERRIDE = 0
 
 
 class ColsFwdPlan(NamedTuple):
@@ -171,11 +178,16 @@ def cols_fwd_plan(spec: DeformConvSpec, S, OS, B: int, C: int,
     plane, or a 32nd of the rank's _COLF_SMEM over nbm, whichever is
     smallest; a stage holds up to 32 channels in half of it; the group's
     channels split over enough blocks for _COLF_BLOCKS, whole stages
-    each."""
+    each.  The autotune knobs `_COLF_ROUTE_OVERRIDE` and
+    `_COLF_BLOCKS_OVERRIDE` replace the default route (where the shapes
+    admit it) and the block target."""
     S, OS = tuple(S), tuple(OS)
     K, P, dg = spec.tap_count, math.prod(OS), spec.deformable_groups
     plane_ok = (math.prod(S) <= _COLF_PLANE_MAX and K <= _COLF_THREADS
                 and B * P + 4 < 2 ** 31 and dg < 2 ** 16)
+    if route is None and _COLF_ROUTE_OVERRIDE in ("plane", "gather"):
+        route = ("gather" if _COLF_ROUTE_OVERRIDE == "gather" or not plane_ok
+                 else "plane")
     if route is None:
         route = "plane" if plane_ok else "gather"
     if route not in ("plane", "gather") or (route == "plane"
@@ -206,7 +218,8 @@ def cols_fwd_plan(spec: DeformConvSpec, S, OS, B: int, C: int,
     Cdg = C // dg
     cc = max(1, min(_COLF_CHANS, Cdg, budget // (2 * 4 * nbm * slot)))
     chunks = -(-Cdg // cc)
-    splits = min(chunks, max(1, -(-_COLF_BLOCKS // (dg * tiles))))
+    target = _COLF_BLOCKS_OVERRIDE or _COLF_BLOCKS
+    splits = min(chunks, max(1, -(-target // (dg * tiles))))
     per = -(-chunks // splits)
     splits = -(-chunks // per)
     return ColsFwdPlan("plane", gt, tiles, nbm, splits, per * cc, cc, slot,
@@ -766,13 +779,15 @@ def deform_conv_cols(x, offset, mask, weight, bias, spec: DeformConvSpec,
 
 def deform_conv_fused(x, offset, mask, weight, bias, spec: DeformConvSpec,
                       precision: str = "tensorfloat32", out_sizes=None,
-                      gate_bounds=None, block_origin=None) -> torch.Tensor:
+                      gate_bounds=None, block_origin=None,
+                      profile=None) -> torch.Tensor:
     """Full general-offset deformable conv with bias (dispatch entry).
 
-    The fused pair where the JAX package's `_fuse_ok` holds on the output
-    grid, the columns path (`deform_conv_cols`) elsewhere, as the JAX
-    package's `deform_conv_fused` decides (gathermm.py:1068).  `out_sizes`
-    gives the output grid (None: derived from x) and `gate_bounds` the
+    The fused pair where the profile's fuse rule (`plan.fuse_ok`; `profile`
+    None: the profile of x's device) holds on the output grid, the columns
+    path (`deform_conv_cols`) elsewhere; under the reference profile, as
+    the JAX package's `deform_conv_fused` decides (gathermm.py:1068).
+    `out_sizes` gives the output grid (None: derived from x) and `gate_bounds` the
     per-dim (lo, hi) tap gate (None: (-1, S_d)): the sharding layer's block
     mode.  bf16 and fp16 inputs are upcast to fp32 for the kernels; the
     result has x's dtype, and so do the gradients of each input."""
@@ -782,10 +797,22 @@ def deform_conv_fused(x, offset, mask, weight, bias, spec: DeformConvSpec,
         gate_bounds = tuple((float(lo), float(hi)) for lo, hi in gate_bounds)
     if block_origin is not None:
         block_origin = tuple((float(a), float(o)) for a, o in block_origin)
-    if not jax_fuse_ok(x, spec, weight.shape[0], out_sizes):
+    if not fuse_ok(x, spec, weight.shape[0], out_sizes, profile):
         return deform_conv_cols(x, offset, mask, weight, bias, spec,
                                 precision, out_sizes, gate_bounds,
                                 block_origin)
+    return deform_conv_fused_pair(x, offset, mask, weight, bias, spec,
+                                  precision, out_sizes, gate_bounds,
+                                  block_origin)
+
+
+def deform_conv_fused_pair(x, offset, mask, weight, bias,
+                           spec: DeformConvSpec,
+                           precision: str = "tensorfloat32", out_sizes=None,
+                           gate_bounds=None,
+                           block_origin=None) -> torch.Tensor:
+    """The fused gather pair (`_GathermmFwd`) whatever the fuse rule says;
+    arguments and dtypes as `deform_conv_fused`."""
     f32 = lib.as_f32
     out = _GathermmFwd.apply(f32(x), f32(offset), f32(mask), f32(weight),
                              f32(bias), spec, precision, out_sizes,

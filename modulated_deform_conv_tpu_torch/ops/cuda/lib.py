@@ -25,6 +25,8 @@ KERNELS = ("gathermm_fwd", "shiftblend_fwd", "gathermm_bwd", "shiftblend_bwd",
            "gathermm3d_fwd", "shiftblend3d_fwd", "gathermm3d_bwd",
            "shiftblend3d_bwd", "gathermm_cols_fwd", "gathermm_cols_bwd",
            "gathermm3d_cols_fwd", "gathermm3d_cols_bwd")
+# Measurement kernels that are no port of a TPU kernel (calibrate.py).
+PROBES = ("calibrate_fma",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 

@@ -59,8 +59,9 @@ it runs the gather kernels' block mode (`out_sizes`, `gate_bounds`,
 
 **Shift-blend's lead mode** (`_local_conv`, the JAX package's
 sharding.py:179-210): with one split, of the leading spatial dim, and
-max_offset > 0, a narrow slab (C/dg <= 128, `SB_CROSSOVER_CG`) whose
-block the lead mode takes (`shiftblend.sharded_lead_reason`) runs the
+max_offset > 0, a narrow slab (C/dg <= the device profile's
+`sb_lead_crossover_cg`, 128 in the reference profile) whose block the
+lead mode takes (`shiftblend.sharded_lead_reason`) runs the
 shift-blend kernels on the same block arguments
 (`shiftblend.deform_conv_shift_sharded`) under impl="auto" on CUDA
 tensors, the counterpart of the JAX package's on-TPU rule; impl=
@@ -78,10 +79,10 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..ops import api as ops_api
-from ..ops.cuda import SB_CROSSOVER_CG
 from ..ops.cuda import shiftblend as _sb
 from ..utils import profiling as _prof
 from ..utils.config import DeformConvSpec
+from ..utils.device import DeviceProfile, current_profile
 
 
 def make_mesh(shape: Sequence[int],
@@ -503,36 +504,49 @@ def all_sum(t: torch.Tensor, mesh, axes) -> torch.Tensor:
 # ---- the sharded op --------------------------------------------------------
 
 
+def lead_prefers(x_l, spec: DeformConvSpec, shards, max_offset: float,
+                 profile: DeviceProfile = None) -> bool:
+    """Whether "auto" on CUDA tensors takes shift-blend's lead mode for
+    this shard (the JAX package's rule, sharding.py:179-203, with the
+    constant of `profile`; None: the profile of x_l's device): one split,
+    of the leading spatial dim, max_offset > 0, a block the lead mode
+    takes and C/dg <= `sb_lead_crossover_cg`.  A shape rule: x_l may lie
+    on any device (meta included)."""
+    if not (max_offset > 0 and len(shards) == 1 and shards[0].dim == 0):
+        return False
+    prof = profile or current_profile(x_l)
+    return (x_l.shape[1] // spec.deformable_groups
+            <= prof.sb_lead_crossover_cg
+            and _lead_reason(x_l, spec, shards[0], max_offset) is None)
+
+
+def _lead_reason(x_l, spec: DeformConvSpec, sh, max_offset: float):
+    ext = ((x_l.shape[0], x_l.shape[1], x_l.shape[2] + 2 * sh.halo)
+           + tuple(x_l.shape[3:]))
+    return _sb.sharded_lead_reason(ext, x_l.dtype, spec, float(max_offset),
+                                   sh.halo, sh.out_local * sh.n_shards)
+
+
 def _lead_mode(x_l, spec: DeformConvSpec, shards, max_offset: float,
                impl: str) -> bool:
-    """Whether the shard runs shift-blend's lead mode (the JAX package's
-    rule, sharding.py:179-203): one split, of the leading spatial dim,
-    max_offset > 0, a block the lead mode takes, a narrow slab or the mode
-    forced, and CUDA tensors under "auto" (the JAX package's on-TPU
-    condition).  Forced "shiftblend" raises, before any exchange, where it
-    does not apply."""
-    if not (max_offset > 0 and impl in ("auto", "shiftblend")
-            and len(shards) == 1 and shards[0].dim == 0):
-        if impl == "shiftblend":
+    """Whether the shard runs shift-blend's lead mode: under "auto", CUDA
+    tensors (the JAX package's on-TPU condition) and `lead_prefers`; under
+    "shiftblend", forced, raising, before any exchange, where it does not
+    apply."""
+    if impl == "shiftblend":
+        if not (max_offset > 0 and len(shards) == 1 and shards[0].dim == 0):
             raise NotImplementedError(
                 "shiftblend shard path covers single-axis leading-dim "
                 "spatial sharding with max_offset > 0 only, in its lead "
                 f"mode (got dims {[s.dim for s in shards]}, max_offset "
                 f"{max_offset}); use impl='auto' or 'cuda'")
-        return False
-    sh = shards[0]
-    ext = ((x_l.shape[0], x_l.shape[1], x_l.shape[2] + 2 * sh.halo)
-           + tuple(x_l.shape[3:]))
-    reason = _sb.sharded_lead_reason(ext, x_l.dtype, spec, float(max_offset),
-                                     sh.halo, sh.out_local * sh.n_shards)
-    prefer = (x_l.shape[1] // spec.deformable_groups <= SB_CROSSOVER_CG
-              or impl == "shiftblend")
-    if reason is None and prefer and (x_l.is_cuda or impl == "shiftblend"):
+        reason = _lead_reason(x_l, spec, shards[0], max_offset)
+        if reason is not None:
+            raise NotImplementedError(
+                f"shiftblend shard path (lead mode) unavailable: {reason}")
         return True
-    if impl == "shiftblend":
-        raise NotImplementedError(
-            f"shiftblend shard path (lead mode) unavailable: {reason}")
-    return False
+    return (impl == "auto" and x_l.is_cuda
+            and lead_prefers(x_l, spec, shards, max_offset))
 
 
 def shard_conv(x_ext, off_l, mask_l, weight, bias, spec: DeformConvSpec,

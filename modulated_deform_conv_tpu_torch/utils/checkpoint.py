@@ -37,3 +37,18 @@ def restore_checkpoint(path: str, step: Optional[int] = None) -> Any:
     (load_state_dict moves them to the module's device)."""
     return torch.load(os.path.join(_step_dir(path, step), _FILE),
                       map_location="cpu", weights_only=True)
+
+
+def latest_step(path: str) -> Optional[int]:
+    """The largest N of a ``step_N`` entry under path, or None (no such
+    entry, or no directory), as the JAX package's `latest_step`."""
+    if not os.path.isdir(path):
+        return None
+    steps = []
+    for name in os.listdir(path):
+        if name.startswith("step_"):
+            try:
+                steps.append(int(name[5:]))
+            except ValueError:
+                pass
+    return max(steps) if steps else None

@@ -111,7 +111,8 @@ DISPATCH = [
     (8, 256, (56, 56), 3, 1, 1, 4, 4, 2.0, "float32"),    # bench cfg2
     (8, 256, (56, 56), 3, 1, 1, 4, 4, None, "float32"),
     (2, 512, (14, 14), 3, 1, 1, 1, 1, 2.0, "float32"),    # C/dg > 256
-    (2, 384, (14, 14), 3, 1, 1, 2, 2, 1.0, "bfloat16"),   # above crossover
+    (2, 384, (14, 14), 3, 1, 1, 2, 2, 1.0, "bfloat16"),   # above crossover;
+    # H100: shift-blend (H100_DIVERGES)
     (2, 64, (12, 12), 3, 2, 1, 1, 2, 2.0, "float32"),     # stride 2
     (2, 64, (12, 12), 3, 1, 0, 1, 2, 2.0, "float16"),     # OS != S
     (2, 24, (12, 12), 3, 1, 1, 1, 2, 2.0, "float32"),     # C/dg % 8 != 0
@@ -123,6 +124,13 @@ DISPATCH = [
     (32, 1024, (14, 14), 3, 1, 1, 1, 1, None, "float32"),  # cfg5 c4: columns
     (2, 64, (9, 8), 3, 1, 1, 2, 1, 1.0, "float32"),       # g > dg: columns
 ]
+# The DISPATCH cases where the H100 profile (utils/device.py, measured by
+# calibrate.py on the card) takes another pair than the JAX package on
+# purpose, and the pair it takes: C/dg 192 is within the H100 crossover
+# (256), where shift-blend is no slower.  Held by
+# tests/test_torch_port_device.py.
+H100_DIVERGES = {(2, 384, (14, 14), 3, 1, 1, 2, 2, 1.0, "bfloat16"):
+                 "shiftblend"}
 
 
 @pytest.mark.parametrize("case", DISPATCH)

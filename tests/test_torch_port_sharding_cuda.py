@@ -31,6 +31,7 @@ from modulated_deform_conv_tpu_torch.ops.cuda import gathermm as gm
 from modulated_deform_conv_tpu_torch.ops.cuda import shiftblend as sb
 from modulated_deform_conv_tpu_torch.parallel import sharding as sh
 from modulated_deform_conv_tpu_torch.utils.config import DeformConvSpec
+from modulated_deform_conv_tpu_torch.utils.device import current_profile
 
 pytestmark = pytest.mark.cuda
 
@@ -345,14 +346,20 @@ def test_lead_kernels_match_plain_on_every_shard(dev, case, precision):
 
 @pytest.mark.parametrize("case", list(LEAD_CASES))
 def test_lead_mode_stitches_to_the_unsharded_op(dev, case):
-    """`sharding.shard_conv` under "auto" on CUDA tensors takes the lead
-    mode (one forward and one backward launch a shard), and the stitched
-    outputs and summed block gradients of sum(out^2) equal the unsharded
-    shift-blend op's (float32 limit)."""
+    """`sharding.shard_conv` takes the lead mode (one forward and one
+    backward launch a shard) under "auto" on CUDA tensors where the card's
+    profile takes it (C/dg <= its `sb_lead_crossover_cg`; the cfg2 case's
+    C/dg 64 is past the H100's 32, and is forced with impl="shiftblend"),
+    and the stitched outputs and summed block gradients of sum(out^2)
+    equal the unsharded shift-blend op's (float32 limit)."""
     nd, B, C, O, S, k, g, dg, n, bound = LEAD_CASES[case]
     spec, ts, plan, _ = _lead_blocks(dev, case, bound)
     (shd,) = plan.shards
     x, off, mask, w, b = ts
+    prefers = sh.lead_prefers(x.narrow(2, 0, shd.in_local), spec,
+                              plan.shards, bound)
+    assert prefers == (C // dg <= current_profile(x).sb_lead_crossover_cg)
+    impl = "auto" if prefers else "shiftblend"
     fwd, bwd = _lead_wrappers(nd)[:2]
     lay, sizes = {2: "space"}, {"space": n}
     outs, gx = [], torch.zeros_like(x)
@@ -364,7 +371,7 @@ def test_lead_mode_stitches_to_the_unsharded_op(dev, case):
             t.clone().requires_grad_(True)
             for t in (off[sl].contiguous(), mask[sl].contiguous(), w, b)]
         f0, b0 = fwd.launches, bwd.launches
-        y = sh.shard_conv(*ins, spec, plan.shards, [i], bound, "auto",
+        y = sh.shard_conv(*ins, spec, plan.shards, [i], bound, impl,
                           "float32")
         (y * y).sum().backward()
         assert (fwd.launches - f0, bwd.launches - b0) == (1, 1)
