@@ -54,6 +54,16 @@ rules), which every launch check reads:
    must not contradict the committed profile), the smoke example through
    the kernels, and `autotune` of the column forward's knobs at config 5
    c4, every variant giving the same bits.
+10. bf16 activations as they are (run_bf16): config 2 with bench.py's
+   bf16 inputs on both pairs, configs 3 and 4 (B=1; B=4 for memory and
+   time), config 5 c4 and the 3D columns case, in the three modes, each
+   training step's out and gradients bit-equal to the upcast route's (the
+   same entry on float32 copies), its launches the same, no
+   activation-shaped copy on the fused and shift-blend paths (the columns
+   path keeps its product's output cast, as in JAX), each kernel in bf16
+   against its plain version, steps' peak memory and time both ways;
+   `ModulatedDeformConv2dPack` at config 2 on bf16 input with fp32
+   parameters; the cfg2-H4 interior shard on both sharded modes.
 
 It builds the twelve kernels (shift-blend and gather, forward and
 backward, 2D and 3D; the gather's columns forward and backward, 2D and
@@ -2025,6 +2035,347 @@ def run_sharded(torch, sh, sb, reset, counts, dev):
     return {n: r for n, r in rows.items() if r}, main_auto
 
 
+# bf16 phase: the twelve kernels on bf16 activations as they are.  Slack of
+# a bf16 result over the mode's limit against its plain version: the two
+# round independently to bf16, so they lie up to one ulp apart, 2^-8 to
+# 2^-7 of an element at the scale (a weight gradient at config 4 B=1 in
+# "float32" was 4.000e-3 of the scale off: one ulp).
+BF16_SLACK = 2.0 ** -7
+# The case each kernel table row's bf16 time is taken at.
+BF16_ROW_CASES = {
+    "shiftblend_fwd": "cfg2 bounded", "shiftblend_bwd": "cfg2 bounded",
+    "gathermm_fwd": "cfg2 general", "gathermm_bwd": "cfg2 general",
+    "gathermm3d_fwd": "cfg3", "gathermm3d_bwd": "cfg3",
+    "shiftblend3d_fwd": "cfg4 B=1", "shiftblend3d_bwd": "cfg4 B=1",
+    "gathermm_cols_fwd": "cfg5 c4", "gathermm_cols_bwd": "cfg5 c4",
+    "gathermm3d_cols_fwd": "cols3d", "gathermm3d_cols_bwd": "cols3d",
+}
+
+
+def bf16_cases(torch, gm, sb, dev):
+    """The bf16 phase's cases: label -> (spec, inputs, entry(ins, prec),
+    kernel family, the family's wrapper arguments after the spec and mode).
+    Config 2 with bench.py's bf16 inputs (all five in bf16) on both pairs;
+    config 3 (bf16 activations, fp32 weight); config 4 at B=1 for the checks
+    (all bf16); config 5 c4 on the columns path (bf16 activations, fp32
+    weight and bias); the 3D columns case (all bf16)."""
+    from modulated_deform_conv_tpu_torch.utils.config import DeformConvSpec
+    bf = torch.bfloat16
+
+    def cast(ins, acts_only):
+        return [None if t is None else t.to(bf) if i < 3 or not acts_only else t
+                for i, t in enumerate(ins)]
+
+    spec2 = DeformConvSpec.make(2, KS, 1, 1, 1, G, DG, modulated=True)
+    cfg2 = cast(cfg2_inputs(torch, dev), False)
+    spec3, ins3 = cfg3d_inputs(torch, dev, "cfg3")
+    spec4, ins4 = cfg3d_inputs(torch, dev, "cfg4")
+    ins4 = [t if t is None or i > 2 else t[:PLAIN_BATCH["cfg4"]].contiguous()
+            for i, t in enumerate(ins4)]
+    spec5 = DeformConvSpec.make(2, 3, 1, 1, 1, 1, 1, modulated=True)
+    spec_c3, ins_c3 = cols3d_inputs(torch, dev)
+    fused = lambda ins, s, p: gm.deform_conv_fused_pair(*ins, s, p)  # noqa: E731
+    cols = lambda ins, s, p: gm.deform_conv_cols(*ins, s, p)  # noqa: E731
+    shift = lambda b: (lambda ins, s, p: sb.deform_conv_shift(*ins, s, p, b))  # noqa: E731
+    return {
+        "cfg2 bounded": (spec2, cfg2, shift(BOUND), "shiftblend", (BOUND,)),
+        "cfg2 general": (spec2, cfg2, fused, "gathermm", ()),
+        "cfg3": (spec3, cast(ins3, True), fused, "gathermm3d", ()),
+        "cfg4 B=1": (spec4, cast(ins4, False), shift(BOUND3D), "shiftblend3d", (BOUND3D,)),
+        "cfg5 c4": (spec5, cast(cfg5_inputs(torch, dev, "c4"), True), cols, "gathermm_cols", ()),
+        "cols3d": (spec_c3, cast(ins_c3, False), cols, "gathermm3d_cols", ()),
+    }
+
+
+def bf16_step(torch, lib, entry, spec, ins, cot, prec, route):
+    """One training step through `entry` on the native route (the tensors as
+    they are) or the upcast one (lib.as_f32 copies, the output cast to x's
+    type): (out, grads of the inputs that are not None)."""
+    leaves = [None if t is None else t.detach().requires_grad_(True) for t in ins]
+    call = leaves if route == "native" else [lib.as_f32(t) for t in leaves]
+    out = entry(call, spec, prec)
+    if route == "upcast":
+        out = out.to(ins[0].dtype)
+    live = [t for t in leaves if t is not None]
+    return out.detach(), torch.autograd.grad(out, live, cot)
+
+
+def activation_copies(torch, fn, shapes):
+    """(aten::_to_copy, aten::copy_) events of one fn() call whose tensors
+    have one of the activations' `shapes`, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as p:
+        fn()
+        torch.cuda.synchronize()
+    n = {"aten::_to_copy": 0, "aten::copy_": 0}
+    for e in p.events():
+        if e.name in n and any(tuple(s) in shapes for s in e.input_shapes if s):
+            n[e.name] += 1
+    return n
+
+
+def step_memory_ms(torch, fn):
+    """(peak device memory of one fn() call above what was allocated before
+    it, in MB; its time on CUDA events, ms)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e6
+    return peak, time_ms(fn, iters=5, per_sample=3, warmup=1)
+
+
+def run_bf16(torch, mdt, gm, sb, sh, lib, kernels, reset, counts, dev):
+    """The bf16 phase.  Per case (bf16_cases), in the three modes: (1) a
+    training step through the entry on the native route against the upcast
+    route, out and the gradients of x, offset, mask and weight by SHA-256,
+    the bias's bit-equal or within one bf16 ulp (the count of elements that
+    differ printed); the launch counters of the two routes equal; (2) the
+    family's forward and backward wrappers in bf16 against their plain
+    versions within LIMITS + BF16_SLACK; in the main mode (3) the activation
+    copies torch.profiler records in a native step (0 on the fused and
+    shift-blend paths; on the columns path the product's output cast and
+    its backward, as in JAX), and (4) a native and an upcast step's peak
+    memory and time, and each wrapper's bf16 time beside its fp32 time at
+    the same call.  Then `ModulatedDeformConv2dPack` at config 2 on bf16
+    input (fp32 parameters), the cfg2-H4 interior shard on the gather
+    kernels' block mode and shift-blend's lead mode (bits against the
+    upcast route), config 4 at B=4 (memory and time, both routes), and the
+    host's time to issue a config-2 step both ways.  The cases call the
+    entries with a fixed kernel family, so their launches are kept in the
+    results ("launches"), not counted as main-path launches.  Returns the
+    phase's results and the Pack's launches, the phase's one run through
+    the public op under "auto".  tools/time_bf16_kernels.py times the
+    kernels further (repeats, per-kernel device splits, config 5 c5)."""
+    import hashlib
+    from modulated_deform_conv_tpu_torch.utils.config import DeformConvSpec
+    t_phase = time.time()
+    bf = torch.bfloat16
+    digest = lambda t: hashlib.sha256(  # noqa: E731
+        t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+    res = {"cases": {}, "rows": {}, "steps": {}}
+    for label, (spec, ins, entry, fam, extra) in bf16_cases(torch, gm, sb, dev).items():
+        OS = tuple(ins[1].shape[2:])
+        g = torch.Generator(device=dev).manual_seed(7)
+        cot = torch.randn((ins[0].shape[0], ins[3].shape[0]) + OS, generator=g, device=dev).to(bf)
+        names = [n for n, t in zip(("x", "offset", "mask", "weight", "bias"), ins) if t is not None]
+        case = res["cases"][label] = {"types": [str(t.dtype) for t in ins if t is not None]}
+        for prec in LIMITS:
+            # (1) bits against the upcast route, and the launches of both.
+            reset()
+            n_out, n_grads = bf16_step(torch, lib, entry, spec, ins, cot, prec, "native")
+            torch.cuda.synchronize()
+            c_native = {n: v for n, v in counts().items() if v}
+            case.setdefault("launches", {})[prec] = c_native
+            reset()
+            u_out, u_grads = bf16_step(torch, lib, entry, spec, ins, cot, prec, "upcast")
+            c_up = {n: v for n, v in counts().items() if v}
+            check(c_native == c_up and c_native, f"bf16 {label} {prec}: launches {c_native}, "
+                  f"upcast {c_up}")
+            check(n_out.dtype == bf and all(gr.dtype == t.dtype for gr, t in zip(
+                n_grads, [t for t in ins if t is not None])), f"bf16 {label} {prec}: result types")
+            u_grads = [u.to(n.dtype) for u, n in zip(u_grads, n_grads)]
+            same = {"out": digest(n_out) == digest(u_out)}
+            for n, a, b in zip(names, n_grads, u_grads):
+                if n != "bias":
+                    same[n] = digest(a) == digest(b)
+            bias_diff = None
+            if "bias" in names:
+                a, b = n_grads[-1].float(), u_grads[-1].float()
+                bias_diff = int((a != b).sum())
+                scale = torch.maximum(a.abs(), b.abs()).clamp_min(1e-30)
+                check(bool(((a - b).abs() <= 2.0 ** -7 * scale).all()),
+                      f"bf16 {label} {prec}: grad_bias past one bf16 ulp of the upcast route's")
+            case.setdefault("same_bits", {})[prec] = same
+            case.setdefault("bias_elements_differing", {})[prec] = bias_diff
+            print(f"bf16 {label} {prec}: native vs upcast SHA-256 "
+                  + " ".join(f"{n} {'same' if s else 'DIFFERENT'}" for n, s in same.items())
+                  + ("" if bias_diff is None else f"; grad_bias {bias_diff} elements differ")
+                  + f"; launches {c_native}")
+            check(all(same.values()), f"bf16 {label} {prec}: bits differ from the upcast route")
+            del n_out, n_grads, u_out, u_grads
+            # (2) the family's wrappers in bf16 against their plain versions.
+            fwd, fwd_ref = kernels[f"{fam}_fwd"]
+            bwd, bwd_ref = kernels[f"{fam}_bwd"]
+            limit = LIMITS[prec] + BF16_SLACK
+            with torch.no_grad():
+                x, off, mask, w, b = ins
+                if fam.endswith("_cols"):
+                    got = fwd(x, off, mask, spec, prec)
+                    errs = {"cols": rel_err(got, fwd_ref(x, off, mask, spec, prec))}
+                    gc = torch.randn(tuple(got.shape), generator=g, device=dev).to(got.dtype)
+                    del got
+                    gg = bwd(x, off, mask, gc, spec, prec)
+                    errs.update(grad_rel_errs(gg, bwd_ref(x, off, mask, gc, spec, prec)))
+                    del gc, gg
+                else:
+                    got = fwd(x, off, mask, w, b, spec, prec, *extra)
+                    errs = {"out": rel_err(got, fwd_ref(x, off, mask, w, b, spec, prec, *extra))}
+                    del got
+                    gg = bwd(x, off, mask, w, cot, spec, prec, *extra)
+                    errs.update(grad_rel_errs(gg, bwd_ref(x, off, mask, w, cot, spec, prec, *extra)))
+                    del gg
+                errs = {n: e for n, e in errs.items() if e is not None}
+                case.setdefault("plain_rel_err", {})[prec] = errs
+                print(f"bf16 {label} {prec}: {fam} wrappers vs plain "
+                      + " ".join(f"{n} {e:.3e}" for n, e in errs.items()) + f" (limit {limit:.3e})")
+                for n, e in errs.items():
+                    check(e <= limit, f"bf16 {label} {prec}: {fam} {n} vs plain {e:.3e}")
+            torch.cuda.empty_cache()
+        # (3) activation copies in a native and an upcast step.
+        shapes = {tuple(t.shape) for t in ins[:3] if t is not None} | {tuple(cot.shape)}
+        copies = {r: activation_copies(torch, lambda: bf16_step(
+            torch, lib, entry, spec, ins, cot, MAIN_PRECISION, r), shapes)
+            for r in ("native", "upcast")}
+        case["activation_copies"] = copies
+        print(f"bf16 {label}: activation-shaped copies in one step (torch.profiler) "
+              f"native {copies['native']}, upcast {copies['upcast']}")
+        n_copies = sum(copies["native"].values())
+        if fam.endswith("_cols"):
+            # The product's fp32 output cast to x's type, and its backward.
+            check(copies["native"]["aten::_to_copy"] == 2,
+                  f"bf16 {label}: columns path copies {copies['native']}")
+        else:
+            check(n_copies == 0, f"bf16 {label}: the native step copied activations "
+                  f"{copies['native']}")
+        # (4) a step's memory and time both ways, in turns (native, upcast,
+        # native, upcast); each wrapper in bf16 and fp32.
+        for r in ("native", "upcast", "native", "upcast"):
+            mb, ms = step_memory_ms(torch, lambda: bf16_step(
+                torch, lib, entry, spec, ins, cot, MAIN_PRECISION, r))
+            case[f"{r}_step_peak_mb"] = mb
+            case.setdefault(f"{r}_step_ms", []).append(ms)
+        print(f"bf16 {label} training step ({MAIN_PRECISION}): native {case['native_step_ms']} "
+              f"ms, peak +{case['native_step_peak_mb']:.1f} MB; upcast {case['upcast_step_ms']} "
+              f"ms, peak +{case['upcast_step_peak_mb']:.1f} MB")
+        with torch.no_grad():
+            x, off, mask, w, b = ins
+            up = [lib.as_f32(t) for t in ins]
+            cot32 = cot.float()
+            for kind in ("fwd", "bwd"):
+                name = f"{fam}_{kind}"
+                if BF16_ROW_CASES[name] != label:
+                    continue
+                fn = kernels[name][0]
+                if fam.endswith("_cols"):
+                    cshape = (x.shape[1] * spec.tap_count, x.shape[0] * math.prod(OS))
+                    gc = torch.randn(cshape, generator=g, device=dev).to(gm._cols_dtype(MAIN_PRECISION))
+                    calls = ((lambda a: fn(*a[:3], spec, MAIN_PRECISION)) if kind == "fwd" else
+                             (lambda a: fn(*a[:3], gc, spec, MAIN_PRECISION)))
+                else:
+                    calls = ((lambda a: fn(*a, spec, MAIN_PRECISION, *extra)) if kind == "fwd" else
+                             (lambda a: fn(*a[:4], cot if a[0].dtype == bf else cot32, spec,
+                                           MAIN_PRECISION, *extra)))
+                row = {"at": label, "bf16_ms": time_ms(lambda: calls(ins)),
+                       "fp32_same_call_ms": time_ms(lambda: calls(up))}
+                res["rows"][name] = row
+                print(f"{name} at {label} ({MAIN_PRECISION}): bf16 {row['bf16_ms']:.4f} ms, "
+                      f"fp32 {row['fp32_same_call_ms']:.4f} ms")
+            del up
+        torch.cuda.empty_cache()
+
+    # The Pack at config 2 on bf16 input, fp32 parameters.
+    torch.manual_seed(0)
+    x2 = cfg2_inputs(torch, dev)[0].to(bf)
+    mod = mdt.ModulatedDeformConv2dPack(C, O, KS, padding=1, groups=G, deformable_groups=DG,
+                                        bias=True, device=dev)
+    reset()
+    y = mod(x2)
+    torch.cuda.synchronize()
+    lc = {n: v for n, v in counts().items() if v}
+    pack_launches = counts()
+    with torch.no_grad():
+        p_off = mod._predict(mod.conv_offset, x2)
+        p_mask = mod._predict(mod.conv_mask, x2)
+    spec2 = DeformConvSpec.make(2, KS, 1, 1, 1, G, DG, modulated=True)
+    pins = [x2, p_off, p_mask, mod.weight.detach(), mod.bias.detach()]
+    op2 = lambda ins, s, p: mdt.modulated_deform_conv2d(*ins, 1, 1, 1, G, DG, precision=p)  # noqa: E731
+    g = torch.Generator(device=dev).manual_seed(8)
+    cot = torch.randn(tuple(y.shape), generator=g, device=dev).to(bf)
+    n_out, n_grads = bf16_step(torch, lib, op2, spec2, pins, cot, MAIN_PRECISION, "native")
+    u_out, u_grads = bf16_step(torch, lib, op2, spec2, pins, cot, MAIN_PRECISION, "upcast")
+    same = [torch.equal(y.detach(), n_out), torch.equal(n_out, u_out)] + [
+        torch.equal(a, b.to(a.dtype)) for a, b in list(zip(n_grads, u_grads))[:4]]
+    res["pack"] = {"launches": lc, "types": [str(t.dtype) for t in pins],
+                   "grad_types": [str(t.dtype) for t in n_grads], "same_bits": same}
+    print(f"bf16 Pack cfg2 (fp32 parameters): out {y.dtype}, launches {lc}, grads "
+          f"{[str(t.dtype) for t in n_grads]}, bits vs upcast (module, out, x, offset, mask, "
+          f"weight) {same}")
+    check(y.dtype == bf and lc and all(same), "bf16 Pack at config 2")
+    del mod, y, n_out, n_grads, u_out, u_grads, pins
+
+    # The cfg2-H4 interior shard on both sharded modes.
+    spec, gins, _ = sharded_case(torch, dev, "cfg2")
+    gins = [t.to(bf) for t in gins]
+    x, off, mask, w, b = gins
+    plan = sh.shard_plan(x.shape, off.shape, w.shape, mask.shape, b.shape, spec, {"s0": 4},
+                         None, ["s0", None], SHARD_MAX_OFFSET)
+    coords = (1,)
+    sl = sh.shard_slices(off.shape, {2: "s0"}, {"s0": 1}, {"s0": 4})
+    blk = [sh.cut_block(x, plan.shards, coords), off[sl].contiguous(), mask[sl].contiguous(), w, b]
+    res["sharded"] = {}
+    for impl in ("cuda", "shiftblend"):
+        shard = lambda ins, s, p, impl=impl: sh.shard_conv(  # noqa: E731
+            *ins, s, plan.shards, coords, SHARD_MAX_OFFSET, impl, p)
+        g = torch.Generator(device=dev).manual_seed(9)
+        OS = tuple(blk[1].shape[2:])
+        cot = torch.randn((x.shape[0], w.shape[0]) + OS, generator=g, device=dev).to(bf)
+        for prec in LIMITS:
+            reset()
+            n_out, n_grads = bf16_step(torch, lib, shard, spec, blk, cot, prec, "native")
+            c_native = {n: v for n, v in counts().items() if v}
+            reset()
+            u_out, u_grads = bf16_step(torch, lib, shard, spec, blk, cot, prec, "upcast")
+            c_up = {n: v for n, v in counts().items() if v}
+            same = [torch.equal(n_out, u_out)] + [torch.equal(a, u.to(a.dtype))
+                                                  for a, u in list(zip(n_grads, u_grads))[:4]]
+            a, b_ = n_grads[4].float(), u_grads[4].to(bf).float()
+            bias_diff = int((a != b_).sum())
+            scale = torch.maximum(a.abs(), b_.abs()).clamp_min(1e-30)
+            check(bool(((a - b_).abs() <= 2.0 ** -7 * scale).all()), f"bf16 cfg2-H4 shard "
+                  f"impl={impl} {prec}: grad_bias past one bf16 ulp of the upcast route's")
+            res["sharded"].setdefault(impl, {})[prec] = {"same_bits": same, "launches": c_native,
+                                                         "bias_elements_differing": bias_diff}
+            print(f"bf16 cfg2-H4 shard 1 impl={impl} {prec}: bits vs upcast (out, x, offset, "
+                  f"mask, weight) {same}; grad_bias {bias_diff} elements differ; launches "
+                  f"{c_native}")
+            check(all(same) and c_native == c_up and c_native,
+                  f"bf16 cfg2-H4 shard impl={impl} {prec}")
+    del blk, gins, x, off, mask, w, b
+
+    # Config 4 at B=4 (memory and time only), and the host's time to issue
+    # a config-2 step, both ways.
+    torch.cuda.empty_cache()
+    spec4, ins4 = cfg3d_inputs(torch, dev, "cfg4")
+    ins4 = [None if t is None else t.to(bf) for t in ins4]
+    g = torch.Generator(device=dev).manual_seed(10)
+    cot4 = torch.randn((ins4[0].shape[0], ins4[3].shape[0]) + tuple(ins4[1].shape[2:]),
+                       generator=g, device=dev).to(bf)
+    entry4 = lambda ins, s, p: sb.deform_conv_shift(*ins, s, p, BOUND3D)  # noqa: E731
+    for r in ("native", "upcast", "native", "upcast"):
+        mb, ms = step_memory_ms(torch, lambda: bf16_step(
+            torch, lib, entry4, spec4, ins4, cot4, MAIN_PRECISION, r))
+        st = res["steps"].setdefault(f"cfg4 B=4 {r}", {"peak_mb": mb, "ms": []})
+        st["ms"].append(ms)
+        print(f"bf16 cfg4 B=4 training step {r}: {ms:.4f} ms, peak +{mb:.1f} MB")
+    del ins4, cot4
+    torch.cuda.empty_cache()
+    spec2 = DeformConvSpec.make(2, KS, 1, 1, 1, G, DG, modulated=True)
+    ins2 = [t.to(bf) for t in cfg2_inputs(torch, dev)]
+    cot2 = torch.randn((B, O, H, W), generator=g, device=dev).to(bf)
+    for label, entry in (("bounded", lambda ins, s, p: sb.deform_conv_shift(*ins, s, p, BOUND)),
+                         ("general", lambda ins, s, p: gm.deform_conv_fused_pair(*ins, s, p))):
+        for r in ("native", "upcast", "native", "upcast"):
+            ms = host_ms(lambda: bf16_step(torch, lib, entry, spec2, ins2, cot2, MAIN_PRECISION, r))
+            res["steps"].setdefault(f"cfg2 {label} host_ms", {}).setdefault(r, []).append(ms)
+        h = res["steps"][f"cfg2 {label} host_ms"]
+        print(f"bf16 cfg2 {label} step, host time to issue: native {h['native']} ms, upcast "
+              f"{h['upcast']} ms")
+    print(f"bf16 phase: {time.time() - t_phase:.1f} s")
+    return res, pack_launches
+
+
 def run_calibration(torch, dev):
     """calibrate --quick on the card: the raw rates beside the pinned peaks,
     the quick points, and the profile they derive beside the H100 entry of
@@ -2320,7 +2671,8 @@ def main() -> int:
             print(f"{fam} small case k={sspec.kernel} s={sspec.stride} d={sspec.dilation} "
                   f"g={sspec.groups} dg={sspec.deformable_groups} bound={bound} "
                   f"max|off|={float(offs.abs().max()):.1f} mask={masks is not None}: fwd + bwd ok")
-        # bf16 input through the entry point: upcast, result in bf16.
+        # bf16 x with fp32 offset and mask through the entry point: mixed
+        # activation types take the upcast route, the result in bf16.
         xb = x.to(torch.bfloat16)
         yb = mdt.modulated_deform_conv2d(xb, off, mask, w, bias, 1, 1, 1, G, DG,
                                          impl="cuda", offset_bound=BOUND)
@@ -2545,11 +2897,17 @@ def main() -> int:
     run_smoke_example(torch, reset, counts, dev)
     # Phase 22: autotune of the column forward's knobs at config 5 c4.
     tuned = run_autotune(torch, gm, dev)
+    # Phase 23: bf16 activations as they are on every kernel path.
+    torch.cuda.empty_cache()
+    bf16, bf16_pack = run_bf16(torch, mdt, gm, sb, sh, lib, kernels, reset, counts, dev)
+    add_main(bf16_pack)
 
     # Phase 17: the kernel table.  The 2D column kernels' row is config 5's
     # c4 layer, the 3D one the 3D columns case; `launches` sums every
     # main-path run's (config 2's forward and step, both networks, configs
-    # 3-5, the 3D columns case, the sharded layouts under "auto").
+    # 3-5, the 3D columns case, the sharded layouts under "auto", the bf16
+    # Pack); the bf16 phase's cases, which call the entries with a fixed
+    # kernel family, are not counted.
     table = []
     for n in kernels:
         kind = n.rsplit("_", 1)[1]
@@ -2581,6 +2939,7 @@ def main() -> int:
             row[f"dense_conv_{kind}_anchor_ms"] = anchors[kind]
         check(main_launches[n] >= 1, f"{n} was launched on no main path of this run")
         row.pop("launches", None)
+        row["bf16"] = bf16["rows"][n]
         table.append({
             "name": n, "route": "cuda",
             "source": f"modulated_deform_conv_tpu_torch/csrc/{n}.cu",
@@ -2602,7 +2961,7 @@ def main() -> int:
                       "dcn_resnet50_step_ms": step_ms, "train_step3d_ms": r3["steps"],
                       "both_kernels3d_ms": r3["cross"], "dcn_videonet_step_ms": video_ms,
                       "columns_path_ms": r5["times"], "calibration": calibration,
-                      "autotune_cfg5_c4": tuned}))
+                      "autotune_cfg5_c4": tuned, "bf16": bf16}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

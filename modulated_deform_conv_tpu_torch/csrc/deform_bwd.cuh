@@ -21,6 +21,8 @@
 // The split count depends on the shapes only.
 #pragma once
 
+#include <type_traits>
+
 #include "deform_mma.cuh"
 #include "deform_tile3d.cuh"
 
@@ -41,20 +43,6 @@ struct CKBP {
   }
   __device__ size_t at(int h, int c) const { return static_cast<size_t>(c) * K * B * P + h; }
 };
-
-__device__ __forceinline__ float as_float(float v) { return v; }
-__device__ __forceinline__ float as_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T to_elem(float v);
-template <>
-__device__ __forceinline__ float to_elem<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 to_elem<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 // gwt[e] = sum over splits, in order, of part[split][e]; "bfloat16" rounds
 // the sum like the other products of that mode.
@@ -95,10 +83,12 @@ __global__ void fold_kernel(const float* __restrict__ part, float* __restrict__ 
 // position's channels are stored as one contiguous run.  gcols is fp32 in
 // every mode ("bfloat16" rounds each value to bf16): stored as bf16 it
 // would halve its bytes, but the pull's 2-byte loads made the backward
-// slower on the H100.  wk is (groups, O/groups, K, C/groups).
-template <int Prec>
+// slower on the H100.  wk is (groups, O/groups, K, C/groups); gout is of
+// the activations' type T and is staged in T by cp.async (a bf16 tile takes
+// half its fp32 tile's bytes), widened as the product reads it.
+template <int Prec, typename T>
 __global__ void __launch_bounds__(kMmaThreads, 4) gcols_mma_kernel(const float* __restrict__ wk,
-                                                               const float* __restrict__ gout,
+                                                               const T* __restrict__ gout,
                                                                float* __restrict__ gcols, Geo g) {
   __shared__ __align__(16) float sm[2][2][kMK * kMS];  // [stage][W or gout][o][row or position]
   const int K = g.kh * g.kw, P = g.OH * g.OW;
@@ -106,24 +96,37 @@ __global__ void __launch_bounds__(kMmaThreads, 4) gcols_mma_kernel(const float* 
   const int p0 = blockIdx.x * kMT, r0 = blockIdx.y * kMT;
   const int b = blockIdx.z / g.groups, gi = blockIdx.z % g.groups;
   const float* wg = wk + static_cast<size_t>(gi) * Og * rows;
-  const float* gb = gout + (static_cast<size_t>(b) * g.O + static_cast<size_t>(gi) * Og) * P;
-  // 16 bytes a copy where every row starts 16-byte aligned, else 4.
-  const bool wide = rows % 4 == 0 && P % 4 == 0 && reinterpret_cast<size_t>(wk) % 16 == 0 &&
+  const T* gb = gout + (static_cast<size_t>(b) * g.O + static_cast<size_t>(gi) * Og) * P;
+  // 16 bytes a copy where every row starts 16-byte aligned (4 weights; 4
+  // fp32 or 8 bf16 gout values), else one value a copy (a bf16 value by a
+  // plain 2-byte copy).
+  constexpr int kGV = 16 / sizeof(T);
+  const bool wide = rows % 4 == 0 && P % kGV == 0 && reinterpret_cast<size_t>(wk) % 16 == 0 &&
                     reinterpret_cast<size_t>(gout) % 16 == 0;
+  auto gtile = [&](int s) { return reinterpret_cast<T*>(&sm[s][1][0]); };
   auto load = [&](int s, int o0) {
+    T* gt = gtile(s);
     if (wide) {
       for (int e = threadIdx.x; e < kMK * kMT / 4; e += kMmaThreads) {
         const int o = e / (kMT / 4), m = e % (kMT / 4) * 4;
-        const bool wok = o0 + o < Og && r0 + m < rows, gok = o0 + o < Og && p0 + m < P;
+        const bool wok = o0 + o < Og && r0 + m < rows;
         cp_async16(&sm[s][0][o * kMS + m], wok ? wg + static_cast<size_t>(o0 + o) * rows + r0 + m : wg, wok);
-        cp_async16(&sm[s][1][o * kMS + m], gok ? gb + static_cast<size_t>(o0 + o) * P + p0 + m : gb, gok);
+      }
+      for (int e = threadIdx.x; e < kMK * kMT / kGV; e += kMmaThreads) {
+        const int o = e / (kMT / kGV), m = e % (kMT / kGV) * kGV;
+        const bool gok = o0 + o < Og && p0 + m < P;
+        cp_async16(gt + o * kMS + m, gok ? gb + static_cast<size_t>(o0 + o) * P + p0 + m : gb, gok);
       }
     } else {
       for (int e = threadIdx.x; e < kMK * kMT; e += kMmaThreads) {
         const int o = e / kMT, m = e % kMT;
         const bool wok = o0 + o < Og && r0 + m < rows, gok = o0 + o < Og && p0 + m < P;
         cp_async4(&sm[s][0][o * kMS + m], wok ? wg + static_cast<size_t>(o0 + o) * rows + r0 + m : wg, wok);
-        cp_async4(&sm[s][1][o * kMS + m], gok ? gb + static_cast<size_t>(o0 + o) * P + p0 + m : gb, gok);
+        const T* src = gok ? gb + static_cast<size_t>(o0 + o) * P + p0 + m : gb;
+        if constexpr (sizeof(T) == 4)
+          cp_async4(gt + o * kMS + m, src, gok);
+        else
+          gt[o * kMS + m] = gok ? *src : to_elem<T>(0.f);
       }
     }
     cp_async_commit();
@@ -140,7 +143,7 @@ __global__ void __launch_bounds__(kMmaThreads, 4) gcols_mma_kernel(const float* 
       cp_async_wait<0>();
     }
     __syncthreads();
-    mma_stage<Prec>(sm[st & 1][0], sm[st & 1][1], wm, wn, acc);
+    mma_stage<Prec>(sm[st & 1][0], gtile(st & 1), wm, wn, acc);
     __syncthreads();  // the stage is reloaded two steps on
   }
   float* cS = &sm[0][0][0];  // [position][row], rows of kMT + 4
@@ -166,12 +169,13 @@ __global__ void __launch_bounds__(kMmaThreads, 4) gcols_mma_kernel(const float* 
 // span (at most nd_max; tsteps = max(1, 8 / nd_max); in dynamic shared
 // memory); each stage rebuilds its columns from xt, a warp reading
 // consecutive channels of a corner, while cp.async brings gout; the product
-// runs on the previous stage meanwhile.  G is the rank's geometry: Geo, or
-// Geo3 (8 corners a tap).
-template <int Prec, class G>
+// runs on the previous stage meanwhile (bf16 gout through registers: one
+// value a copy is too narrow for cp.async).  G is the rank's geometry: Geo,
+// or Geo3 (8 corners a tap); T the activations' type (offset, mask, gout).
+template <int Prec, class G, typename T>
 __global__ void __launch_bounds__(kMmaThreads, kIs3D<G> ? 2 : 3) gw_mma_kernel(
-    const float* __restrict__ xt, const float* __restrict__ offset, const float* __restrict__ mask,
-    const float* __restrict__ gout, float* __restrict__ part, int chunk, int tsteps, G g) {
+    const float* __restrict__ xt, const T* __restrict__ offset, const T* __restrict__ mask,
+    const T* __restrict__ gout, float* __restrict__ part, int chunk, int tsteps, G g) {
   extern __shared__ __align__(16) float dyn[];
   constexpr bool k3D = kIs3D<G>;
   float* sA = dyn;                                              // [stage][n][channel]
@@ -199,18 +203,34 @@ __global__ void __launch_bounds__(kMmaThreads, kIs3D<G> ? 2 : 3) gw_mma_kernel(
       tq[e] = t.row;
     }
   };
-  // Lane l brings gout at position n0 + l for output channels warp, warp + 8, ...
+  // Lane l brings gout at position n0 + l for output channels warp, warp + 8,
+  // ...: by cp.async in fp32; in bf16 into registers, widened into stage s
+  // by put_gout after the product and the next stage's build.
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  constexpr bool kRegs = !std::is_same<T, float>::value;
+  constexpr int kNO = kMT / (kMmaThreads / 32);  // output channels a thread brings
+  T greg[kRegs ? kNO : 1];
   auto load_gout = [&](int s, int n0) {
     float* dst = sB + s * kMK * kMS + lane * kMS;
     const int n = n0 + lane;
-    const float* src = gout + (static_cast<size_t>(n / P) * g.O + static_cast<size_t>(gi) * Og + o0) * P + n % P;
+    const T* src = gout + (static_cast<size_t>(n / P) * g.O + static_cast<size_t>(gi) * Og + o0) * P + n % P;
 #pragma unroll
-    for (int o = warp; o < kMT; o += kMmaThreads / 32) {
+    for (int i = 0; i < kNO; ++i) {
+      const int o = warp + i * (kMmaThreads / 32);
       const bool ok = n < n_end && o0 + o < Og;
-      cp_async4(dst + o, ok ? src + static_cast<size_t>(o) * P : gout, ok);
+      if constexpr (kRegs)
+        greg[i] = ok ? src[static_cast<size_t>(o) * P] : __ushort_as_bfloat16(0);
+      else
+        cp_async4(dst + o, ok ? src + static_cast<size_t>(o) * P : gout, ok);
     }
     cp_async_commit();
+  };
+  auto put_gout = [&](int s) {
+    if constexpr (kRegs) {
+      float* dst = sB + s * kMK * kMS + lane * kMS;
+#pragma unroll
+      for (int i = 0; i < kNO; ++i) dst[warp + i * (kMmaThreads / 32)] = as_float(greg[i]);
+    }
   };
   // Each thread rebuilds one channel r at kPer positions (half of them at a
   // time in 3D), or, where 4 consecutive channels share a conv group and a
@@ -346,6 +366,7 @@ __global__ void __launch_bounds__(kMmaThreads, kIs3D<G> ? 2 : 3) gw_mma_kernel(
   if (steps > 0) {
     table(n_table);
     load_gout(0, n_begin);
+    put_gout(0);
     __syncthreads();
     build(0, n_begin, n_table);
     cp_async_wait<0>();
@@ -361,6 +382,7 @@ __global__ void __launch_bounds__(kMmaThreads, kIs3D<G> ? 2 : 3) gw_mma_kernel(
     mma_stage<Prec>(sA + cur * kMK * kMS, sB + cur * kMK * kMS, wm, wn, acc);
     __syncthreads();  // the table is complete; the other stage is free
     if (more) build(cur ^ 1, n_next, n_table);
+    if (more) put_gout(cur ^ 1);  // after the build, so that the loads had the product and the build
     cp_async_wait<0>();
     __syncthreads();
   }
@@ -404,9 +426,10 @@ __device__ __forceinline__ float warp_sum_spread(float (&v)[N]) {
   return v[0];
 }
 
-__global__ void __launch_bounds__(256, 4) corr_kernel(const float* __restrict__ xt, const float* __restrict__ offset,
-                                                     const float* __restrict__ mask, const float* __restrict__ gcols,
-                                                     float* __restrict__ goff, float* __restrict__ gmask, Geo g) {
+template <typename T>
+__global__ void __launch_bounds__(256, 4) corr_kernel(const float* __restrict__ xt, const T* __restrict__ offset,
+                                                     const T* __restrict__ mask, const float* __restrict__ gcols,
+                                                     T* __restrict__ goff, T* __restrict__ gmask, Geo g) {
   constexpr int kU = 2;             // positions a warp sums at once
   constexpr int kL = 32 / (4 * kU);  // lanes that end up holding each sum
   __shared__ TapGrad tg[kTP];
@@ -418,7 +441,8 @@ __global__ void __launch_bounds__(256, 4) corr_kernel(const float* __restrict__ 
     const size_t oidx = (static_cast<size_t>(b) * g.dg * 2 * K + static_cast<size_t>(d) * 2 * K + 2 * k) * P + p;
     TapGrad t{};
     if (p < P)
-      t = tap_grad(g, oy * g.sh - g.ph + ky * g.dh, ox * g.sw - g.pw + kx * g.dw, offset[oidx], offset[oidx + P]);
+      t = tap_grad(g, oy * g.sh - g.ph + ky * g.dh, ox * g.sw - g.pw + kx * g.dw, as_float(offset[oidx]),
+                   as_float(offset[oidx + P]));
     tg[threadIdx.x] = t;
     tm[threadIdx.x] = p < P ? mask_at(g, mask, b, d, k, p) : 0.f;
   }
@@ -464,12 +488,12 @@ __global__ void __launch_bounds__(256, 4) corr_kernel(const float* __restrict__ 
       const TapGrad& t = tg[i];
       const size_t oidx = (static_cast<size_t>(b) * g.dg * 2 * K + static_cast<size_t>(d) * 2 * K + 2 * k) * P + p;
       if (goff) {
-        goff[oidx] = tm[i] * (t.dy.x * S[0] + t.dy.y * S[1] + t.dy.z * S[2] + t.dy.w * S[3]);
-        goff[oidx + P] = tm[i] * (t.dx.x * S[0] + t.dx.y * S[1] + t.dx.z * S[2] + t.dx.w * S[3]);
+        goff[oidx] = to_elem<T>(tm[i] * (t.dy.x * S[0] + t.dy.y * S[1] + t.dy.z * S[2] + t.dy.w * S[3]));
+        goff[oidx + P] = to_elem<T>(tm[i] * (t.dx.x * S[0] + t.dx.y * S[1] + t.dx.z * S[2] + t.dx.w * S[3]));
       }
       if (gmask)
         gmask[(static_cast<size_t>(b) * g.dg * K + static_cast<size_t>(d) * K + k) * P + p] =
-            t.w.x * S[0] + t.w.y * S[1] + t.w.z * S[2] + t.w.w * S[3];
+            to_elem<T>(t.w.x * S[0] + t.w.y * S[1] + t.w.z * S[2] + t.w.w * S[3]);
     }
   }
 }
@@ -509,9 +533,9 @@ __device__ __forceinline__ void pull_zero(PullBlock& sm) {
 }
 
 // Table entry e: candidate (k, p), or none (zero weights) when !valid.
-__device__ __forceinline__ void pull_entry(PullBlock& sm, int e, bool valid, const Geo& g,
-                                           const float* __restrict__ offset, const float* __restrict__ mask, int b,
-                                           int d, int k, int p, int ty0, int tx0) {
+template <typename T>
+__device__ __forceinline__ void pull_entry(PullBlock& sm, int e, bool valid, const Geo& g, const T* __restrict__ offset,
+                                           const T* __restrict__ mask, int b, int d, int k, int p, int ty0, int tx0) {
   float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
   int yx = 0;
   if (valid) {
@@ -596,12 +620,13 @@ __device__ __forceinline__ void pull_scan(PullBlock& sm, int n, const float* __r
 }
 
 // Store the tile's grad_x (after the last scan and a barrier).
+template <typename T>
 __device__ __forceinline__ void pull_store(const PullBlock& sm, const Geo& g, int b, int c0, int cw, int ty0, int tx0,
-                                           float* __restrict__ gx) {
+                                           T* __restrict__ gx) {
   const size_t HW = static_cast<size_t>(g.H) * g.W;
   for (int e = threadIdx.x; e < kPullPix * cw; e += kPullT) {
     const int c = e / kPullPix, pix = e % kPullPix, y = ty0 + pix / 8, x = tx0 + pix % 8;
-    if (y < g.H && x < g.W) gx[(static_cast<size_t>(b) * g.C + c0 + c) * HW + y * g.W + x] = sm.acc[pix][c];
+    if (y < g.H && x < g.W) gx[(static_cast<size_t>(b) * g.C + c0 + c) * HW + y * g.W + x] = to_elem<T>(sm.acc[pix][c]);
   }
 }
 
@@ -633,9 +658,9 @@ inline dim3 pull_grid(const Geo& g) {
 // the output rows of a sharded leading-dim block sit halo - pad rows below
 // the input rows they reach); the candidates are those, tap-major.  The
 // grid covers every pixel of the input, a block's halo rows included.
-__global__ void __launch_bounds__(kPullT) shift_pull_kernel(const float* __restrict__ offset,
-                                                           const float* __restrict__ mask,
-                                                           const float* __restrict__ gcols, float* __restrict__ gx,
+template <typename T>
+__global__ void __launch_bounds__(kPullT) shift_pull_kernel(const T* __restrict__ offset, const T* __restrict__ mask,
+                                                           const float* __restrict__ gcols, T* __restrict__ gx,
                                                            int Ry, int Rx, Geo g) {
   __shared__ PullBlock sm;
   const PullCoords pc = pull_coords(g);
@@ -660,9 +685,9 @@ __global__ void __launch_bounds__(kPullT) shift_pull_kernel(const float* __restr
 // The gather's corner boxes: one warp per (b, d, 4 x 4 output tile) writes
 // [y_lo, y_hi) x [x_lo, x_hi), the input rows and columns its kept corners
 // with a nonzero weight touch (empty: y_lo > y_hi).
-__global__ void __launch_bounds__(kThreads) boxes_kernel(const float* __restrict__ offset,
-                                                         const float* __restrict__ mask, int4* __restrict__ boxes,
-                                                         Geo g) {
+template <typename T>
+__global__ void __launch_bounds__(kThreads) boxes_kernel(const T* __restrict__ offset, const T* __restrict__ mask,
+                                                         int4* __restrict__ boxes, Geo g) {
   const int K = g.kh * g.kw, NTX = (g.OW + kBoxTile - 1) / kBoxTile;
   const int NT = NTX * ((g.OH + kBoxTile - 1) / kBoxTile);
   const int wid = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5), lane = threadIdx.x & 31;
@@ -698,10 +723,10 @@ __global__ void __launch_bounds__(kThreads) boxes_kernel(const float* __restrict
 // 4 x 4 output tiles whose corner box meets the block's 8 x 8 input tile,
 // tile by tile, then tap by tap.  The tiles are taken 256 at a time: one
 // thread tests one box, and the tiles that meet are compacted in order.
-__global__ void __launch_bounds__(kPullT) gather_pull_kernel(const float* __restrict__ offset,
-                                                            const float* __restrict__ mask,
+template <typename T>
+__global__ void __launch_bounds__(kPullT) gather_pull_kernel(const T* __restrict__ offset, const T* __restrict__ mask,
                                                             const float* __restrict__ gcols,
-                                                            const int4* __restrict__ boxes, float* __restrict__ gx,
+                                                            const int4* __restrict__ boxes, T* __restrict__ gx,
                                                             Geo g) {
   __shared__ PullBlock sm;
   const PullCoords pc = pull_coords(g);
@@ -749,9 +774,9 @@ __global__ void __launch_bounds__(kPullT) gather_pull_kernel(const float* __rest
 // grad_W: gw_mma_kernel's partials over `splits` shape-only splits of the
 // (batch, position) axis, folded in order into gwt.  xt (B, positions, C)
 // holds x channels-last, part (splits, groups, C/groups*K, O/groups).
-template <int Prec, class G>
-inline cudaError_t launch_gw_mma(const G& g, const float* xt, const float* offset, const float* mask,
-                                 const float* gout, float* part, float* gwt, int splits, cudaStream_t s) {
+template <int Prec, class G, typename T>
+inline cudaError_t launch_gw_mma(const G& g, const float* xt, const T* offset, const T* mask, const T* gout,
+                                 float* part, float* gwt, int splits, cudaStream_t s) {
   const int K = taps(g), Cgc = g.C / g.groups, Og = g.O / g.groups, Cdg = g.C / g.dg;
   // The most deformable groups the 64 channels of one block span.
   int nd_max = 1;
@@ -763,12 +788,12 @@ inline cudaError_t launch_gw_mma(const G& g, const float* xt, const float* offse
   const int tsteps = max(1, 8 / nd_max);
   const size_t smem = sizeof(float) * 4 * kMK * kMS +
                       (kPlanes<G> * sizeof(float4) + sizeof(int)) * nd_max * tsteps * kMK;
-  cudaError_t err = cudaFuncSetAttribute(gw_mma_kernel<Prec, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t err = cudaFuncSetAttribute(gw_mma_kernel<Prec, G, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int total = g.B * out_positions(g), chunk = (total + splits - 1) / splits;
   const dim3 grid(K * ((Cgc + kMT - 1) / kMT) * ((Og + kMT - 1) / kMT), g.groups, splits);
-  gw_mma_kernel<Prec, G><<<grid, kMmaThreads, smem, s>>>(xt, offset, mask, gout, part, chunk, tsteps, g);
+  gw_mma_kernel<Prec, G, T><<<grid, kMmaThreads, smem, s>>>(xt, offset, mask, gout, part, chunk, tsteps, g);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const int n = g.groups * Cgc * K * Og;
   fold_kernel<<<(n + 255) / 256, 256, 0, s>>>(part, gwt, n, splits, g.precision);
@@ -777,25 +802,28 @@ inline cudaError_t launch_gw_mma(const G& g, const float* xt, const float* offse
 
 // The 2D fused backward's launches.  pull(gcols) launches grad_x's pull.
 // gcols (B, K, P, C), xt (B, H*W, C) and part (splits, groups, C/groups*K,
-// O/groups) are the caller's scratch; outputs not wanted are null.
-template <int Prec, class Pull>
-inline cudaError_t run_bwd2d(const Geo& g, const float* x, const float* offset, const float* mask,
-                             const float* wk, const float* gout, float* gcols, float* xt, float* part, float* gx,
-                             float* goff, float* gmask, float* gwt, int splits, cudaStream_t s, Pull pull) {
+// O/groups) are the caller's fp32 scratch, wk and gwt fp32; x, offset,
+// mask, gout and gx, goff, gmask are of the activations' type T; outputs
+// not wanted are null.
+template <int Prec, typename T, class Pull>
+inline cudaError_t run_bwd2d(const Geo& g, const T* x, const T* offset, const T* mask, const float* wk,
+                             const T* gout, float* gcols, float* xt, float* part, T* gx, T* goff, T* gmask,
+                             float* gwt, int splits, cudaStream_t s, Pull pull) {
   const int K = g.kh * g.kw, P = g.OH * g.OW, HW = g.H * g.W, rows = g.C / g.groups * K;
   cudaError_t err;
   if (goff || gmask || gwt) {
-    x_cl_kernel<<<dim3((HW + 31) / 32, (g.C + 31) / 32, g.B), 256, 0, s>>>(x, xt, g.C, HW);
+    x_cl_kernel<T><<<dim3((HW + 31) / 32, (g.C + 31) / 32, g.B), 256, 0, s>>>(x, xt, g.C, HW);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   if (gx || goff || gmask) {
     const dim3 grid((P + kMT - 1) / kMT, (rows + kMT - 1) / kMT, g.B * g.groups);
-    gcols_mma_kernel<Prec><<<grid, kMmaThreads, 0, s>>>(wk, gout, gcols, g);
+    gcols_mma_kernel<Prec, T><<<grid, kMmaThreads, 0, s>>>(wk, gout, gcols, g);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   if (gx && (err = pull(gcols)) != cudaSuccess) return err;
   if (goff || gmask) {
-    corr_kernel<<<dim3((P + kTP - 1) / kTP, K * g.dg, g.B), 256, 0, s>>>(xt, offset, mask, gcols, goff, gmask, g);
+    corr_kernel<T><<<dim3((P + kTP - 1) / kTP, K * g.dg, g.B), 256, 0, s>>>(xt, offset, mask, gcols, goff, gmask,
+                                                                          g);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   if (gwt && (err = launch_gw_mma<Prec>(g, xt, offset, mask, gout, part, gwt, splits, s)) != cudaSuccess)

@@ -66,9 +66,9 @@ __device__ __forceinline__ void store_box(int* __restrict__ bx, const int (&lo)[
 // kept corners (nonzero mask-folded weight) of its taps and positions touch,
 // then the box of each tap's corners alone (1 + K boxes a brick); an empty
 // box has hi < lo.
-__global__ void __launch_bounds__(kThreads) boxes3_kernel(const float* __restrict__ offset,
-                                                          const float* __restrict__ mask, int* __restrict__ boxes,
-                                                          Geo3 g) {
+template <typename T>
+__global__ void __launch_bounds__(kThreads) boxes3_kernel(const T* __restrict__ offset, const T* __restrict__ mask,
+                                                          int* __restrict__ boxes, Geo3 g) {
   const int K = taps3(g), OHW = g.OH * g.OW;
   const int nz = bricks(g.OD), ny = bricks(g.OH), nx = bricks(g.OW), NT = nz * ny * nx;
   const int wid = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5), lane = threadIdx.x & 31;
@@ -262,7 +262,8 @@ __device__ __forceinline__ void pull3_zero(Pull3Block& sm) {
 }
 
 // Store the brick's grad_x (after the last scan and a barrier).
-__device__ __forceinline__ void pull3_write(const Pull3Block& sm, float* __restrict__ gx, const Geo3& g,
+template <typename T>
+__device__ __forceinline__ void pull3_write(const Pull3Block& sm, T* __restrict__ gx, const Geo3& g,
                                             const Pull3Coords& pc) {
   const int HW = g.H * g.W;
   const size_t S = static_cast<size_t>(g.D) * HW;
@@ -270,7 +271,7 @@ __device__ __forceinline__ void pull3_write(const Pull3Block& sm, float* __restr
     const int c = e / kPullPix, pix = e % kPullPix;
     const int z = pc.bz0 + pix / 16, y = pc.by0 + pix / 4 % 4, x = pc.bx0 + pix % 4;
     if (z < g.D && y < g.H && x < g.W)
-      gx[(static_cast<size_t>(pc.b) * g.C + pc.c0 + c) * S + z * HW + y * g.W + x] = sm.acc[pix][c];
+      gx[(static_cast<size_t>(pc.b) * g.C + pc.c0 + c) * S + z * HW + y * g.W + x] = to_elem<T>(sm.acc[pix][c]);
   }
 }
 
@@ -283,9 +284,9 @@ __device__ __forceinline__ void pull3_write(const Pull3Block& sm, float* __restr
 // the input rows they reach); the candidates are those,
 // tap-major, evaluated kCand at a time into a table, which every warp scans
 // for its rows (pull3_scan).
-__global__ void __launch_bounds__(kPullT) shift_pull3_kernel(const float* __restrict__ offset,
-                                                            const float* __restrict__ mask,
-                                                            const float* __restrict__ gcols, float* __restrict__ gx,
+template <typename T>
+__global__ void __launch_bounds__(kPullT) shift_pull3_kernel(const T* __restrict__ offset, const T* __restrict__ mask,
+                                                            const float* __restrict__ gcols, T* __restrict__ gx,
                                                             Geo3 g) {
   extern __shared__ __align__(16) float dyn[];
   Pull3Block& sm = *reinterpret_cast<Pull3Block*>(dyn);
@@ -362,10 +363,10 @@ struct GatherPull3Block {
 // warps scan it for their rows (pull3_scan) and it starts again.  The
 // table fills with what lands near the brick, whatever the reach: a far
 // offset only makes its brick and tap a candidate of more blocks.
-__global__ void __launch_bounds__(kPullT) gather_pull3_kernel(const float* __restrict__ offset,
-                                                             const float* __restrict__ mask,
+template <typename T>
+__global__ void __launch_bounds__(kPullT) gather_pull3_kernel(const T* __restrict__ offset, const T* __restrict__ mask,
                                                              const float* __restrict__ gcols,
-                                                             const int* __restrict__ boxes, float* __restrict__ gx,
+                                                             const int* __restrict__ boxes, T* __restrict__ gx,
                                                              Geo3 g) {
   extern __shared__ __align__(16) float dyn[];
   GatherPull3Block& sm = *reinterpret_cast<GatherPull3Block*>(dyn);
@@ -442,26 +443,29 @@ __global__ void __launch_bounds__(kPullT) gather_pull3_kernel(const float* __res
 }
 
 // The pulls' launches over the gc.B samples of a chunk, for run_bwd3d.
-inline cudaError_t launch_shift_pull3(const Geo3& gc, const float* offset, const float* mask, const float* gcols,
-                                      float* gx, cudaStream_t s) {
-  cudaError_t err = cudaFuncSetAttribute(shift_pull3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+template <typename T>
+inline cudaError_t launch_shift_pull3(const Geo3& gc, const T* offset, const T* mask, const float* gcols, T* gx,
+                                      cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(shift_pull3_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(sizeof(Pull3Block)));
   if (err != cudaSuccess) return err;
-  shift_pull3_kernel<<<pull3_grid(gc), kPullT, sizeof(Pull3Block), s>>>(offset, mask, gcols, gx, gc);
+  shift_pull3_kernel<T><<<pull3_grid(gc), kPullT, sizeof(Pull3Block), s>>>(offset, mask, gcols, gx, gc);
   return cudaGetLastError();
 }
 
 // boxes (gc.B, dg, output bricks, 1 + K, 6) int scratch.
-inline cudaError_t launch_gather_pull3(const Geo3& gc, const float* offset, const float* mask, const float* gcols,
-                                       int* boxes, float* gx, cudaStream_t s) {
+template <typename T>
+inline cudaError_t launch_gather_pull3(const Geo3& gc, const T* offset, const T* mask, const float* gcols,
+                                       int* boxes, T* gx, cudaStream_t s) {
   const int warps = gc.B * gc.dg * bricks(gc.OD) * bricks(gc.OH) * bricks(gc.OW);
-  boxes3_kernel<<<(warps + kThreads / 32 - 1) / (kThreads / 32), kThreads, 0, s>>>(offset, mask, boxes, gc);
+  boxes3_kernel<T><<<(warps + kThreads / 32 - 1) / (kThreads / 32), kThreads, 0, s>>>(offset, mask, boxes, gc);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  if ((err = cudaFuncSetAttribute(gather_pull3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  if ((err = cudaFuncSetAttribute(gather_pull3_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   static_cast<int>(sizeof(GatherPull3Block)))) != cudaSuccess)
     return err;
-  gather_pull3_kernel<<<pull3_grid(gc), kPullT, sizeof(GatherPull3Block), s>>>(offset, mask, gcols, boxes, gx, gc);
+  gather_pull3_kernel<T><<<pull3_grid(gc), kPullT, sizeof(GatherPull3Block), s>>>(offset, mask, gcols, boxes, gx,
+                                                                                 gc);
   return cudaGetLastError();
 }
 
@@ -472,11 +476,10 @@ inline cudaError_t launch_gather_pull3(const Geo3& gc, const float* offset, cons
 // channels l, l + 32, ... of the slab for each kept corner, and
 // warp_sum_spread sums the lanes' sixteen values in a fixed order.  gcol
 // and the corners of xt are rows of consecutive channels.
-__global__ void __launch_bounds__(256, 2) corr3_kernel(const float* __restrict__ xt,
-                                                      const float* __restrict__ offset,
-                                                      const float* __restrict__ mask,
-                                                      const float* __restrict__ gcols, float* __restrict__ goff,
-                                                      float* __restrict__ gmask, Geo3 g) {
+template <typename T>
+__global__ void __launch_bounds__(256, 2) corr3_kernel(const float* __restrict__ xt, const T* __restrict__ offset,
+                                                      const T* __restrict__ mask, const float* __restrict__ gcols,
+                                                      T* __restrict__ goff, T* __restrict__ gmask, Geo3 g) {
   constexpr int kU = 2;              // positions a warp sums at once
   constexpr int kL = 32 / (8 * kU);  // lanes that end up holding each sum
   __shared__ TapGrad3 tg[kTP];
@@ -537,15 +540,15 @@ __global__ void __launch_bounds__(256, 2) corr3_kernel(const float* __restrict__
           gxv += t.dx[j] * Sc[j];
         }
         const size_t oidx = (static_cast<size_t>(b) * g.dg * 3 * K + static_cast<size_t>(d) * 3 * K + 3 * k) * P + p;
-        goff[oidx] = t.m * gz;
-        goff[oidx + P] = t.m * gy;
-        goff[oidx + 2 * static_cast<size_t>(P)] = t.m * gxv;
+        goff[oidx] = to_elem<T>(t.m * gz);
+        goff[oidx + P] = to_elem<T>(t.m * gy);
+        goff[oidx + 2 * static_cast<size_t>(P)] = to_elem<T>(t.m * gxv);
       }
       if (gmask) {
         float gm = 0.f;
 #pragma unroll
         for (int j = 0; j < 8; ++j) gm += t.w[j] * Sc[j];
-        gmask[(static_cast<size_t>(b) * g.dg * K + static_cast<size_t>(d) * K + k) * P + p] = gm;
+        gmask[(static_cast<size_t>(b) * g.dg * K + static_cast<size_t>(d) * K + k) * P + p] = to_elem<T>(gm);
       }
     }
   }
@@ -554,31 +557,33 @@ __global__ void __launch_bounds__(256, 2) corr3_kernel(const float* __restrict__
 // The 3D backward's launches.  pull(geometry of the chunk, its offset,
 // mask, gcols, grad_x) launches grad_x's pull for a batch chunk.  gcols
 // (b_step, K, P, C), xt (B, D*H*W, C) and part (splits, groups, C/groups*K,
-// O/groups) are the caller's scratch; outputs not wanted are null.
-template <int Prec, class Pull>
-inline cudaError_t run_bwd3d(const Geo3& g, const float* x, const float* offset, const float* mask, const float* wk,
-                             const float* gout, float* gcols, float* xt, float* part, float* gx, float* goff,
-                             float* gmask, float* gwt, int b_step, int splits, cudaStream_t s, Pull pull) {
+// O/groups) are the caller's fp32 scratch, wk and gwt fp32; x, offset, mask,
+// gout and gx, goff, gmask are of the activations' type T; outputs not
+// wanted are null.
+template <int Prec, typename T, class Pull>
+inline cudaError_t run_bwd3d(const Geo3& g, const T* x, const T* offset, const T* mask, const float* wk,
+                             const T* gout, float* gcols, float* xt, float* part, T* gx, T* goff, T* gmask,
+                             float* gwt, int b_step, int splits, cudaStream_t s, Pull pull) {
   const int K = taps3(g), P = out_size3(g), rows = g.C / g.groups * K;
   const int S = g.D * g.H * g.W;
   cudaError_t err;
   if (goff || gmask || gwt) {
-    x_cl_kernel<<<dim3((S + 31) / 32, (g.C + 31) / 32, g.B), 256, 0, s>>>(x, xt, g.C, S);
+    x_cl_kernel<T><<<dim3((S + 31) / 32, (g.C + 31) / 32, g.B), 256, 0, s>>>(x, xt, g.C, S);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   for (int b0 = 0; (gx || goff || gmask) && b0 < g.B; b0 += b_step) {
     Geo3 gc = g;
     gc.B = min(b_step, g.B - b0);
-    const float* off_c = offset + static_cast<size_t>(b0) * g.dg * 3 * K * P;
-    const float* mask_c = mask ? mask + static_cast<size_t>(b0) * g.dg * K * P : nullptr;
+    const T* off_c = offset + static_cast<size_t>(b0) * g.dg * 3 * K * P;
+    const T* mask_c = mask ? mask + static_cast<size_t>(b0) * g.dg * K * P : nullptr;
     const dim3 grid((P + kMT - 1) / kMT, (rows + kMT - 1) / kMT, gc.B * g.groups);
-    gcols_mma_kernel<Prec><<<grid, kMmaThreads, 0, s>>>(wk, gout + static_cast<size_t>(b0) * g.O * P, gcols,
-                                                        flat_geo(gc));
+    gcols_mma_kernel<Prec, T><<<grid, kMmaThreads, 0, s>>>(wk, gout + static_cast<size_t>(b0) * g.O * P, gcols,
+                                                           flat_geo(gc));
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     if (gx && (err = pull(gc, off_c, mask_c, gcols, gx + static_cast<size_t>(b0) * g.C * S)) != cudaSuccess)
       return err;
     if (goff || gmask) {
-      corr3_kernel<<<dim3((P + kTP - 1) / kTP, K * g.dg, gc.B), 256, 0, s>>>(
+      corr3_kernel<T><<<dim3((P + kTP - 1) / kTP, K * g.dg, gc.B), 256, 0, s>>>(
           xt + static_cast<size_t>(b0) * S * g.C, off_c, mask_c, gcols,
           goff ? goff + static_cast<size_t>(b0) * g.dg * 3 * K * P : nullptr,
           gmask ? gmask + static_cast<size_t>(b0) * g.dg * K * P : nullptr, gc);

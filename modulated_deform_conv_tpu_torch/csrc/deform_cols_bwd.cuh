@@ -78,14 +78,16 @@ struct Cand {
   float4 w[kPlanes<G>];
 };
 
-__device__ __forceinline__ Cand<Geo> cand_at(const Geo& g, const float* __restrict__ offset,
-                                             const float* __restrict__ mask, int b, int d, int k, int p) {
+template <typename TX>
+__device__ __forceinline__ Cand<Geo> cand_at(const Geo& g, const TX* __restrict__ offset, const TX* __restrict__ mask,
+                                             int b, int d, int k, int p) {
   const TapWeights t = weights_at(g, offset, mask, b, d, k, p);
   return Cand<Geo>{0, t.y0, t.x0, t.keep, {t.w}};
 }
 
-__device__ __forceinline__ Cand<Geo3> cand_at(const Geo3& g, const float* __restrict__ offset,
-                                              const float* __restrict__ mask, int b, int d, int k, int p) {
+template <typename TX>
+__device__ __forceinline__ Cand<Geo3> cand_at(const Geo3& g, const TX* __restrict__ offset,
+                                              const TX* __restrict__ mask, int b, int d, int k, int p) {
   const TapWeights3 t = weights3_at(g, offset, mask, b, d, k, p);
   return Cand<Geo3>{t.z0, t.y0, t.x0, t.keep, {t.lo, t.hi}};
 }
@@ -131,10 +133,9 @@ struct ColEntry {
 
 // cnt[bd][t][run] += the candidates of run `run` that go to tile t.  A warp
 // per run of kColCB candidates of one (b, d) (blockIdx.y = b * dg + d).
-template <class G>
-__global__ void __launch_bounds__(kColBT) col_count_kernel(const float* __restrict__ offset,
-                                                          const float* __restrict__ mask, int* __restrict__ cnt,
-                                                          G g, ColTiles tl, int runs) {
+template <class G, typename TX>
+__global__ void __launch_bounds__(kColBT) col_count_kernel(const TX* __restrict__ offset, const TX* __restrict__ mask,
+                                                          int* __restrict__ cnt, G g, ColTiles tl, int runs) {
   const int run = blockIdx.x * (kColBT / 32) + (threadIdx.x >> 5), lane = threadIdx.x & 31;
   if (run >= runs) return;
   const int K = taps(g), P = out_positions(g), NT = tl.nz * tl.ny * tl.nx, bd = blockIdx.y;
@@ -216,9 +217,9 @@ __global__ void __launch_bounds__(kColBT) col_scan_tiles_kernel(const int* __res
 // (__match_any_sync) take consecutive places from the tile's cursor, in
 // lane order.  Only this warp moves the run's cursors, so the places
 // depend on nothing but the data.
-template <class G>
-__global__ void __launch_bounds__(kColBT) col_fill_kernel(const float* __restrict__ offset,
-                                                         const float* __restrict__ mask, int* __restrict__ cur,
+template <class G, typename TX>
+__global__ void __launch_bounds__(kColBT) col_fill_kernel(const TX* __restrict__ offset, const TX* __restrict__ mask,
+                                                         int* __restrict__ cur,
                                                          const long long* __restrict__ tstart,
                                                          ColEntry<G>* __restrict__ pool, G g, ColTiles tl, int runs) {
   constexpr int kItems = 4 * kPlanes<G>;
@@ -409,12 +410,13 @@ __host__ __device__ inline ColSmem col_smem(const ColTiles& tl, bool corr, int r
 //   - thread (pixel, channel group) adds its pixel's hits, in list order,
 //     to its registers: each pixel x channel has one owner.
 // Three blocks an SM in 2D (80 registers; config 5's blocks take 53-73 KB
-// of shared memory), two in 3D.
-template <class G, class T>
+// of shared memory), two in 3D.  T: gcols' type (the mode's); TX: x's and
+// grad_x's (x staged as fp32: stage1).
+template <class G, class T, typename TX>
 __global__ void __launch_bounds__(kColBT, kIs3D<G> ? 2 : 3) col_pull_kernel(
-    const float* __restrict__ x, const T* __restrict__ gcols, const ColEntry<G>* __restrict__ pool,
+    const TX* __restrict__ x, const T* __restrict__ gcols, const ColEntry<G>* __restrict__ pool,
     const unsigned short* __restrict__ csr, const long long* __restrict__ tstart, const int* __restrict__ tcount,
-    float* __restrict__ gx, float* __restrict__ part, G g, ColTiles tl, int chunks, int rec) {
+    TX* __restrict__ gx, float* __restrict__ part, G g, ColTiles tl, int chunks, int rec) {
   extern __shared__ __align__(16) float dyn[];
   constexpr int kNC = 4 * kPlanes<G>, kEntF = static_cast<int>(sizeof(ColEntry<G>) / 4);
   constexpr bool kAsync = std::is_same<T, float>::value;  // bf16 gcols go through registers
@@ -458,20 +460,21 @@ __global__ void __launch_bounds__(kColBT, kIs3D<G> ? 2 : 3) col_pull_kernel(
       for (int e = threadIdx.x; e < rec / 8; e += kColBT) cp_async16(rdst + 4 * e, rsrc + 4 * e, true);
     }
   };
+  load_piece(0);
+  load_piece(1);
   if (corr) {
     // x of the tile and one more row, column and plane, zero outside x and
-    // past the chunk's channels.
-    const float* xb = x + (static_cast<size_t>(b) * g.C + c0) * D * HW;
+    // past the chunk's channels (after the pieces' copies, so that bf16 x's
+    // loads through registers overlap them).
+    const TX* xb = x + (static_cast<size_t>(b) * g.C + c0) * D * HW;
     for (int e = threadIdx.x; e < kColCc * xq; e += kColBT) {
       const int c = e / xq, q = e % xq;
       const int z = oz + q / (xy * xx), y = oy + q / xx % xy, xc = ox + q % xx;
       const bool in = c < cw && z < D && y < g.H && xc < g.W;
-      cp_async4(xs + col_swz(q, c),
-                in ? xb + static_cast<size_t>(c) * D * HW + (static_cast<size_t>(z) * g.H + y) * g.W + xc : xb, in);
+      stage1(xs + col_swz(q, c),
+             in ? xb + static_cast<size_t>(c) * D * HW + (static_cast<size_t>(z) * g.H + y) * g.W + xc : xb, in);
     }
   }
-  load_piece(0);
-  load_piece(1);
   cp_async_commit();
   // The gcols values of a piece: thread e takes slot e % kColCap and
   // channels e / kColCap, + 2, ...; lanes over consecutive slots read
@@ -579,11 +582,11 @@ __global__ void __launch_bounds__(kColBT, kIs3D<G> ? 2 : 3) col_pull_kernel(
   if (!applier) return;
   const int pz = oz + my_q / (tl.ty * tl.tx), py = oy + my_q / tl.tx % tl.ty, px = ox + my_q % tl.tx;
   if (pz >= D || py >= g.H || px >= g.W) return;
-  float* dst = gx + (static_cast<size_t>(b) * g.C + c0 + my_g * nc) * D * HW +
-               (static_cast<size_t>(pz) * g.H + py) * g.W + px;
+  TX* dst = gx + (static_cast<size_t>(b) * g.C + c0 + my_g * nc) * D * HW +
+            (static_cast<size_t>(pz) * g.H + py) * g.W + px;
 #pragma unroll
   for (int c = 0; c < kColCc; ++c)
-    if (c < nc && my_g * nc + c < cw) dst[static_cast<size_t>(c) * D * HW] = acc[c];
+    if (c < nc && my_g * nc + c < cw) dst[static_cast<size_t>(c) * D * HW] = to_elem<TX>(acc[c]);
 }
 
 // ---- the fold ------------------------------------------------------------------
@@ -591,15 +594,15 @@ __global__ void __launch_bounds__(kColBT, kIs3D<G> ? 2 : 3) col_pull_kernel(
 // One thread per (b, d, tap, position): S = the chunks' partial sums in
 // order, then grad_offset and grad_mask; zero where the gate is closed (no
 // tile owns such a candidate, and its partials are never written).
-__device__ __forceinline__ void col_fold_one(const Geo& g, const float* __restrict__ offset,
-                                             const float* __restrict__ mask, const float* __restrict__ part,
-                                             float* __restrict__ goff, float* __restrict__ gmask, int chunks, int b,
-                                             int d, int k, int p) {
+template <typename TX>
+__device__ __forceinline__ void col_fold_one(const Geo& g, const TX* __restrict__ offset, const TX* __restrict__ mask,
+                                             const float* __restrict__ part, TX* __restrict__ goff,
+                                             TX* __restrict__ gmask, int chunks, int b, int d, int k, int p) {
   const int K = g.kh * g.kw, P = g.OH * g.OW;
   const int oy = p / g.OW, ox = p % g.OW, ky = k / g.kw, kx = k % g.kw;
   const size_t oidx = (static_cast<size_t>(b) * g.dg * 2 * K + static_cast<size_t>(d) * 2 * K + 2 * k) * P + p;
-  const TapGrad t = tap_grad(g, oy * g.sh - g.ph + ky * g.dh, ox * g.sw - g.pw + kx * g.dw, offset[oidx],
-                             offset[oidx + P]);
+  const TapGrad t = tap_grad(g, oy * g.sh - g.ph + ky * g.dh, ox * g.sw - g.pw + kx * g.dw, as_float(offset[oidx]),
+                             as_float(offset[oidx + P]));
   float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
   if (t.keep) {
     const float4* src = reinterpret_cast<const float4*>(part) +
@@ -614,18 +617,19 @@ __device__ __forceinline__ void col_fold_one(const Geo& g, const float* __restri
   }
   const float m = mask_at(g, mask, b, d, k, p);
   if (goff) {
-    goff[oidx] = m * (t.dy.x * s.x + t.dy.y * s.y + t.dy.z * s.z + t.dy.w * s.w);
-    goff[oidx + P] = m * (t.dx.x * s.x + t.dx.y * s.y + t.dx.z * s.z + t.dx.w * s.w);
+    goff[oidx] = to_elem<TX>(m * (t.dy.x * s.x + t.dy.y * s.y + t.dy.z * s.z + t.dy.w * s.w));
+    goff[oidx + P] = to_elem<TX>(m * (t.dx.x * s.x + t.dx.y * s.y + t.dx.z * s.z + t.dx.w * s.w));
   }
   if (gmask)
     gmask[(static_cast<size_t>(b) * g.dg * K + static_cast<size_t>(d) * K + k) * P + p] =
-        t.w.x * s.x + t.w.y * s.y + t.w.z * s.z + t.w.w * s.w;
+        to_elem<TX>(t.w.x * s.x + t.w.y * s.y + t.w.z * s.z + t.w.w * s.w);
 }
 
-__device__ __forceinline__ void col_fold_one(const Geo3& g, const float* __restrict__ offset,
-                                             const float* __restrict__ mask, const float* __restrict__ part,
-                                             float* __restrict__ goff, float* __restrict__ gmask, int chunks, int b,
-                                             int d, int k, int p) {
+template <typename TX>
+__device__ __forceinline__ void col_fold_one(const Geo3& g, const TX* __restrict__ offset,
+                                             const TX* __restrict__ mask, const float* __restrict__ part,
+                                             TX* __restrict__ goff, TX* __restrict__ gmask, int chunks, int b, int d,
+                                             int k, int p) {
   const int K = taps3(g), P = out_size3(g);
   const TapGrad3 t = grad3_at(g, offset, mask, b, d, k, p);
   float s[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
@@ -653,23 +657,22 @@ __device__ __forceinline__ void col_fold_one(const Geo3& g, const float* __restr
       gxv += t.dx[i] * s[i];
     }
     const size_t oidx = (static_cast<size_t>(b) * g.dg * 3 * K + static_cast<size_t>(d) * 3 * K + 3 * k) * P + p;
-    goff[oidx] = t.m * gz;
-    goff[oidx + P] = t.m * gy;
-    goff[oidx + 2 * static_cast<size_t>(P)] = t.m * gxv;
+    goff[oidx] = to_elem<TX>(t.m * gz);
+    goff[oidx + P] = to_elem<TX>(t.m * gy);
+    goff[oidx + 2 * static_cast<size_t>(P)] = to_elem<TX>(t.m * gxv);
   }
   if (gmask) {
     float gm = 0.f;
 #pragma unroll
     for (int i = 0; i < 8; ++i) gm += t.w[i] * s[i];
-    gmask[(static_cast<size_t>(b) * g.dg * K + static_cast<size_t>(d) * K + k) * P + p] = gm;
+    gmask[(static_cast<size_t>(b) * g.dg * K + static_cast<size_t>(d) * K + k) * P + p] = to_elem<TX>(gm);
   }
 }
 
-template <class G>
-__global__ void __launch_bounds__(kColBT) col_fold_kernel(const float* __restrict__ offset,
-                                                         const float* __restrict__ mask,
-                                                         const float* __restrict__ part, float* __restrict__ goff,
-                                                         float* __restrict__ gmask, G g, int chunks) {
+template <class G, typename TX>
+__global__ void __launch_bounds__(kColBT) col_fold_kernel(const TX* __restrict__ offset, const TX* __restrict__ mask,
+                                                         const float* __restrict__ part, TX* __restrict__ goff,
+                                                         TX* __restrict__ gmask, G g, int chunks) {
   const int K = taps(g), P = out_positions(g);
   const size_t e = static_cast<size_t>(blockIdx.x) * kColBT + threadIdx.x;
   if (e >= static_cast<size_t>(g.B) * g.dg * K * P) return;
@@ -692,11 +695,12 @@ __host__ __device__ inline int col_rec(const ColTiles& tl) {
   return col_head(tl.tz * tl.ty * tl.tx) + kColCap * 4 * kPlanes<G>;
 }
 
-template <class G, class T>
-inline cudaError_t run_cols_bwd(const G& g, const ColTiles& tl, const float* x, const float* offset,
-                                const float* mask, const T* gcols, int* cnt, int* tcount, long long* tstart,
-                                ColEntry<G>* pool, unsigned short* csr, float* part, float* gx, float* goff,
-                                float* gmask, cudaStream_t s) {
+// x, offset, mask and gx, goff, gmask are of one type TX, fp32 or bf16;
+// gcols is of the mode's type T.
+template <class G, class T, typename TX>
+inline cudaError_t run_cols_bwd(const G& g, const ColTiles& tl, const TX* x, const TX* offset, const TX* mask,
+                                const T* gcols, int* cnt, int* tcount, long long* tstart, ColEntry<G>* pool,
+                                unsigned short* csr, float* part, TX* gx, TX* goff, TX* gmask, cudaStream_t s) {
   const int K = taps(g), P = out_positions(g), NT = tl.nz * tl.ny * tl.nx, BD = g.B * g.dg;
   const int runs = (K * P + kColCB - 1) / kColCB, chunks = (g.C / g.dg + kColCc - 1) / kColCc;
   const long long pool_bd = ((static_cast<long long>(4 * kPlanes<G>) * K * P + kColCap - 1) / kColCap + NT) * kColCap;
@@ -707,29 +711,29 @@ inline cudaError_t run_cols_bwd(const G& g, const ColTiles& tl, const float* x, 
   cudaError_t err = cudaMemsetAsync(cnt, 0, sizeof(int) * static_cast<size_t>(BD) * NT * runs, s);
   if (err != cudaSuccess) return err;
   const dim3 bins((runs + kColBT / 32 - 1) / (kColBT / 32), BD);
-  col_count_kernel<G><<<bins, kColBT, 0, s>>>(offset, mask, cnt, g, tl, runs);
+  col_count_kernel<G, TX><<<bins, kColBT, 0, s>>>(offset, mask, cnt, g, tl, runs);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   col_scan_rows_kernel<<<BD * NT, kColBT, 0, s>>>(cnt, tcount, runs);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   col_scan_tiles_kernel<<<BD, kColBT, 0, s>>>(tcount, tstart, NT, pool_bd);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  col_fill_kernel<G><<<bins, kColBT, 0, s>>>(offset, mask, cnt, tstart, pool, g, tl, runs);
+  col_fill_kernel<G, TX><<<bins, kColBT, 0, s>>>(offset, mask, cnt, tstart, pool, g, tl, runs);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if (gx) {
     col_index_kernel<G><<<dim3(NT, BD, kColIdxSplit), kColBT, 0, s>>>(pool, tstart, tcount, csr, tl, rec);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   const size_t smem = sizeof(float) * static_cast<size_t>(col_smem<G>(tl, part != nullptr, rec).total);
-  if ((err = cudaFuncSetAttribute(col_pull_kernel<G, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  if ((err = cudaFuncSetAttribute(col_pull_kernel<G, T, TX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   static_cast<int>(smem))) != cudaSuccess)
     return err;
-  col_pull_kernel<G, T><<<dim3(NT, g.dg * chunks, g.B), kColBT, smem, s>>>(x, gcols, pool, csr, tstart, tcount, gx,
-                                                                          part, g, tl, chunks, rec);
+  col_pull_kernel<G, T, TX><<<dim3(NT, g.dg * chunks, g.B), kColBT, smem, s>>>(x, gcols, pool, csr, tstart, tcount,
+                                                                              gx, part, g, tl, chunks, rec);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if (part) {
     const size_t n = static_cast<size_t>(BD) * K * P;
-    col_fold_kernel<G><<<static_cast<unsigned>((n + kColBT - 1) / kColBT), kColBT, 0, s>>>(offset, mask, part, goff,
-                                                                                          gmask, g, chunks);
+    col_fold_kernel<G, TX><<<static_cast<unsigned>((n + kColBT - 1) / kColBT), kColBT, 0, s>>>(offset, mask, part,
+                                                                                              goff, gmask, g, chunks);
     err = cudaGetLastError();
   }
   return err;

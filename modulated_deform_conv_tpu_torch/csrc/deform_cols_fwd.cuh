@@ -14,8 +14,10 @@
 // checks and the mask folded in) and keeps them in registers for every
 // channel of the split.  The block takes the box of rows (2D) or planes x
 // rows (3D) that its kept corners reach, full width: a contiguous run of x
-// per plane and sample, staged by cp.async (16 bytes a copy where x's
-// planes keep the alignment) for `cc` channels at a time in two buffers, so
+// per plane and sample, staged by cp.async in x's own type (the widest
+// copy of 16, 8 or 4 bytes that x's planes keep aligned; a bf16 plane of
+// odd size value by value, plain 2-byte copies) for `cc` channels at a
+// time in two buffers, so
 // each x value crosses to the SM about once per block.  Every value blends
 // its corners from shared memory in the order `blend` / `blend3` read them,
 // so the columns have the bits of the gather route, and the thread stores
@@ -104,12 +106,14 @@ __device__ __forceinline__ void place(ColPos<Geo3>& c, int zlo, int ylo, int py,
   c.i0 = (c.z0 - zlo) * pz + (c.y0 - ylo) * py + c.x0 + shift;
 }
 
-__device__ __forceinline__ TapWeights tap_weights_at(const Geo& g, const float* __restrict__ offset,
-                                                     const float* __restrict__ mask, int b, int d, int k, int p) {
+template <typename TX>
+__device__ __forceinline__ TapWeights tap_weights_at(const Geo& g, const TX* __restrict__ offset,
+                                                     const TX* __restrict__ mask, int b, int d, int k, int p) {
   return weights_at(g, offset, mask, b, d, k, p);
 }
-__device__ __forceinline__ TapWeights3 tap_weights_at(const Geo3& g, const float* __restrict__ offset,
-                                                      const float* __restrict__ mask, int b, int d, int k, int p) {
+template <typename TX>
+__device__ __forceinline__ TapWeights3 tap_weights_at(const Geo3& g, const TX* __restrict__ offset,
+                                                      const TX* __restrict__ mask, int b, int d, int k, int p) {
   return weights3_at(g, offset, mask, b, d, k, p);
 }
 
@@ -130,19 +134,27 @@ __device__ __forceinline__ void store4(T* out, const float (&v)[4], int valid, b
     if (valid >> c & 1) out[c] = to_elem<T>(v[c]);
 }
 
-// One column value from src, rows py and planes pz apart.
-__device__ __forceinline__ float col_value(const float* src, const ColPos<Geo>& c, int py, int) {
+// One column value from src (x, or its box staged in shared memory, of
+// x's type), rows py and planes pz apart.
+template <typename TX>
+__device__ __forceinline__ float col_value(const TX* src, const ColPos<Geo>& c, int py, int) {
   return blend(src, c.i0, py, c.w);
 }
-__device__ __forceinline__ float col_value(const float* src, const ColPos<Geo3>& c, int py, int pz) {
+template <typename TX>
+__device__ __forceinline__ float col_value(const TX* src, const ColPos<Geo3>& c, int py, int pz) {
   return blend3(src, c.i0, py, pz, c.lo, c.hi);
 }
 
-template <class G, typename T>
+// T: the columns' type (the mode's); TX: x's, offset's and mask's.
+template <class G, typename T, typename TX>
 __global__ void __launch_bounds__(kColThreads, kIs3D<G> ? 3 : 4)
-    cols_plane_kernel(const float* __restrict__ x, const float* __restrict__ offset, const float* __restrict__ mask,
+    cols_plane_kernel(const TX* __restrict__ x, const TX* __restrict__ offset, const TX* __restrict__ mask,
                       T* __restrict__ cols, G g, ColPlan pl) {
-  extern __shared__ __align__(16) float sx[];
+  extern __shared__ __align__(16) float sx_raw[];
+  TX* sx = reinterpret_cast<TX*>(sx_raw);
+  // Values a staged (channel, sample) slot holds: the plan's pl.slot fp32
+  // values, in the same bytes twice as many bf16 ones.
+  const int slot = pl.slot * static_cast<int>(4 / sizeof(TX));
   __shared__ int sbox[4];
   const int K = taps(g), P = out_positions(g), S = in_positions(g), HW = g.H * g.W, Cdg = g.C / g.dg;
   const int BP = g.B * P;
@@ -208,15 +220,20 @@ __global__ void __launch_bounds__(kColThreads, kIs3D<G> ? 3 : 4)
   };
 
   // Each plane's run of the box is staged from the aligned value below it
-  // by 16-byte copies where x, S and H * W keep 16-byte alignment (the runs
-  // then all start `shift` values past one), by 4-byte copies otherwise,
-  // planes pz floats apart; a staged channel holds one slot per sample.
-  const bool wide = (S & 3) == 0 && (HW & 3) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  // by copies of w values, the widest of 16, 8 or 4 bytes that x, S and H *
+  // W keep aligned (the runs then all start `shift` values past one; w = 1
+  // for a bf16 plane of odd size), planes pz values apart; a staged channel
+  // holds one slot per sample.
+  auto aligned = [&](int bytes) {
+    const int v = bytes / static_cast<int>(sizeof(TX));
+    return S % v == 0 && HW % v == 0 && reinterpret_cast<uintptr_t>(x) % bytes == 0;
+  };
+  const int w = static_cast<int>((aligned(16) ? 16 : aligned(8) ? 8 : aligned(4) ? 4 : sizeof(TX)) / sizeof(TX));
   const int first = any ? box.zlo * HW + box.ylo * g.W : 0;
-  const int shift = wide ? first & 3 : 0;
-  const int pz = wide ? (shift + run + 3) & ~3 : run;
-  if (nb > pl.nbm || static_cast<long long>(nz) * pz > pl.slot) {  // far offsets: the corners from x
-    const float* xb = x + (static_cast<size_t>(b0) * g.C + c0) * S;
+  const int shift = first & (w - 1);
+  const int pz = (shift + run + w - 1) & ~(w - 1);
+  if (nb > pl.nbm || static_cast<long long>(nz) * pz > slot) {  // far offsets: the corners from x
+    const TX* xb = x + (static_cast<size_t>(b0) * g.C + c0) * S;
     const size_t CS = static_cast<size_t>(g.C) * S;
 #pragma unroll
     for (int c = 0; c < 4; ++c) place(pos[c], 0, 0, g.W, HW, 0);
@@ -224,16 +241,16 @@ __global__ void __launch_bounds__(kColThreads, kIs3D<G> ? 3 : 4)
     return;
   }
 #pragma unroll
-  for (int c = 0; c < 4; ++c) place(pos[c], box.zlo, box.ylo, g.W, pz, shift + db[c] * pl.slot);
+  for (int c = 0; c < 4; ++c) place(pos[c], box.zlo, box.ylo, g.W, pz, shift + db[c] * slot);
 
   // Stage chunk ch (cc channels x nb samples) of the box into buffer ch & 1.
-  const int len = wide ? pz >> 2 : pz;                                 // copies a plane
-  const int nch = (c1 - c0 + pl.cc - 1) / pl.cc, chs = nb * pl.slot;  // floats a staged channel
+  const int len = pz / w;                                           // copies a plane
+  const int nch = (c1 - c0 + pl.cc - 1) / pl.cc, chs = nb * slot;  // values a staged channel
   auto stage = [&](int ch) {
     if (len == 0) return;
     const int cb = c0 + ch * pl.cc, cn = min(pl.cc, c1 - cb);
-    float* dst = sx + (ch & 1) * pl.cc * pl.nbm * pl.slot;
-    const float* src = x + (static_cast<size_t>(b0) * g.C + cb) * S + (first - shift);
+    TX* dst = sx + (ch & 1) * pl.cc * pl.nbm * slot;
+    const TX* src = x + (static_cast<size_t>(b0) * g.C + cb) * S + (first - shift);
     int r = t, z = 0, s = 0, c = 0;  // copy r of plane z of sample s, channel c
     for (;;) {
       while (r >= len) {
@@ -247,12 +264,17 @@ __global__ void __launch_bounds__(kColThreads, kIs3D<G> ? 3 : 4)
         }
       }
       if (c >= cn) break;
-      float* to = dst + c * chs + s * pl.slot + z * pz;
-      const float* from = src + (static_cast<size_t>(s) * g.C + c) * S + static_cast<size_t>(z) * HW;
-      if (wide)
-        cp_async16(to + 4 * r, from + 4 * r, true);
+      TX* to = dst + c * chs + s * slot + z * pz;
+      const TX* from = src + (static_cast<size_t>(s) * g.C + c) * S + static_cast<size_t>(z) * HW;
+      const int bytes = w * static_cast<int>(sizeof(TX));
+      if (bytes == 16)
+        cp_async16(to + w * r, from + w * r, true);
+      else if (bytes == 8)
+        cp_async8(to + w * r, from + w * r, true);
+      else if (bytes == 4)
+        cp_async4(to + w * r, from + w * r, true);
       else
-        cp_async4(to + r, from + r, true);
+        to[r] = from[r];
       r += kColThreads;
     }
   };
@@ -267,16 +289,16 @@ __global__ void __launch_bounds__(kColThreads, kIs3D<G> ? 3 : 4)
       cp_async_wait<0>();
     }
     __syncthreads();
-    const float* buf = sx + (ch & 1) * pl.cc * pl.nbm * pl.slot;
+    const TX* buf = sx + (ch & 1) * pl.cc * pl.nbm * slot;
     const int cb = c0 + ch * pl.cc;
     emit([&](int cl, int) { return buf + cl * chs; }, cb, min(pl.cc, c1 - cb), pz);
     __syncthreads();
   }
 }
 
-template <class G, typename T>
+template <class G, typename T, typename TX>
 __global__ void __launch_bounds__(kColThreads)
-    cols_gather_kernel(const float* __restrict__ x, const float* __restrict__ offset, const float* __restrict__ mask,
+    cols_gather_kernel(const TX* __restrict__ x, const TX* __restrict__ offset, const TX* __restrict__ mask,
                        T* __restrict__ cols, G g) {
   const int K = taps(g), P = out_positions(g), S = in_positions(g), Cdg = g.C / g.dg;
   const size_t e = static_cast<size_t>(blockIdx.x) * kColThreads + threadIdx.x;
@@ -287,19 +309,19 @@ __global__ void __launch_bounds__(kColThreads)
   ColPos<G> c = col_pos(g, tap_weights_at(g, offset, mask, b, d, k, p), box);
   place(c, 0, 0, g.W, g.H * g.W, 0);
   const size_t BP = static_cast<size_t>(g.B) * P;
-  const float* xb = x + static_cast<size_t>(b) * g.C * S;
+  const TX* xb = x + static_cast<size_t>(b) * g.C * S;
   T* out = cols + static_cast<size_t>(k) * BP + static_cast<size_t>(b) * P + p;
 #pragma unroll 4
   for (int ch = d * Cdg; ch < (d + 1) * Cdg; ++ch)
     out[static_cast<size_t>(ch) * K * BP] = to_elem<T>(col_value(xb + static_cast<size_t>(ch) * S, c, g.W, g.H * g.W));
 }
 
-template <class G, typename T>
-int launch_cols_fwd_as(const float* x, const float* offset, const float* mask, void* cols, const G& g,
-                       const ColPlan& pl, cudaStream_t s) {
+template <class G, typename T, typename TX>
+int launch_cols_fwd_as(const TX* x, const TX* offset, const TX* mask, void* cols, const G& g, const ColPlan& pl,
+                       cudaStream_t s) {
   T* out = static_cast<T*>(cols);
   if (pl.plane) {
-    auto kern = cols_plane_kernel<G, T>;
+    auto kern = cols_plane_kernel<G, T, TX>;
     if (pl.smem > 48 * 1024) {
       const cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
       if (err != cudaSuccess) return static_cast<int>(err);
@@ -308,16 +330,18 @@ int launch_cols_fwd_as(const float* x, const float* offset, const float* mask, v
     kern<<<grid, kColThreads, pl.smem, s>>>(x, offset, mask, out, g, pl);
   } else {
     const size_t n = static_cast<size_t>(g.B) * g.dg * taps(g) * out_positions(g);
-    cols_gather_kernel<G, T><<<static_cast<unsigned>((n + kColThreads - 1) / kColThreads), kColThreads, 0, s>>>(
+    cols_gather_kernel<G, T, TX><<<static_cast<unsigned>((n + kColThreads - 1) / kColThreads), kColThreads, 0, s>>>(
         x, offset, mask, out, g);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launch the route `pl` names on stream s; returns cudaGetLastError().
-template <class G>
-int launch_cols_fwd(const float* x, const float* offset, const float* mask, void* cols, const G& g,
-                    const ColPlan& pl, cudaStream_t s) {
+// Launch the route `pl` names on stream s; returns cudaGetLastError().  x,
+// offset and mask are of one type TX, fp32 or bf16; the columns' type is the
+// mode's.
+template <class G, typename TX>
+int launch_cols_fwd(const TX* x, const TX* offset, const TX* mask, void* cols, const G& g, const ColPlan& pl,
+                    cudaStream_t s) {
   if (g.precision == kBFloat16) return launch_cols_fwd_as<G, __nv_bfloat16>(x, offset, mask, cols, g, pl, s);
   return launch_cols_fwd_as<G, float>(x, offset, mask, cols, g, pl, s);
 }

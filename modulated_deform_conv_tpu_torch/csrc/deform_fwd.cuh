@@ -145,11 +145,12 @@ __device__ __noinline__ void build_scalar3(float* __restrict__ dst, const float*
   }
 }
 
-// G is the rank's geometry: Geo (2D) or Geo3 (3D, xt route only).
-template <int Prec, int OT, bool kHalo, class G>
+// G is the rank's geometry: Geo (2D) or Geo3 (3D, xt route only); T the
+// activations' type (offset, mask and out; xt and the halo are fp32).
+template <typename T, int Prec, int OT, bool kHalo, class G>
 __global__ void __launch_bounds__(kMmaThreads, 2) fwd_mma_kernel(
-    const float* __restrict__ xt, const float* __restrict__ offset, const float* __restrict__ mask,
-    const float* __restrict__ wf, const float* __restrict__ bias, float* __restrict__ out,
+    const float* __restrict__ xt, const T* __restrict__ offset, const T* __restrict__ mask,
+    const float* __restrict__ wf, const float* __restrict__ bias, T* __restrict__ out,
     float* __restrict__ part, int cw_log2, int tt, int nd_tab, Halo h, G g) {
   extern __shared__ __align__(16) float dyn[];
   constexpr int kA = kMK * kMS;  // one operand tile of a stage
@@ -286,8 +287,8 @@ __global__ void __launch_bounds__(kMmaThreads, 2) fwd_mma_kernel(
         if (ok[u]) {
           const size_t oidx = ((static_cast<size_t>(b[u]) * g.dg + d) * ND * K + ND * k[u]) * P + p[u];
 #pragma unroll
-          for (int a = 0; a < ND; ++a) o[u][a] = offset[oidx + static_cast<size_t>(a) * P];
-          if (mask) m[u] = mask[((static_cast<size_t>(b[u]) * g.dg + d) * K + k[u]) * P + p[u]];
+          for (int a = 0; a < ND; ++a) o[u][a] = as_float(offset[oidx + static_cast<size_t>(a) * P]);
+          if (mask) m[u] = as_float(mask[((static_cast<size_t>(b[u]) * g.dg + d) * K + k[u]) * P + p[u]]);
         }
       }
 #pragma unroll
@@ -491,7 +492,7 @@ __global__ void __launch_bounds__(kMmaThreads, 2) fwd_mma_kernel(
       if (part)
         part[((static_cast<size_t>(blockIdx.z) * g.B + b) * g.O + oc) * P + p] = v;
       else
-        out[(static_cast<size_t>(b) * g.O + oc) * P + p] = v;
+        out[(static_cast<size_t>(b) * g.O + oc) * P + p] = to_elem<T>(v);
     }
   }
 }
@@ -500,27 +501,29 @@ __global__ void __launch_bounds__(kMmaThreads, 2) fwd_mma_kernel(
 #undef MDC_BLEND
 #undef MDC_GATHER
 
-// out[e] = sum of the splits' parts in order, plus the bias.
+// out[e] = sum of the splits' parts in order, plus the bias, in fp32, then
+// rounded to out's type.
+template <typename T>
 __global__ void __launch_bounds__(256) fold_out_kernel(const float* __restrict__ part, const float* __restrict__ bias,
-                                                       float* __restrict__ out, size_t n, int splits, int O, int P) {
+                                                       T* __restrict__ out, size_t n, int splits, int O, int P) {
   for (size_t e = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; e < n;
        e += static_cast<size_t>(gridDim.x) * blockDim.x) {
     float s = 0.f;
     for (int i = 0; i < splits; ++i) s += part[i * n + e];
-    out[e] = s + (bias ? bias[e / P % O] : 0.f);
+    out[e] = to_elem<T>(s + (bias ? bias[e / P % O] : 0.f));
   }
 }
 
-template <int Prec, int OT, bool kHalo, class G>
-inline cudaError_t launch_fwd_mma(const G& g, const float* xt, const float* offset, const float* mask,
-                                  const float* wf, const float* bias, float* out, float* part, int splits, int cw,
-                                  const FwdSmem& sm, const Halo& h, cudaStream_t s) {
+template <int Prec, int OT, bool kHalo, class G, typename T>
+inline cudaError_t launch_fwd_mma(const G& g, const float* xt, const T* offset, const T* mask, const float* wf,
+                                  const float* bias, T* out, float* part, int splits, int cw, const FwdSmem& sm,
+                                  const Halo& h, cudaStream_t s) {
   int cw_log2 = 0;
   while ((1 << cw_log2) < cw) ++cw_log2;
   constexpr int NH = fwd_halves(OT, kHalo);
   const size_t smem = sm.floats(OT, NH) * sizeof(float);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  auto kern = fwd_mma_kernel<Prec, OT, kHalo, G>;
+  auto kern = fwd_mma_kernel<T, Prec, OT, kHalo, G>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int Og = g.O / g.groups;
@@ -532,10 +535,10 @@ inline cudaError_t launch_fwd_mma(const G& g, const float* xt, const float* offs
   return cudaGetLastError();
 }
 
-template <int Prec, bool kHalo, class G>
-inline cudaError_t launch_fwd_ot(const G& g, const float* xt, const float* offset, const float* mask,
-                                 const float* wf, const float* bias, float* out, float* part, int splits, int cw,
-                                 const FwdSmem& sm, const Halo& h, cudaStream_t s) {
+template <int Prec, bool kHalo, class G, typename T>
+inline cudaError_t launch_fwd_ot(const G& g, const float* xt, const T* offset, const T* mask, const float* wf,
+                                 const float* bias, T* out, float* part, int splits, int cw, const FwdSmem& sm,
+                                 const Halo& h, cudaStream_t s) {
   switch (fwd_tiles(g.O / g.groups)) {
     case 1: return launch_fwd_mma<Prec, 1, kHalo>(g, xt, offset, mask, wf, bias, out, part, splits, cw, sm, h, s);
     case 2: return launch_fwd_mma<Prec, 2, kHalo>(g, xt, offset, mask, wf, bias, out, part, splits, cw, sm, h, s);
@@ -543,9 +546,9 @@ inline cudaError_t launch_fwd_ot(const G& g, const float* xt, const float* offse
   }
 }
 
-template <bool kHalo, class G>
-inline cudaError_t launch_fwd(const G& g, const float* xt, const float* offset, const float* mask, const float* wf,
-                              const float* bias, float* out, float* part, int splits, int cw, const FwdSmem& sm,
+template <bool kHalo, class G, typename T>
+inline cudaError_t launch_fwd(const G& g, const float* xt, const T* offset, const T* mask, const float* wf,
+                              const float* bias, T* out, float* part, int splits, int cw, const FwdSmem& sm,
                               const Halo& h, cudaStream_t s) {
   switch (g.precision) {
     case kFloat32:
@@ -572,17 +575,18 @@ inline int chunk_groups(const G& g, int cw) {
 }
 
 // The forward: xt (B, positions, C) and part (splits, B, O, output
-// positions; unused when splits == 1) are the caller's scratch, wf the
-// weight as (groups, K, C/groups, O/groups).  With `halo` (shiftblend_fwd,
+// positions; unused when splits == 1) are the caller's fp32 scratch, wf the
+// weight as (groups, K, C/groups, O/groups) and bias, both fp32; x, offset,
+// mask and out are of the activations' type T.  With `halo` (shiftblend_fwd,
 // windowed geometry and the halo's reach given) the halo path runs where
 // two buffers of its narrowest chunk fit in shared memory, the xt path
 // elsewhere.  3D takes the xt path.
-template <class G>
-inline cudaError_t run_fwd(const G& g, const float* x, const float* offset, const float* mask, const float* wf,
-                           const float* bias, float* out, float* xt, float* part, int splits, const Halo* halo,
+template <class G, typename T>
+inline cudaError_t run_fwd(const G& g, const T* x, const T* offset, const T* mask, const float* wf,
+                           const float* bias, T* out, float* xt, float* part, int splits, const Halo* halo,
                            cudaStream_t s) {
   const int HW = in_positions(g), K = taps(g), OT = fwd_tiles(g.O / g.groups);
-  x_cl_kernel<<<dim3((HW + 31) / 32, (g.C + 31) / 32, g.B), 256, 0, s>>>(x, xt, g.C, HW);
+  x_cl_kernel<T><<<dim3((HW + 31) / 32, (g.C + 31) / 32, g.B), 256, 0, s>>>(x, xt, g.C, HW);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   bool done = false;
@@ -620,7 +624,7 @@ inline cudaError_t run_fwd(const G& g, const float* x, const float* offset, cons
   if (splits > 1) {
     const size_t n = static_cast<size_t>(g.B) * g.O * out_positions(g);
     const size_t blocks = (n + 255) / 256;
-    fold_out_kernel<<<static_cast<unsigned>(blocks < 132 * 16 ? blocks : 132 * 16), 256, 0, s>>>(
+    fold_out_kernel<T><<<static_cast<unsigned>(blocks < 132 * 16 ? blocks : 132 * 16), 256, 0, s>>>(
         part, bias, out, n, splits, g.O, out_positions(g));
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }

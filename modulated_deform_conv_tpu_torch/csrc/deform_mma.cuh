@@ -16,17 +16,30 @@ constexpr int kMS = kMT + 8;      // K-major tile row: fragment reads hit 32 ban
 constexpr int kMK = 32;           // contraction indices a stage
 constexpr int kMmaThreads = 256;  // 8 warps, 2 (rows) x 4 (columns), 32 x 16 outputs each
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(valid ? 4 : 0) : "memory");
 }
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src), "r"(valid ? 8 : 0) : "memory");
+}
 // 16 bytes, or zeros when !valid.  The row tails are whole: the 64-wide tiles
 // start on multiples of 4 and rows % 4 == 0.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(valid ? 16 : 0) : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// One value of an activation into shared memory as fp32, zero where !valid
+// (src is then not read): by cp.async for fp32, through a register for
+// bf16, which cp.async cannot convert (a plain store, so it needs only the
+// barrier that the cp.async wait precedes).
+__device__ __forceinline__ void stage1(float* dst, const float* src, bool valid) { cp_async4(dst, src, valid); }
+__device__ __forceinline__ void stage1(float* dst, const __nv_bfloat16* src, bool valid) {
+  *dst = valid ? __bfloat162float(*src) : 0.f;
+}
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
@@ -68,8 +81,10 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
 // for the stage, added to acc with an fp32 add: the tensor cores'
 // accumulation does not round to nearest, and over thousands of stages its
 // error would pass what FP32 FMAs give.  fp32 accumulation in every mode.
-template <int Prec>
-__device__ __forceinline__ void mma_stage_into(const float* __restrict__ As, const float* __restrict__ Bs, int wm,
+// B's tile holds fp32, or bf16 (TB; gcols_mma_kernel's bf16 gout), each
+// value widened exactly as it is read.
+template <int Prec, typename TB>
+__device__ __forceinline__ void mma_stage_into(const float* __restrict__ As, const TB* __restrict__ Bs, int wm,
                                                int wn, float (&acc)[2][2][4]) {
   const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
   if constexpr (Prec == kBFloat16) {
@@ -86,9 +101,9 @@ __device__ __forceinline__ void mma_stage_into(const float* __restrict__ As, con
       }
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        const float* p = Bs + (k0 + 2 * tq) * kMS + wn + 8 * j + gq;
-        b[j][0] = bf16x2(p[0], p[kMS]);
-        b[j][1] = bf16x2(p[8 * kMS], p[9 * kMS]);
+        const TB* p = Bs + (k0 + 2 * tq) * kMS + wn + 8 * j + gq;
+        b[j][0] = bf16x2(as_float(p[0]), as_float(p[kMS]));
+        b[j][1] = bf16x2(as_float(p[8 * kMS]), as_float(p[9 * kMS]));
       }
 #pragma unroll
       for (int i = 0; i < 2; ++i)
@@ -109,9 +124,9 @@ __device__ __forceinline__ void mma_stage_into(const float* __restrict__ As, con
       }
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        const float* p = Bs + (k0 + tq) * kMS + wn + 8 * j + gq;
-        bf[j][0] = p[0];
-        bf[j][1] = p[4 * kMS];
+        const TB* p = Bs + (k0 + tq) * kMS + wn + 8 * j + gq;
+        bf[j][0] = as_float(p[0]);
+        bf[j][1] = as_float(p[4 * kMS]);
       }
       uint32_t a[2][4], b[2][2];
 #pragma unroll
@@ -148,8 +163,8 @@ __device__ __forceinline__ void mma_stage_into(const float* __restrict__ As, con
   }
 }
 
-template <int Prec>
-__device__ __forceinline__ void mma_stage(const float* __restrict__ As, const float* __restrict__ Bs, int wm, int wn,
+template <int Prec, typename TB>
+__device__ __forceinline__ void mma_stage(const float* __restrict__ As, const TB* __restrict__ Bs, int wm, int wn,
                                           float (&acc)[2][2][4]) {
   if constexpr (Prec == kFloat32) {
     float part[2][2][4] = {};
@@ -173,13 +188,16 @@ __device__ __forceinline__ int acc_row(int wm, int i, int v) {
 __device__ __forceinline__ int acc_col(int wn, int j, int v) { return wn + 8 * j + 2 * (threadIdx.x & 3) + (v & 1); }
 
 // xt[b][q][c] = x[b][c][q], a 32 x 32 tile at a time through shared memory.
-__global__ void __launch_bounds__(256) x_cl_kernel(const float* __restrict__ x, float* __restrict__ xt, int C,
-                                                   int HW) {
+// x is read in its own type T; xt is fp32 in both (an exact copy), so that
+// every reader of xt (the forward's 16-byte column builds, the correlations,
+// gw_mma_kernel) is the same code for fp32 and bf16 x.
+template <typename T>
+__global__ void __launch_bounds__(256) x_cl_kernel(const T* __restrict__ x, float* __restrict__ xt, int C, int HW) {
   __shared__ float t[32][33];
   const int q0 = blockIdx.x * 32, c0 = blockIdx.y * 32, b = blockIdx.z;
   const int lane = threadIdx.x & 31, row = threadIdx.x >> 5;
   for (int i = row; i < 32; i += 8)
-    if (c0 + i < C && q0 + lane < HW) t[i][lane] = x[(static_cast<size_t>(b) * C + c0 + i) * HW + q0 + lane];
+    if (c0 + i < C && q0 + lane < HW) t[i][lane] = as_float(x[(static_cast<size_t>(b) * C + c0 + i) * HW + q0 + lane]);
   __syncthreads();
   for (int i = row; i < 32; i += 8)
     if (q0 + i < HW && c0 + lane < C) xt[(static_cast<size_t>(b) * HW + q0 + i) * C + c0 + lane] = t[lane][i];

@@ -18,6 +18,35 @@ constexpr size_t kMaxSmem = 227 * 1024;
 // Precision modes, as the Python wrappers number them.
 enum Precision : int { kFloat32 = 0, kTensorFloat32 = 1, kBFloat16 = 2 };
 
+// The activations' type (x, offset, mask, grad_out, out and the gradients of
+// the first three): float (io 0, lib.IO_CODES) or __nv_bfloat16 (io 1), as
+// the JAX kernels read their inputs in their own dtype.  Every load
+// converts to fp32 at once (exact); every sum and scratch buffer stays fp32;
+// a result is rounded to T (round to nearest even) only where it is stored.
+__device__ __forceinline__ float as_float(float v) { return v; }
+__device__ __forceinline__ float as_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T to_elem(float v);
+template <>
+__device__ __forceinline__ float to_elem<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 to_elem<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// The C entries' dispatch on io: f(IoType<T>{}) with T float or bf16.
+template <typename T>
+struct IoType {
+  using type = T;
+};
+template <class F>
+inline auto with_io(int io, F&& f) {
+  return io ? f(IoType<__nv_bfloat16>{}) : f(IoType<float>{});
+}
+
 // GEMM operand as the mode sees it: "bfloat16" rounds columns and weights to
 // bf16 (their products are exact in fp32); the other two modes keep fp32.
 __device__ __forceinline__ float operand(float v, int precision) {
@@ -124,19 +153,21 @@ __device__ __forceinline__ TapWeights tap_weights(const Geo& g, int base_y,
   return t;
 }
 
-__device__ __forceinline__ float mask_at(const Geo& g, const float* __restrict__ mask, int b, int d, int k, int p) {
+template <typename T>
+__device__ __forceinline__ float mask_at(const Geo& g, const T* __restrict__ mask, int b, int d, int k, int p) {
   const int K = g.kh * g.kw, P = g.OH * g.OW;
-  return mask ? mask[(static_cast<size_t>(b) * g.dg * K + static_cast<size_t>(d) * K + k) * P + p] : 1.f;
+  return mask ? as_float(mask[(static_cast<size_t>(b) * g.dg * K + static_cast<size_t>(d) * K + k) * P + p]) : 1.f;
 }
 
 // Mask-folded corner weights of tap k at output position p (tap_weights).
-__device__ __forceinline__ TapWeights weights_at(const Geo& g, const float* __restrict__ offset,
-                                                 const float* __restrict__ mask, int b, int d, int k, int p) {
+template <typename T>
+__device__ __forceinline__ TapWeights weights_at(const Geo& g, const T* __restrict__ offset,
+                                                 const T* __restrict__ mask, int b, int d, int k, int p) {
   const int K = g.kh * g.kw, P = g.OH * g.OW;
   const int oy = p / g.OW, ox = p % g.OW, ky = k / g.kw, kx = k % g.kw;
   const size_t oidx = (static_cast<size_t>(b) * g.dg * 2 * K + static_cast<size_t>(d) * 2 * K + 2 * k) * P + p;
-  return tap_weights(g, oy * g.sh - g.ph + ky * g.dh, ox * g.sw - g.pw + kx * g.dw, offset[oidx], offset[oidx + P],
-                     mask_at(g, mask, b, d, k, p));
+  return tap_weights(g, oy * g.sh - g.ph + ky * g.dh, ox * g.sw - g.pw + kx * g.dw, as_float(offset[oidx]),
+                     as_float(offset[oidx + P]), mask_at(g, mask, b, d, k, p));
 }
 
 // The corner weights without the mask, and their derivatives with respect
@@ -175,13 +206,13 @@ __device__ __forceinline__ TapGrad tap_grad(const Geo& g, int base_y,
 // One column value: the four weighted corners around src[i0], with row
 // pitch `pitch`.  A corner with weight 0 is not read, so its address may lie
 // outside the source.
-__device__ __forceinline__ float blend(const float* __restrict__ src, int i0,
-                                       int pitch, float4 w) {
+template <typename T>
+__device__ __forceinline__ float blend(const T* __restrict__ src, int i0, int pitch, float4 w) {
   float v = 0.f;
-  if (w.x != 0.f) v += w.x * src[i0];
-  if (w.y != 0.f) v += w.y * src[i0 + 1];
-  if (w.z != 0.f) v += w.z * src[i0 + pitch];
-  if (w.w != 0.f) v += w.w * src[i0 + pitch + 1];
+  if (w.x != 0.f) v += w.x * as_float(src[i0]);
+  if (w.y != 0.f) v += w.y * as_float(src[i0 + 1]);
+  if (w.z != 0.f) v += w.z * as_float(src[i0 + pitch]);
+  if (w.w != 0.f) v += w.w * as_float(src[i0 + pitch + 1]);
   return v;
 }
 

@@ -100,16 +100,17 @@ __device__ __forceinline__ void tap_base3(const Geo3& g, int k, int p, int& bz, 
   bx = oxp * g.sw - g.pw + kx * g.dw;
 }
 
-__device__ __forceinline__ TapAt3 tap_at3(const Geo3& g, const float* __restrict__ offset,
-                                          const float* __restrict__ mask, int b, int d, int k, int p) {
+template <typename T>
+__device__ __forceinline__ TapAt3 tap_at3(const Geo3& g, const T* __restrict__ offset, const T* __restrict__ mask,
+                                          int b, int d, int k, int p) {
   const int K = taps3(g), P = out_size3(g);
   const size_t oidx = (static_cast<size_t>(b) * g.dg * 3 * K + static_cast<size_t>(d) * 3 * K + 3 * k) * P + p;
   TapAt3 t;
   tap_base3(g, k, p, t.bz, t.by, t.bx);
-  t.oz = offset[oidx];
-  t.oy = offset[oidx + P];
-  t.ox = offset[oidx + 2 * static_cast<size_t>(P)];
-  t.m = mask ? mask[(static_cast<size_t>(b) * g.dg * K + static_cast<size_t>(d) * K + k) * P + p] : 1.f;
+  t.oz = as_float(offset[oidx]);
+  t.oy = as_float(offset[oidx + P]);
+  t.ox = as_float(offset[oidx + 2 * static_cast<size_t>(P)]);
+  t.m = mask ? as_float(mask[(static_cast<size_t>(b) * g.dg * K + static_cast<size_t>(d) * K + k) * P + p]) : 1.f;
   return t;
 }
 
@@ -135,8 +136,9 @@ __device__ __forceinline__ TapWeights3 tap_weights3(const Geo3& g, int bz, int b
                      c.keep};
 }
 
-__device__ __forceinline__ TapWeights3 weights3_at(const Geo3& g, const float* __restrict__ offset,
-                                                   const float* __restrict__ mask, int b, int d, int k, int p) {
+template <typename T>
+__device__ __forceinline__ TapWeights3 weights3_at(const Geo3& g, const T* __restrict__ offset,
+                                                   const T* __restrict__ mask, int b, int d, int k, int p) {
   const TapAt3 a = tap_at3(g, offset, mask, b, d, k, p);
   return tap_weights3(g, a.bz, a.by, a.bx, a.oz, a.oy, a.ox, a.m);
 }
@@ -152,8 +154,9 @@ struct TapGrad3 {
   float w[8], dz[8], dy[8], dx[8];
 };
 
-__device__ __forceinline__ TapGrad3 grad3_at(const Geo3& g, const float* __restrict__ offset,
-                                             const float* __restrict__ mask, int b, int d, int k, int p) {
+template <typename T>
+__device__ __forceinline__ TapGrad3 grad3_at(const Geo3& g, const T* __restrict__ offset,
+                                             const T* __restrict__ mask, int b, int d, int k, int p) {
   const TapAt3 a = tap_at3(g, offset, mask, b, d, k, p);
   const TapCorners3 c = tap_corners3(g, a.bz, a.by, a.bx, a.oz, a.oy, a.ox);
   const float wz[2] = {1.f - c.rz, c.rz}, wy[2] = {1.f - c.ry, c.ry}, wx[2] = {1.f - c.rx, c.rx};
@@ -184,17 +187,17 @@ __device__ __forceinline__ int corner_step3(int i, int py, int pz) {
 
 // One column value: the eight weighted corners around src[i0].  A corner
 // with weight 0 is not read, so its address may lie outside the source.
-__device__ __forceinline__ float blend3(const float* __restrict__ src, int i0, int py, int pz, float4 lo,
-                                        float4 hi) {
+template <typename T>
+__device__ __forceinline__ float blend3(const T* __restrict__ src, int i0, int py, int pz, float4 lo, float4 hi) {
   float v = 0.f;
-  if (lo.x != 0.f) v += lo.x * src[i0];
-  if (lo.y != 0.f) v += lo.y * src[i0 + 1];
-  if (lo.z != 0.f) v += lo.z * src[i0 + py];
-  if (lo.w != 0.f) v += lo.w * src[i0 + py + 1];
-  if (hi.x != 0.f) v += hi.x * src[i0 + pz];
-  if (hi.y != 0.f) v += hi.y * src[i0 + pz + 1];
-  if (hi.z != 0.f) v += hi.z * src[i0 + pz + py];
-  if (hi.w != 0.f) v += hi.w * src[i0 + pz + py + 1];
+  if (lo.x != 0.f) v += lo.x * as_float(src[i0]);
+  if (lo.y != 0.f) v += lo.y * as_float(src[i0 + 1]);
+  if (lo.z != 0.f) v += lo.z * as_float(src[i0 + py]);
+  if (lo.w != 0.f) v += lo.w * as_float(src[i0 + py + 1]);
+  if (hi.x != 0.f) v += hi.x * as_float(src[i0 + pz]);
+  if (hi.y != 0.f) v += hi.y * as_float(src[i0 + pz + 1]);
+  if (hi.z != 0.f) v += hi.z * as_float(src[i0 + pz + py]);
+  if (hi.w != 0.f) v += hi.w * as_float(src[i0 + pz + py + 1]);
   return v;
 }
 
@@ -230,14 +233,16 @@ struct CornerRow {
   int row;
 };
 
-__device__ __forceinline__ CornerRow<Geo> corner_row(const Geo& g, const float* __restrict__ offset,
-                                                     const float* __restrict__ mask, int b, int d, int k, int p) {
+template <typename T>
+__device__ __forceinline__ CornerRow<Geo> corner_row(const Geo& g, const T* __restrict__ offset,
+                                                     const T* __restrict__ mask, int b, int d, int k, int p) {
   const TapWeights t = weights_at(g, offset, mask, b, d, k, p);
   return CornerRow<Geo>{{t.w}, b * in_positions(g) + t.y0 * g.W + t.x0};
 }
 
-__device__ __forceinline__ CornerRow<Geo3> corner_row(const Geo3& g, const float* __restrict__ offset,
-                                                      const float* __restrict__ mask, int b, int d, int k, int p) {
+template <typename T>
+__device__ __forceinline__ CornerRow<Geo3> corner_row(const Geo3& g, const T* __restrict__ offset,
+                                                      const T* __restrict__ mask, int b, int d, int k, int p) {
   const TapWeights3 t = weights3_at(g, offset, mask, b, d, k, p);
   return CornerRow<Geo3>{{t.lo, t.hi}, b * in_positions(g) + (t.z0 * g.H + t.y0) * g.W + t.x0};
 }

@@ -24,7 +24,7 @@
 #include "deform_cols_bwd.cuh"
 
 // x (B, C, D, H, W), offset (B, dg*3*K, OD, OH, OW), mask (B, dg*K, OD, OH,
-// OW) or null: float32, contiguous, on the current device.  gcols (C*K,
+// OW) or null: float32 (io 0) or bfloat16 (io 1), contiguous, on the current device.  gcols (C*K,
 // B*OD*OH*OW): float32, or bfloat16 when precision is "bfloat16".  Input
 // bricks of tz x ty x tx voxels.  Scratch (ops/cuda/gathermm.py::
 // cols_bwd_plan): cnt, tcount, tstart, pool, csr (null when grad_x is not
@@ -34,11 +34,11 @@
 // 0.
 // gz0 .. orx: the tap gate per axis and the block's placement (Geo3): (-1,
 // D), (-1, H), (-1, W) and zeros but on a sharded block.
-extern "C" int gathermm3d_cols_bwd(const float* x, const float* offset, const float* mask, const void* gcols,
+extern "C" int gathermm3d_cols_bwd(const void* x, const void* offset, const void* mask, const void* gcols,
                                    int* cnt, int* tcount, long long* tstart, void* pool, void* csr, float* part,
-                                   float* gx, float* goff, float* gmask, int B, int C, int D, int H, int W, int OD,
+                                   void* gx, void* goff, void* gmask, int B, int C, int D, int H, int W, int OD,
                                    int OH, int OW, int dg, int kd, int kh, int kw, int sd, int sh, int sw, int pd,
-                                   int ph, int pw, int dd, int dh, int dw, int tz, int ty, int tx, int precision,
+                                   int ph, int pw, int dd, int dh, int dw, int tz, int ty, int tx, int precision, int io,
                                    float gz0, float gz1, float gy0, float gy1, float gx0, float gx1, float shz,
                               float orz, float shy, float ory, float shx, float orx, void* stream) {
   using namespace mdc;
@@ -50,9 +50,14 @@ extern "C" int gathermm3d_cols_bwd(const float* x, const float* offset, const fl
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   ColEntry<Geo3>* pl = static_cast<ColEntry<Geo3>*>(pool);
   unsigned short* cs = static_cast<unsigned short*>(csr);
-  if (precision == kBFloat16)
-    return static_cast<int>(run_cols_bwd(g, tl, x, offset, mask, static_cast<const __nv_bfloat16*>(gcols), cnt,
-                                         tcount, tstart, pl, cs, part, gx, goff, gmask, s));
-  return static_cast<int>(run_cols_bwd(g, tl, x, offset, mask, static_cast<const float*>(gcols), cnt, tcount,
-                                       tstart, pl, cs, part, gx, goff, gmask, s));
+  return with_io(io, [&](auto t) {
+    using TX = typename decltype(t)::type;
+    const TX *xi = static_cast<const TX*>(x), *oi = static_cast<const TX*>(offset), *mi = static_cast<const TX*>(mask);
+    TX *gxo = static_cast<TX*>(gx), *goo = static_cast<TX*>(goff), *gmo = static_cast<TX*>(gmask);
+    if (precision == kBFloat16)
+      return static_cast<int>(run_cols_bwd(g, tl, xi, oi, mi, static_cast<const __nv_bfloat16*>(gcols), cnt, tcount,
+                                           tstart, pl, cs, part, gxo, goo, gmo, s));
+    return static_cast<int>(run_cols_bwd(g, tl, xi, oi, mi, static_cast<const float*>(gcols), cnt, tcount, tstart,
+                                         pl, cs, part, gxo, goo, gmo, s));
+  });
 }

@@ -21,17 +21,17 @@
 #include "deform_cols_fwd.cuh"
 
 // x (B, C, D, H, W), offset (B, dg*3*K, OD, OH, OW), mask (B, dg*K, OD, OH,
-// OW) or null: float32, contiguous, on the current device.  cols (C*K,
+// OW) or null: float32 (io 0) or bfloat16 (io 1), contiguous, on the current device.  cols (C*K,
 // B*OD*OH*OW): float32, or bfloat16 when precision is "bfloat16".  plane ..
 // smem: the route and its plan (gathermm.cols_fwd_plan).  Returns
 // cudaGetLastError().
 // gz0 .. orx: the tap gate per axis and the block's placement (Geo3): (-1,
 // D), (-1, H), (-1, W) and zeros but on a sharded block.
-extern "C" int gathermm3d_cols_fwd(const float* x, const float* offset, const float* mask, void* cols, int B, int C,
+extern "C" int gathermm3d_cols_fwd(const void* x, const void* offset, const void* mask, void* cols, int B, int C,
                                    int D, int H, int W, int OD, int OH, int OW, int dg, int kd, int kh, int kw,
                                    int sd, int sh, int sw, int pd, int ph, int pw, int dd, int dh, int dw,
                                    int plane, int gt, int tiles, int nbm, int splits, int cps, int cc, int slot,
-                                   int smem, int precision, float gz0, float gz1, float gy0, float gy1, float gx0,
+                                   int smem, int precision, int io, float gz0, float gz1, float gy0, float gy1, float gx0,
                                    float gx1, float shz, float orz, float shy, float ory, float shx, float orx,
                                    void* stream) {
   using namespace mdc;
@@ -39,5 +39,9 @@ extern "C" int gathermm3d_cols_fwd(const float* x, const float* offset, const fl
                sw, pd, ph, pw, dd, dh, dw, 0,  0,  0,  0, 0,  0,  0,  precision,
                gz0, gz1, gy0, gy1, gx0, gx1, shz, orz, shy, ory, shx, orx};
   const ColPlan pl{plane, gt, tiles, nbm, splits, cps, cc, slot, smem};
-  return launch_cols_fwd(x, offset, mask, cols, g, pl, static_cast<cudaStream_t>(stream));
+  return with_io(io, [&](auto t) {
+    using TX = typename decltype(t)::type;
+    return launch_cols_fwd(static_cast<const TX*>(x), static_cast<const TX*>(offset), static_cast<const TX*>(mask),
+                           cols, g, pl, static_cast<cudaStream_t>(stream));
+  });
 }

@@ -34,29 +34,29 @@ namespace {
 
 using namespace mdc;
 
-template <int Prec>
-int run(const Geo& g, const float* x, const float* offset, const float* mask, const float* wk, const float* gout,
-        float* gcols, float* xt, int* boxes, float* part, float* gx, float* goff, float* gmask, float* gwt,
-        int splits, cudaStream_t s) {
+template <int Prec, typename T>
+int run(const Geo& g, const T* x, const T* offset, const T* mask, const float* wk, const T* gout, float* gcols,
+        float* xt, int* boxes, float* part, T* gx, T* goff, T* gmask, float* gwt, int splits, cudaStream_t s) {
   auto pull = [&](const float* gc) {
     const int NT = ((g.OH + kBoxTile - 1) / kBoxTile) * ((g.OW + kBoxTile - 1) / kBoxTile);
     const int warps = g.B * g.dg * NT;
     int4* bx = reinterpret_cast<int4*>(boxes);
-    boxes_kernel<<<(warps + kThreads / 32 - 1) / (kThreads / 32), kThreads, 0, s>>>(offset, mask, bx, g);
+    boxes_kernel<T><<<(warps + kThreads / 32 - 1) / (kThreads / 32), kThreads, 0, s>>>(offset, mask, bx, g);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    gather_pull_kernel<<<pull_grid(g), kPullT, 0, s>>>(offset, mask, gc, bx, gx, g);
+    gather_pull_kernel<T><<<pull_grid(g), kPullT, 0, s>>>(offset, mask, gc, bx, gx, g);
     return cudaGetLastError();
   };
-  return static_cast<int>(run_bwd2d<Prec>(g, x, offset, mask, wk, gout, gcols, xt, part, gx,
-                                             goff, gmask, gwt, splits, s, pull));
+  return static_cast<int>(run_bwd2d<Prec>(g, x, offset, mask, wk, gout, gcols, xt, part, gx, goff, gmask, gwt,
+                                          splits, s, pull));
 }
 
 }  // namespace
 
 // x (B, C, H, W), offset (B, dg*2*K, OH, OW), mask (B, dg*K, OH, OW) or null,
-// wk (groups, O/groups, K, C/groups), gout (B, O, OH, OW): float32,
-// contiguous, on the current device.  Scratch, allocated by the caller:
+// gout (B, O, OH, OW): of the activations' type (io 0: float32, io 1:
+// bfloat16), contiguous, on the current device; wk (groups, O/groups, K,
+// C/groups): float32.  Scratch, allocated by the caller:
 // gcols (B, K, OH*OW, C); xt (B, H*W, C);
 // boxes (B, dg, ceil(OH/4)*ceil(OW/4), 4) int32; part (splits, groups,
 // C/groups*K, O/groups).  Outputs, each null when not wanted: gx like x,
@@ -64,25 +64,28 @@ int run(const Geo& g, const float* x, const float* offset, const float* mask, co
 // Returns the first CUDA error of the launches, or 0.
 // gy0 .. orx: the tap gate per axis and the block's placement (Geo): (-1, H),
 // (-1, W) and zeros but on a sharded block.
-extern "C" int gathermm_bwd(const float* x, const float* offset, const float* mask, const float* wk,
-                            const float* gout, float* gcols, float* xt, int* boxes, float* part, float* gx,
-                            float* goff, float* gmask, float* gwt, int B, int C, int H, int W, int O, int OH,
+extern "C" int gathermm_bwd(const void* x, const void* offset, const void* mask, const float* wk,
+                            const void* gout, float* gcols, float* xt, int* boxes, float* part, void* gx,
+                            void* goff, void* gmask, float* gwt, int B, int C, int H, int W, int O, int OH,
                             int OW, int groups, int dg, int kh, int kw, int sh, int sw, int ph, int pw, int dh,
-                            int dw, int splits, int precision, float gy0, float gy1, float gx0, float gx1,
+                            int dw, int splits, int precision, int io, float gy0, float gy1, float gx0, float gx1,
                             float shy, float ory, float shx, float orx, void* stream) {
   using namespace mdc;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Geo g{B, C, H, W, O, OH, OW, groups, dg, kh, kw, sh, sw, ph, pw, dh, dw, 0, 0, 0, 0, 0, precision,
               gy0, gy1, gx0, gx1, shy, ory, shx, orx};
-  switch (precision) {
-    case kFloat32:
-      return run<kFloat32>(g, x, offset, mask, wk, gout, gcols, xt, boxes, part, gx, goff, gmask, gwt, splits,
-                                  s);
-    case kTensorFloat32:
-      return run<kTensorFloat32>(g, x, offset, mask, wk, gout, gcols, xt, boxes, part, gx, goff, gmask, gwt,
-                                        splits, s);
-    default:
-      return run<kBFloat16>(g, x, offset, mask, wk, gout, gcols, xt, boxes, part, gx, goff, gmask,
-                                           gwt, splits, s);
-  }
+  return with_io(io, [&](auto t) {
+    using T = typename decltype(t)::type;
+    const T *xi = static_cast<const T*>(x), *oi = static_cast<const T*>(offset), *mi = static_cast<const T*>(mask),
+            *go = static_cast<const T*>(gout);
+    T *gxo = static_cast<T*>(gx), *goo = static_cast<T*>(goff), *gmo = static_cast<T*>(gmask);
+    switch (precision) {
+      case kFloat32:
+        return run<kFloat32>(g, xi, oi, mi, wk, go, gcols, xt, boxes, part, gxo, goo, gmo, gwt, splits, s);
+      case kTensorFloat32:
+        return run<kTensorFloat32>(g, xi, oi, mi, wk, go, gcols, xt, boxes, part, gxo, goo, gmo, gwt, splits, s);
+      default:
+        return run<kBFloat16>(g, xi, oi, mi, wk, go, gcols, xt, boxes, part, gxo, goo, gmo, gwt, splits, s);
+    }
+  });
 }

@@ -27,7 +27,7 @@
 #include "deform_cols_bwd.cuh"
 
 // x (B, C, H, W), offset (B, dg*2*K, OH, OW), mask (B, dg*K, OH, OW) or
-// null: float32, contiguous, on the current device.  gcols (C*K, B*OH*OW):
+// null: float32 (io 0) or bfloat16 (io 1), contiguous, on the current device.  gcols (C*K, B*OH*OW):
 // float32, or bfloat16 when precision is "bfloat16".  Input tiles of ty x tx
 // pixels.  Scratch (ops/cuda/gathermm.py::cols_bwd_plan): cnt, tcount,
 // tstart, pool, csr (null when grad_x is not wanted) and part (null when
@@ -36,11 +36,11 @@
 // first CUDA error of the launches, or 0.
 // gy0 .. orx: the tap gate per axis and the block's placement (Geo): (-1, H),
 // (-1, W) and zeros but on a sharded block.
-extern "C" int gathermm_cols_bwd(const float* x, const float* offset, const float* mask, const void* gcols,
+extern "C" int gathermm_cols_bwd(const void* x, const void* offset, const void* mask, const void* gcols,
                                  int* cnt, int* tcount, long long* tstart, void* pool, void* csr, float* part,
-                                 float* gx, float* goff, float* gmask, int B, int C, int H, int W, int OH, int OW,
+                                 void* gx, void* goff, void* gmask, int B, int C, int H, int W, int OH, int OW,
                                  int dg, int kh, int kw, int sh, int sw, int ph, int pw, int dh, int dw, int ty,
-                                 int tx, int precision, float gy0, float gy1, float gx0, float gx1, float shy,
+                                 int tx, int precision, int io, float gy0, float gy1, float gx0, float gx1, float shy,
                                  float ory, float shx, float orx, void* stream) {
   using namespace mdc;
   const Geo g{B, C, H, W, 0, OH, OW, 1, dg, kh, kw, sh, sw, ph, pw, dh, dw, 0, 0, 0, 0, 0, precision,
@@ -49,9 +49,14 @@ extern "C" int gathermm_cols_bwd(const float* x, const float* offset, const floa
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   ColEntry<Geo>* pl = static_cast<ColEntry<Geo>*>(pool);
   unsigned short* cs = static_cast<unsigned short*>(csr);
-  if (precision == kBFloat16)
-    return static_cast<int>(run_cols_bwd(g, tl, x, offset, mask, static_cast<const __nv_bfloat16*>(gcols), cnt,
-                                         tcount, tstart, pl, cs, part, gx, goff, gmask, s));
-  return static_cast<int>(run_cols_bwd(g, tl, x, offset, mask, static_cast<const float*>(gcols), cnt, tcount,
-                                       tstart, pl, cs, part, gx, goff, gmask, s));
+  return with_io(io, [&](auto t) {
+    using TX = typename decltype(t)::type;
+    const TX *xi = static_cast<const TX*>(x), *oi = static_cast<const TX*>(offset), *mi = static_cast<const TX*>(mask);
+    TX *gxo = static_cast<TX*>(gx), *goo = static_cast<TX*>(goff), *gmo = static_cast<TX*>(gmask);
+    if (precision == kBFloat16)
+      return static_cast<int>(run_cols_bwd(g, tl, xi, oi, mi, static_cast<const __nv_bfloat16*>(gcols), cnt, tcount,
+                                           tstart, pl, cs, part, gxo, goo, gmo, s));
+    return static_cast<int>(run_cols_bwd(g, tl, xi, oi, mi, static_cast<const float*>(gcols), cnt, tcount, tstart,
+                                         pl, cs, part, gxo, goo, gmo, s));
+  });
 }

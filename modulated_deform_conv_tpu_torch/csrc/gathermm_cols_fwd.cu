@@ -23,19 +23,23 @@
 #include "deform_cols_fwd.cuh"
 
 // x (B, C, H, W), offset (B, dg*2*K, OH, OW), mask (B, dg*K, OH, OW) or
-// null: float32, contiguous, on the current device.  cols (C*K, B*OH*OW):
+// null: float32 (io 0) or bfloat16 (io 1), contiguous, on the current device.  cols (C*K, B*OH*OW):
 // float32, or bfloat16 when precision is "bfloat16".  plane .. smem: the
 // route and its plan (gathermm.cols_fwd_plan).  Returns cudaGetLastError().
 // gy0 .. orx: the tap gate per axis and the block's placement (Geo): (-1, H),
 // (-1, W) and zeros but on a sharded block.
-extern "C" int gathermm_cols_fwd(const float* x, const float* offset, const float* mask, void* cols, int B, int C,
+extern "C" int gathermm_cols_fwd(const void* x, const void* offset, const void* mask, void* cols, int B, int C,
                                  int H, int W, int OH, int OW, int dg, int kh, int kw, int sh, int sw, int ph,
                                  int pw, int dh, int dw, int plane, int gt, int tiles, int nbm, int splits, int cps,
-                                 int cc, int slot, int smem, int precision, float gy0, float gy1, float gx0,
+                                 int cc, int slot, int smem, int precision, int io, float gy0, float gy1, float gx0,
                                  float gx1, float shy, float ory, float shx, float orx, void* stream) {
   using namespace mdc;
   const Geo g{B, C, H, W, 0, OH, OW, 1, dg, kh, kw, sh, sw, ph, pw, dh, dw, 0, 0, 0, 0, 0, precision,
               gy0, gy1, gx0, gx1, shy, ory, shx, orx};
   const ColPlan pl{plane, gt, tiles, nbm, splits, cps, cc, slot, smem};
-  return launch_cols_fwd(x, offset, mask, cols, g, pl, static_cast<cudaStream_t>(stream));
+  return with_io(io, [&](auto t) {
+    using TX = typename decltype(t)::type;
+    return launch_cols_fwd(static_cast<const TX*>(x), static_cast<const TX*>(offset), static_cast<const TX*>(mask),
+                           cols, g, pl, static_cast<cudaStream_t>(stream));
+  });
 }

@@ -30,21 +30,25 @@
 #include "deform_fwd.cuh"
 
 // x (B, C, H, W), offset (B, dg*2*K, OH, OW), mask (B, dg*K, OH, OW) or null,
-// wf (groups, K, C/groups, O/groups), bias (O) or null, out (B, O, OH, OW):
-// float32, contiguous, on the current device.  Scratch, allocated by the
+// out (B, O, OH, OW): of the activations' type (io 0: float32, io 1:
+// bfloat16), contiguous, on the current device; wf (groups, K, C/groups,
+// O/groups) and bias (O) or null: float32.  Scratch, allocated by the
 // caller: xt (B, H*W, C); part (splits, B, O, OH, OW), unused when splits
 // is 1.  Returns the first CUDA error of the launches, or 0.
 // gy0 .. orx: the tap gate per axis and the block's placement (Geo): (-1, H),
 // (-1, W) and zeros but on a sharded block.
-extern "C" int gathermm_fwd(const float* x, const float* offset, const float* mask, const float* wf,
-                            const float* bias, float* out, float* xt, float* part, int B, int C, int H, int W,
+extern "C" int gathermm_fwd(const void* x, const void* offset, const void* mask, const float* wf,
+                            const float* bias, void* out, float* xt, float* part, int B, int C, int H, int W,
                             int O, int OH, int OW, int groups, int dg, int kh, int kw, int sh, int sw, int ph,
-                            int pw, int dh, int dw, int splits, int precision, float gy0, float gy1,
-                            float gx0, float gx1, float shy, float ory,
-                            float shx, float orx, void* stream) {
+                            int pw, int dh, int dw, int splits, int precision, int io, float gy0, float gy1,
+                            float gx0, float gx1, float shy, float ory, float shx, float orx, void* stream) {
   using namespace mdc;
   const Geo g{B, C, H, W, O, OH, OW, groups, dg, kh, kw, sh, sw, ph, pw, dh, dw, 0, 0, 0, 0, 0, precision,
               gy0, gy1, gx0, gx1, shy, ory, shx, orx};
-  return static_cast<int>(
-      run_fwd(g, x, offset, mask, wf, bias, out, xt, part, splits, nullptr, static_cast<cudaStream_t>(stream)));
+  return with_io(io, [&](auto t) {
+    using T = typename decltype(t)::type;
+    return static_cast<int>(run_fwd(g, static_cast<const T*>(x), static_cast<const T*>(offset),
+                                    static_cast<const T*>(mask), wf, bias, static_cast<T*>(out), xt, part, splits,
+                                    nullptr, static_cast<cudaStream_t>(stream)));
+  });
 }

@@ -40,8 +40,9 @@
 #include "deform_bwd3d.cuh"
 
 // x (B, C, D, H, W), offset (B, dg*3*K, OD, OH, OW), mask (B, dg*K, OD, OH,
-// OW) or null, wk (groups, O/groups, K, C/groups), gout (B, O, OD, OH, OW):
-// float32, contiguous, on the current device.  (lo, win) per axis is the
+// OW) or null, gout (B, O, OD, OH, OW): of the activations' type (io 0:
+// float32, io 1: bfloat16), contiguous, on the current device; wk (groups,
+// O/groups, K, C/groups): float32.  (lo, win) per axis is the
 // bounded-offset window.  gz0 .. orx: the tap gate per axis and the block's
 // placement (Geo3): (-1, D), (-1, H), (-1, W) and zeros but on a sharded
 // block.  Scratch, allocated by the caller: gcols (b_step, K, OD*OH*OW, C);
@@ -49,30 +50,37 @@
 // each null when not wanted: gx like x, goff like offset, gmask like mask,
 // gwt (groups, C/groups*K, O/groups).  Needs what shiftblend3d_fwd needs.
 // Returns the first CUDA error of the launches, or 0.
-extern "C" int shiftblend3d_bwd(const float* x, const float* offset, const float* mask, const float* wk,
-                                const float* gout, float* gcols, float* xt, float* part, float* gx, float* goff,
-                                float* gmask, float* gwt, int B, int C, int D, int H, int W, int O, int OD, int OH,
+extern "C" int shiftblend3d_bwd(const void* x, const void* offset, const void* mask, const float* wk,
+                                const void* gout, float* gcols, float* xt, float* part, void* gx, void* goff,
+                                void* gmask, float* gwt, int B, int C, int D, int H, int W, int O, int OD, int OH,
                                 int OW, int groups, int dg, int kd, int kh, int kw, int pd, int ph, int pw, int dd,
                                 int dh, int dw, int lo_z, int win_z, int lo_y, int win_y, int lo_x, int win_x,
-                                int b_step, int splits, int precision, float gz0, float gz1, float gy0, float gy1,
-                                float gx0, float gx1, float shz, float orz, float shy, float ory, float shx,
-                                float orx, void* stream) {
+                                int b_step, int splits, int precision, int io, float gz0, float gz1, float gy0,
+                                float gy1, float gx0, float gx1, float shz, float orz, float shy, float ory,
+                                float shx, float orx, void* stream) {
   using namespace mdc;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Geo3 g{B, C,  D,  H,  W,  O,  OD, OH, OW, groups, dg,    kd,   kh,    kw,   1,     1,
                1, pd, ph, pw, dd, dh, dw, 1,  lo_z, win_z,  lo_y, win_y, lo_x, win_x, precision,
                gz0, gz1, gy0, gy1, gx0, gx1, shz, orz, shy, ory, shx, orx};
-  const auto pull = [&](const Geo3& gc, const float* off_c, const float* mask_c, const float* gcols_c,
-                        float* gx_c) { return launch_shift_pull3(gc, off_c, mask_c, gcols_c, gx_c, s); };
-  switch (precision) {
-    case kFloat32:
-      return static_cast<int>(run_bwd3d<kFloat32>(g, x, offset, mask, wk, gout, gcols, xt, part, gx, goff, gmask,
-                                                  gwt, b_step, splits, s, pull));
-    case kTensorFloat32:
-      return static_cast<int>(run_bwd3d<kTensorFloat32>(g, x, offset, mask, wk, gout, gcols, xt, part, gx, goff,
-                                                        gmask, gwt, b_step, splits, s, pull));
-    default:
-      return static_cast<int>(run_bwd3d<kBFloat16>(g, x, offset, mask, wk, gout, gcols, xt, part, gx, goff, gmask,
-                                                   gwt, b_step, splits, s, pull));
-  }
+  return with_io(io, [&](auto t) {
+    using T = typename decltype(t)::type;
+    const T *xi = static_cast<const T*>(x), *oi = static_cast<const T*>(offset), *mi = static_cast<const T*>(mask),
+            *go = static_cast<const T*>(gout);
+    T *gxo = static_cast<T*>(gx), *goo = static_cast<T*>(goff), *gmo = static_cast<T*>(gmask);
+    const auto pull = [&](const Geo3& gc, const T* off_c, const T* mask_c, const float* gcols_c, T* gx_c) {
+      return launch_shift_pull3(gc, off_c, mask_c, gcols_c, gx_c, s);
+    };
+    switch (precision) {
+      case kFloat32:
+        return static_cast<int>(run_bwd3d<kFloat32>(g, xi, oi, mi, wk, go, gcols, xt, part, gxo, goo, gmo, gwt,
+                                                    b_step, splits, s, pull));
+      case kTensorFloat32:
+        return static_cast<int>(run_bwd3d<kTensorFloat32>(g, xi, oi, mi, wk, go, gcols, xt, part, gxo, goo, gmo,
+                                                          gwt, b_step, splits, s, pull));
+      default:
+        return static_cast<int>(run_bwd3d<kBFloat16>(g, xi, oi, mi, wk, go, gcols, xt, part, gxo, goo, gmo, gwt,
+                                                     b_step, splits, s, pull));
+    }
+  });
 }

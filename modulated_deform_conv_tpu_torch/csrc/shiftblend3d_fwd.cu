@@ -40,8 +40,9 @@
 #include "deform_fwd.cuh"
 
 // x (B, C, D, H, W), offset (B, dg*3*K, OD, OH, OW), mask (B, dg*K, OD, OH,
-// OW) or null, wf (groups, K, C/groups, O/groups), bias (O) or null, out (B,
-// O, OD, OH, OW): float32, contiguous, on the current device.  (lo, win) per
+// OW) or null, out (B, O, OD, OH, OW): of the activations' type (io 0:
+// float32, io 1: bfloat16), contiguous, on the current device; wf (groups,
+// K, C/groups, O/groups) and bias (O) or null: float32.  (lo, win) per
 // axis is the bounded-offset window.  gz0 .. orx: the tap gate per axis and
 // the block's placement (Geo3): (-1, D), (-1, H), (-1, W) and zeros but on a
 // sharded block.  Scratch, allocated by the caller: xt (B, D*H*W, C); part
@@ -49,17 +50,21 @@
 // (OH, OW) == (H, W), and OD == D with 2*pad == dilation*(k-1), or a
 // lead-mode block, and dg % groups == 0.
 // Returns the first CUDA error of the launches, or 0.
-extern "C" int shiftblend3d_fwd(const float* x, const float* offset, const float* mask, const float* wf,
-                                const float* bias, float* out, float* xt, float* part, int B, int C, int D, int H,
+extern "C" int shiftblend3d_fwd(const void* x, const void* offset, const void* mask, const float* wf,
+                                const float* bias, void* out, float* xt, float* part, int B, int C, int D, int H,
                                 int W, int O, int OD, int OH, int OW, int groups, int dg, int kd, int kh, int kw,
                                 int pd, int ph, int pw, int dd, int dh, int dw, int lo_z, int win_z, int lo_y,
-                                int win_y, int lo_x, int win_x, int splits, int precision, float gz0, float gz1,
+                                int win_y, int lo_x, int win_x, int splits, int precision, int io, float gz0, float gz1,
                                 float gy0, float gy1, float gx0, float gx1, float shz, float orz, float shy,
                                 float ory, float shx, float orx, void* stream) {
   using namespace mdc;
   const Geo3 g{B, C,  D,  H,  W,  O,  OD, OH, OW, groups, dg,    kd,   kh,    kw,   1,     1,
                1, pd, ph, pw, dd, dh, dw, 1,  lo_z, win_z,  lo_y, win_y, lo_x, win_x, precision,
                gz0, gz1, gy0, gy1, gx0, gx1, shz, orz, shy, ory, shx, orx};
-  return static_cast<int>(
-      run_fwd(g, x, offset, mask, wf, bias, out, xt, part, splits, nullptr, static_cast<cudaStream_t>(stream)));
+  return with_io(io, [&](auto t) {
+    using T = typename decltype(t)::type;
+    return static_cast<int>(run_fwd(g, static_cast<const T*>(x), static_cast<const T*>(offset),
+                                    static_cast<const T*>(mask), wf, bias, static_cast<T*>(out), xt, part, splits,
+                                    nullptr, static_cast<cudaStream_t>(stream)));
+  });
 }

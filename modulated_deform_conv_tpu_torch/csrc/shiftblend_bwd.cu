@@ -41,23 +41,23 @@ namespace {
 
 using namespace mdc;
 
-template <int Prec>
-int run(const Geo& g, const float* x, const float* offset, const float* mask, const float* wk, const float* gout,
-        float* gcols, float* xt, float* part, float* gx, float* goff, float* gmask, float* gwt, int Ry, int Rx,
-        int splits, cudaStream_t s) {
+template <int Prec, typename T>
+int run(const Geo& g, const T* x, const T* offset, const T* mask, const float* wk, const T* gout, float* gcols,
+        float* xt, float* part, T* gx, T* goff, T* gmask, float* gwt, int Ry, int Rx, int splits, cudaStream_t s) {
   auto pull = [&](const float* gc) {
-    shift_pull_kernel<<<pull_grid(g), kPullT, 0, s>>>(offset, mask, gc, gx, Ry, Rx, g);
+    shift_pull_kernel<T><<<pull_grid(g), kPullT, 0, s>>>(offset, mask, gc, gx, Ry, Rx, g);
     return cudaGetLastError();
   };
-  return static_cast<int>(run_bwd2d<Prec>(g, x, offset, mask, wk, gout, gcols, xt, part, gx,
-                                             goff, gmask, gwt, splits, s, pull));
+  return static_cast<int>(run_bwd2d<Prec>(g, x, offset, mask, wk, gout, gcols, xt, part, gx, goff, gmask, gwt,
+                                          splits, s, pull));
 }
 
 }  // namespace
 
 // x (B, C, H, W), offset (B, dg*2*K, OH, OW), mask (B, dg*K, OH, OW) or
-// null, wk (groups, O/groups, K, C/groups), gout (B, O, OH, OW): float32,
-// contiguous, on the current device.  (lo, win) per axis is the
+// null, gout (B, O, OH, OW): of the activations' type (io 0: float32, io
+// 1: bfloat16), contiguous, on the current device; wk (groups, O/groups,
+// K, C/groups): float32.  (lo, win) per axis is the
 // bounded-offset window; R per axis the halo reach dil*(k-1)/2 + max(-lo,
 // lo+win-1).  gy0 .. orx: the tap gate per axis and the block's placement
 // (Geo): (-1, H), (-1, W) and zeros but on a sharded block.  Scratch,
@@ -66,26 +66,29 @@ int run(const Geo& g, const float* x, const float* offset, const float* mask, co
 // wanted: gx like x, goff like offset, gmask like mask, gwt (groups,
 // C/groups*K, O/groups).  Needs what shiftblend_fwd needs.  Returns the
 // first CUDA error of the launches, or 0.
-extern "C" int shiftblend_bwd(const float* x, const float* offset, const float* mask, const float* wk,
-                              const float* gout, float* gcols, float* xt, float* part, float* gx, float* goff,
-                              float* gmask, float* gwt, int B, int C, int H, int W, int O, int OH, int OW,
+extern "C" int shiftblend_bwd(const void* x, const void* offset, const void* mask, const float* wk,
+                              const void* gout, float* gcols, float* xt, float* part, void* gx, void* goff,
+                              void* gmask, float* gwt, int B, int C, int H, int W, int O, int OH, int OW,
                               int groups, int dg, int kh, int kw, int ph, int pw, int dh, int dw, int lo_y,
-                              int win_y, int lo_x, int win_x, int Ry, int Rx, int splits, int precision, float gy0,
-                              float gy1, float gx0, float gx1, float shy, float ory, float shx, float orx,
+                              int win_y, int lo_x, int win_x, int Ry, int Rx, int splits, int precision, int io,
+                              float gy0, float gy1, float gx0, float gx1, float shy, float ory, float shx, float orx,
                               void* stream) {
   using namespace mdc;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Geo g{B, C, H, W, O, OH, OW, groups, dg, kh, kw, 1, 1, ph, pw, dh, dw, 1, lo_y, win_y, lo_x, win_x, precision,
               gy0, gy1, gx0, gx1, shy, ory, shx, orx};
-  switch (precision) {
-    case kFloat32:
-      return run<kFloat32>(g, x, offset, mask, wk, gout, gcols, xt, part, gx, goff, gmask, gwt, Ry, Rx,
-                                  splits, s);
-    case kTensorFloat32:
-      return run<kTensorFloat32>(g, x, offset, mask, wk, gout, gcols, xt, part, gx, goff, gmask, gwt, Ry, Rx,
-                                        splits, s);
-    default:
-      return run<kBFloat16>(g, x, offset, mask, wk, gout, gcols, xt, part, gx, goff, gmask, gwt, Ry,
-                                           Rx, splits, s);
-  }
+  return with_io(io, [&](auto t) {
+    using T = typename decltype(t)::type;
+    const T *xi = static_cast<const T*>(x), *oi = static_cast<const T*>(offset), *mi = static_cast<const T*>(mask),
+            *go = static_cast<const T*>(gout);
+    T *gxo = static_cast<T*>(gx), *goo = static_cast<T*>(goff), *gmo = static_cast<T*>(gmask);
+    switch (precision) {
+      case kFloat32:
+        return run<kFloat32>(g, xi, oi, mi, wk, go, gcols, xt, part, gxo, goo, gmo, gwt, Ry, Rx, splits, s);
+      case kTensorFloat32:
+        return run<kTensorFloat32>(g, xi, oi, mi, wk, go, gcols, xt, part, gxo, goo, gmo, gwt, Ry, Rx, splits, s);
+      default:
+        return run<kBFloat16>(g, xi, oi, mi, wk, go, gcols, xt, part, gxo, goo, gmo, gwt, Ry, Rx, splits, s);
+    }
+  });
 }

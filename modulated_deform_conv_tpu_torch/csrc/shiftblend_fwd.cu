@@ -51,8 +51,9 @@
 #include "deform_fwd.cuh"
 
 // x (B, C, H, W), offset (B, dg*2*K, OH, OW), mask (B, dg*K, OH, OW) or
-// null, wf (groups, K, C/groups, O/groups), bias (O) or null, out (B, O, OH,
-// OW): float32, contiguous, on the current device.  (lo, win) per axis is
+// null, out (B, O, OH, OW): of the activations' type (io 0: float32, io 1:
+// bfloat16), contiguous, on the current device; wf (groups, K, C/groups,
+// O/groups) and bias (O) or null: float32.  (lo, win) per axis is
 // the bounded-offset window; R per axis the halo reach dil*(k-1)/2 +
 // max(-lo, lo+win-1); halo 1 to stage the halo tile where it fits, 0 for the
 // xt path.  gy0 .. orx: the tap gate per axis and the block's placement
@@ -62,16 +63,20 @@
 // 2*pad == dilation*(k-1), or a lead-mode block (pad 0 on H, dilation*(k-1)
 // even), C/dg % 8 == 0, dg % groups == 0.  Returns the first CUDA error of
 // the launches, or 0.
-extern "C" int shiftblend_fwd(const float* x, const float* offset, const float* mask, const float* wf,
-                              const float* bias, float* out, float* xt, float* part, int B, int C, int H, int W,
+extern "C" int shiftblend_fwd(const void* x, const void* offset, const void* mask, const float* wf,
+                              const float* bias, void* out, float* xt, float* part, int B, int C, int H, int W,
                               int O, int OH, int OW, int groups, int dg, int kh, int kw, int ph, int pw, int dh,
                               int dw, int lo_y, int win_y, int lo_x, int win_x, int Ry, int Rx, int halo,
-                              int splits, int precision, float gy0, float gy1, float gx0, float gx1, float shy,
+                              int splits, int precision, int io, float gy0, float gy1, float gx0, float gx1, float shy,
                               float ory, float shx, float orx, void* stream) {
   using namespace mdc;
   const Geo g{B, C, H, W, O, OH, OW, groups, dg, kh, kw, 1, 1, ph, pw, dh, dw, 1, lo_y, win_y, lo_x, win_x, precision,
               gy0, gy1, gx0, gx1, shy, ory, shx, orx};
   const Halo h{Ry, Rx, 8, reach_shift(shy, ory, ph, kh, dh), reach_shift(shx, orx, pw, kw, dw)};
-  return static_cast<int>(run_fwd(g, x, offset, mask, wf, bias, out, xt, part, splits, halo ? &h : nullptr,
-                                    static_cast<cudaStream_t>(stream)));
+  return with_io(io, [&](auto t) {
+    using T = typename decltype(t)::type;
+    return static_cast<int>(run_fwd(g, static_cast<const T*>(x), static_cast<const T*>(offset),
+                                    static_cast<const T*>(mask), wf, bias, static_cast<T*>(out), xt, part, splits,
+                                    halo ? &h : nullptr, static_cast<cudaStream_t>(stream)));
+  });
 }

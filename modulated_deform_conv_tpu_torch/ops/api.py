@@ -18,10 +18,16 @@ op runs on the device of its input tensors.  `impl` selects the path:
 `offset_bound` declares |offset| <= bound and enables the shift-blend
 kernel, which drops the corners of offsets beyond it.
 
-Dtype policy: fp32 and bf16 run natively; on the kernel paths fp16 (and,
-in these kernels, bf16) is upcast to fp32 and the result cast back; fp64
-raises NotImplementedError on "cuda" / "shiftblend" and takes "torch" under
-"auto".  Sampling coordinates always accumulate in >= fp32.
+Dtype policy: fp32 and bf16 run natively.  The kernels read x, offset and
+mask (and grad_out) in their own type where all three are fp32 or all bf16,
+convert each value to fp32 as they load it, keep every sum in fp32 and
+round to that type only where they store out and the gradients of x,
+offset and mask; weight and bias are each fp32 or bf16 on their own, and
+each gradient has its input's type (ops/cuda/lib.py::io_dtype).  On the
+kernel paths fp16, and activations of mixed types, are upcast to fp32 first
+and the result cast back; fp64 raises NotImplementedError on "cuda" /
+"shiftblend" and takes "torch" under "auto".  Sampling coordinates always
+accumulate in >= fp32.
 
 Every path is differentiable in x, offset, mask, weight and bias.  On the
 kernel paths the backward is a kernel too (shift-blend's or the general

@@ -245,12 +245,15 @@ def gathermm_fwd_reference(x, offset, mask, weight, bias,
                            gate_bounds=None,
                            block_origin=None) -> torch.Tensor:
     """Plain PyTorch version of the kernel: the same function on the same
-    float32 tensors (columns by gather, grouped contraction with fp32
-    accumulation; "bfloat16" rounds both operands to bf16)."""
-    return core._deform_conv_nd(x, offset, mask, weight, bias, spec,
-                                out_sizes=out_sizes, precision=precision,
-                                gate_bounds=gate_bounds,
-                                block_origin=block_origin)
+    tensors (columns by gather, grouped contraction with fp32
+    accumulation; "bfloat16" rounds both operands to bf16).  bf16 inputs
+    are read in fp32 (`lib.widen`) and the result is cast to x's type, as
+    the kernel reads and stores them."""
+    w = lib.widen
+    return core._deform_conv_nd(w(x), w(offset), w(mask), w(weight), w(bias),
+                                spec, out_sizes=out_sizes,
+                                precision=precision, gate_bounds=gate_bounds,
+                                block_origin=block_origin).to(x.dtype)
 
 
 def _geometry(x, weight, spec: DeformConvSpec, out_sizes=None):
@@ -268,13 +271,13 @@ def _fwd(name, x, offset, mask, weight, bias, spec, precision, out_sizes,
     if reason is not None:
         raise NotImplementedError(f"{name}: {reason}")
     out = torch.empty((x.shape[0], weight.shape[0])
-                      + lib.out_grid(x, spec, out_sizes), dtype=torch.float32,
+                      + lib.out_grid(x, spec, out_sizes), dtype=x.dtype,
                       device=x.device)
     xt, part, splits = lib.fwd_buffers(x, weight, spec, out)
     lib.launch(name, x, (x, offset, mask, lib.fwd_weight(weight, spec.groups),
-                         bias, out, xt, part),
+                         lib.as_f32(bias), out, xt, part),
                (*_geometry(x, weight, spec, out_sizes), splits,
-                lib.PRECISION_CODES[precision]),
+                lib.PRECISION_CODES[precision], lib.IO_CODES[x.dtype]),
                lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin))
     return out
 
@@ -282,12 +285,14 @@ def _fwd(name, x, offset, mask, weight, bias, spec, precision, out_sizes,
 def gathermm_fwd(x, offset, mask, weight, bias, spec: DeformConvSpec,
                  precision: str = "tensorfloat32", out_sizes=None,
                  gate_bounds=None, block_origin=None) -> torch.Tensor:
-    """General-offset 2D DCN forward, (B, O, OH, OW) float32, on the output
-    grid `out_sizes` (None: derived from x) with the tap gate `gate_bounds`
-    (None: the open interval (-1, S_d)).
+    """General-offset 2D DCN forward, (B, O, OH, OW) of x's type, on the
+    output grid `out_sizes` (None: derived from x) with the tap gate
+    `gate_bounds` (None: the open interval (-1, S_d)).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel or
-    raise.  Inputs: float32, contiguous, on one device."""
+    raise.  Inputs: x, offset and mask float32 or bfloat16 (one type,
+    which the result has), weight and bias float32 or bfloat16,
+    contiguous, on one device."""
     if x.device.type == "cpu":
         lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin)
         return gathermm_fwd_reference(x, offset, mask, weight, bias, spec,
@@ -305,11 +310,13 @@ gathermm_fwd.launches = 0
 def gathermm3d_fwd(x, offset, mask, weight, bias, spec: DeformConvSpec,
                    precision: str = "tensorfloat32", out_sizes=None,
                    gate_bounds=None, block_origin=None) -> torch.Tensor:
-    """General-offset 3D DCN forward, (B, O, OD, OH, OW) float32, as
+    """General-offset 3D DCN forward, (B, O, OD, OH, OW) of x's type, as
     `gathermm_fwd`.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel or
-    raise.  Inputs: float32, contiguous, on one device."""
+    raise.  Inputs: x, offset and mask float32 or bfloat16 (one type,
+    which the result has), weight and bias float32 or bfloat16,
+    contiguous, on one device."""
     if x.device.type == "cpu":
         lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin)
         return gathermm3d_fwd_reference(x, offset, mask, weight, bias, spec,
@@ -329,11 +336,14 @@ def gathermm_bwd_reference(x, offset, mask, weight, grad_out,
                            precision: str = "tensorfloat32", out_sizes=None,
                            gate_bounds=None, block_origin=None):
     """Plain PyTorch version of the backward kernel: autograd through
-    `gathermm_fwd_reference` without bias.  Returns (grad_x, grad_offset,
-    grad_mask or None, grad_weight)."""
-    return core.conv_vjp(x, offset, mask, weight, grad_out, spec, precision,
-                         out_sizes=out_sizes, gate_bounds=gate_bounds,
-                         block_origin=block_origin)
+    `gathermm_fwd_reference` without bias, on the inputs read in fp32.
+    Returns (grad_x, grad_offset, grad_mask or None, grad_weight), each in
+    its input's type."""
+    w = lib.widen
+    grads = core.conv_vjp(w(x), w(offset), w(mask), w(weight), w(grad_out),
+                          spec, precision, out_sizes=out_sizes,
+                          gate_bounds=gate_bounds, block_origin=block_origin)
+    return lib.cast_grads(grads, (x, offset, mask, weight))
 
 
 # The plain versions take either rank.
@@ -371,9 +381,10 @@ def _bwd(name, x, offset, mask, weight, grad_out, spec, precision, needs,
         x, offset, mask, wk, grad_out, gcols, xt, tiles, part, gx, goff,
         gmask, gwt), (*_geometry(x, weight, spec, out_sizes),
                *(() if b_step is None else (b_step,)), splits,
-               lib.PRECISION_CODES[precision]),
+               lib.PRECISION_CODES[precision], lib.IO_CODES[x.dtype]),
         lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin))
-    gw = None if gwt is None else lib.ungrouped_weight(gwt, weight.shape)
+    gw = (None if gwt is None else
+          lib.ungrouped_weight(gwt, weight.shape).to(weight.dtype))
     return gx, goff, gmask, gw
 
 
@@ -381,11 +392,12 @@ def gathermm_bwd(x, offset, mask, weight, grad_out, spec: DeformConvSpec,
                  precision: str = "tensorfloat32", needs=(True,) * 4,
                  out_sizes=None, gate_bounds=None, block_origin=None):
     """General-offset 2D DCN backward without the bias: (grad_x,
-    grad_offset, grad_mask, grad_weight), float32, each None where `needs`
-    says it is not wanted (grad_mask also without a mask).
+    grad_offset, grad_mask, grad_weight), each in its input's type, each
+    None where `needs` says it is not wanted (grad_mask also without a
+    mask).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel or
-    raise.  Inputs: float32, contiguous, on one device."""
+    raise.  Inputs: as `gathermm_fwd`'s, grad_out of x's type."""
     if x.device.type == "cpu":
         lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin)
         grads = gathermm_bwd_reference(x, offset, mask, weight, grad_out,
@@ -407,7 +419,7 @@ def gathermm3d_bwd(x, offset, mask, weight, grad_out, spec: DeformConvSpec,
     """General-offset 3D DCN backward without the bias, as `gathermm_bwd`.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel or
-    raise.  Inputs: float32, contiguous, on one device."""
+    raise.  Inputs: as `gathermm_fwd`'s, grad_out of x's type."""
     if x.device.type == "cpu":
         lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin)
         grads = gathermm3d_bwd_reference(x, offset, mask, weight, grad_out,
@@ -424,16 +436,18 @@ gathermm3d_bwd.launches = 0
 
 
 class _GathermmFwd(torch.autograd.Function):
-    """The general-offset op without its dtype casts: the forward and
+    """The general-offset op without any dtype cast: the forward and
     backward kernels of the config's rank, on the output grid `out_sizes`
-    with the tap gate `gate_bounds` (None: the defaults).  x, offset, mask
-    and weight are saved; the columns are recomputed in the backward, never
+    with the tap gate `gate_bounds` (None: the defaults), on the tensors
+    `lib.kernel_inputs` gives.  x, offset, mask and weight are saved as the
+    caller passed them; the columns are recomputed in the backward, never
     saved."""
 
     @staticmethod
     def forward(ctx, x, offset, mask, weight, bias, spec, precision,
                 out_sizes=None, gate_bounds=None, block_origin=None):
         ctx.save_for_backward(x, offset, mask, weight)
+        ctx.bias_dtype = None if bias is None else bias.dtype
         ctx.spec, ctx.precision = spec, precision
         ctx.out_sizes, ctx.gate_bounds = out_sizes, gate_bounds
         ctx.block_origin = block_origin
@@ -451,8 +465,7 @@ class _GathermmFwd(torch.autograd.Function):
             x, offset, mask, weight, grad_out.contiguous(), ctx.spec,
             ctx.precision, needs[:4], ctx.out_sizes, ctx.gate_bounds,
             ctx.block_origin)
-        gb = (grad_out.sum((0,) + tuple(range(2, grad_out.ndim)))
-              if needs[4] else None)
+        gb = lib.bias_grad(grad_out, ctx.bias_dtype) if needs[4] else None
         return gx, goff, gmask, gw, gb, None, None, None, None, None
 
 
@@ -470,10 +483,11 @@ def gathermm_cols_reference(x, offset, mask, spec: DeformConvSpec,
                             gate_bounds=None,
                             block_origin=None) -> torch.Tensor:
     """Plain PyTorch version of the column kernels, either rank:
-    `core.deform_conv_columns` laid out as the kernels lay the columns out,
-    (C * K, B * P) with row c * K + k and column b * P + p, in the mode's
-    columns dtype."""
-    cols = core.deform_conv_columns(x, offset, mask, spec, out_sizes,
+    `core.deform_conv_columns` on the inputs read in fp32, laid out as the
+    kernels lay the columns out, (C * K, B * P) with row c * K + k and
+    column b * P + p, in the mode's columns dtype."""
+    w = lib.widen
+    cols = core.deform_conv_columns(w(x), w(offset), w(mask), spec, out_sizes,
                                     gate_bounds=gate_bounds,
                                     block_origin=block_origin)  # (B, P, C, K)
     cols = cols.permute(2, 3, 0, 1).reshape(x.shape[1] * spec.tap_count, -1)
@@ -486,7 +500,7 @@ def gathermm_cols_bwd_reference(x, offset, mask, gcols, spec: DeformConvSpec,
                                 block_origin=None):
     """Plain PyTorch version of the column backward kernels: autograd's VJP
     of `gathermm_cols_reference` for the cotangent gcols.  Returns (grad_x,
-    grad_offset, grad_mask or None)."""
+    grad_offset, grad_mask or None), each in its input's type."""
     with torch.enable_grad():
         ins = [None if t is None else t.detach().requires_grad_(True)
                for t in (x, offset, mask)]
@@ -530,7 +544,7 @@ def _cols_fwd(name, x, offset, mask, spec, precision, route=None,
                        dtype=_cols_dtype(precision), device=x.device)
     lib.launch(name, x, (x, offset, mask, cols), (
         *_cols_geometry(x, spec, OS), *plan.ints(),
-        lib.PRECISION_CODES[precision]),
+        lib.PRECISION_CODES[precision], lib.IO_CODES[x.dtype]),
         lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin))
     return cols
 
@@ -539,12 +553,13 @@ def gathermm_cols_fwd(x, offset, mask, spec: DeformConvSpec,
                       precision: str = "tensorfloat32", out_sizes=None,
                       gate_bounds=None, block_origin=None) -> torch.Tensor:
     """The deformable columns (2D) of the unfused path, (C * K, B * P) with
-    row c * K + k and column b * P + p: float32, bf16 in "bfloat16", on
-    the output grid `out_sizes` with the tap gate `gate_bounds` (None: the
-    defaults).
+    row c * K + k and column b * P + p: float32, bf16 in "bfloat16" (the
+    mode's type, whatever x's), on the output grid `out_sizes` with the tap
+    gate `gate_bounds` (None: the defaults).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel or
-    raise.  Inputs: float32, contiguous, on one device."""
+    raise.  Inputs: x, offset and mask float32 or bfloat16 (one type),
+    contiguous, on one device."""
     if x.device.type == "cpu":
         lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin)
         return gathermm_cols_reference(x, offset, mask, spec, precision,
@@ -565,7 +580,7 @@ def gathermm3d_cols_fwd(x, offset, mask, spec: DeformConvSpec,
     """The deformable columns (3D), as `gathermm_cols_fwd`.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel or
-    raise.  Inputs: float32, contiguous, on one device."""
+    raise.  Inputs: as `gathermm_cols_fwd`'s."""
     if x.device.type == "cpu":
         lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin)
         return gathermm3d_cols_reference(x, offset, mask, spec, precision,
@@ -618,7 +633,8 @@ def _cols_bwd(name, x, offset, mask, gcols, spec, precision, needs,
         x, offset, mask, gcols, cnt, tcount, tstart, pool, csr, part, gx,
         goff, gmask), (*_cols_geometry(x, spec, OS),
                        *plan.tile[3 - spec.ndim:],
-                       lib.PRECISION_CODES[precision]),
+                       lib.PRECISION_CODES[precision],
+                       lib.IO_CODES[x.dtype]),
         lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin))
     return gx, goff, gmask
 
@@ -627,11 +643,12 @@ def gathermm_cols_bwd(x, offset, mask, gcols, spec: DeformConvSpec,
                       precision: str = "tensorfloat32", needs=(True,) * 3,
                       out_sizes=None, gate_bounds=None, block_origin=None):
     """The VJP of the 2D columns for the cotangent gcols (the columns'
-    layout and dtype): (grad_x, grad_offset, grad_mask), float32, each None
-    where `needs` says it is not wanted (grad_mask also without a mask).
+    layout and dtype): (grad_x, grad_offset, grad_mask), each in its
+    input's type, each None where `needs` says it is not wanted (grad_mask
+    also without a mask).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel or
-    raise.  Inputs: float32, contiguous, on one device."""
+    raise.  Inputs: as `gathermm_cols_fwd`'s."""
     if x.device.type == "cpu":
         lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin)
         grads = gathermm_cols_bwd_reference(x, offset, mask, gcols, spec,
@@ -653,7 +670,7 @@ def gathermm3d_cols_bwd(x, offset, mask, gcols, spec: DeformConvSpec,
     """The VJP of the 3D columns, as `gathermm_cols_bwd`.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel or
-    raise.  Inputs: float32, contiguous, on one device."""
+    raise.  Inputs: as `gathermm_cols_fwd`'s."""
     if x.device.type == "cpu":
         lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin)
         grads = gathermm3d_cols_bwd_reference(x, offset, mask, gcols, spec,
@@ -673,7 +690,7 @@ class _GathermmCols(torch.autograd.Function):
     """(x, offset, mask) -> columns through the column kernels of the
     config's rank, on the output grid `out_sizes` with the tap gate
     `gate_bounds`; the counterpart of the JAX package's `fused_columns`.
-    x, offset and mask are saved."""
+    x, offset and mask are saved as the caller passed them."""
 
     @staticmethod
     def forward(ctx, x, offset, mask, spec, precision, out_sizes=None,
@@ -756,7 +773,8 @@ class _ColumnsGemm(torch.autograd.Function):
                 gcols = _bmm(w.transpose(1, 2), go, cols.dtype).view(
                     cols.shape)
             if ctx.needs_input_grad[1]:
-                gw = _bmm(go, cols_g.transpose(1, 2)).reshape(weight.shape)
+                gw = (_bmm(go, cols_g.transpose(1, 2)).reshape(weight.shape)
+                      .to(weight.dtype))
         return gcols, gw, None, None, None, None
 
 
@@ -766,14 +784,16 @@ def deform_conv_cols(x, offset, mask, weight, bias, spec: DeformConvSpec,
     """General-offset deformable conv with bias by the columns path: the
     column kernels, the grouped product, then the bias, as the JAX
     package's unfused branch (gathermm.py:1087-1100).  Dtypes, `out_sizes`
-    and `gate_bounds` as in `deform_conv_fused`."""
-    f32 = lib.as_f32
-    cols = _GathermmCols.apply(f32(x), f32(offset), f32(mask), spec,
-                               precision, out_sizes, gate_bounds, block_origin)
-    out = _ColumnsGemm.apply(cols, f32(weight), spec.groups, precision,
-                             x.shape[0], lib.out_grid(x, spec, out_sizes))
-    if bias is not None:
-        out = out + f32(bias).reshape((1, -1) + (1,) * spec.ndim)
+    and `gate_bounds` as in `deform_conv_fused`: the column kernels read x,
+    offset and mask in their type; the product's fp32 result plus the bias
+    is cast to x's type, the one cast of this path, as in JAX."""
+    xi, oi, mi, wi, bi = lib.kernel_inputs(x, offset, mask, weight, bias)
+    cols = _GathermmCols.apply(xi, oi, mi, spec, precision, out_sizes,
+                               gate_bounds, block_origin)
+    out = _ColumnsGemm.apply(cols, wi, spec.groups, precision, x.shape[0],
+                             lib.out_grid(x, spec, out_sizes))
+    if bi is not None:
+        out = out + bi.to(torch.float32).reshape((1, -1) + (1,) * spec.ndim)
     return out.to(x.dtype)
 
 
@@ -789,8 +809,11 @@ def deform_conv_fused(x, offset, mask, weight, bias, spec: DeformConvSpec,
     the JAX package's `deform_conv_fused` decides (gathermm.py:1068).
     `out_sizes` gives the output grid (None: derived from x) and `gate_bounds` the
     per-dim (lo, hi) tap gate (None: (-1, S_d)): the sharding layer's block
-    mode.  bf16 and fp16 inputs are upcast to fp32 for the kernels; the
-    result has x's dtype, and so do the gradients of each input."""
+    mode.  The kernels take x, offset and mask in their own type where all
+    three are float32 or all bfloat16 (`lib.io_dtype`), and weight and bias
+    each float32 or bfloat16, as the JAX kernels do; float16 and mixed
+    activation types are upcast to float32 first.  The result has x's
+    dtype, and each gradient its input's."""
     if out_sizes is not None:
         out_sizes = tuple(int(o) for o in out_sizes)
     if gate_bounds is not None:
@@ -813,8 +836,7 @@ def deform_conv_fused_pair(x, offset, mask, weight, bias,
                            block_origin=None) -> torch.Tensor:
     """The fused gather pair (`_GathermmFwd`) whatever the fuse rule says;
     arguments and dtypes as `deform_conv_fused`."""
-    f32 = lib.as_f32
-    out = _GathermmFwd.apply(f32(x), f32(offset), f32(mask), f32(weight),
-                             f32(bias), spec, precision, out_sizes,
-                             gate_bounds, block_origin)
+    out = _GathermmFwd.apply(*lib.kernel_inputs(x, offset, mask, weight, bias),
+                             spec, precision, out_sizes, gate_bounds,
+                             block_origin)
     return out.to(x.dtype)

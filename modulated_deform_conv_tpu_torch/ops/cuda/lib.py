@@ -33,6 +33,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # Precision modes as the kernels number them (csrc/deform_tile.cuh).
 PRECISION_CODES = {"float32": 0, "tensorfloat32": 1, "bfloat16": 2}
 PRECISIONS = tuple(PRECISION_CODES)
+# The activations' types the kernels read and write as they are, as their
+# `io` argument numbers them (csrc/deform_tile.cuh, with_io).
+IO_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _FUNCS: Dict[str, object] = {}
 
@@ -96,13 +99,61 @@ def kernel(name: str):
     return fn
 
 
+def io_dtype(x, offset, mask=None) -> Optional[torch.dtype]:
+    """The activations' type T that the kernels take as it is: float32 or
+    bfloat16 where x, offset and mask (where given) all have it; None where
+    they do not (float16, or mixed types), the route that upcasts them to
+    float32 first.  The weight and bias do not enter the rule: each is
+    float32 or bfloat16 on its own."""
+    dtypes = {t.dtype for t in (x, offset, mask) if t is not None}
+    return x.dtype if len(dtypes) == 1 and x.dtype in IO_CODES else None
+
+
+def kernel_inputs(x, offset, mask, weight, bias):
+    """The tensors a kernel path's autograd Function takes: x, offset and
+    mask as they are (contiguous) where `io_dtype` gives their type, else
+    upcast to float32; weight and bias as they are where float32 or
+    bfloat16, else upcast.  The rule decides before any launch."""
+    if io_dtype(x, offset, mask) is None:
+        x, offset, mask = as_f32(x), as_f32(offset), as_f32(mask)
+    else:
+        x, offset = x.contiguous(), offset.contiguous()
+        mask = None if mask is None else mask.contiguous()
+    weight, bias = (None if t is None else t.contiguous()
+                    if t.dtype in IO_CODES else as_f32(t)
+                    for t in (weight, bias))
+    return x, offset, mask, weight, bias
+
+
+def widen(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """t in at least float32 (bf16 and fp16 upcast, exactly; a no-op on
+    float32 and float64): how the plain versions read a kernel's inputs."""
+    return None if t is None else t.to(torch.promote_types(t.dtype,
+                                                            torch.float32))
+
+
+def cast_grads(grads, inputs):
+    """Each gradient in its input's type (None stays None)."""
+    return tuple(None if g is None else g.to(t.dtype)
+                 for g, t in zip(grads, inputs))
+
+
+def bias_grad(grad_out: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """grad_out summed over every dim but the channels, with at least fp32
+    accumulation, in the bias's type."""
+    acc = torch.promote_types(grad_out.dtype, torch.float32)
+    return grad_out.sum((0,) + tuple(range(2, grad_out.ndim)),
+                        dtype=acc).to(dtype)
+
+
 def check_inputs(name: str, x, offset, mask, weight, bias, spec,
                  out_sizes=None) -> None:
     """Raise unless the kernel can take these tensors as they are: of the
-    kernel's rank (the `*3d_*` kernels 3D, the others 2D), float32,
-    contiguous, all on x's CUDA device, shapes per `spec` on the output grid
-    `out_sizes` (None: derived from x).  The column kernels take no weight
-    (None)."""
+    kernel's rank (the `*3d_*` kernels 3D, the others 2D), x, offset and
+    mask of one type in IO_CODES (float32 or bfloat16), weight and bias
+    each float32 or bfloat16, contiguous, all on x's CUDA device, shapes per
+    `spec` on the output grid `out_sizes` (None: derived from x).  The
+    column kernels take no weight (None)."""
     if not x.is_cuda:
         raise ValueError(f"{name}: the kernel takes CUDA tensors, got "
                          f"{x.device}")
@@ -122,8 +173,10 @@ def check_inputs(name: str, x, offset, mask, weight, bias, spec,
         if t.device != x.device:
             raise ValueError(f"{name}: {label} on {t.device}, input on "
                              f"{x.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: {label} must be float32, got {t.dtype}")
+        want = x.dtype if label in ("input", "offset", "mask") else None
+        if t.dtype not in IO_CODES or want not in (None, t.dtype):
+            raise TypeError(f"{name}: {label} must be "
+                            f"{want or 'float32 or bfloat16'}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {label} must be contiguous")
 
@@ -162,12 +215,12 @@ def block_floats(spec, S, gate_bounds=None, block_origin=None):
 
 
 def check_grad_out(name: str, grad_out, x, shape) -> None:
-    """Raise unless the backward's cotangent is float32, contiguous, of
+    """Raise unless the backward's cotangent is of x's type, contiguous, of
     the output's shape and on x's device."""
     if (tuple(grad_out.shape) != tuple(shape) or grad_out.device != x.device
-            or grad_out.dtype != torch.float32
+            or grad_out.dtype != x.dtype
             or not grad_out.is_contiguous()):
-        raise ValueError(f"{name}: grad_out must be a contiguous float32 "
+        raise ValueError(f"{name}: grad_out must be a contiguous {x.dtype} "
                          f"{tuple(shape)} tensor on {x.device}, got "
                          f"{grad_out.dtype} {tuple(grad_out.shape)} on "
                          f"{grad_out.device}")
@@ -178,21 +231,28 @@ def as_f32(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return None if t is None else t.to(torch.float32).contiguous()
 
 
+def _f32_copy(view: torch.Tensor) -> torch.Tensor:
+    """A contiguous float32 copy of `view`, in one pass whatever its type."""
+    return torch.empty(view.shape, dtype=torch.float32,
+                       device=view.device).copy_(view)
+
+
 def fwd_weight(weight: torch.Tensor, groups: int) -> torch.Tensor:
     """(O, C/g, *k) -> (g, K, C/g, O/g): the forward kernels' weight layout,
-    each (tap, channel) row holding the group's output channels
-    contiguously, the rows of one tap consecutive."""
+    float32 (a bf16 weight widens in the same copy), each (tap, channel) row
+    holding the group's output channels contiguously, the rows of one tap
+    consecutive."""
     O, Cg = weight.shape[:2]
-    return (weight.reshape(groups, O // groups, Cg, -1).permute(0, 3, 2, 1)
-            .contiguous())
+    return _f32_copy(weight.reshape(groups, O // groups, Cg, -1)
+                     .permute(0, 3, 2, 1))
 
 
 def tap_major_weight(weight: torch.Tensor, groups: int) -> torch.Tensor:
     """(O, C/g, *k) -> (g, O/g, K, C/g): the backward kernels' weight
-    layout, each output channel's (tap, channel) rows tap-major."""
+    layout, float32, each output channel's (tap, channel) rows tap-major."""
     O, Cg = weight.shape[:2]
-    return (weight.reshape(groups, O // groups, Cg, -1).transpose(2, 3)
-            .contiguous())
+    return _f32_copy(weight.reshape(groups, O // groups, Cg, -1)
+                     .transpose(2, 3))
 
 
 def ungrouped_weight(wt: torch.Tensor, weight_shape) -> torch.Tensor:
@@ -226,9 +286,9 @@ def fwd_splits(spec, B: int, C: int, O: int, P: int) -> int:
 
 
 def fwd_buffers(x, weight, spec, out):
-    """Scratch of a tensor-core forward kernel: x channels-last (B,
-    positions, C), the split parts (splits, *out.shape) or None, and the
-    split count."""
+    """Scratch of a tensor-core forward kernel, float32 whatever x's type:
+    x channels-last (B, positions, C), the split parts (splits, *out.shape)
+    or None, and the split count."""
     B, C = x.shape[:2]
     P = math.prod(out.shape[2:])
     splits = fwd_splits(spec, B, C, weight.shape[0], P)
@@ -242,10 +302,11 @@ def fwd_buffers(x, weight, spec, out):
 def bwd_buffers(x, offset, mask, weight, spec, P: int, needs,
                 b_step: Optional[int] = None):
     """Outputs (None where not wanted) and scratch of a backward kernel:
-    grad_x, grad_offset, grad_mask, grad_weight in the kernels' weight
-    layout, the gcols buffer (b_step, K, P, C), x channels-last (B,
-    positions, C) for the correlation and grad_weight, the grad_weight
-    partials, and their split count.  b_step is the 3D kernels' batch
+    grad_x, grad_offset, grad_mask (each in its input's type), grad_weight
+    in the kernels' weight layout, and the float32 scratch: the gcols
+    buffer (b_step, K, P, C), x channels-last (B, positions, C) for the
+    correlation and grad_weight, the grad_weight partials, and their split
+    count.  b_step is the 3D kernels' batch
     chunk (None in 2D: the whole batch)."""
     want_x, want_off, want_mask, want_w = needs
     B, C = x.shape[:2]

@@ -243,12 +243,15 @@ def shiftblend_fwd_reference(x, offset, mask, weight, bias,
     """Plain PyTorch version of the kernel: the reference gather with the
     bounded contract's per-axis corner window (on a lead-mode block: the
     block's output grid, gate and placement), then the grouped contraction
-    with fp32 accumulation ("bfloat16" rounds both operands)."""
+    with fp32 accumulation ("bfloat16" rounds both operands).  bf16 inputs
+    are read in fp32 (`lib.widen`) and the result is cast to x's type, as
+    the kernel reads and stores them."""
+    w = lib.widen
     return core._deform_conv_nd(
-        x, offset, mask, weight, bias, spec, out_sizes=out_sizes,
-        precision=precision, gate_bounds=gate_bounds,
+        w(x), w(offset), w(mask), w(weight), w(bias), spec,
+        out_sizes=out_sizes, precision=precision, gate_bounds=gate_bounds,
         corner_window=corner_windows(spec, offset_bound),
-        block_origin=block_origin)
+        block_origin=block_origin).to(x.dtype)
 
 
 def _geometry(x, weight, spec: DeformConvSpec, offset_bound, out_sizes):
@@ -289,16 +292,17 @@ def _fwd(name, x, offset, mask, weight, bias, spec, precision, offset_bound,
     if reason is not None:
         raise NotImplementedError(f"{name}: {reason}")
     OS = lib.out_grid(x, spec, out_sizes)
-    out = torch.empty((x.shape[0], weight.shape[0]) + OS,
-                      dtype=torch.float32, device=x.device)
+    out = torch.empty((x.shape[0], weight.shape[0]) + OS, dtype=x.dtype,
+                      device=x.device)
     route = ()
     if spec.ndim == 2:
         route = (int(halo_route(OS) if halo is None else halo),)
     xt, part, splits = lib.fwd_buffers(x, weight, spec, out)
     lib.launch(name, x, (x, offset, mask, lib.fwd_weight(weight, spec.groups),
-                         bias, out, xt, part),
+                         lib.as_f32(bias), out, xt, part),
                (*_geometry(x, weight, spec, offset_bound, out_sizes), *route,
-                splits, lib.PRECISION_CODES[precision]),
+                splits, lib.PRECISION_CODES[precision],
+                lib.IO_CODES[x.dtype]),
                lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin))
     return out
 
@@ -306,12 +310,14 @@ def _fwd(name, x, offset, mask, weight, bias, spec, precision, offset_bound,
 def shiftblend_fwd(x, offset, mask, weight, bias, spec: DeformConvSpec,
                    precision: str, offset_bound, out_sizes=None,
                    gate_bounds=None, block_origin=None) -> torch.Tensor:
-    """Bounded-offset 2D DCN forward, (B, O, OH, OW) float32: OH, OW = H,
-    W, or on a lead-mode block (`out_sizes`, `gate_bounds`,
+    """Bounded-offset 2D DCN forward, (B, O, OH, OW) of x's type: OH, OW =
+    H, W, or on a lead-mode block (`out_sizes`, `gate_bounds`,
     `block_origin` as `sharding.block_args` gives them) its output grid.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel or
-    raise.  Inputs: float32, contiguous, on one device."""
+    raise.  Inputs: x, offset and mask float32 or bfloat16 (one type,
+    which the result has), weight and bias float32 or bfloat16,
+    contiguous, on one device."""
     if x.device.type == "cpu":
         lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin)
         return shiftblend_fwd_reference(x, offset, mask, weight, bias, spec,
@@ -329,11 +335,13 @@ shiftblend_fwd.launches = 0
 def shiftblend3d_fwd(x, offset, mask, weight, bias, spec: DeformConvSpec,
                      precision: str, offset_bound, out_sizes=None,
                      gate_bounds=None, block_origin=None) -> torch.Tensor:
-    """Bounded-offset 3D DCN forward, (B, O, OD, OH, OW) float32, the whole
-    volume (or lead-mode block) in one launch, as `shiftblend_fwd`.
+    """Bounded-offset 3D DCN forward, (B, O, OD, OH, OW) of x's type, the
+    whole volume (or lead-mode block) in one launch, as `shiftblend_fwd`.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel or
-    raise.  Inputs: float32, contiguous, on one device."""
+    raise.  Inputs: x, offset and mask float32 or bfloat16 (one type,
+    which the result has), weight and bias float32 or bfloat16,
+    contiguous, on one device."""
     if x.device.type == "cpu":
         lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin)
         return shiftblend3d_fwd_reference(x, offset, mask, weight, bias, spec,
@@ -353,13 +361,16 @@ def shiftblend_bwd_reference(x, offset, mask, weight, grad_out,
                              offset_bound, out_sizes=None, gate_bounds=None,
                              block_origin=None):
     """Plain PyTorch version of the backward kernel: autograd through
-    `shiftblend_fwd_reference` without bias, so dropped corners carry no
-    gradient.  Returns (grad_x, grad_offset, grad_mask or None,
-    grad_weight)."""
-    return core.conv_vjp(x, offset, mask, weight, grad_out, spec, precision,
-                         corner_window=corner_windows(spec, offset_bound),
-                         out_sizes=out_sizes, gate_bounds=gate_bounds,
-                         block_origin=block_origin)
+    `shiftblend_fwd_reference` without bias, on the inputs read in fp32,
+    so dropped corners carry no gradient.  Returns (grad_x, grad_offset,
+    grad_mask or None, grad_weight), each in its input's type."""
+    w = lib.widen
+    grads = core.conv_vjp(w(x), w(offset), w(mask), w(weight), w(grad_out),
+                          spec, precision,
+                          corner_window=corner_windows(spec, offset_bound),
+                          out_sizes=out_sizes, gate_bounds=gate_bounds,
+                          block_origin=block_origin)
+    return lib.cast_grads(grads, (x, offset, mask, weight))
 
 
 # The plain versions take either rank.
@@ -388,9 +399,10 @@ def _bwd(name, x, offset, mask, weight, grad_out, spec, precision,
         gwt), (
         *_geometry(x, weight, spec, offset_bound, out_sizes),
         *(() if b_step is None else (b_step,)), splits,
-        lib.PRECISION_CODES[precision]),
+        lib.PRECISION_CODES[precision], lib.IO_CODES[x.dtype]),
         lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin))
-    gw = None if gwt is None else lib.ungrouped_weight(gwt, weight.shape)
+    gw = (None if gwt is None else
+          lib.ungrouped_weight(gwt, weight.shape).to(weight.dtype))
     return gx, goff, gmask, gw
 
 
@@ -398,12 +410,13 @@ def shiftblend_bwd(x, offset, mask, weight, grad_out, spec: DeformConvSpec,
                    precision: str, offset_bound, needs=(True,) * 4,
                    out_sizes=None, gate_bounds=None, block_origin=None):
     """Bounded-offset 2D DCN backward without the bias: (grad_x,
-    grad_offset, grad_mask, grad_weight), float32, each None where `needs`
-    says it is not wanted (grad_mask also without a mask); on a lead-mode
-    block as `shiftblend_fwd`, grad_x over the whole block.
+    grad_offset, grad_mask, grad_weight), each in its input's type, each
+    None where `needs` says it is not wanted (grad_mask also without a
+    mask); on a lead-mode block as `shiftblend_fwd`, grad_x over the whole
+    block.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel or
-    raise.  Inputs: float32, contiguous, on one device."""
+    raise.  Inputs: as `shiftblend_fwd`'s, grad_out of x's type."""
     if x.device.type == "cpu":
         lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin)
         grads = shiftblend_bwd_reference(x, offset, mask, weight, grad_out,
@@ -427,7 +440,7 @@ def shiftblend3d_bwd(x, offset, mask, weight, grad_out, spec: DeformConvSpec,
     `shiftblend_bwd`.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel or
-    raise.  Inputs: float32, contiguous, on one device."""
+    raise.  Inputs: as `shiftblend_fwd`'s, grad_out of x's type."""
     if x.device.type == "cpu":
         lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin)
         grads = shiftblend3d_bwd_reference(x, offset, mask, weight, grad_out,
@@ -446,17 +459,19 @@ shiftblend3d_bwd.launches = 0
 
 
 class _ShiftblendFwd(torch.autograd.Function):
-    """The bounded-offset op without its dtype casts: the forward and
+    """The bounded-offset op without any dtype cast: the forward and
     backward kernels of the config's rank, on a lead-mode block where
-    `out_sizes`, `gate_bounds` and `block_origin` are given.  x, offset,
-    mask and weight are saved; the columns are recomputed in the backward,
-    never saved."""
+    `out_sizes`, `gate_bounds` and `block_origin` are given, on the tensors
+    `lib.kernel_inputs` gives.  x, offset, mask and weight are saved as the
+    caller passed them; the columns are recomputed in the backward, never
+    saved."""
 
     @staticmethod
     def forward(ctx, x, offset, mask, weight, bias, spec, precision,
                 offset_bound, out_sizes=None, gate_bounds=None,
                 block_origin=None):
         ctx.save_for_backward(x, offset, mask, weight)
+        ctx.bias_dtype = None if bias is None else bias.dtype
         ctx.spec, ctx.precision, ctx.offset_bound = (spec, precision,
                                                      offset_bound)
         ctx.block = (out_sizes, gate_bounds, block_origin)
@@ -473,8 +488,7 @@ class _ShiftblendFwd(torch.autograd.Function):
         gx, goff, gmask, gw = bwd(
             x, offset, mask, weight, grad_out.contiguous(), ctx.spec,
             ctx.precision, ctx.offset_bound, needs[:4], *ctx.block)
-        gb = (grad_out.sum((0,) + tuple(range(2, grad_out.ndim)))
-              if needs[4] else None)
+        gb = lib.bias_grad(grad_out, ctx.bias_dtype) if needs[4] else None
         return gx, goff, gmask, gw, gb, None, None, None, None, None, None
 
 
@@ -483,15 +497,18 @@ def deform_conv_shift(x, offset, mask, weight, bias, spec: DeformConvSpec,
                       offset_bound=2.0) -> torch.Tensor:
     """Full shift-blend deformable conv with bias (dispatch entry).
 
-    bf16 and fp16 inputs are upcast to fp32 for the kernels (the JAX
-    kernel upcasts fp16 only and runs bf16 as it is); the result has x's
-    dtype, and so do the gradients of each input."""
+    The kernels take x, offset and mask in their own type where all three
+    are float32 or all bfloat16 (`lib.io_dtype`), and weight and bias each
+    float32 or bfloat16, as the JAX kernels do; float16 and mixed
+    activation types are upcast to float32 first, as the JAX kernel
+    upcasts float16.  The result has x's dtype, and each gradient its
+    input's."""
     reason = ineligible_reason(x, spec, offset_bound)
     if reason is not None:
         raise NotImplementedError(f"shiftblend: {reason}")
-    f32 = lib.as_f32
-    out = _ShiftblendFwd.apply(f32(x), f32(offset), f32(mask), f32(weight),
-                               f32(bias), spec, precision, offset_bound)
+    out = _ShiftblendFwd.apply(*lib.kernel_inputs(x, offset, mask, weight,
+                                                  bias),
+                               spec, precision, offset_bound)
     return out.to(x.dtype)
 
 
@@ -509,9 +526,8 @@ def deform_conv_shift_sharded(x_ext, offset, mask, weight, bias,
     The caller decides that the lead mode takes the block, as the sharding
     layer does once per shard (`sharded_lead_reason`); on CUDA tensors the
     kernels' wrappers raise where it does not."""
-    f32 = lib.as_f32
-    out = _ShiftblendFwd.apply(f32(x_ext), f32(offset), f32(mask),
-                               f32(weight), f32(bias), spec, precision,
-                               offset_bound, tuple(out_sizes), gate_bounds,
-                               block_origin)
+    out = _ShiftblendFwd.apply(*lib.kernel_inputs(x_ext, offset, mask, weight,
+                                                  bias),
+                               spec, precision, offset_bound, tuple(out_sizes),
+                               gate_bounds, block_origin)
     return out.to(x_ext.dtype)

@@ -9,8 +9,9 @@ unpacked with `git archive`), runs chip_smoke.unsharded_digests (every
 kernel at its table row's config, every mode) under each and requires the
 same SHA-256 digests, then times each kernel's forward and backward in the
 main mode, earlier, this, this, earlier, with CUDA events.  The earlier
-tree's shift-blend entries take no output grid and no gate arguments (the
-trees before the lead mode): its shift-blend launches drop them.  Prints
+tree's entries take no activation type (`io`, the trees before bf16 ran
+natively), and its shift-blend entries no output grid and no gate
+arguments (the trees before the lead mode): its launches drop them.  Prints
 the earlier tree's digests (chip_smoke.PREV_DIGESTS) and writes everything
 to chiprun_out/compare_parent_kernels.json.  Needs one NVIDIA GPU.
 """
@@ -59,6 +60,7 @@ def main():
         if which == "parent":
             lib._FUNCS.update(parent)
             def parent_launch(name, x, tensors, ints, floats=()):
+                ints = ints[:-1]                       # the earlier entries take no io
                 if name.startswith("shiftblend"):      # ints: *x.shape, O, *OS, ...
                     at = x.ndim + 1
                     ints, floats = ints[:at] + ints[at + x.ndim - 2:], ()
