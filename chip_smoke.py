@@ -64,6 +64,15 @@ rules), which every launch check reads:
    against its plain version, steps' peak memory and time both ways;
    `ModulatedDeformConv2dPack` at config 2 on bf16 input with fp32
    parameters; the cfg2-H4 interior shard on both sharded modes.
+11. the captured steps (run_captured; utils/graphs.py, the counterpart of
+   jax.jit): the public op's training step under "auto" at config 2
+   (bounded and general, fp32 and bf16), config 3 (B=2, with and without
+   its bound), config 5 c4 and the 3D columns case, each captured as a CUDA
+   graph and replayed on a second seed's inputs, bit-equal (SHA-256) to
+   eager; DCNResNet-50 and DCNVideoNet trained captured and eager from the
+   same parameters, equal; the kernels each graph holds (all twelve among
+   them); every step eager against captured on the host clock, CUDA
+   events, device time and the host's time to issue one call.
 
 It builds the twelve kernels (shift-blend and gather, forward and
 backward, 2D and 3D; the gather's columns forward and backward, 2D and
@@ -338,10 +347,10 @@ def host_ms(fn, calls=10, samples=5):
     return statistics.median(times)
 
 
-def cfg2_inputs(torch, dev):
+def cfg2_inputs(torch, dev, seed=0):
     """bench.py's config-2 inputs (bench.py:212-221), seeded with numpy."""
     K = KS * KS
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     f32 = np.float32
     x = rng.standard_normal((B, C, H, W)).astype(f32)
     off = rng.uniform(-2, 2, (B, DG * 2 * K, H, W)).astype(f32)
@@ -517,7 +526,7 @@ def train_recorded(torch, train, pack_cls, spec_cls, steps, **train_kw):
                          if isinstance(m, pack_cls))
 
     res = train(steps=steps, device="cuda", log=lambda s: print(f"  {s}"), on_step=on_step,
-                **train_kw)
+                eager=True, **train_kw)
     torch.cuda.synchronize()
     for h in hooks:
         h.remove()
@@ -684,14 +693,14 @@ def time_routes(torch, sb, dev):
     return out
 
 
-def cfg3d_inputs(torch, dev, name):
+def cfg3d_inputs(torch, dev, name, seed=0):
     """A 3D config's spec and inputs (x, offset, mask or None, weight, bias
-    None) as benchmarks/suite.py builds them, from numpy seed 0."""
+    None) as benchmarks/suite.py builds them, from a numpy seed."""
     from modulated_deform_conv_tpu_torch.utils.config import DeformConvSpec
     c = CFG3D[name]
     modulated = c["op"].startswith("modulated")
     B, C, S, K = c["B"], c["C"], c["S"], 27
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     f32 = np.float32
     x = rng.standard_normal((B, C) + S).astype(f32)
     off = rng.uniform(-2, 2, (B, 3 * K) + S).astype(f32)
@@ -764,11 +773,11 @@ def work(ins, out_numel, spec):
     gout and writes a gradient of each input), and the products, 2 B P O
     C/g K each (the backward has two)."""
     x, off, mask, w, bias = ins
-    f32 = 4
-    in_bytes = f32 * sum(t.numel() for t in (x, off, mask, w) if t is not None)
+    in_bytes = sum(t.numel() * t.element_size() for t in (x, off, mask, w) if t is not None)
     ops = 2 * out_numel * (x.shape[1] // spec.groups) * spec.tap_count
-    out_bytes = f32 * out_numel
-    return {"fwd": (in_bytes + out_bytes + (0 if bias is None else f32 * bias.numel()), ops),
+    out_bytes = x.element_size() * out_numel
+    return {"fwd": (in_bytes + out_bytes + (0 if bias is None else
+                                            bias.element_size() * bias.numel()), ops),
             "bwd": (2 * in_bytes + out_bytes, 2 * ops)}
 
 
@@ -1036,11 +1045,11 @@ def run_3d(torch, mdt, families3d, reset, counts, dev):
     return {"rows": rows, "steps": steps, "cross": cross, "main_launches": main}
 
 
-def cfg5_inputs(torch, dev, layer):
+def cfg5_inputs(torch, dev, layer, seed=0):
     """A config-5 layer's inputs (x, offset, mask, weight, bias) as
-    benchmarks/suite.py builds them, from numpy seed 0."""
+    benchmarks/suite.py builds them, from a numpy seed."""
     C, S = CFG5[layer]
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     f32 = np.float32
     arrs = (rng.standard_normal((CFG5_B, C, S, S), dtype=f32),
             rng.uniform(-2, 2, (CFG5_B, 18, S, S)).astype(f32),
@@ -1050,13 +1059,13 @@ def cfg5_inputs(torch, dev, layer):
     return tuple(torch.from_numpy(a).to(dev) for a in arrs)
 
 
-def cols3d_inputs(torch, dev):
+def cols3d_inputs(torch, dev, seed=0):
     """The 3D columns case's spec and inputs (x, offset, mask, weight,
-    bias), from numpy seed 0."""
+    bias), from a numpy seed."""
     from modulated_deform_conv_tpu_torch.utils.config import DeformConvSpec
     c = COLS3D
     B, C, S, g, K = c["B"], c["C"], c["S"], c["groups"], 27
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     f32 = np.float32
     arrs = (rng.standard_normal((B, C) + S, dtype=f32),
             rng.uniform(-2, 2, (B, 3 * K) + S).astype(f32),
@@ -1129,7 +1138,7 @@ def cols_work(ins, cols_numel, elem_bytes):
     column value blends 4 (2D) or 8 (3D) corners, and the backward does it
     twice (the pull and the correlation)."""
     x, off, mask = ins[:3]
-    in_bytes = 4 * sum(t.numel() for t in (x, off, mask) if t is not None)
+    in_bytes = sum(t.numel() * t.element_size() for t in (x, off, mask) if t is not None)
     corners = 2 ** (x.dim() - 2)
     return {"fwd": (in_bytes + elem_bytes * cols_numel, 2 * corners * cols_numel),
             "bwd": (2 * in_bytes + elem_bytes * cols_numel, 4 * corners * cols_numel)}
@@ -2269,9 +2278,19 @@ def run_bf16(torch, mdt, gm, sb, sh, lib, kernels, reset, counts, dev):
                                            MAIN_PRECISION, *extra)))
                 row = {"at": label, "bf16_ms": time_ms(lambda: calls(ins)),
                        "fp32_same_call_ms": time_ms(lambda: calls(up))}
+                # The bf16 call's bound: its own types' bytes, the
+                # operations at the mode's peak (the column kernels' blends
+                # at the FP32 rate), as the fp32 rows count them.
+                if fam.endswith("_cols"):
+                    wk = cols_work(ins, math.prod(cshape), gc.element_size())[kind]
+                    row["bound_ms"], row["bound_by"] = bound_of(*wk, "float32")
+                else:
+                    wk = work(ins, cot.numel(), spec)[kind]
+                    row["bound_ms"], row["bound_by"] = bound_of(*wk)
                 res["rows"][name] = row
                 print(f"{name} at {label} ({MAIN_PRECISION}): bf16 {row['bf16_ms']:.4f} ms, "
-                      f"fp32 {row['fp32_same_call_ms']:.4f} ms")
+                      f"fp32 {row['fp32_same_call_ms']:.4f} ms; bf16 bound "
+                      f"{row['bound_ms']:.4f} ms by {row['bound_by']}")
             del up
         torch.cuda.empty_cache()
 
@@ -2408,15 +2427,20 @@ def run_smoke_example(torch, reset, counts, dev):
     name."""
     from modulated_deform_conv_tpu_torch.examples import smoke
     from modulated_deform_conv_tpu_torch.utils.config import DeformConvSpec
+    from modulated_deform_conv_tpu_torch.utils import graphs
+    spec = DeformConvSpec.make(2, 3, 1, 1, 1, 1, 1, modulated=True)
+    fam = auto_pair(torch.empty((1, 1, 5, 5), device=dev), spec, 1)
+    # Captured on the card: each of the two ops' steps runs the warm-up
+    # calls and the capture; replays count nothing.
+    n = 2 * (1 + graphs.WARMUP)
     reset()
     smoke.run(dev)
     torch.cuda.synchronize()
     c = launched(counts())
-    spec = DeformConvSpec.make(2, 3, 1, 1, 1, 1, 1, modulated=True)
-    fam = auto_pair(torch.empty((1, 1, 5, 5), device=dev), spec, 1)
-    check(c == {f"{fam}_fwd": 2, f"{fam}_bwd": 2},
-          f"smoke example launched {c}, want {fam} twice each")
-    print(f"smoke example on the card: out and grad_x 9 / 6 / 4 for both 2D ops; launches {c}")
+    check(c == {f"{fam}_fwd": n, f"{fam}_bwd": n},
+          f"smoke example launched {c}, want {fam} {n} times each")
+    print(f"smoke example on the card, captured: out and grad_x 9 / 6 / 4 for both 2D ops; "
+          f"launches {c}")
 
 
 def run_autotune(torch, gm, dev):
@@ -2486,7 +2510,190 @@ def nccl_one_rank(torch, mdt, dev):
         dist.destroy_process_group()
 
 
+# The captured-steps phase: each step captured once as a CUDA graph
+# (utils/graphs.py, the port's counterpart of jax.jit) and replayed.  Op
+# steps: the public op's training step (out and the gradients of
+# sum(out^2)) under "auto"; network steps: the trainer's AdamW step, the
+# same number of steps captured and eager.  Network relative limit where a
+# library op with atomics keeps two eager runs from the same bits.
+CAPTURED_NET_LIMIT = 1e-5
+
+
+def captured_op_cases(torch, mdt, dev):
+    """label -> (op(*leaves), the inputs of numpy seeds 0 and 1, None
+    dropped): config 2 bounded and general in fp32 and bf16 (bench.py's
+    inputs, all five cast), config 3 at B=2 with and without its bound,
+    cfg3-D4's interior shard, config 5 c4 and the 3D columns case."""
+    cases = {}
+    for tname, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        for label, kw in (("bounded", dict(offset_bound=BOUND)), ("general", {})):
+            cases[f"cfg2 {label} {tname}"] = (
+                lambda *a, kw=kw: mdt.modulated_deform_conv2d(*a, 1, 1, 1, G, DG, impl="auto",
+                                                              **kw),
+                [[t.to(dt) for t in cfg2_inputs(torch, dev, seed)] for seed in (0, 1)])
+    for label, kw in (("bounded", dict(offset_bound=BOUND3D)), ("general", {})):
+        ins = [cfg3d_inputs(torch, dev, "cfg3", seed)[1] for seed in (0, 1)]
+        cases[f"cfg3 B=2 {label}"] = (
+            lambda *a, kw=kw, shape=ins[0]: op3d(mdt, "cfg3", refill(shape, a), impl="auto", **kw),
+            [[t for t in i if t is not None] for i in ins])
+    # An interior shard of cfg3-D4 through the sharding layer's per-shard
+    # function under "auto": the 3D gather pair's block mode, the one path
+    # of this script's "auto" runs that launches rows 2-3's 3D halves.
+    from modulated_deform_conv_tpu_torch.parallel import sharding as sh
+    spec3 = cfg3d_inputs(torch, dev, "cfg3")[0]
+    shards = []
+    for seed in (0, 1):
+        x, off, _, w, _ = cfg3d_inputs(torch, dev, "cfg3", seed)[1]
+        plan = sh.shard_plan(x.shape, off.shape, w.shape, None, None, spec3, {"s0": 4}, None,
+                             ["s0", None, None], SHARD_MAX_OFFSET)
+        sl = sh.shard_slices(off.shape, {2: "s0"}, {"s0": 1}, {"s0": 4})
+        shards.append([sh.cut_block(x, plan.shards, (1,)), off[sl].contiguous(), w])
+    cases["cfg3-D4 shard 1"] = (
+        lambda xb, o, w, p=plan.shards: sh.shard_conv(xb, o, None, w, None, spec3, p, (1,),
+                                                      SHARD_MAX_OFFSET, "auto", MAIN_PRECISION),
+        shards)
+    cases["cfg5 c4"] = (lambda *a: mdt.modulated_deform_conv2d(*a, 1, 1, impl="auto"),
+                        [list(cfg5_inputs(torch, dev, "c4", seed)) for seed in (0, 1)])
+    cases["3D columns"] = (
+        lambda *a: mdt.modulated_deform_conv3d(*a, 1, 1, 1, COLS3D["groups"], 1, impl="auto"),
+        [list(cols3d_inputs(torch, dev, seed)[1]) for seed in (0, 1)])
+    return cases
+
+
+def wall_ms(fn, calls=10):
+    """Median host-clock time of one fn() call ending in a synchronise."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def step_times(fn, wall, events=(20, 10), host=(10, 5)):
+    """A step's times (ms): `wall`, its host clock ending in a synchronise,
+    then CUDA events over back-to-back calls, the profiler's device time
+    (None where the trace holds none) and the host's time to issue one
+    call."""
+    prof = device_time_by_kernel(fn)
+    return {"wall_ms": wall, "events_ms": time_ms(fn, *events),
+            "device_ms": sum(prof.values()) if prof else None,
+            "issue_ms": host_ms(fn, *host)}
+
+
+def print_times(label, eager, captured):
+    fmt = lambda v: "not measured" if v is None else f"{v:.4f}"  # noqa: E731
+    print(f"  {label} eager / captured (ms): " + "; ".join(
+        f"{k[:-3]} {fmt(eager[k])} / {fmt(captured[k])}" for k in eager))
+
+
+def run_captured(torch, mdt, graphs, train, train_step, names, dev):
+    """The captured-steps phase.  Per op step: captured on seed 0's inputs,
+    replayed on seed 1's copied into the static ones, its out and gradients
+    against an eager call on seed 1's by SHA-256, and its times both ways.
+    Per network (DCNResNet-50 and DCNVideoNet at full width): the trainer's
+    steps captured and eager from the same initial parameters (AdamW
+    capturable both ways, cuDNN deterministic), losses and parameters bit
+    for bit or within CAPTURED_NET_LIMIT with the library ops that use
+    atomics named, and the step's times both ways.  Checks that the twelve
+    kernels are inside the graphs between them.  Replays count no launch,
+    so the kernel table's `launches` are untouched."""
+    import hashlib
+    t_phase = time.time()
+    sha = lambda t: hashlib.sha256(  # noqa: E731
+        t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    held, out = {}, {"ops": {}, "nets": {}}
+    for label, (op, (ins, new)) in captured_op_cases(torch, mdt, dev).items():
+        def step_fn(*leaves, op=op):
+            y = op(*leaves)
+            return (y.detach(),) + torch.autograd.grad((y * y).sum(), leaves)
+
+        leaves = [t.detach().clone().requires_grad_(True) for t in ins]
+        step = graphs.capture(step_fn, *leaves)
+        got = [sha(t) for t in step(*new)]
+        want = [sha(t) for t in step_fn(*[t.detach().clone().requires_grad_(True) for t in new])]
+        same = got == want
+        print(f"captured {label}: graph holds {step.kernels}; replay on seed 1 against eager: "
+              + ("SHA-256 equal on out and every gradient" if same else f"DIFFERENT {got} {want}"))
+        check(same, f"captured {label}: the replay's bits differ from eager")
+        held[label] = step.kernels
+        eager = step_times(lambda: step_fn(*leaves), wall_ms(lambda: step_fn(*leaves)))
+        captured = step_times(step, wall_ms(step))
+        print_times(label, eager, captured)
+        out["ops"][label] = {"kernels": step.kernels, "capture_s": step.capture_s,
+                             "eager": eager, "captured": captured}
+        del step, leaves, ins, new
+    torch.cuda.empty_cache()
+    for name, cfg, arch in (("DCNResNet-50", RESNET, "resnet"), ("DCNVideoNet", VIDEO, "video")):
+        kw = dict(steps=cfg["steps"], batch=cfg["batch"], width=cfg["width"],
+                  classes=cfg["classes"], size=cfg["size"], device="cuda", arch=arch,
+                  log=lambda s: None, **({"frames": cfg["frames"]} if arch == "video" else {}))
+        cap = train(**kw)
+        ref = train(eager=True, **kw)
+        params = cap["model"].state_dict()
+        own = ref["model"].state_dict()
+        bits = cap["losses"] == ref["losses"] and all(torch.equal(v, own[k])
+                                                      for k, v in params.items())
+        worst = max(float((v - own[k]).abs().max() / own[k].abs().max().clamp_min(1e-30))
+                    for k, v in params.items())
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(cap["losses"], ref["losses"]))
+        atomics = []
+        if not bits:
+            # Name the library ops of one eager step that have no
+            # deterministic implementation (PyTorch warns for each).
+            import warnings
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.use_deterministic_algorithms(True, warn_only=True)
+                try:
+                    x, y = ref["batch"]
+                    train_step(ref["model"], ref["optimizer"], x, y)
+                    torch.cuda.synchronize()
+                finally:
+                    torch.use_deterministic_algorithms(False)
+            atomics = sorted({str(w.message).split(" does not have")[0] for w in caught
+                              if "deterministic" in str(w.message)})
+        print(f"captured {name}: {cfg['steps']} steps, losses {cap['losses']} (eager "
+              f"{ref['losses']}); " + ("losses and parameters bit-equal to eager" if bits else
+                                      f"losses within {loss_rel:.3e}, parameters within {worst:.3e} "
+                                      f"relative of eager; library ops with atomics: {atomics}"))
+        check(bits or (atomics and worst <= CAPTURED_NET_LIMIT and loss_rel <= CAPTURED_NET_LIMIT),
+              f"captured {name} parts from eager: losses {loss_rel:.3e}, parameters {worst:.3e}, "
+              f"ops with atomics {atomics}")
+        held[name] = cap["kernels"]
+        print(f"captured {name}: graph holds {cap['kernels']}; capture {cap['capture_s']:.2f} s "
+              f"({graphs.WARMUP} warm-up steps included)")
+        step, (x, y) = cap["step"], ref["batch"]
+        # Host clock: the trainer's own steps 2-N.
+        eager = step_times(lambda: train_step(ref["model"], ref["optimizer"], x, y),
+                           statistics.median(ref["step_s"][1:]) * 1e3, (5, 2, 1), (3, 3))
+        captured = step_times(step, statistics.median(cap["step_s"][1:]) * 1e3, (5, 2, 1),
+                              (3, 3))
+        print_times(name, eager, captured)
+        out["nets"][name] = {"kernels": cap["kernels"], "capture_s": cap["capture_s"],
+                             "bit_equal": bits, "max_rel_params": worst, "atomics": atomics,
+                             "eager": eager, "captured": captured}
+        del cap, ref, step, params, own, x, y
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    inside = set().union(*held.values())
+    print("kernels inside the captured graphs: " + "; ".join(
+        f"{label}: {', '.join(sorted(k))}" for label, k in held.items()))
+    missing = sorted(set(names) - inside)
+    check(not missing, f"kernels in no captured graph: {missing}")
+    print(f"all twelve kernels inside at least one graph; captured phase: "
+          f"{time.time() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
+    t_start = time.time()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -2500,6 +2707,7 @@ def main() -> int:
         from modulated_deform_conv_tpu_torch.ops.cuda import lib
         from modulated_deform_conv_tpu_torch.ops.cuda import shiftblend as sb
         from modulated_deform_conv_tpu_torch.parallel import sharding as sh
+        from modulated_deform_conv_tpu_torch.utils import graphs
         from modulated_deform_conv_tpu_torch.utils.config import DeformConvSpec
     except ImportError as e:
         print(f"chip_smoke: the port package is not beside this script: {e}",
@@ -2901,6 +3109,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     bf16, bf16_pack = run_bf16(torch, mdt, gm, sb, sh, lib, kernels, reset, counts, dev)
     add_main(bf16_pack)
+    # Phase 24: the captured steps (CUDA graphs through the twelve kernels).
+    torch.cuda.empty_cache()
+    captured = run_captured(torch, mdt, graphs, train, train_step, list(kernels), dev)
 
     # Phase 17: the kernel table.  The 2D column kernels' row is config 5's
     # c4 layer, the 3D one the 3D columns case; `launches` sums every
@@ -2961,7 +3172,8 @@ def main() -> int:
                       "dcn_resnet50_step_ms": step_ms, "train_step3d_ms": r3["steps"],
                       "both_kernels3d_ms": r3["cross"], "dcn_videonet_step_ms": video_ms,
                       "columns_path_ms": r5["times"], "calibration": calibration,
-                      "autotune_cfg5_c4": tuned, "bf16": bf16}))
+                      "autotune_cfg5_c4": tuned, "bf16": bf16, "captured": captured}))
+    print(f"chip_smoke total: {time.time() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,6 +5,9 @@ pad 1: this reduces to an ordinary 3x3 same-padded convolution over ones,
 whose outputs and input gradients are known (interior 9, edges 6, corners
 4).  Both 2D ops run through the kernel path (impl="cuda": the kernels on
 the card, their plain versions on the CPU), and the values are asserted.
+On the card each op's forward and gradient run as one captured step
+(utils/graphs.py), as the JAX smoke jits them; on the CPU the step is
+called directly.
 
     python -m modulated_deform_conv_tpu_torch.examples.smoke [--device cpu]
 """
@@ -16,6 +19,7 @@ import numpy as np
 import torch
 
 from .. import ops
+from ..utils import graphs
 
 
 def expected() -> np.ndarray:
@@ -30,7 +34,8 @@ def expected() -> np.ndarray:
 
 def run(device="cuda") -> dict:
     """Both ops' outputs and grad_x on `device`, checked; returns them as
-    numpy arrays."""
+    numpy arrays.  On a CUDA device each op's forward and grad_x are one
+    captured step, replayed once."""
     dev = torch.device(device)
     K = 9
     x = torch.ones((1, 1, 5, 5), device=dev, requires_grad=True)
@@ -45,9 +50,16 @@ def run(device="cuda") -> dict:
                      ("modulated_deform_conv2d",
                       lambda t: ops.modulated_deform_conv2d(
                           t, offset, mask, weight, bias, 1, 1, impl="cuda"))):
-        out = fn(x)
-        (gx,) = torch.autograd.grad(out.sum(), x)
-        got[name] = (out.detach().cpu().numpy()[0, 0],
+
+        def step(t, fn=fn):
+            out = fn(t)
+            return out.detach(), torch.autograd.grad(out.sum(), t)[0]
+
+        if dev.type == "cuda":
+            out, gx = graphs.capture(step, x)()
+        else:
+            out, gx = step(x)
+        got[name] = (out.cpu().numpy()[0, 0],
                      gx.cpu().numpy()[0, 0])
         for label, arr in zip(("output", "grad_x"), got[name]):
             np.testing.assert_allclose(arr, want, rtol=1e-6, err_msg=(

@@ -37,13 +37,12 @@ does not promise.
 """
 from __future__ import annotations
 
-import warnings
 from typing import Optional
 
 import torch
 
 from ..utils.config import DeformConvSpec
-from . import core
+from . import bounds, core
 from .cuda import PRECISIONS, maybe_cuda
 
 _IMPLS = ("auto", "torch", "cuda", "shiftblend")
@@ -67,16 +66,11 @@ def _dispatch(x, offset, mask, weight, bias, spec: DeformConvSpec, impl: str,
         raise ValueError(f"precision must be one of {PRECISIONS}, got "
                          f"{precision!r}")
     if debug_check_bounds and offset_bound is not None:
-        # Opt-in guard for the bounded-offset contract; reading the check
-        # synchronises with the device.
-        from .cuda.shiftblend import offsets_within_bound
-        if not bool(offsets_within_bound(offset, offset_bound)):
-            warnings.warn(
-                "modulated_deform_conv_tpu_torch: max |offset| = "
-                f"{float(offset.abs().max())} exceeds the declared "
-                f"offset_bound = {offset_bound}; out-of-bound tap "
-                "contributions are dropped (bounded-offset contract)",
-                stacklevel=3)
+        # Opt-in guard for the bounded-offset contract.  Eager, reading the
+        # check synchronises with the device; inside a captured step
+        # (utils/graphs.py) the check stays on the device and the step
+        # warns when its loss is read, as JAX's jax.debug.print under jit.
+        bounds.check(offset, offset_bound, stacklevel=3)
     if out_sizes is None:
         spec.validate(x.shape, offset.shape, weight.shape,
                       None if mask is None else mask.shape,

@@ -1,0 +1,181 @@
+"""The compiled step: a whole step captured once as a CUDA graph, then
+replayed.
+
+The port's counterpart of the JAX package's `jax.jit` around its steps
+(examples/train_dcn_resnet.py's `train_step`, examples/smoke.py, bench.py,
+calibrate.py): where XLA compiles a step into one program that the host
+dispatches once, `capture` records every launch of one call of a step
+(the hand-written kernels, cuBLAS and cuDNN, the optimizer's update) into
+a `torch.cuda.CUDAGraph`, and each call of the returned `CapturedStep`
+replays them with one launch from the host.  It follows PyTorch's
+whole-network recipe: a few warm-up calls on a side stream, then the
+capture into a private memory pool.
+
+A step is captured on the card only.  `capture` raises on CPU tensors or
+without a CUDA device (a caller who wants the CPU calls the function
+itself), and raises with the failing operation's message where the
+capture fails: no path falls back to eager.
+
+Three hazards of capturing the port's kernels:
+
+* The kernels are built by `nvcc` and loaded at first use
+  (ops/cuda/lib.py, `kernel`).  That must happen in the warm-up, never
+  inside the capture: a build there would run on the host while the
+  stream records, and its first launch would load the module.  The
+  warm-up calls run every launch of the step first.
+* The autotune knobs (`gathermm._COLF_ROUTE_OVERRIDE`,
+  `gathermm._COLF_BLOCKS_OVERRIDE`, set by utils/autotune.py) and the
+  device profile are process-wide values read when a wrapper is called.
+  A graph keeps the route and the plan it was captured with: after a
+  change of either, capture the step again.
+* The wrappers' workspaces (xt, split parts, gcols, the column tables)
+  come from `torch.empty` at call time, sized from the shapes alone, so
+  under capture they come from the graph's private pool and keep their
+  addresses on every replay.  New shapes need a new capture: a step
+  refuses an input whose shape, type or device is not its capture's.
+
+The kernel wrappers' `launches` counters run in Python, so they move in
+the warm-up and once at the capture, never on a replay:
+`CapturedStep.kernels` holds the counts the capture added, the kernels the
+graph holds.
+
+`debug_check_bounds` cannot read its check on the host inside a capture.
+There the op records the check on the device instead (ops/bounds.py, into
+the `BoundsRecord` that `capture` opens and the captured step owns), and
+`CapturedStep.read` reads the flags with the value the caller reads anyway
+(the loss), in one copy, and gives the warning an eager call gives.
+"""
+from __future__ import annotations
+
+import time
+from typing import Callable
+
+import torch
+
+from ..ops import bounds as bounds_check
+from ..ops.cuda import lib
+
+
+# Eager calls of a step before its capture: every kernel is built and
+# loaded, and every workspace shape allocated once, outside the capture.
+WARMUP = 3
+
+
+def _check_outputs(out) -> None:
+    """A captured step returns a tensor or a tuple / list of tensors (or
+    None)."""
+    if isinstance(out, torch.Tensor) or (
+            isinstance(out, (tuple, list))
+            and all(t is None or isinstance(t, torch.Tensor) for t in out)):
+        return
+    raise TypeError("a captured step returns a tensor or a tuple / list of "
+                    f"tensors (or None), got {type(out).__name__}")
+
+
+def _launch_counts() -> dict:
+    """Every kernel wrapper's `launches` counter, by kernel name."""
+    from ..ops.cuda import gathermm, shiftblend
+    return {n: getattr(gathermm, n, None) or getattr(shiftblend, n)
+            for n in lib.KERNELS}
+
+
+class CapturedStep:
+    """A step captured as a CUDA graph.  `step(*inputs)` copies each input
+    into the static input of its position (`copy_`), replays the graph and
+    returns the static outputs: the next call overwrites them, so copy
+    what must outlive it.  `step()` replays on the static inputs as they
+    are.
+
+    Attributes: `inputs` (the static inputs), `outputs` (the static
+    outputs, in the structure the function returned), `kernels` (launches
+    of each hand-written kernel the graph holds), `bounds` (the
+    `debug_check_bounds` checks captured), `capture_s` (the warm-up and
+    the capture, on the host clock)."""
+
+    def __init__(self, graph, inputs, outputs, kernels, bounds, capture_s):
+        self.graph, self.inputs, self.outputs = graph, inputs, outputs
+        self.kernels, self.bounds, self.capture_s = kernels, bounds, capture_s
+
+    def __call__(self, *inputs):
+        if inputs:
+            if len(inputs) != len(self.inputs):
+                raise ValueError(f"the step takes {len(self.inputs)} inputs, "
+                                 f"got {len(inputs)}")
+            # copy_ would broadcast a shape and cast a type without a word.
+            for i, (static, new) in enumerate(zip(self.inputs, inputs)):
+                if not (isinstance(new, torch.Tensor)
+                        and new.shape == static.shape
+                        and new.dtype == static.dtype
+                        and new.device == static.device):
+                    raise ValueError(
+                        f"input {i} is not a {tuple(static.shape)} "
+                        f"{static.dtype} tensor on {static.device}, as at the "
+                        "capture: a new shape, type or device needs a new "
+                        "capture")
+            with torch.no_grad():
+                for static, new in zip(self.inputs, inputs):
+                    static.copy_(new)
+        self.graph.replay()
+        return self.outputs
+
+    def read(self, t: torch.Tensor) -> float:
+        """t (a 0-dim output, the loss) on the host, with the captured
+        bounds checks in the same copy: a violated check warns as the eager
+        op does, and costs no synchronisation beyond t's read."""
+        return self.bounds.read_with(t, stacklevel=2)
+
+
+def capture(fn: Callable, *inputs: torch.Tensor) -> CapturedStep:
+    """Capture fn(*static_inputs) as a CUDA graph and return the step.
+
+    The static inputs are copies of `inputs` (detached, requires_grad
+    kept, so fn may differentiate with respect to them); fn returns a
+    tensor or a tuple / list of tensors.  fn runs WARMUP times on a side
+    stream first (with every side effect: an optimizer's update included;
+    a trainer that wants the captured steps alone restores its state
+    after), then once under capture, which launches nothing; the graph
+    takes a private memory pool.
+
+    Raises RuntimeError without a CUDA device or where the capture
+    fails (the failing operation's message chained), ValueError on a
+    tensor that is not on a CUDA device."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("capture needs a CUDA device and none is "
+                           "visible; on the CPU call the step itself")
+    if not inputs:
+        raise ValueError("capture needs at least one CUDA input tensor")
+    for i, t in enumerate(inputs):
+        if not isinstance(t, torch.Tensor) or not t.is_cuda:
+            where = t.device if isinstance(t, torch.Tensor) else type(t)
+            raise ValueError(f"capture takes CUDA tensors; input {i} is on "
+                             f"{where}")
+    device = inputs[0].device
+    t0 = time.perf_counter()
+    static = [t.detach().clone().requires_grad_(t.requires_grad)
+              for t in inputs]
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        for _ in range(WARMUP):
+            fn(*static)
+    torch.cuda.current_stream(device).wait_stream(side)
+    torch.cuda.synchronize(device)
+
+    graph = torch.cuda.CUDAGraph()
+    counters = _launch_counts()
+    before = {n: f.launches for n, f in counters.items()}
+    bounds = bounds_check.BoundsRecord()
+    try:
+        with bounds_check.recording(bounds), torch.cuda.graph(graph):
+            out = fn(*static)
+            bounds.seal()
+    except Exception as e:
+        raise RuntimeError(f"CUDA graph capture of "
+                           f"{getattr(fn, '__name__', fn)!r} failed: {e}"
+                           ) from e
+    _check_outputs(out)
+    kernels = {n: f.launches - before[n] for n, f in counters.items()
+               if f.launches != before[n]}
+    torch.cuda.synchronize(device)
+    return CapturedStep(graph, static, out, kernels, bounds,
+                        time.perf_counter() - t0)
