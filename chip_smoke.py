@@ -11,7 +11,12 @@ rules), which every launch check reads:
    bias, offsets from U[-2, 2]), `modulated_deform_conv2d` with and
    without `offset_bound=2.0`, and `ModulatedDeformConv2dPack`;
 2. the training step of bench.py at config 2: gradients of sum(out^2) with
-   respect to all five inputs, with and without the bound;
+   respect to all five inputs, with and without the bound; and the forward
+   and training step of BASELINE config 1 (`deform_conv2d`, B=2, 32->32,
+   64x64, no mask, no bias) with and without the bound, and of a small
+   volume (`deform_conv3d`, B=2, 64 ch, 4x16x16) without (PLAIN_CASES: the
+   shapes under the H100 profile's columns thresholds, where "auto" takes
+   the fused gather pairs);
 3. DCNResNet-50 at width 64, 1000 classes, B=8, 224x224, trained for a
    few AdamW steps by the in-package trainer;
 4. the 3D ops at BASELINE configs 3 (`deform_conv3d`, B=2, 64 ch,
@@ -51,9 +56,10 @@ rules), which every launch check reads:
    one-rank NCCL mesh;
 9. the device layer: `calibrate --quick` (the card's raw rates, and one
    point either side of each reference value of the dispatch rules, which
-   must not contradict the committed profile), the smoke example through
-   the kernels, and `autotune` of the column forward's knobs at config 5
-   c4, every variant giving the same bits.
+   must not contradict the committed profile; every time a captured,
+   chain-differenced one, utils/graphs.py::time_chain), the smoke example
+   through the kernels, and `autotune` of the column forward's knobs at
+   config 5 c4 on the chain timer, every variant giving the same bits.
 10. bf16 activations as they are (run_bf16): config 2 with bench.py's
    bf16 inputs on both pairs, configs 3 and 4 (B=1; B=4 for memory and
    time), config 5 c4 and the 3D columns case, in the three modes, each
@@ -72,7 +78,9 @@ rules), which every launch check reads:
    eager; DCNResNet-50 and DCNVideoNet trained captured and eager from the
    same parameters, equal; the kernels each graph holds (all twelve among
    them); every step eager against captured on the host clock, CUDA
-   events, device time and the host's time to issue one call.
+   events, device time and the host's time to issue one call, and each op
+   step's chain-differenced time (calibrate's and autotune's timer) beside
+   its device time.
 
 It builds the twelve kernels (shift-blend and gather, forward and
 backward, 2D and 3D; the gather's columns forward and backward, 2D and
@@ -182,6 +190,16 @@ ROUTE_SHAPES = [("cfg2", 256, (56, 56), 4), ("56x56", 256, (56, 56), 1),
 # The columns path in 3D: config 3's size with two conv groups over one
 # deformable group, modulated, with bias.
 COLS3D = dict(B=2, C=64, S=(16, 32, 32), groups=2)
+# Plain `deform_conv` main paths (no mask, no bias, offsets U[-2, 2], 3x3
+# or 3x3x3, one group): BASELINE config 1 (benchmarks/suite.py:51-53), with
+# its bound and without, and a small volume at config 3's op and channels.
+# Under the H100 profile they are the main paths that take the fused
+# gather pairs: the profile's columns path starts at 9.2e8 multiply-adds in
+# 2D (config 2's general step and DCNResNet-50's layers are past it) and
+# 4.5e8 in 3D (every 3D configuration above is past it); config 1's
+# general step has 7.5e7, the small volume 2.3e8.
+PLAIN_CASES = {"cfg1": dict(B=2, C=32, S=(64, 64)),
+               "small volume": dict(B=2, C=64, S=(4, 16, 16))}
 # The previous release's times on an NVIDIA H100 80GB HBM3 at 700 W
 # ("tensorfloat32", ms): each table row's `ms`, at the row's own config (2D
 # fused rows at config 2, 3D rows at configs 3 and 4 B=1, column rows at
@@ -722,6 +740,72 @@ def op3d(mdt, name, ins, **kw):
 def refill(ins, leaves):
     it = iter(leaves)
     return tuple(None if t is None else next(it) for t in ins)
+
+
+def plain_case_inputs(torch, dev, name, seed=0):
+    """A PLAIN_CASES case's spec and inputs (x, offset, weight), seeded
+    with numpy as benchmarks/suite.py builds them."""
+    from modulated_deform_conv_tpu_torch.utils.config import DeformConvSpec
+    c = PLAIN_CASES[name]
+    nd = len(c["S"])
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    x = rng.standard_normal((c["B"], c["C"]) + c["S"]).astype(f32)
+    off = rng.uniform(-2, 2, (c["B"], nd * 3 ** nd) + c["S"]).astype(f32)
+    w = (rng.standard_normal((c["C"], c["C"]) + (3,) * nd) * 0.05).astype(f32)
+    spec = DeformConvSpec.make(nd, 3, 1, 1, 1, 1, 1, modulated=False)
+    return spec, [torch.from_numpy(a).to(dev) for a in (x, off, w)]
+
+
+def plain_case_op(mdt, spec):
+    """The case's public op on (x, offset, weight), without bias."""
+    fn = mdt.deform_conv2d if spec.ndim == 2 else mdt.deform_conv3d
+    return lambda x, off, w, **kw: fn(x, off, w, None, 1, 1, 1, 1, 1, **kw)
+
+
+def run_plain_cases(torch, mdt, reset, counts, dev):
+    """The PLAIN_CASES main paths through the public op under "auto": per
+    case and bound (config 1 with its bound 2 and without, the small volume
+    without), the forward without gradients and one training step (grads
+    of sum(out^2) in x, offset and weight), which must launch the pair the
+    card's profile names, its forward twice and its backward once, and
+    nothing else; out and the three gradients against impl="torch".
+    Returns {label: launches}."""
+    out = {}
+    for name, bounds in (("cfg1", (BOUND, None)), ("small volume", (None,))):
+        spec, ins = plain_case_inputs(torch, dev, name)
+        x, off, w = ins
+        fn = plain_case_op(mdt, spec)
+        macs = x.shape[0] * math.prod(x.shape[2:]) * w.shape[0] * x.shape[1] * spec.tap_count
+        for bound in bounds:
+            label = f"{name} {'bounded' if bound else 'general'}"
+            pair = auto_pair(x, spec, w.shape[0], bound)
+            kw = dict(offset_bound=bound)
+            reset()
+            with torch.no_grad():
+                y0 = fn(*ins, impl="auto", **kw)
+            leaves = [t.clone().requires_grad_(True) for t in ins]
+            y = fn(*leaves, impl="auto", **kw)
+            grads = torch.autograd.grad((y * y).sum(), leaves)
+            torch.cuda.synchronize()
+            c = launched(counts())
+            check(c == {f"{pair}_fwd": 2, f"{pair}_bwd": 1},
+                  f"{label}: launched {c}, want {pair}'s forward twice and backward once")
+            ref_leaves = [t.clone().requires_grad_(True) for t in ins]
+            yr = fn(*ref_leaves, impl="torch", **kw)
+            errs = {"out": rel_err(y0, yr.detach())}
+            errs.update({n: rel_err(g, r) for n, g, r in zip(
+                ("x", "offset", "weight"), grads,
+                torch.autograd.grad((yr * yr).sum(), ref_leaves))})
+            check(y0.shape == yr.shape and bool(torch.isfinite(y0).all())
+                  and all(bool(torch.isfinite(g).all()) for g in grads), f"{label}: bad output")
+            for n, e in errs.items():
+                check(e <= LIMITS[MAIN_PRECISION], f"{label} {n} vs impl='torch': {e:.3e}")
+            print(f"{label} (x {tuple(x.shape)}, {macs:.3e} multiply-adds) under 'auto': {pair}, "
+                  f"launches {c}; vs impl='torch' " + " ".join(f"{n} {e:.2e}" for n, e in errs.items()))
+            out[label] = c
+            del y0, y, grads, yr, leaves, ref_leaves
+    return out
 
 
 def small_cases3(torch, dev):
@@ -2396,17 +2480,18 @@ def run_bf16(torch, mdt, gm, sb, sh, lib, kernels, reset, counts, dev):
 
 
 def run_calibration(torch, dev):
-    """calibrate --quick on the card: the raw rates beside the pinned peaks,
-    the quick points, and the profile they derive beside the H100 entry of
-    the table and the profile in force; fails where a point moves a
-    committed value."""
+    """calibrate --quick on the card, every time a captured chain's: the
+    raw rates beside the pinned peaks, the quick points, and the profile
+    they derive beside the H100 entry of the table and the profile in
+    force; fails where a point moves a committed value."""
     from modulated_deform_conv_tpu_torch import calibrate
     from modulated_deform_conv_tpu_torch.utils.device import table_entry
     t0 = time.time()
     res = calibrate.calibrate(dev, quick=True, log=lambda m: print(f"  calibrate: {m}"))
     kind = res["kind"]
     m = res["measured"]
-    print(f"calibrate --quick ({time.time() - t0:.1f} s): TF32 matmul "
+    print(f"calibrate --quick ({time.time() - t0:.1f} s, timing {json.dumps(res['timing'])}): "
+          f"TF32 matmul "
           f"{m['tf32_matmul_flops'] / 1e12:.1f} TFLOP/s (pinned peak "
           f"{PEAK_OPS['tensorfloat32'] / 1e12:.0f}), bf16 {m['bf16_matmul_flops'] / 1e12:.1f} "
           f"({PEAK_OPS['bfloat16'] / 1e12:.0f}), FP32 FMA {m['fp32_fma_flops'] / 1e12:.1f} "
@@ -2417,7 +2502,9 @@ def run_calibration(torch, dev):
     check(not res["contradicts"], f"calibrate --quick contradicts the committed profile at "
           f"{res['contradicts']}: {json.dumps(res['profile'])} against {json.dumps(res['base'])}")
     return {"kind": kind, "measured": m, "derived": res["profile"], "committed": res["base"],
-            "points": {rule: [{k: (v["ms"] if isinstance(v, dict) else v) for k, v in r.items()}
+            "timing": res["timing"], "seconds": time.time() - t0,
+            "points": {rule: [{k: ({"ms": v["ms"], "spread": v["spread"]}
+                                   if isinstance(v, dict) else v) for k, v in r.items()}
                               for r in rows] for rule, rows in res["timings"].items()}}
 
 
@@ -2446,9 +2533,10 @@ def run_smoke_example(torch, reset, counts, dev):
 def run_autotune(torch, gm, dev):
     """utils/autotune.py on the column forward at config 5 c4: every knob
     variant gives the same bits (SHA-256), then the tuned winner, each
-    variant's time beside it; the knobs are reset afterwards."""
+    variant timed by the chain timer (graphs.time_chain, autotune's
+    default) with its spread; the knobs are reset afterwards."""
     import hashlib
-    from modulated_deform_conv_tpu_torch.utils import autotune
+    from modulated_deform_conv_tpu_torch.utils import autotune, graphs
     from modulated_deform_conv_tpu_torch.utils.config import DeformConvSpec
     spec = DeformConvSpec.make(2, 3, 1, 1, 1, 1, 1, modulated=True)
     x, off, mask = cfg5_inputs(torch, dev, "c4")[:3]
@@ -2466,17 +2554,19 @@ def run_autotune(torch, gm, dev):
         autotune.reset()
         check(len({d for d, _, _ in digests.values()}) == 1,
               f"autotune variants give other bits: {digests}")
-        times, base = {}, autotune.cuda_timer(10)
+        times = {}
 
         def timer(f):
-            t = base(f)
-            times[json.dumps({k: v for k, v in autotune.current().items() if v})] = t
-            return t
+            r = graphs.time_chain(f)
+            times[json.dumps({k: v for k, v in autotune.current().items() if v})] = {
+                "ms": r["ms"], "spread": r["spread"], "kernels": r["kernels"]["hi"]}
+            return r["ms"]
         best = autotune.autotune(fn, "cfg5 c4 gathermm_cols_fwd", device=dev, timer=timer)
         autotune.reset()
     print("autotune cfg5 c4 gathermm_cols_fwd: every variant the same bits ("
           + "; ".join(f"{v}: route {r}, {s_} splits" for v, (_, r, s_) in digests.items())
-          + "); times " + ", ".join(f"{v} {t:.4f} ms" for v, t in times.items())
+          + f"); chained times (n_lo {graphs.N_LO}, n_hi {graphs.N_HI}) " + ", ".join(
+              f"{v} {t['ms']:.4f} ms (spread {t['spread']:.3f})" for v, t in times.items())
           + f"; winner {best}")
     return {"winner": best, "ms": times}
 
@@ -2523,7 +2613,8 @@ def captured_op_cases(torch, mdt, dev):
     """label -> (op(*leaves), the inputs of numpy seeds 0 and 1, None
     dropped): config 2 bounded and general in fp32 and bf16 (bench.py's
     inputs, all five cast), config 3 at B=2 with and without its bound,
-    cfg3-D4's interior shard, config 5 c4 and the 3D columns case."""
+    cfg3-D4's interior shard, config 1 and the small volume without a
+    bound, config 5 c4 and the 3D columns case."""
     cases = {}
     for tname, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
         for label, kw in (("bounded", dict(offset_bound=BOUND)), ("general", {})):
@@ -2537,8 +2628,8 @@ def captured_op_cases(torch, mdt, dev):
             lambda *a, kw=kw, shape=ins[0]: op3d(mdt, "cfg3", refill(shape, a), impl="auto", **kw),
             [[t for t in i if t is not None] for i in ins])
     # An interior shard of cfg3-D4 through the sharding layer's per-shard
-    # function under "auto": the 3D gather pair's block mode, the one path
-    # of this script's "auto" runs that launches rows 2-3's 3D halves.
+    # function under "auto": shift-blend's lead mode or the gather
+    # kernels' block mode, as the card's profile decides.
     from modulated_deform_conv_tpu_torch.parallel import sharding as sh
     spec3 = cfg3d_inputs(torch, dev, "cfg3")[0]
     shards = []
@@ -2552,6 +2643,13 @@ def captured_op_cases(torch, mdt, dev):
         lambda xb, o, w, p=plan.shards: sh.shard_conv(xb, o, None, w, None, spec3, p, (1,),
                                                       SHARD_MAX_OFFSET, "auto", MAIN_PRECISION),
         shards)
+    # BASELINE config 1 without its bound and the small volume: the fused
+    # gather pairs, 2D and 3D, under "auto" (PLAIN_CASES).
+    for name in ("cfg1", "small volume"):
+        spec_p = plain_case_inputs(torch, dev, name)[0]
+        cases[f"{name} general"] = (
+            lambda *a, fn=plain_case_op(mdt, spec_p): fn(*a, impl="auto"),
+            [plain_case_inputs(torch, dev, name, seed)[1] for seed in (0, 1)])
     cases["cfg5 c4"] = (lambda *a: mdt.modulated_deform_conv2d(*a, 1, 1, impl="auto"),
                         [list(cfg5_inputs(torch, dev, "c4", seed)) for seed in (0, 1)])
     cases["3D columns"] = (
@@ -2626,8 +2724,15 @@ def run_captured(torch, mdt, graphs, train, train_step, names, dev):
         eager = step_times(lambda: step_fn(*leaves), wall_ms(lambda: step_fn(*leaves)))
         captured = step_times(step, wall_ms(step))
         print_times(label, eager, captured)
+        chained = graphs.time_chain(step_fn, *leaves)
+        dev_ms = captured["device_ms"]
+        print(f"  {label} chained (n_lo {chained['n_lo']}, n_hi {chained['n_hi']}): "
+              f"{chained['ms']:.4f} ms (spread {chained['spread']:.3f}) against the captured "
+              "step's device time " + ("not measured" if dev_ms is None else
+                                       f"{dev_ms:.4f} ms ({chained['ms'] / dev_ms:.3f}x)"))
         out["ops"][label] = {"kernels": step.kernels, "capture_s": step.capture_s,
-                             "eager": eager, "captured": captured}
+                             "eager": eager, "captured": captured,
+                             "chained": {k: chained[k] for k in ("ms", "spread", "samples")}}
         del step, leaves, ins, new
     torch.cuda.empty_cache()
     for name, cfg, arch in (("DCNResNet-50", RESNET, "resnet"), ("DCNVideoNet", VIDEO, "video")):
@@ -2837,6 +2942,11 @@ def main() -> int:
         print(f"training step {label}: two backward runs bitwise equal")
     del step_grads, grads, again, g_ref
 
+    # Phase 4b: main path 2b, BASELINE config 1 with and without its bound,
+    # and a small volume, through impl="auto" (PLAIN_CASES).
+    for c in run_plain_cases(torch, mdt, reset, counts, dev).values():
+        add_main(c)
+
     with torch.no_grad():
         # Phase 5: each kernel against its plain version, every mode, at
         # config 2 and on the small cases.
@@ -3014,6 +3124,8 @@ def main() -> int:
     # The general kernels against their plain versions on the recorded
     # inputs of every DCN layer, every mode.
     check_recorded(torch, recorded, DCN_LAYERS, families["gathermm"], "DCNResNet")
+    if net_launches["gathermm_cols_fwd"]:
+        check_recorded_cols(torch, recorded, gm, "DCNResNet-50")
     resnet_fwd = time_recorded(torch, recorded, gm.gathermm_fwd, "DCNResNet-50")["fwd"]
     results["gathermm_fwd"].update(resnet50_layers_ms=resnet_fwd["ms"],
                                    resnet50_layers_device_ms=resnet_fwd["device_ms"],
@@ -3115,10 +3227,10 @@ def main() -> int:
 
     # Phase 17: the kernel table.  The 2D column kernels' row is config 5's
     # c4 layer, the 3D one the 3D columns case; `launches` sums every
-    # main-path run's (config 2's forward and step, both networks, configs
-    # 3-5, the 3D columns case, the sharded layouts under "auto", the bf16
-    # Pack); the bf16 phase's cases, which call the entries with a fixed
-    # kernel family, are not counted.
+    # main-path run's (config 2's forward and step, config 1 and the small
+    # volume, both networks, configs 3-5, the 3D columns case, the sharded
+    # layouts under "auto", the bf16 Pack); the bf16 phase's cases, which
+    # call the entries with a fixed kernel family, are not counted.
     table = []
     for n in kernels:
         kind = n.rsplit("_", 1)[1]

@@ -4,16 +4,21 @@ the JAX package's calibrate.py.
     python -m modulated_deform_conv_tpu_torch.calibrate [--out PATH] [--quick]
         [--repeat N]
 
-It runs on the card, and raises without one.  All times are CUDA events:
-the median of `SAMPLES` samples of `PER_SAMPLE` back-to-back calls each,
-after a warm-up; a time's run-to-run spread is the range of its samples
-without the highest and the lowest, over their median.
+It runs on the card, and raises without one.  Every time is a captured,
+chain-differenced one (utils/graphs.py::time_chain, the counterpart of
+the JAX package's `_chain` / `_amortized`): a chain of `graphs.N_LO` and
+one of `graphs.N_HI` calls of the step, each captured as a CUDA graph,
+replayed in turns `graphs.SAMPLES` times between CUDA events; a sample is
+the difference over the extra calls, so the host's dispatch cost cancels
+and the time is the device's.  A time's run-to-run spread is the range
+of its samples without the highest and the lowest, over their median.
+A step that cannot be captured raises: nothing is timed eagerly.
 
 The raw rates ride along in the JSON (`"measured"`), as the JAX package's
 do: the TF32 and bf16 tensor-core matmul rates (`torch.matmul` on 8192 x
-8192), the HBM copy bandwidth (a full `copy_` of 1 GiB: every byte read
-and written), and the FP32 FMA rate (csrc/calibrate_fma.cu: eager PyTorch
-cannot reach it, each elementwise op being bound by memory).
+8192), the HBM bandwidth (an elementwise kernel over 1 GiB: every byte
+read and written once), and the FP32 FMA rate (csrc/calibrate_fma.cu:
+eager PyTorch cannot reach it, each elementwise op being bound by memory).
 
 The dispatch constants come from timing the two candidate pairs of each
 rule on the same inputs: the training step, forward plus backward of
@@ -47,8 +52,9 @@ committed one) only where the other candidate wins by more than the
 run-to-run spread.  --quick times one point either side of each reference
 value (where the card's values part from the JAX package's), for
 chip_smoke.py, and reports any committed value the points contradict.
-The JSON is keyed by device name and written by temp file and rename;
-utils/device.py reads it under MDC_PROFILE=PATH.
+The JSON is keyed by device name and written by temp file and rename,
+with the timing mode and the chain lengths; utils/device.py reads it under
+MDC_PROFILE=PATH.
 """
 from __future__ import annotations
 
@@ -56,17 +62,16 @@ import argparse
 import json
 import math
 import os
-import statistics
-from typing import Callable, Dict, List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from .utils import graphs
 from .utils.config import DeformConvSpec
 from .utils.device import (REFERENCE, REFERENCE_KIND, DeviceProfile,
                            current_profile, device_kind)
 
-SAMPLES, PER_SAMPLE, WARMUP = 7, 5, 2
 PRECISION = "tensorfloat32"
 
 CG_POINTS = (8, 16, 32, 64, 128, 256)        # C/dg at config 2's width
@@ -106,43 +111,24 @@ DISPATCH_FIELDS = ("sb_crossover_cg", "sb_wide_bound_3d",
 # ---- timing -----------------------------------------------------------------
 
 
-def time_samples(fn: Callable[[], object], samples: int = SAMPLES,
-                 per: int = PER_SAMPLE, warmup: int = WARMUP) -> List[float]:
-    """Milliseconds a call of fn, one per sample of `per` back-to-back
-    calls, on CUDA events, after `warmup` calls."""
-    for _ in range(warmup):
-        fn()
-    out = []
-    for _ in range(samples):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(per):
-            fn()
-        end.record()
-        end.synchronize()
-        out.append(start.elapsed_time(end) / per)
-    return out
-
-
-def summary(samples: List[float]) -> dict:
-    """{"ms": median, "spread", "samples"}: the spread is the range of the
-    samples without the highest and the lowest, over the median."""
-    med = statistics.median(samples)
-    s = sorted(samples)[1:-1] if len(samples) > 3 else samples
-    return {"ms": med, "spread": (max(s) - min(s)) / med,
-            "samples": list(samples)}
+# How every time here is taken, recorded in the result and the JSON.
+TIMING = {"mode": "chain", "n_lo": graphs.N_LO, "n_hi": graphs.N_HI,
+          "samples": graphs.SAMPLES}
 
 
 def _step(fn, leaves):
-    """A training step of fn on the leaves: grads of sum(out^2) in every
-    leaf that is a tensor."""
+    """(step, live): a training step of fn, grads of sum(out^2) in every
+    leaf that is a tensor, taking those leaves (`live`) as its inputs;
+    the leaves that are None (no mask, no bias) are closed over, since a
+    capture takes tensors only."""
     live = [t for t in leaves if t is not None]
 
-    def run():
-        out = fn(*leaves)
-        return torch.autograd.grad((out * out).sum(), live)
-    return run
+    def step(*ins):
+        it = iter(ins)
+        out = fn(*[None if t is None else next(it) for t in leaves])
+        return torch.autograd.grad((out * out).sum(), ins)
+    step.__name__ = getattr(fn, "__name__", "step")
+    return step, live
 
 
 # ---- raw rates --------------------------------------------------------------
@@ -157,19 +143,20 @@ def measure_matmul(device, dtype, n: int = 8192) -> float:
     saved = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
-        ms = statistics.median(time_samples(lambda: torch.matmul(a, b),
-                                            per=3))
+        ms = graphs.time_chain(lambda: torch.matmul(a, b))["ms"]
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
     return 2 * n ** 3 / (ms * 1e-3)
 
 
 def measure_hbm_copy(device, nbytes: int = 1 << 30) -> float:
-    """HBM bandwidth (bytes/s) of a full device-to-device `copy_`: each
-    byte read once and written once."""
+    """HBM bandwidth (bytes/s) of an elementwise kernel over `nbytes`,
+    each byte read once and written once (the JAX package's
+    `x * 1.0000001`).  Not `copy_`: captured, it is a memcpy node, which
+    does not run as an SM kernel and reads a lower rate."""
     src = torch.ones(nbytes // 4, device=device)
     dst = torch.empty_like(src)
-    ms = statistics.median(time_samples(lambda: dst.copy_(src), per=3))
+    ms = graphs.time_chain(lambda: torch.mul(src, 1.0000001, out=dst))["ms"]
     return 2 * nbytes / (ms * 1e-3)
 
 
@@ -179,9 +166,11 @@ def measure_fma(device, iters: int = 1 << 14) -> float:
     from .ops.cuda import lib
     blocks = 8 * torch.cuda.get_device_properties(device).multi_processor_count
     out = torch.empty(blocks * 256, device=device)
-    ms = statistics.median(time_samples(
-        lambda: lib.launch("calibrate_fma", out, (out,), (blocks, iters)),
-        per=3))
+
+    def fma():
+        lib.launch("calibrate_fma", out, (out,), (blocks, iters))
+        return out
+    ms = graphs.time_chain(fma)["ms"]
     torch.cuda.synchronize(device)
     if not bool(torch.isfinite(out).all()):
         raise RuntimeError("calibrate_fma: non-finite chains")
@@ -222,9 +211,14 @@ def _inputs(device, B, C, S, k, stride, groups, dg, bound, O=None,
 
 
 def _pair(name_a, fn_a, name_b, fn_b, leaves) -> dict:
-    """Both candidates' training steps on the same leaves."""
-    return {name_a: summary(time_samples(_step(fn_a, leaves))),
-            name_b: summary(time_samples(_step(fn_b, leaves)))}
+    """Both candidates' training steps on the same leaves, each timed as
+    captured chains (`graphs.time_chain`)."""
+    out = {}
+    for name, fn in ((name_a, fn_a), (name_b, fn_b)):
+        step, live = _step(fn, leaves)
+        out[name] = graphs.time_chain(step, *live)
+        torch.cuda.empty_cache()
+    return out
 
 
 def sweep_crossover(device, points) -> List[dict]:
@@ -474,7 +468,8 @@ def full_points() -> dict:
 def calibrate(device="cuda", quick: bool = False, repeat: int = 1,
               log=print) -> dict:
     """Measure the card: {"kind", "measured", "timings", "profile",
-    "base", "contradicts"}.  The sweeps run `repeat` times and the profile
+    "base", "quick", "contradicts", "timing"} (TIMING: how the times
+    were taken).  The sweeps run `repeat` times and the profile
     is derived over every run's points (a key's verdict needs every
     decisive point there to agree).  With `quick`, the points either side
     of the reference profile's values, derived from the card's resolved
@@ -518,12 +513,13 @@ def calibrate(device="cuda", quick: bool = False, repeat: int = 1,
     contradicts = [f for f in DISPATCH_FIELDS if derived[f] != base[f]]
     return {"kind": kind, "measured": measured, "timings": timings,
             "profile": derived, "base": base, "quick": quick,
-            "contradicts": contradicts}
+            "contradicts": contradicts, "timing": dict(TIMING)}
 
 
 def write_profile(path: str, result: dict) -> None:
     """Add the result's profile under its device name to the JSON file at
-    path (temp file and rename)."""
+    path (temp file and rename), with its raw rates, timings and how they
+    were taken."""
     existing = {}
     if os.path.exists(path):
         with open(path) as f:
@@ -531,7 +527,8 @@ def write_profile(path: str, result: dict) -> None:
     existing[result["kind"]] = {**result["profile"],
                                 "measured": result["measured"],
                                 "timings": result["timings"],
-                                "quick": result["quick"]}
+                                "quick": result["quick"],
+                                "timing": result["timing"]}
     tmp = f"{path}.{os.getpid()}.tmp"
     with open(tmp, "w") as f:
         json.dump(existing, f, indent=1, sort_keys=True)
@@ -551,7 +548,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     res = calibrate("cuda", args.quick, args.repeat)
     write_profile(args.out, res)
-    print(f"device: {res['kind']}")
+    print(f"device: {res['kind']}; timing {json.dumps(res['timing'])}")
     print("derived: " + json.dumps(res["profile"]))
     if res["contradicts"]:
         print(f"moved off the base profile: {res['contradicts']} "

@@ -1,11 +1,18 @@
 """Opt-in micro-autotune of the kernels' plan knobs: the counterpart of the
 JAX package's utils/autotune.py.
 
-`autotune(fn, key, variants)` times `fn` once per knob variant on the card
-(CUDA events), pins the fastest as process-wide overrides and caches it per
-(device name, key): in memory, and on disk in the JSON file named by
-MDC_AUTOTUNE_CACHE where that is set.  Dispatch never times anything by
-itself: without a call here the plans take their defaults.
+`autotune(fn, key, variants)` times `fn` once per knob variant on the card,
+pins the fastest as process-wide overrides and caches it per (device name,
+key): in memory, and on disk in the JSON file named by MDC_AUTOTUNE_CACHE
+where that is set.  Dispatch never times anything by itself: without a
+call here the plans take their defaults.
+
+A variant is timed as captured chains of fn (utils/graphs.py::time_chain,
+the counterpart of the JAX package's chain-differenced mode,
+`_time_differenced`): the device's time for a call, the host's dispatch
+cost differenced away.  The knobs are read when a wrapper is called, so
+each variant is captured afresh, as the JAX package builds a fresh jitted
+chain per variant.
 
 The knobs are those of the port's plans that leave every result's bits as
 they are, so that results keep depending on shapes alone: the column
@@ -28,9 +35,9 @@ from __future__ import annotations
 import json
 import logging
 import os
-import statistics
 from typing import Callable, Dict, Optional, Sequence
 
+from . import graphs
 from .device import device_name
 
 logger = logging.getLogger("modulated_deform_conv_tpu_torch")
@@ -88,37 +95,20 @@ def apply(overrides: dict) -> None:
     gm._COLF_BLOCKS_OVERRIDE = int(overrides.get("COLF_BLOCKS") or 0)
 
 
-def cuda_timer(reps: int = 5) -> Callable[[Callable[[], object]], float]:
-    """A timer: the median ms of `reps` calls of fn on CUDA events, after
-    one warm-up call."""
-    import torch
-
-    def time_fn(fn) -> float:
-        fn()
-        times = []
-        for _ in range(reps):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        return statistics.median(times)
-    return time_fn
-
-
 def autotune(fn: Callable[[], object], key: str,
-             variants: Sequence[dict] = DEFAULT_VARIANTS, reps: int = 5,
-             device=None, timer: Optional[Callable] = None) -> dict:
+             variants: Sequence[dict] = DEFAULT_VARIANTS,
+             reps: int = graphs.SAMPLES, device=None,
+             timer: Optional[Callable] = None) -> dict:
     """Pick the fastest knob variant for fn and pin it.
 
     `key` names the shapes tuned (the cache keys on the device name and
     key).  Each variant is a dict of KNOBS; `timer(fn) -> ms` times one
-    variant (default `cuda_timer(reps)`, on the card).  A variant that
-    raises is skipped.  Raises ValueError with no variant to time, and
-    RuntimeError, caching nothing, when every variant raised.  Returns the
-    winner, left applied."""
+    variant (default: the median of `graphs.time_chain(fn, samples=reps)`,
+    on the card; fn takes no arguments and closes over its CUDA
+    tensors).  A variant that raises, its capture included, is skipped
+    and its error kept in the RuntimeError raised, caching nothing, when
+    every variant failed.  Raises ValueError with no variant to time.
+    Returns the winner, left applied."""
     full_key = f"{device_name(device)}::{key}"
     cached = _CACHE.get(full_key) or _load_disk().get(full_key)
     if cached is not None:
@@ -137,7 +127,9 @@ def autotune(fn: Callable[[], object], key: str,
         if device_name(device) in ("cpu", "meta"):
             raise RuntimeError("autotune times on a CUDA card; pass timer= "
                                "to time elsewhere")
-        timer = cuda_timer(reps)
+
+        def timer(f):
+            return graphs.time_chain(f, samples=reps)["ms"]
     best_t, best_v, failures = float("inf"), None, {}
     try:
         for v in variants:

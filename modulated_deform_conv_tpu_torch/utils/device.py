@@ -89,24 +89,33 @@ REFERENCE = dict(sb_crossover_cg=128, sb_wide_bound_3d=1.5,
 # first hit wins; fields not given keep the reference value.
 _TABLE = (
     ("h100", dict(
-        # NVIDIA H100 80GB HBM3, 700 W, "tensorfloat32": `calibrate
-        # --repeat 3`, the full sweep three times, derived over all its
-        # points (PERF.md, section 6).  Shift-blend's step is 2-11%
-        # ahead at every C/dg of 8-256.
+        # NVIDIA H100 80GB HBM3, 700.00 W, "tensorfloat32": `calibrate
+        # --repeat 3`, the full sweep three times on captured,
+        # chain-differenced steps (utils/graphs.py::time_chain), derived
+        # over all its points (calibrate_h100.json and .log, committed
+        # with the records; PERF.md, section 6).  Shift-blend's step is 5-8% ahead of the
+        # fused gather pair's at every C/dg of 8-256 (spreads <= 0.02).
         sb_crossover_cg=256,
-        # The 3D shift-blend pair is 9-15% ahead at bounds 0.5-2.0; at 2.5
-        # the two pairs tie.
+        # The 3D shift-blend pair is 12-14% ahead at bounds 0.5-2.0; at 2.5
+        # the 3D gather pair is 0.7-2.0% ahead (decisive in one run of
+        # three, a tie in the other two; spreads <= 0.02).
         sb_wide_bound_3d=2.5,
-        # The lead mode wins at no C/dg but 256 at cfg2-H4; the gather
-        # kernels' block mode wins at cfg3-D4 from C/dg 64; ties at 32.
-        sb_lead_crossover_cg=32,
-        # 2D: the columns path wins from 1.5e10 multiply-adds (config 5,
-        # c3's shape from B=8), the fused pair at DCNResNet-50's 9.2e8
-        # layers, and between them by turns.
-        cols_min_macs=14797504512,
-        # 3D: the columns path wins at config 3's shape (3.6e9) and at
-        # DCNVideoNet's layers (4.4e10); below 3.6e9 by turns.
-        cols_min_macs_3d=3623878656,
+        # The gather kernels' block mode, on the pair the fuse rules below
+        # pick for the shard, is ahead of the lead mode at every point:
+        # 1.24-2.09x at cfg2-H4 (C/dg 32-256, the columns path), 1.02x at
+        # cfg3-D4's C/dg 32 (the fused 3D pair) and 1.67-3.0x at 64-256
+        # (the 3D columns path).  So the lead mode is never taken.
+        sb_lead_crossover_cg=0,
+        # 2D: the columns path is ahead at every point: DCNResNet-50's
+        # layers (9.2e8 multiply-adds, the least) 1.41-2.09x, config 2's
+        # shape 1.33x (groups 4) and 2.45-2.47x (groups 1), c3's shape
+        # 1.84-3.99x at B=2-32 and 128-512 channels, config 5 3.7-7.2x
+        # (spreads <= 0.064).
+        cols_min_macs=924844032,
+        # 3D: the columns path is ahead at every point, 1.18-2.36x, from
+        # config 3's shape at B=1 and 32 channels (4.5e8, the least) to
+        # DCNVideoNet's layers (4.4e10).
+        cols_min_macs_3d=452984832,
     )),
 )
 

@@ -44,11 +44,20 @@ There the op records the check on the device instead (ops/bounds.py, into
 the `BoundsRecord` that `capture` opens and the captured step owns), and
 `CapturedStep.read` reads the flags with the value the caller reads anyway
 (the loss), in one copy, and gives the warning an eager call gives.
+
+`time_chain` times a step the way the JAX package's calibrate.py
+(`_chain` / `_amortized`) and utils/autotune.py (`_time_differenced`)
+do: two captured chains of the step, n_lo and n_hi calls back to back,
+replayed in turns, the step's time the difference over n_hi - n_lo.  The
+host issues one replay per chain, so its dispatch cost, and each replay's
+own launch, cancel out; what is left is the device's time for a step.
+calibrate.py and utils/autotune.py time with it, and with nothing else.
 """
 from __future__ import annotations
 
+import statistics
 import time
-from typing import Callable
+from typing import Callable, List
 
 import torch
 
@@ -59,6 +68,14 @@ from ..ops.cuda import lib
 # Eager calls of a step before its capture: every kernel is built and
 # loaded, and every workspace shape allocated once, outside the capture.
 WARMUP = 3
+
+# The chain timer's chain lengths and samples.  The JAX package chains 2
+# and 10 steps in calibrate.py and 1 and 7 in autotune to amortise its
+# host; a replay has no host in it, so short chains suffice.  A timing
+# costs WARMUP * (N_LO + N_HI) eager steps (the two captures) and
+# (SAMPLES + 1) * (N_LO + N_HI) replayed ones: `calibrate --repeat 3`
+# stays well inside one 900 s call with the build.
+N_LO, N_HI, SAMPLES = 1, 4, 7
 
 
 def _check_outputs(out) -> None:
@@ -129,27 +146,27 @@ def capture(fn: Callable, *inputs: torch.Tensor) -> CapturedStep:
     """Capture fn(*static_inputs) as a CUDA graph and return the step.
 
     The static inputs are copies of `inputs` (detached, requires_grad
-    kept, so fn may differentiate with respect to them); fn returns a
-    tensor or a tuple / list of tensors.  fn runs WARMUP times on a side
-    stream first (with every side effect: an optimizer's update included;
-    a trainer that wants the captured steps alone restores its state
-    after), then once under capture, which launches nothing; the graph
-    takes a private memory pool.
+    kept, so fn may differentiate with respect to them); with no inputs,
+    fn reads the tensors it closes over and runs on the current CUDA
+    device.  fn returns a tensor or a tuple / list of tensors.  fn runs
+    WARMUP times on a side stream first (with every side effect: an
+    optimizer's update included; a trainer that wants the captured steps
+    alone restores its state after), then once under capture, which
+    launches nothing; the graph takes a private memory pool.
 
     Raises RuntimeError without a CUDA device or where the capture
-    fails (the failing operation's message chained), ValueError on a
-    tensor that is not on a CUDA device."""
+    fails (the failing operation's message chained), ValueError on an
+    input that is not a tensor on a CUDA device."""
     if not torch.cuda.is_available():
         raise RuntimeError("capture needs a CUDA device and none is "
                            "visible; on the CPU call the step itself")
-    if not inputs:
-        raise ValueError("capture needs at least one CUDA input tensor")
     for i, t in enumerate(inputs):
         if not isinstance(t, torch.Tensor) or not t.is_cuda:
             where = t.device if isinstance(t, torch.Tensor) else type(t)
             raise ValueError(f"capture takes CUDA tensors; input {i} is on "
                              f"{where}")
-    device = inputs[0].device
+    device = (inputs[0].device if inputs
+              else torch.device("cuda", torch.cuda.current_device()))
     t0 = time.perf_counter()
     static = [t.detach().clone().requires_grad_(t.requires_grad)
               for t in inputs]
@@ -179,3 +196,76 @@ def capture(fn: Callable, *inputs: torch.Tensor) -> CapturedStep:
     torch.cuda.synchronize(device)
     return CapturedStep(graph, static, out, kernels, bounds,
                         time.perf_counter() - t0)
+
+
+# ---- the chain timer --------------------------------------------------------
+
+
+def summary(samples: List[float]) -> dict:
+    """{"ms": median, "spread", "samples"}: the spread is the range of the
+    samples without the highest and the lowest, over the median."""
+    med = statistics.median(samples)
+    s = sorted(samples)[1:-1] if len(samples) > 3 else samples
+    return {"ms": med, "spread": (max(s) - min(s)) / med,
+            "samples": list(samples)}
+
+
+def chain(fn: Callable, n: int) -> Callable:
+    """n back-to-back calls of fn on the same inputs, returning the last
+    call's outputs.  Each earlier call's outputs are dropped as it
+    returns, so that under capture the next call reuses their memory and
+    the workspaces' in the graph's pool: a chain's memory is one step's,
+    whatever n."""
+    def run(*inputs):
+        for _ in range(n - 1):
+            fn(*inputs)
+        return fn(*inputs)
+    run.__name__ = f"{getattr(fn, '__name__', 'step')} x{n}"
+    return run
+
+
+def time_chain(fn: Callable, *inputs: torch.Tensor, n_lo: int = N_LO,
+               n_hi: int = N_HI, samples: int = SAMPLES) -> dict:
+    """The device's time for one call of fn(*inputs), in ms: the
+    counterpart of the JAX package's `_amortized` (calibrate.py) and
+    `_time_differenced` (utils/autotune.py).
+
+    Captures `chain(fn, n_lo)` and `chain(fn, n_hi)` (`capture`: the
+    warm-up calls, then one graph each), replays each once untimed, then
+    `samples` times in turns, lo then hi, each replay between CUDA events
+    on the current stream, with no synchronisation until the last.  Each
+    (lo, hi) pair gives one sample, (t_hi - t_lo) / (n_hi - n_lo), and
+    the result is `summary` of the samples with "n_lo", "n_hi" and
+    "kernels" ({"lo": ..., "hi": ...}, each graph's `CapturedStep.kernels`).
+
+    The JAX chain feeds each step `carry * 1e-30` so that XLA cannot hoist
+    the loop-invariant step out of its scan; a CUDA graph replays every
+    launch it recorded, so the chain calls fn on the same inputs as they
+    are.  With no inputs, fn closes over its tensors, as autotune's does.
+
+    Raises as `capture` does (RuntimeError without a card or where a
+    capture fails, ValueError on a CPU tensor) and never times eagerly in
+    its place; ValueError unless 1 <= n_lo < n_hi and samples >= 1."""
+    if not (1 <= n_lo < n_hi and samples >= 1):
+        raise ValueError(f"time_chain needs 1 <= n_lo < n_hi and samples "
+                         f">= 1, got n_lo={n_lo}, n_hi={n_hi}, "
+                         f"samples={samples}")
+    lo = capture(chain(fn, n_lo), *inputs)
+    hi = capture(chain(fn, n_hi), *inputs)
+    lo.graph.replay()
+    hi.graph.replay()
+    events = []
+    for _ in range(samples):
+        for step in (lo, hi):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            step.graph.replay()
+            end.record()
+            events.append((start, end))
+    events[-1][1].synchronize()
+    ms = [start.elapsed_time(end) for start, end in events]
+    per_step = [(t_hi - t_lo) / (n_hi - n_lo)
+                for t_lo, t_hi in zip(ms[0::2], ms[1::2])]
+    return {**summary(per_step), "n_lo": n_lo, "n_hi": n_hi,
+            "kernels": {"lo": lo.kernels, "hi": hi.kernels}}

@@ -247,8 +247,10 @@ DISPATCH3D = [
 ]
 # The DISPATCH3D cases where the H100 profile takes another pair than the
 # JAX package on purpose (utils/device.py, measured by calibrate.py on the
-# card), and the pair it takes: planar gathermm only from bound 2.5, and
-# shift-blend up to C/dg 256.  Held by tests/test_torch_port_device.py.
+# card on captured chains), and the pair it takes: planar gathermm only
+# from bound 2.5 (the 3D shift-blend pair is 12-13% ahead at bounds
+# 0.5-2.0, the 3D gather pair 1.6-2.4% ahead at 2.5), and shift-blend up
+# to C/dg 256.  Held by tests/test_torch_port_device.py.
 H100_DIVERGES3D = {
     (2, 64, (16, 32, 32), 3, 1, 1, 2.0, "float32"): "shiftblend",
     (2, 256, (8, 16, 16), 3, 1, 1, 1.0, "float32"): "shiftblend",

@@ -16,8 +16,16 @@ Marked `cuda`: each test skips without an NVIDIA GPU.  Imports no JAX:
 * `debug_check_bounds` inside a capture: no host read while capturing, the
   warning when the step's loss is read, none within the bound;
 * the trainer, captured against eager from the same initial parameters:
-  the same losses and parameters, bit for bit.
+  the same losses and parameters, bit for bit;
+* the chain timer's chains (`graphs.chain`, `graphs.time_chain`): a
+  captured chain of config-2 training steps on the bounded pair ends in
+  the outputs of one eager step, SHA-256 equal, at N_LO and N_HI calls;
+  its peak memory at N_HI is within 5% of N_LO's (each call's workspaces
+  and outputs reused in the graph's pool); shift-blend's lead mode on
+  cfg2-H4's interior shard (calibrate's lead sweep step) captures and
+  replays bit-equal to eager, and times.
 """
+import hashlib
 import warnings
 
 import numpy as np
@@ -25,10 +33,12 @@ import pytest
 import torch
 
 import modulated_deform_conv_tpu_torch as mdt
+from modulated_deform_conv_tpu_torch import calibrate
 from modulated_deform_conv_tpu_torch.examples.train_dcn_resnet import train
 from modulated_deform_conv_tpu_torch.ops.cuda import gathermm as gm
 from modulated_deform_conv_tpu_torch.ops.cuda import lib
 from modulated_deform_conv_tpu_torch.ops.cuda import shiftblend as sb
+from modulated_deform_conv_tpu_torch.parallel import sharding as sh
 from modulated_deform_conv_tpu_torch.utils import graphs
 from modulated_deform_conv_tpu_torch.utils.config import DeformConvSpec
 
@@ -201,3 +211,74 @@ def test_trainer_captured_matches_eager(dev, deterministic):
     own = ref["model"].state_dict()
     for k, v in cap["model"].state_dict().items():
         assert torch.equal(v, own[k]), k
+
+
+def _sha(ts):
+    return [hashlib.sha256(t.detach().contiguous().view(torch.uint8).cpu()
+                           .numpy().tobytes()).hexdigest() for t in ts]
+
+
+def _cfg2_bounded(dev):
+    """Config 2 (B=8, 256 -> 256, 56x56, g = dg = 4, bias, offsets
+    U[-2, 2]) and its training step on the shift-blend pair."""
+    rng = np.random.default_rng(5)
+    arrs = [rng.standard_normal((8, 256, 56, 56)),
+            rng.uniform(-2, 2, (8, 72, 56, 56)),
+            rng.uniform(0, 1, (8, 36, 56, 56)),
+            rng.standard_normal((256, 64, 3, 3)) * 0.05,
+            rng.standard_normal((256,)) * 0.1]
+    ins = [torch.tensor(a, dtype=torch.float32, device=dev) for a in arrs]
+
+    def op(x, off, mask, w, b, dg):
+        return mdt.modulated_deform_conv2d(x, off, mask, w, b, 1, 1, 1, 4,
+                                           dg, offset_bound=2.0,
+                                           impl="shiftblend")
+    return _step(op, 4), ins
+
+
+def test_chain_ends_in_one_eager_step(dev):
+    step, ins = _cfg2_bounded(dev)
+    want = _sha(step(*_leaves(ins)))
+    for n in (graphs.N_LO, graphs.N_HI):
+        chained = graphs.capture(graphs.chain(step, n), *_leaves(ins))
+        assert chained.kernels == {"shiftblend_fwd": n, "shiftblend_bwd": n}
+        assert _sha(chained()) == want, n
+        del chained
+
+
+def test_chain_memory_does_not_grow_with_n(dev):
+    step, ins = _cfg2_bounded(dev)
+    leaves = _leaves(ins)
+    peak = {}
+    for n in (graphs.N_LO, graphs.N_HI):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        chained = graphs.capture(graphs.chain(step, n), *leaves)
+        chained()
+        torch.cuda.synchronize()
+        peak[n] = torch.cuda.max_memory_allocated() - base
+        del chained
+    assert peak[graphs.N_HI] <= 1.05 * peak[graphs.N_LO], peak
+
+
+def test_lead_shard_step_captures_and_times(dev):
+    spec, shards, coords, leaves = calibrate.lead_case(dev, "cfg2-H4", 64)
+
+    def lead(x, off, mask, w, b):
+        return sh.shard_conv(x, off, mask, w, b, spec, shards, coords,
+                             calibrate.LEAD_MAX_OFFSET, "auto",
+                             "tensorfloat32", lead=True)
+    step = _step(lambda x, off, mask, w, b, dg: lead(x, off, mask, w, b),
+                 None)
+    want = _sha(step(*_leaves(leaves)))
+    captured = graphs.capture(step, *_leaves(leaves))
+    assert set(captured.kernels) == {"shiftblend_fwd", "shiftblend_bwd"}
+    assert _sha(captured()) == want
+    del captured
+    timed = graphs.time_chain(step, *_leaves(leaves))
+    lo, hi = timed["kernels"]["lo"], timed["kernels"]["hi"]
+    assert set(lo) == set(hi) == {"shiftblend_fwd", "shiftblend_bwd"}
+    assert all(hi[k] * graphs.N_LO == lo[k] * graphs.N_HI for k in lo)
+    assert 0 < timed["ms"] and timed["spread"] < 0.5

@@ -257,11 +257,14 @@ def test_h100_dispatch_diverges_only_where_marked(case):
 
 
 # Which pair the H100 entry takes at the repo's configurations (PERF.md,
-# section 6): (B, C, S, k, stride, g, dg, bound) -> pair; the
-# general pair is "fused" or "columns".
+# section 6; the chained sweep put every measured unbounded shape on the
+# columns path): (B, C, S, k, stride, g, dg, bound) -> pair; the general
+# pair is "fused" or "columns".
 H100_PAIRS = {
     "cfg2 bounded": ((8, 256, (56, 56), 3, 1, 4, 4, 2.0), "shiftblend"),
-    "cfg2 general": ((8, 256, (56, 56), 3, 1, 4, 4, None), "fused"),
+    "cfg2 general": ((8, 256, (56, 56), 3, 1, 4, 4, None), "columns"),
+    "cfg1 bounded": ((2, 32, (64, 64), 3, 1, 1, 1, 2.0), "shiftblend"),
+    "cfg1 general": ((2, 32, (64, 64), 3, 1, 1, 1, None), "fused"),
     "cfg3": ((2, 64, (16, 32, 32), 3, 1, 1, 1, 2.0), "shiftblend"),
     "cfg3 general": ((2, 64, (16, 32, 32), 3, 1, 1, 1, None), "columns"),
     "DCNVideoNet s1b0": ((8, 64, (16, 56, 56), 3, 1, 1, 1, None), "columns"),
@@ -270,10 +273,16 @@ H100_PAIRS = {
     "cfg5 c3": ((32, 512, (28, 28), 3, 1, 1, 1, None), "columns"),
     "cfg5 c4": ((32, 1024, (14, 14), 3, 1, 1, 1, None), "columns"),
     "cfg5 c5": ((32, 2048, (7, 7), 3, 1, 1, 1, None), "columns"),
-    "DCNResNet-50 c3 first": ((8, 128, (56, 56), 3, 2, 1, 1, None), "fused"),
-    "DCNResNet-50 c4": ((8, 256, (14, 14), 3, 1, 1, 1, None), "fused"),
-    "DCNResNet-50 c5": ((8, 512, (7, 7), 3, 1, 1, 1, None), "fused"),
-    "DCNResNet-50 c5 first": ((8, 512, (14, 14), 3, 2, 1, 1, None), "fused"),
+    "DCNResNet-50 c3 first": ((8, 128, (56, 56), 3, 2, 1, 1, None),
+                              "columns"),
+    "DCNResNet-50 c4": ((8, 256, (14, 14), 3, 1, 1, 1, None), "columns"),
+    "DCNResNet-50 c5": ((8, 512, (7, 7), 3, 1, 1, 1, None), "columns"),
+    "DCNResNet-50 c5 first": ((8, 512, (14, 14), 3, 2, 1, 1, None),
+                              "columns"),
+    # Below the least multiply-adds the columns path was timed ahead at
+    # (DCNResNet-50's layers at B=8), the fused pair stays.
+    "DCNResNet-50 c4 B=4": ((4, 256, (14, 14), 3, 1, 1, 1, None), "fused"),
+    "3D small volume": ((2, 64, (4, 16, 16), 3, 1, 1, 1, None), "fused"),
 }
 
 
@@ -292,13 +301,15 @@ def test_h100_pairs_at_the_configs(name):
 
 # The lead layouts of chip_smoke.py: (x_l shape, spec args, halo) of one
 # shard of four on the leading dim, max_offset 2 -> lead mode taken on the
-# H100 (C/dg 64 and 128 are past its lead crossover, 32; the reference
-# profile's 128 takes all three).
+# H100 (never: its lead crossover is 0, the gather kernels' block mode
+# ahead at every swept C/dg; the reference profile's 128 takes all but
+# C/dg 256).
 H100_LEAD = {
     "cfg2-H4": (((8, 256, 14, 56), (2, 3, 1, 1, 1, 4, 4), 3), False),
     "cfg3-D4": (((2, 64, 4, 32, 32), (3, 3, 1, 1, 1, 1, 1), 3), False),
     "cfg4-D4": (((1, 128, 8, 64, 64), (3, 3, 1, 1, 1, 1, 1), 3), False),
-    "cfg2-H4 at dg 8": (((8, 256, 14, 56), (2, 3, 1, 1, 1, 4, 8), 3), True),
+    "cfg2-H4 at dg 8": (((8, 256, 14, 56), (2, 3, 1, 1, 1, 4, 8), 3), False),
+    "cfg2-H4 at dg 1": (((8, 256, 14, 56), (2, 3, 1, 1, 1, 1, 1), 3), False),
 }
 
 
@@ -310,7 +321,8 @@ def test_h100_lead_layouts(name):
     assert sh.lead_prefers(_meta(shape), spec, (shard,), 2.0,
                            device.current_profile(H100)) == want
     assert sh.lead_prefers(_meta(shape), spec, (shard,), 2.0,
-                           device.reference_profile())
+                           device.reference_profile()) == (
+        shape[1] // spec.deformable_groups <= 128)
 
 
 def test_budget_rules_left_out_on_purpose():
@@ -422,7 +434,7 @@ def test_profile_json_round_trip(tmp_path, monkeypatch):
     table = _table()
     res = {"kind": H100, "profile": calibrate.derive(H100, table),
            "measured": {"hbm_copy_bytes_per_s": 3.0e12}, "timings": table,
-           "quick": False}
+           "quick": False, "timing": dict(calibrate.TIMING)}
     path = str(tmp_path / "p.json")
     calibrate.write_profile(path, res)
     calibrate.write_profile(path, dict(res, kind="other"))

@@ -125,10 +125,10 @@ DISPATCH = [
     (2, 64, (9, 8), 3, 1, 1, 2, 1, 1.0, "float32"),       # g > dg: columns
 ]
 # The DISPATCH cases where the H100 profile (utils/device.py, measured by
-# calibrate.py on the card) takes another pair than the JAX package on
-# purpose, and the pair it takes: C/dg 192 is within the H100 crossover
-# (256), where shift-blend is no slower.  Held by
-# tests/test_torch_port_device.py.
+# calibrate.py on the card on captured chains) takes another pair than the
+# JAX package on purpose, and the pair it takes: C/dg 192 is within the
+# H100 crossover (256), where shift-blend's step is 4-9% ahead at every
+# C/dg of 8-256.  Held by tests/test_torch_port_device.py.
 H100_DIVERGES = {(2, 384, (14, 14), 3, 1, 1, 2, 2, 1.0, "bfloat16"):
                  "shiftblend"}
 

@@ -348,8 +348,8 @@ def test_lead_kernels_match_plain_on_every_shard(dev, case, precision):
 def test_lead_mode_stitches_to_the_unsharded_op(dev, case):
     """`sharding.shard_conv` takes the lead mode (one forward and one
     backward launch a shard) under "auto" on CUDA tensors where the card's
-    profile takes it (C/dg <= its `sb_lead_crossover_cg`; the cfg2 case's
-    C/dg 64 is past the H100's 32, and is forced with impl="shiftblend"),
+    profile takes it (C/dg <= its `sb_lead_crossover_cg`; a case past it
+    is forced with impl="shiftblend"),
     and the stitched outputs and summed block gradients of sum(out^2)
     equal the unsharded shift-blend op's (float32 limit)."""
     nd, B, C, O, S, k, g, dg, n, bound = LEAD_CASES[case]
