@@ -198,7 +198,7 @@ __global__ void __launch_bounds__(kMmaThreads, 2) fwd_mma_kernel(
   // K * cw rows tap-major in stages of 32 rows.  Row rr of stage j of chunk
   // t is tap k0 + (rr >> cw_log2) and channel c0 + (rr & (cw - 1)) of the
   // group, k0 = 32 j / cw, c0 = t cw.  The loop walks the stages with
-  // counters; nothing below divides by a runtime value per stage.
+  // running indices; nothing below divides by a runtime value per stage.
   const int cw = 1 << cw_log2, cmask = cw - 1;
   const int nst = (K * cw + kMK - 1) / kMK;
   const int n_stages = (Cgc + cw - 1) / cw * nst;

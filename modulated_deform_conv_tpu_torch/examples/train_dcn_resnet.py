@@ -38,7 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..models import DCNResNet, DCNVideoNet
-from ..utils import graphs
+from ..utils import graphs, profiling
 from ..utils.checkpoint import restore_checkpoint, save_checkpoint
 
 
@@ -69,15 +69,21 @@ def train_step(model: nn.Module, opt: torch.optim.Optimizer,
     """One AdamW step on softmax cross-entropy; returns the loss.  With
     `world` > 1 (torch.distributed initialised, each rank holding its
     slice of the batch) the loss and the gradients are averaged over the
-    ranks before the update."""
+    ranks before the update.  With the program's spans on
+    (`utils/profiling.py::tracing`) the model and loss, the backward and
+    the update are the spans "mdc.train.forward", "mdc.train.backward" and
+    "mdc.train.optimizer"."""
     opt.zero_grad(set_to_none=True)
-    loss = F.cross_entropy(model(x), y)
-    loss.backward()
+    with profiling.span("mdc.train.forward", x):
+        loss = F.cross_entropy(model(x), y)
+    with profiling.span("mdc.train.backward", x):
+        loss.backward()
     loss = loss.detach()
     if world > 1:
         grads = [p.grad for p in model.parameters() if p.grad is not None]
         _rank_mean([loss.reshape(1)] + grads, world)
-    opt.step()
+    with profiling.span("mdc.train.optimizer", x):
+        opt.step()
     return loss
 
 

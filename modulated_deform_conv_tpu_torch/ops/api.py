@@ -34,6 +34,13 @@ kernel paths the backward is a kernel too (shift-blend's or the general
 gather's), summed in a fixed order: two backward runs give the same bits,
 which the plain path's `torch.gather` backward (an atomic scatter on CUDA)
 does not promise.
+
+With the program's spans on (`utils/profiling.py::tracing`), each call of
+a public op is the span "mdc.dcn.fwd" and, where it is differentiated, its
+backward the span "mdc.dcn.bwd": from an identity autograd node on the
+output to one on the inputs that need a gradient.  Both carry the op's
+name, x's shape and the call's ordinal in its step.  With them off a call
+tests the switch and adds no node.
 """
 from __future__ import annotations
 
@@ -41,6 +48,7 @@ from typing import Optional
 
 import torch
 
+from ..utils import profiling
 from ..utils.config import DeformConvSpec
 from . import bounds, core
 from .cuda import PRECISIONS, maybe_cuda
@@ -51,7 +59,8 @@ _IMPLS = ("auto", "torch", "cuda", "shiftblend")
 def _dispatch(x, offset, mask, weight, bias, spec: DeformConvSpec, impl: str,
               precision: str = "tensorfloat32", out_sizes=None,
               offset_bound=None, gate_bounds=None,
-              debug_check_bounds: bool = False, block_origin=None):
+              debug_check_bounds: bool = False, block_origin=None,
+              stacklevel: int = 3):
     """The op on every path.  `out_sizes` (an output grid given rather than
     derived from x), `gate_bounds` (a per-dim (lo, hi) tap gate in place of
     (-1, S_d), in x's coordinates) and `block_origin` (a per-dim (shift,
@@ -59,7 +68,8 @@ def _dispatch(x, offset, mask, weight, bias, spec: DeformConvSpec, impl: str,
     `origin`; a sample's position is taken and gated in the input's
     coordinates, (base + shift) + offset) are the sharding layer's block
     mode, taken by the plain path and the gather kernels; with `out_sizes`
-    the shapes are not validated here, as in the JAX package."""
+    the shapes are not validated here, as in the JAX package.
+    `stacklevel`: the bounds warning's, from `bounds.check`."""
     if impl not in _IMPLS:
         raise ValueError(f"impl must be one of {_IMPLS}, got {impl!r}")
     if precision not in PRECISIONS:
@@ -70,7 +80,7 @@ def _dispatch(x, offset, mask, weight, bias, spec: DeformConvSpec, impl: str,
         # check synchronises with the device; inside a captured step
         # (utils/graphs.py) the check stays on the device and the step
         # warns when its loss is read, as JAX's jax.debug.print under jit.
-        bounds.check(offset, offset_bound, stacklevel=3)
+        bounds.check(offset, offset_bound, stacklevel=stacklevel)
     if out_sizes is None:
         spec.validate(x.shape, offset.shape, weight.shape,
                       None if mask is None else mask.shape,
@@ -89,6 +99,63 @@ def _dispatch(x, offset, mask, weight, bias, spec: DeformConvSpec, impl: str,
                                block_origin=block_origin)
 
 
+class _BwdBegin(torch.autograd.Function):
+    """Identity on the op's output; its backward, the first node of the
+    op's backward, opens the span "mdc.dcn.bwd"."""
+
+    @staticmethod
+    def forward(ctx, out, cell, attrs):
+        ctx.cell, ctx.attrs = cell, attrs
+        return out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.cell["span"] = profiling.begin("mdc.dcn.bwd", ctx.cell["at"],
+                                           **ctx.attrs)
+        return g, None, None
+
+
+class _BwdEnd(torch.autograd.Function):
+    """Identity on the op's inputs that need a gradient; its backward, run
+    once each of their gradients is out of the op, closes the span."""
+
+    @staticmethod
+    def forward(ctx, cell, *ts):
+        ctx.cell = cell
+        ctx.set_materialize_grads(False)
+        return tuple(t.view_as(t) for t in ts)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        sp = ctx.cell.pop("span", None)
+        if sp is not None:
+            profiling.end(sp, ctx.cell["at"])
+        return (None,) + gs
+
+
+def _public(op: str, x, offset, mask, weight, bias, spec: DeformConvSpec,
+            impl: str, precision: str, offset_bound, debug_check_bounds):
+    """A public op's call: `_dispatch`, in its spans where they are on."""
+    # The bounds warning points at the public op's caller.
+    kw = dict(offset_bound=offset_bound,
+              debug_check_bounds=debug_check_bounds, stacklevel=4)
+    if not profiling.enabled():
+        return _dispatch(x, offset, mask, weight, bias, spec, impl, precision,
+                         **kw)
+    ins = [x, offset, mask, weight, bias]
+    grad = ([i for i, t in enumerate(ins) if t is not None and t.requires_grad]
+            if torch.is_grad_enabled() else [])
+    cell = {"at": x.device}
+    if grad:
+        for i, t in zip(grad, _BwdEnd.apply(cell, *(ins[i] for i in grad))):
+            ins[i] = t
+    sp = profiling.begin("mdc.dcn.fwd", x, op=op, x_shape=tuple(x.shape))
+    sp.attrs["call"] = sp.ordinal
+    out = _dispatch(*ins, spec, impl, precision, **kw)
+    profiling.end(sp, out)
+    return _BwdBegin.apply(out, cell, sp.attrs) if grad else out
+
+
 def deform_conv2d(input: torch.Tensor, offset: torch.Tensor,
                   weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
                   stride=1, padding=0, dilation=1, groups: int = 1,
@@ -103,9 +170,8 @@ def deform_conv2d(input: torch.Tensor, offset: torch.Tensor,
     spec = DeformConvSpec.make(2, weight.shape[2:], stride, padding, dilation,
                                groups, deformable_groups, in_step,
                                modulated=False)
-    return _dispatch(input, offset, None, weight, bias, spec, impl,
-                     precision, offset_bound=offset_bound,
-                     debug_check_bounds=debug_check_bounds)
+    return _public("deform_conv2d", input, offset, None, weight, bias,
+                   spec, impl, precision, offset_bound, debug_check_bounds)
 
 
 def modulated_deform_conv2d(input: torch.Tensor, offset: torch.Tensor,
@@ -121,9 +187,9 @@ def modulated_deform_conv2d(input: torch.Tensor, offset: torch.Tensor,
     spec = DeformConvSpec.make(2, weight.shape[2:], stride, padding, dilation,
                                groups, deformable_groups, in_step,
                                modulated=True)
-    return _dispatch(input, offset, mask, weight, bias, spec, impl,
-                     precision, offset_bound=offset_bound,
-                     debug_check_bounds=debug_check_bounds)
+    return _public("modulated_deform_conv2d", input, offset, mask, weight,
+                   bias, spec, impl, precision, offset_bound,
+                   debug_check_bounds)
 
 
 def deform_conv3d(input: torch.Tensor, offset: torch.Tensor,
@@ -140,9 +206,8 @@ def deform_conv3d(input: torch.Tensor, offset: torch.Tensor,
     spec = DeformConvSpec.make(3, weight.shape[2:], stride, padding, dilation,
                                groups, deformable_groups, in_step,
                                modulated=False)
-    return _dispatch(input, offset, None, weight, bias, spec, impl,
-                     precision, offset_bound=offset_bound,
-                     debug_check_bounds=debug_check_bounds)
+    return _public("deform_conv3d", input, offset, None, weight, bias,
+                   spec, impl, precision, offset_bound, debug_check_bounds)
 
 
 def modulated_deform_conv3d(input: torch.Tensor, offset: torch.Tensor,
@@ -158,6 +223,6 @@ def modulated_deform_conv3d(input: torch.Tensor, offset: torch.Tensor,
     spec = DeformConvSpec.make(3, weight.shape[2:], stride, padding, dilation,
                                groups, deformable_groups, in_step,
                                modulated=True)
-    return _dispatch(input, offset, mask, weight, bias, spec, impl,
-                     precision, offset_bound=offset_bound,
-                     debug_check_bounds=debug_check_bounds)
+    return _public("modulated_deform_conv3d", input, offset, mask, weight,
+                   bias, spec, impl, precision, offset_bound,
+                   debug_check_bounds)

@@ -25,8 +25,10 @@ KERNELS = ("gathermm_fwd", "shiftblend_fwd", "gathermm_bwd", "shiftblend_bwd",
            "gathermm3d_fwd", "shiftblend3d_fwd", "gathermm3d_bwd",
            "shiftblend3d_bwd", "gathermm_cols_fwd", "gathermm_cols_bwd",
            "gathermm3d_cols_fwd", "gathermm3d_cols_bwd")
-# Measurement kernels that are no port of a TPU kernel (calibrate.py).
-PROBES = ("calibrate_fma",)
+# Measurement kernels that are no port of a TPU kernel: calibrate.py's FMA
+# rate, and the marks of the program's spans (utils/profiling.py), each
+# built at its first use.
+PROBES = ("calibrate_fma", "trace_mark")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 

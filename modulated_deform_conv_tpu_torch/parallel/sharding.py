@@ -80,7 +80,6 @@ import torch.nn.functional as F
 
 from ..ops import api as ops_api
 from ..ops.cuda import shiftblend as _sb
-from ..utils import profiling as _prof
 from ..utils.config import DeformConvSpec
 from ..utils.device import DeviceProfile, current_profile
 
@@ -589,22 +588,6 @@ def _local_conv(x_l, off_l, mask_l, weight, bias, spec: DeformConvSpec,
                       coords, max_offset, impl, precision, lead)
 
 
-def _count(spec, x_shape, O, shards) -> None:
-    """The call's analytic halo traffic and GEMM FLOPs, on global shapes."""
-    ext_shape = list(x_shape)
-    for sh in shards:
-        hs = _prof.halo_stats(spec, tuple(ext_shape), sh.halo, sh.n_shards,
-                              dim=sh.dim)
-        _prof.counters.add("halo_bytes_fwd", hs["halo_bytes_fwd"])
-        _prof.counters.add("halo_rows", hs["halo_rows"])
-        # Later exchanges carry the earlier dims' halo rows: every one of
-        # the n_shards blocks grows by 2 * halo.
-        ext_shape[2 + sh.dim] += 2 * sh.halo * sh.n_shards
-    _prof.counters.add("gemm_flops_fwd",
-                       _prof.op_stats(spec, x_shape, O)["gemm_flops"])
-    _prof.counters.add("sharded_calls", 1)
-
-
 def sharded_deform_conv(x: torch.Tensor, offset: torch.Tensor,
                         mask: Optional[torch.Tensor], weight: torch.Tensor,
                         bias: Optional[torch.Tensor], spec: DeformConvSpec,
@@ -654,7 +637,6 @@ def sharded_deform_conv(x: torch.Tensor, offset: torch.Tensor,
         wshape, glob(None if mask is None else mask.shape, n_b, n_c, True),
         None if bias is None else (bias.shape[0] * n_g,), spec, sizes,
         batch_axis, spatial_axis, max_offset, halo, group_axis)
-    _count(spec, glob(x.shape, n_b, n_c, True), wshape[0], plan.shards)
 
     split = plan.split_axes()
     weight, bias = sum_grad(weight, mesh, split), sum_grad(bias, mesh, split)

@@ -34,7 +34,7 @@ Three hazards of capturing the port's kernels:
   addresses on every replay.  New shapes need a new capture: a step
   refuses an input whose shape, type or device is not its capture's.
 
-The kernel wrappers' `launches` counters run in Python, so they move in
+The kernel wrappers' `launches` counts run in Python, so they move in
 the warm-up and once at the capture, never on a replay:
 `CapturedStep.kernels` holds the counts the capture added, the kernels the
 graph holds.
@@ -44,6 +44,17 @@ There the op records the check on the device instead (ops/bounds.py, into
 the `BoundsRecord` that `capture` opens and the captured step owns), and
 `CapturedStep.read` reads the flags with the value the caller reads anyway
 (the loss), in one copy, and gives the warning an eager call gives.
+
+With the program's spans on (`utils/profiling.py::tracing`) at the
+capture, `capture` wraps the captured call in the span "mdc.step" and
+records every span inside it (the trainer's, the deformable ops') into a
+`StepRecord`: a ring of RING_ROWS replays on the device, allocated before
+the capture, outside the graph's pool, each mark a node of the graph.
+`CapturedStep.spans()` reads it.  The warm-up's last call counts the
+marks a call makes, which sizes the ring's rows.  With the spans off the
+graph holds no mark and no ring is allocated.  A call of the step, with
+the spans on, also records the host spans "mdc.step.copy_in",
+"mdc.step.replay" and "mdc.step.read" (`profiling.annotate`).
 
 `time_chain` times a step the way the JAX package's calibrate.py
 (`_chain` / `_amortized`) and utils/autotune.py (`_time_differenced`)
@@ -55,6 +66,7 @@ calibrate.py and utils/autotune.py time with it, and with nothing else.
 """
 from __future__ import annotations
 
+import contextlib
 import statistics
 import time
 from typing import Callable, List
@@ -63,6 +75,7 @@ import torch
 
 from ..ops import bounds as bounds_check
 from ..ops.cuda import lib
+from . import profiling
 
 
 # Eager calls of a step before its capture: every kernel is built and
@@ -107,39 +120,62 @@ class CapturedStep:
     outputs, in the structure the function returned), `kernels` (launches
     of each hand-written kernel the graph holds), `bounds` (the
     `debug_check_bounds` checks captured), `capture_s` (the warm-up and
-    the capture, on the host clock)."""
+    the capture, on the host clock), `record` (the spans' `StepRecord`,
+    None where the spans were off at the capture)."""
 
-    def __init__(self, graph, inputs, outputs, kernels, bounds, capture_s):
+    def __init__(self, graph, inputs, outputs, kernels, bounds, capture_s,
+                 record=None):
         self.graph, self.inputs, self.outputs = graph, inputs, outputs
         self.kernels, self.bounds, self.capture_s = kernels, bounds, capture_s
+        self.record = record
 
     def __call__(self, *inputs):
+        if not profiling.enabled():
+            if inputs:
+                self._copy_in(inputs)
+            self.graph.replay()
+            return self.outputs
         if inputs:
-            if len(inputs) != len(self.inputs):
-                raise ValueError(f"the step takes {len(self.inputs)} inputs, "
-                                 f"got {len(inputs)}")
-            # copy_ would broadcast a shape and cast a type without a word.
-            for i, (static, new) in enumerate(zip(self.inputs, inputs)):
-                if not (isinstance(new, torch.Tensor)
-                        and new.shape == static.shape
-                        and new.dtype == static.dtype
-                        and new.device == static.device):
-                    raise ValueError(
-                        f"input {i} is not a {tuple(static.shape)} "
-                        f"{static.dtype} tensor on {static.device}, as at the "
-                        "capture: a new shape, type or device needs a new "
-                        "capture")
-            with torch.no_grad():
-                for static, new in zip(self.inputs, inputs):
-                    static.copy_(new)
-        self.graph.replay()
+            with profiling.annotate("mdc.step.copy_in"):
+                self._copy_in(inputs)
+        with profiling.annotate("mdc.step.replay"):
+            self.graph.replay()
         return self.outputs
+
+    def _copy_in(self, inputs) -> None:
+        """Copy each input into its static input, refusing another shape,
+        type or device."""
+        if len(inputs) != len(self.inputs):
+            raise ValueError(f"the step takes {len(self.inputs)} inputs, "
+                             f"got {len(inputs)}")
+        # copy_ would broadcast a shape and cast a type without a word.
+        for i, (static, new) in enumerate(zip(self.inputs, inputs)):
+            if not (isinstance(new, torch.Tensor)
+                    and new.shape == static.shape
+                    and new.dtype == static.dtype
+                    and new.device == static.device):
+                raise ValueError(
+                    f"input {i} is not a {tuple(static.shape)} "
+                    f"{static.dtype} tensor on {static.device}, as at the "
+                    "capture: a new shape, type or device needs a new "
+                    "capture")
+        with torch.no_grad():
+            for static, new in zip(self.inputs, inputs):
+                static.copy_(new)
 
     def read(self, t: torch.Tensor) -> float:
         """t (a 0-dim output, the loss) on the host, with the captured
         bounds checks in the same copy: a violated check warns as the eager
         op does, and costs no synchronisation beyond t's read."""
-        return self.bounds.read_with(t, stacklevel=2)
+        with (profiling.annotate("mdc.step.read") if profiling.enabled()
+              else contextlib.nullcontext()):
+            return self.bounds.read_with(t, stacklevel=2)
+
+    def spans(self) -> list:
+        """The spans of the last min(replays, RING_ROWS) replays
+        (`profiling` module docstring), read with one synchronisation and
+        one copy; [] where the spans were off at the capture."""
+        return [] if self.record is None else self.record.read()
 
 
 def capture(fn: Callable, *inputs: torch.Tensor) -> CapturedStep:
@@ -167,6 +203,7 @@ def capture(fn: Callable, *inputs: torch.Tensor) -> CapturedStep:
                              f"{where}")
     device = (inputs[0].device if inputs
               else torch.device("cuda", torch.cuda.current_device()))
+    traced = profiling.enabled()
     t0 = time.perf_counter()
     static = [t.detach().clone().requires_grad_(t.requires_grad)
               for t in inputs]
@@ -174,28 +211,41 @@ def capture(fn: Callable, *inputs: torch.Tensor) -> CapturedStep:
     side.wait_stream(torch.cuda.current_stream(device))
     with torch.cuda.stream(side):
         for _ in range(WARMUP):
-            fn(*static)
+            marks = profiling.marks(device)
+            with profiling.span("mdc.step", device):
+                fn(*static)
     torch.cuda.current_stream(device).wait_stream(side)
     torch.cuda.synchronize(device)
 
     graph = torch.cuda.CUDAGraph()
-    counters = _launch_counts()
-    before = {n: f.launches for n, f in counters.items()}
+    wrappers = _launch_counts()
+    before = {n: f.launches for n, f in wrappers.items()}
     bounds = bounds_check.BoundsRecord()
+    record = (profiling.StepRecord(device, profiling.marks(device) - marks)
+              if traced else None)
     try:
-        with bounds_check.recording(bounds), torch.cuda.graph(graph):
+        with bounds_check.recording(bounds), profiling.recording(record), \
+                torch.cuda.graph(graph):
+            root = record.begin("mdc.step", device, {}) if traced else None
             out = fn(*static)
             bounds.seal()
+            if traced:
+                record.end(root, device, last=True)
     except Exception as e:
         raise RuntimeError(f"CUDA graph capture of "
                            f"{getattr(fn, '__name__', fn)!r} failed: {e}"
                            ) from e
     _check_outputs(out)
-    kernels = {n: f.launches - before[n] for n, f in counters.items()
+    if traced and (record.open or record.slots != record.width):
+        raise RuntimeError(
+            f"the capture made {record.slots} marks against its warm-up's "
+            f"{record.width}, or left spans open: "
+            f"{[sp.name for sp in record.open]}")
+    kernels = {n: f.launches - before[n] for n, f in wrappers.items()
                if f.launches != before[n]}
     torch.cuda.synchronize(device)
     return CapturedStep(graph, static, out, kernels, bounds,
-                        time.perf_counter() - t0)
+                        time.perf_counter() - t0, record)
 
 
 # ---- the chain timer --------------------------------------------------------
