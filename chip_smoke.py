@@ -80,7 +80,13 @@ rules), which every launch check reads:
    them); every step eager against captured on the host clock, CUDA
    events, device time and the host's time to issue one call, and each op
    step's chain-differenced time (calibrate's and autotune's timer) beside
-   its device time.
+   its device time; each network's graph holds one launch of the AdamW
+   update over every parameter value.
+12. the trainer's AdamW update (run_adamw; csrc/adamw.cu) on DCNResNet-50's
+   187 leaves in float32 and bfloat16: the kernel against its plain
+   version after two steps, one launch a step, and its captured,
+   chain-differenced time beside its memory bound, torch's foreach AdamW
+   (the path it replaced) and torch's fused AdamW (the library anchor).
 
 It builds the twelve kernels (shift-blend and gather, forward and
 backward, 2D and 3D; the gather's columns forward and backward, 2D and
@@ -2772,8 +2778,12 @@ def run_captured(torch, mdt, graphs, train, train_step, names, dev):
               f"captured {name} parts from eager: losses {loss_rel:.3e}, parameters {worst:.3e}, "
               f"ops with atomics {atomics}")
         held[name] = cap["kernels"]
-        print(f"captured {name}: graph holds {cap['kernels']}; capture {cap['capture_s']:.2f} s "
+        print(f"captured {name}: graph holds {cap['kernels']}, AdamW values a step "
+              f"{cap['step'].values}; capture {cap['capture_s']:.2f} s "
               f"({graphs.WARMUP} warm-up steps included)")
+        n_values = sum(p.numel() for p in cap["model"].parameters())
+        check(cap["kernels"].get("adamw") == 1 and cap["step"].values == {"adamw": n_values},
+              f"captured {name}: the AdamW update is not one launch over {n_values} values")
         step, (x, y) = cap["step"], ref["batch"]
         # Host clock: the trainer's own steps 2-N.
         eager = step_times(lambda: train_step(ref["model"], ref["optimizer"], x, y),
@@ -2797,6 +2807,89 @@ def run_captured(torch, mdt, graphs, train, train_step, names, dev):
     return out
 
 
+# The AdamW update: its plain version's rounding against the kernel's, a
+# few units in the last place a step (tests/test_torch_port_adamw_cuda.py).
+ADAMW_TOL = {"torch.float32": 2.0 ** -21, "torch.bfloat16": 2.0 ** -7}
+ADAMW_KW = dict(lr=1e-3, weight_decay=1e-4)
+
+
+def run_adamw(torch, mdt, aw, graphs, dev):
+    """The AdamW phase.  Per type (float32, bfloat16), on DCNResNet-50's
+    leaves at its published width: two eager steps of the kernel against
+    its plain version on CPU copies, one launch a step; then the update's
+    device time (`graphs.time_chain`: captured chains of 1 and 4 steps,
+    differenced) for the kernel, torch's foreach AdamW and torch's fused
+    AdamW (both capturable), beside the bound: p, g, m and v read once and
+    p, m and v written once at 3.35 TB/s."""
+    t_phase = time.time()
+    shapes = [tuple(p.shape) for p in mdt.DCNResNet(
+        num_classes=RESNET["classes"], width=RESNET["width"], device="meta").parameters()]
+    total = sum(math.prod(s) for s in shapes)
+    out = {"leaves": len(shapes), "values": total}
+    makers = {
+        "kernel": lambda ps: aw.AdamW(ps, capturable=True, **ADAMW_KW),
+        "foreach": lambda ps: torch.optim.AdamW(ps, capturable=True, foreach=True, **ADAMW_KW),
+        "fused": lambda ps: torch.optim.AdamW(ps, capturable=True, fused=True, **ADAMW_KW)}
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        start = [(torch.randn(s, generator=gen, device=dev) * 0.05).to(dtype) for s in shapes]
+        grads = [[torch.randn(s, generator=gen, device=dev).to(dtype) for s in shapes]
+                 for _ in range(2)]
+        kern = [t.clone().requires_grad_() for t in start]
+        plain = [t.to("cpu", copy=True).requires_grad_() for t in start]
+        opts = (makers["kernel"](kern), aw.AdamW(plain, **ADAMW_KW))
+        launches, values = aw.adamw.launches, aw.adamw.values
+        for g in grads:
+            for p, q, gi in zip(kern, plain, g):
+                p.grad, q.grad = gi, gi.cpu()
+            for opt in opts:
+                opt.step()
+        torch.cuda.synchronize()
+        check((aw.adamw.launches - launches, aw.adamw.values - values) == (2, 2 * total),
+              f"AdamW {dtype}: {aw.adamw.launches - launches} launches, "
+              f"{aw.adamw.values - values} values over 2 steps, want 2 and {2 * total}")
+        tol = 2 * ADAMW_TOL[str(dtype)]
+        worst = max(float(((a.detach().cpu().double() - b.detach().double()).abs()
+                           - tol * (b.detach().double().abs() + ADAMW_KW["lr"])).max())
+                    for a, b in zip(kern, plain))
+        err = max(rel_err(a.detach().cpu(), b.detach()) for a, b in zip(kern, plain))
+        check(worst <= 0, f"AdamW {dtype}: kernel off its plain version by {worst:.3e} "
+                          "past the bound")
+        del kern, plain, opts
+        nbytes = 7 * total * start[0].element_size()
+        row = {"max_rel_err": err, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes}
+        for name, make in makers.items():
+            leaves = [t.clone().requires_grad_() for t in start]
+            for p, g in zip(leaves, grads[0]):
+                p.grad = g
+            opt = make(leaves)
+            try:
+                timed = graphs.time_chain(lambda: (opt.step(),)[1:])
+            except RuntimeError as e:   # a library anchor that cannot be captured
+                check(name != "kernel", f"AdamW kernel: capture failed: {e}")
+                row[f"{name}_ms"], row[f"{name}_error"] = None, str(e)[:300]
+            else:
+                row[f"{name}_ms"], row[f"{name}_spread"] = timed["ms"], timed["spread"]
+                if name == "kernel":
+                    check(timed["kernels"]["lo"] == {"adamw": 1},
+                          f"AdamW kernel: graph holds {timed['kernels']['lo']}")
+            del opt, leaves
+            torch.cuda.empty_cache()
+        ms = row["kernel_ms"]
+        row["hbm_share"] = nbytes / (ms * 1e-3) / HBM_BYTES_PER_S
+        fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"  # noqa: E731
+        print(f"AdamW on DCNResNet-50's {len(shapes)} leaves ({total} values), {dtype}: kernel "
+              f"{ms:.4f} ms (spread {row['kernel_spread']:.3f}), bound {row['bound_ms']:.4f} ms "
+              f"({nbytes / 1e9:.3f} GB; {row['hbm_share']:.1%} of 3.35 TB/s); torch foreach "
+              f"{fmt(row['foreach_ms'])}, torch fused {fmt(row['fused_ms'])}; max rel err "
+              f"against the plain version {err:.3e}")
+        out[str(dtype).split(".")[1]] = row
+        del start, grads
+        torch.cuda.empty_cache()
+    print(f"AdamW phase: {time.time() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     t_start = time.time()
     import torch
@@ -2808,6 +2901,7 @@ def main() -> int:
         import modulated_deform_conv_tpu_torch as mdt
         from modulated_deform_conv_tpu_torch.examples.train_dcn_resnet import (
             train, train_step)
+        from modulated_deform_conv_tpu_torch.ops.cuda import adamw as aw
         from modulated_deform_conv_tpu_torch.ops.cuda import gathermm as gm
         from modulated_deform_conv_tpu_torch.ops.cuda import lib
         from modulated_deform_conv_tpu_torch.ops.cuda import shiftblend as sb
@@ -2856,10 +2950,10 @@ def main() -> int:
     def counts():
         return {n: fn.launches for n, (fn, _) in kernels.items()}
 
-    # Phase 2: build the twelve kernels (and calibrate's FMA probe) from the
-    # sources, in parallel.
+    # Phase 2: build the twelve kernels, the AdamW update and calibrate's
+    # FMA probe from the sources, in parallel.
     t0 = time.time()
-    logs = lib.build(lib.KERNELS + lib.PROBES, verbose=True)
+    logs = lib.build(lib.KERNELS + lib.PROBES + lib.OPTIMIZERS, verbose=True)
     print(f"build: {time.time() - t0:.1f} s for {sorted(logs) or 'nothing (cached)'}")
     for name, log in logs.items():
         for line in log.splitlines():
@@ -3224,6 +3318,10 @@ def main() -> int:
     # Phase 24: the captured steps (CUDA graphs through the twelve kernels).
     torch.cuda.empty_cache()
     captured = run_captured(torch, mdt, graphs, train, train_step, list(kernels), dev)
+    # Phase 25: the trainer's AdamW update, against its plain version and
+    # timed beside torch's foreach and fused AdamW.
+    torch.cuda.empty_cache()
+    adamw_times = run_adamw(torch, mdt, aw, graphs, dev)
 
     # Phase 17: the kernel table.  The 2D column kernels' row is config 5's
     # c4 layer, the 3D one the 3D columns case; `launches` sums every
@@ -3284,7 +3382,8 @@ def main() -> int:
                       "dcn_resnet50_step_ms": step_ms, "train_step3d_ms": r3["steps"],
                       "both_kernels3d_ms": r3["cross"], "dcn_videonet_step_ms": video_ms,
                       "columns_path_ms": r5["times"], "calibration": calibration,
-                      "autotune_cfg5_c4": tuned, "bf16": bf16, "captured": captured}))
+                      "autotune_cfg5_c4": tuned, "bf16": bf16, "captured": captured,
+                      "adamw": adamw_times}))
     print(f"chip_smoke total: {time.time() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"ok": True, "device": {

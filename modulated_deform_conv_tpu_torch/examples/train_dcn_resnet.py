@@ -38,17 +38,19 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..models import DCNResNet, DCNVideoNet
+from ..ops.cuda.adamw import AdamW
 from ..utils import graphs, profiling
 from ..utils.checkpoint import restore_checkpoint, save_checkpoint
 
 
 def make_optimizer(model: nn.Module) -> torch.optim.Optimizer:
-    """AdamW at optax.adamw's defaults (lr 1e-3, weight decay 1e-4); on a
-    CUDA device `capturable`, so that its step count lives on the device
-    and the update can be captured (the same arithmetic)."""
+    """AdamW at optax.adamw's defaults (lr 1e-3, weight decay 1e-4), whose
+    update is one pass of the hand-written kernel over every leaf on a CUDA
+    device (ops/cuda/adamw.py); there `capturable`, so that its step count
+    lives on the device and the update can be captured."""
     on_cuda = next(model.parameters()).is_cuda
-    return torch.optim.AdamW(model.parameters(), lr=1e-3, weight_decay=1e-4,
-                             capturable=on_cuda)
+    return AdamW(model.parameters(), lr=1e-3, weight_decay=1e-4,
+                 capturable=on_cuda)
 
 
 def _rank_mean(tensors, world: int) -> None:
@@ -181,7 +183,8 @@ def train(steps: int = 10, batch: int = 8, width: int = 8,
         del init
         capture_s, kernels = step_fn.capture_s, step_fn.kernels
         log(f"captured the step in {capture_s:.2f} s (warm-up included); "
-            f"kernels in the graph: {kernels}")
+            f"kernels in the graph: {kernels}; values updated a step: "
+            f"{step_fn.values}")
 
     losses, step_s = [], []
     for step in range(steps):

@@ -29,6 +29,9 @@ KERNELS = ("gathermm_fwd", "shiftblend_fwd", "gathermm_bwd", "shiftblend_bwd",
 # rate, and the marks of the program's spans (utils/profiling.py), each
 # built at its first use.
 PROBES = ("calibrate_fma", "trace_mark")
+# Kernels of the main path that are no port of a TPU kernel either: the
+# trainer's AdamW update (adamw.py), built at its first use.
+OPTIMIZERS = ("adamw",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -88,16 +91,18 @@ def build(names: Iterable[str] = KERNELS, verbose: bool = False) -> Dict[str, st
     return logs
 
 
-def kernel(name: str):
-    """The C entry point `name` of `csrc/<name>.cu`, built if needed."""
-    fn = _FUNCS.get(name)
+def kernel(name: str, entry: Optional[str] = None):
+    """The C entry point `entry` (default `name`) of `csrc/<name>.cu`,
+    built if needed."""
+    entry = entry or name
+    fn = _FUNCS.get(entry)
     if fn is None:
         path = _lib_path(name)
         if not path.exists():
             build([name])
-        fn = getattr(ctypes.CDLL(str(path)), name)
+        fn = getattr(ctypes.CDLL(str(path)), entry)
         fn.restype = ctypes.c_int
-        _FUNCS[name] = fn
+        _FUNCS[entry] = fn
     return fn
 
 

@@ -37,7 +37,8 @@ Three hazards of capturing the port's kernels:
 The kernel wrappers' `launches` counts run in Python, so they move in
 the warm-up and once at the capture, never on a replay:
 `CapturedStep.kernels` holds the counts the capture added, the kernels the
-graph holds.
+graph holds, and `CapturedStep.values` the AdamW update's count of the
+values it updated (ops/cuda/adamw.py).
 
 `debug_check_bounds` cannot read its check on the host inside a capture.
 There the op records the check on the device instead (ops/bounds.py, into
@@ -103,10 +104,14 @@ def _check_outputs(out) -> None:
 
 
 def _launch_counts() -> dict:
-    """Every kernel wrapper's `launches` counter, by kernel name."""
-    from ..ops.cuda import gathermm, shiftblend
-    return {n: getattr(gathermm, n, None) or getattr(shiftblend, n)
-            for n in lib.KERNELS}
+    """Every kernel wrapper of the main path (the twelve kernels and the
+    optimizer's update), by kernel name: each counts its `launches`, and
+    the update also the `values` it updated."""
+    from ..ops.cuda import adamw, gathermm, shiftblend
+    wrappers = {n: getattr(gathermm, n, None) or getattr(shiftblend, n)
+                for n in lib.KERNELS}
+    wrappers.update((n, getattr(adamw, n)) for n in lib.OPTIMIZERS)
+    return wrappers
 
 
 class CapturedStep:
@@ -118,16 +123,18 @@ class CapturedStep:
 
     Attributes: `inputs` (the static inputs), `outputs` (the static
     outputs, in the structure the function returned), `kernels` (launches
-    of each hand-written kernel the graph holds), `bounds` (the
+    of each hand-written kernel the graph holds), `values` (the values
+    each kernel that counts them updates a replay: the AdamW update's
+    engagement check), `bounds` (the
     `debug_check_bounds` checks captured), `capture_s` (the warm-up and
     the capture, on the host clock), `record` (the spans' `StepRecord`,
     None where the spans were off at the capture)."""
 
     def __init__(self, graph, inputs, outputs, kernels, bounds, capture_s,
-                 record=None):
+                 record=None, values=None):
         self.graph, self.inputs, self.outputs = graph, inputs, outputs
         self.kernels, self.bounds, self.capture_s = kernels, bounds, capture_s
-        self.record = record
+        self.record, self.values = record, values or {}
 
     def __call__(self, *inputs):
         if not profiling.enabled():
@@ -220,6 +227,7 @@ def capture(fn: Callable, *inputs: torch.Tensor) -> CapturedStep:
     graph = torch.cuda.CUDAGraph()
     wrappers = _launch_counts()
     before = {n: f.launches for n, f in wrappers.items()}
+    values = {n: f.values for n, f in wrappers.items() if hasattr(f, "values")}
     bounds = bounds_check.BoundsRecord()
     record = (profiling.StepRecord(device, profiling.marks(device) - marks)
               if traced else None)
@@ -243,9 +251,11 @@ def capture(fn: Callable, *inputs: torch.Tensor) -> CapturedStep:
             f"{[sp.name for sp in record.open]}")
     kernels = {n: f.launches - before[n] for n, f in wrappers.items()
                if f.launches != before[n]}
+    values = {n: wrappers[n].values - v for n, v in values.items()
+              if wrappers[n].values != v}
     torch.cuda.synchronize(device)
     return CapturedStep(graph, static, out, kernels, bounds,
-                        time.perf_counter() - t0, record)
+                        time.perf_counter() - t0, record, values)
 
 
 # ---- the chain timer --------------------------------------------------------
