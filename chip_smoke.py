@@ -26,7 +26,12 @@ rules), which every launch check reads:
    timed at both;
 5. DCNVideoNet at its published defaults (width 32, blocks (1, 1, 1), 400
    classes) on B=8 clips of 16x112x112, trained for a few AdamW steps by
-   the in-package trainer;
+   the in-package trainer; and DCNResNet3d-50 at the benchmark cell
+   r3d50-k400-train's size (width 64, 400 classes, B=32 clips of
+   16x112x112), trained the same way, every one of its 13 DCN layers
+   (strided at c3_1, c4_1 and c5_1) on the 3D columns pair, the column
+   kernels held against their plain versions on the layers' recorded
+   inputs;
 6. BASELINE config 5 (benchmarks/suite.py:64-70): the ResNet-50 stage
    sweep c3 / c4 / c5 (512 / 1024 / 2048 channels at 28x28 / 14x14 / 7x7,
    B=32, g = dg = 1, bias), forward and training step, on the fused
@@ -75,9 +80,10 @@ rules), which every launch check reads:
    (bounded and general, fp32 and bf16), config 3 (B=2, with and without
    its bound), config 5 c4 and the 3D columns case, each captured as a CUDA
    graph and replayed on a second seed's inputs, bit-equal (SHA-256) to
-   eager; DCNResNet-50 and DCNVideoNet trained captured and eager from the
-   same parameters, equal; the kernels each graph holds (all twelve among
-   them); every step eager against captured on the host clock, CUDA
+   eager; DCNResNet-50, DCNVideoNet and DCNResNet3d-50 (B=32) trained
+   captured and eager from the same parameters, equal; the kernels each
+   graph holds (all twelve among them; DCNResNet3d-50's 13 + 13 3D column
+   launches over the column values its layer shapes give); every step eager against captured on the host clock, CUDA
    events, device time and the host's time to issue one call, and each op
    step's chain-differenced time (calibrate's and autotune's timer) beside
    its device time; each network's graph holds one launch of the AdamW
@@ -175,6 +181,11 @@ TIMING3D = {"cfg3": {"kernel": (20, 10, 3), "plain": (5, 2, 1)},
 # pair.
 VIDEO = dict(width=32, classes=400, batch=8, frames=16, size=112, steps=4)
 VIDEO_DCN_LAYERS = 2
+# DCNResNet3d-50 at the benchmark cell r3d50-k400-train's size: published
+# widths, 400 classes, B=32 Kinetics clips of 16 x 112 x 112; its 13 DCN
+# layers (c3-c5, stride 2 on c3_1, c4_1 and c5_1) all take the 3D columns
+# pair under "auto" at this batch.
+RESNET3D = dict(width=64, classes=400, batch=32, frames=16, size=112, steps=3)
 # BASELINE config 5 (benchmarks/suite.py:64-70): modulated_deform_conv2d at
 # the ResNet-50 stage shapes, B=32, 3x3, stride 1, pad 1, g = dg = 1, zero
 # bias, offsets U[-2, 2], mask U[0, 1], weights N(0, 0.05^2); per layer
@@ -449,6 +460,30 @@ def current_profile_of(x):
     return current_profile(x)
 
 
+def col_values(torch, model, x):
+    """The column values one forward of `model` on x has the 3D column
+    forward write, from the shapes of each 3D DCN layer that "auto" sends
+    to the column pair: C x taps x B x the output grid."""
+    total, hooks = [0], []
+
+    def hook(mod, inputs, out):
+        xin = inputs[0]
+        if auto_pair(xin, mod._spec(), mod.weight.shape[0]) == "gathermm3d_cols":
+            grid = out.shape[:1] + out.shape[2:]
+            total[0] += xin.shape[1] * math.prod(mod.kernel_size) * math.prod(grid)
+
+    for m in model.modules():
+        if getattr(m, "_ndim", None) == 3 and hasattr(m, "_spec"):
+            hooks.append(m.register_forward_hook(hook))
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
 def recorded_pairs(recorded, steps, kernels):
     """The launches a trainer's run must make: per DCN layer recorded at
     the first step, `steps` of its "auto" pair's forward and backward."""
@@ -585,6 +620,38 @@ def check_recorded(torch, recorded, layers, pair, label):
                   f"stride {sspec.stride[0]} max|off| {max_off:.3g}: {fwd.__name__} + bwd vs "
                   "plain, worst rel err " + " ".join(f"{p} {e:.2e}" for p, e in worst.items()))
     print(f"{label} layer checks: peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+
+def run_resnet3d(torch, mdt, train, gm, spec_cls, reset, counts, kernels):
+    """DCNResNet3d-50 (RESNET3D) trained eagerly by the in-package trainer,
+    hooks recording each DCN layer's inputs at the first and last step:
+    every layer's launches are the 3D column pair's, one each way a step,
+    and the column kernels are held against their plain versions on every
+    record.  Returns the launches."""
+    r = RESNET3D
+    reset()
+    res, recorded = train_recorded(
+        torch, train, mdt.ModulatedDeformConv3dPack, spec_cls, r["steps"], batch=r["batch"],
+        width=r["width"], classes=r["classes"], size=r["size"], arch="resnet3d",
+        frames=r["frames"])
+    launches = counts()
+    print(f"DCNResNet3d-50 launches over {r['steps']} steps: {launched(launches)}")
+    check(len([rec for rec in recorded if rec["step"] == 0]) == DCN_LAYERS,
+          "DCNResNet3d-50: not every DCN layer recorded")
+    want = recorded_pairs(recorded, r["steps"], kernels)
+    cols = {f"gathermm3d_cols_{k}": DCN_LAYERS * r["steps"] for k in ("fwd", "bwd")}
+    check(launches == want and launched(want) == cols,
+          f"DCNResNet3d-50 launches {launched(launches)}, want the profile's pairs "
+          f"{launched(want)} and the 3D column pair on every layer {cols}")
+    check(all(np.isfinite(res["losses"])), f"DCNResNet3d-50 loss not finite: {res['losses']}")
+    strides = sorted({rec["spec"].stride[0] for rec in recorded})
+    print(f"DCNResNet3d-50 width {r['width']} {r['classes']} classes B={r['batch']} "
+          f"{r['frames']}x{r['size']}x{r['size']}: loss {res['losses'][0]:.4f} -> "
+          f"{res['losses'][-1]:.4f}, step {statistics.median(res['step_s'][1:]) * 1e3:.2f} ms "
+          f"(median of steps 2-{r['steps']}, eager); DCN strides {strides}")
+    check(strides == [1, 2], f"DCNResNet3d-50: DCN strides {strides}, want 1 and 2")
+    check_recorded_cols(torch, recorded, gm, "DCNResNet3d-50")
+    return launches
 
 
 def check_recorded_cols(torch, recorded, gm, label, batch=2):
@@ -2611,8 +2678,19 @@ def nccl_one_rank(torch, mdt, dev):
 # steps: the public op's training step (out and the gradients of
 # sum(out^2)) under "auto"; network steps: the trainer's AdamW step, the
 # same number of steps captured and eager.  Network relative limit where a
-# library op with atomics keeps two eager runs from the same bits.
+# library op with atomics keeps two eager runs from the same bits; it holds
+# the first loss and the gradients of one step from the same parameters
+# (`same_params_grad_gaps`), since AdamW turns a last-bit difference in a
+# gradient near 0 into a step of lr either way.  The gradients may part by
+# up to CAPTURED_NOISE times as much as two eager steps part from each
+# other, where that is more (DCNResNet3d-50's max_pool3d backward parts its
+# stem's gradients by 0.75-1.5e-5 captured against eager and 1.3e-5 eager
+# against eager on an H100).
 CAPTURED_NET_LIMIT = 1e-5
+CAPTURED_NOISE = 10
+# (label, size, the trainer's arch) of each network captured.
+CAPTURED_NETS = (("DCNResNet-50", RESNET, "resnet"), ("DCNVideoNet", VIDEO, "video"),
+                 ("DCNResNet3d-50", RESNET3D, "resnet3d"))
 
 
 def captured_op_cases(torch, mdt, dev):
@@ -2664,6 +2742,36 @@ def captured_op_cases(torch, mdt, dev):
     return cases
 
 
+def same_params_grad_gaps(torch, cap, ref, train_step):
+    """From the eager model's parameters, each leaf's gradient gap (max
+    |difference| over max |eager gradient|) of one replay of the captured
+    step against one eager step, and of a second eager step against the
+    first: the library's own parting from run to run.  The replay leaves
+    its gradients in the parameters' `grad`."""
+    start = {k: v.clone() for k, v in ref["model"].state_dict().items()}
+    x, y = ref["batch"]
+
+    def load(model):
+        with torch.no_grad():
+            own = model.state_dict()
+            for k, v in start.items():
+                own[k].copy_(v)
+
+    eager = []
+    for _ in range(2):
+        load(ref["model"])
+        train_step(ref["model"], ref["optimizer"], x, y)
+        eager.append([p.grad.clone() for p in ref["model"].parameters()])
+    load(cap["model"])
+    cap["step"](x, y)
+    torch.cuda.synchronize()
+    names = [n for n, _ in ref["model"].named_parameters()]
+    captured = {n: rel_err(p.grad, g)
+                for n, p, g in zip(names, cap["model"].parameters(), eager[0])}
+    again = {n: rel_err(a, b) for n, a, b in zip(names, eager[1], eager[0])}
+    return captured, again
+
+
 def wall_ms(fn, calls=10):
     """Median host-clock time of one fn() call ending in a synchronise."""
     import torch
@@ -2699,11 +2807,13 @@ def run_captured(torch, mdt, graphs, train, train_step, names, dev):
     """The captured-steps phase.  Per op step: captured on seed 0's inputs,
     replayed on seed 1's copied into the static ones, its out and gradients
     against an eager call on seed 1's by SHA-256, and its times both ways.
-    Per network (DCNResNet-50 and DCNVideoNet at full width): the trainer's
+    Per network (CAPTURED_NETS, at full width): the trainer's
     steps captured and eager from the same initial parameters (AdamW
     capturable both ways, cuDNN deterministic), losses and parameters bit
-    for bit or within CAPTURED_NET_LIMIT with the library ops that use
-    atomics named, and the step's times both ways.  Checks that the twelve
+    for bit, or, with the library ops that use atomics named, the first
+    loss within CAPTURED_NET_LIMIT and one step's gradients from the same
+    parameters within CAPTURED_NET_LIMIT or CAPTURED_NOISE times two eager
+    steps' parting; and the step's times both ways.  Checks that the twelve
     kernels are inside the graphs between them.  Replays count no launch,
     so the kernel table's `launches` are untouched."""
     import hashlib
@@ -2741,10 +2851,10 @@ def run_captured(torch, mdt, graphs, train, train_step, names, dev):
                              "chained": {k: chained[k] for k in ("ms", "spread", "samples")}}
         del step, leaves, ins, new
     torch.cuda.empty_cache()
-    for name, cfg, arch in (("DCNResNet-50", RESNET, "resnet"), ("DCNVideoNet", VIDEO, "video")):
+    for name, cfg, arch in CAPTURED_NETS:
         kw = dict(steps=cfg["steps"], batch=cfg["batch"], width=cfg["width"],
                   classes=cfg["classes"], size=cfg["size"], device="cuda", arch=arch,
-                  log=lambda s: None, **({"frames": cfg["frames"]} if arch == "video" else {}))
+                  log=lambda s: None, **({"frames": cfg["frames"]} if "frames" in cfg else {}))
         cap = train(**kw)
         ref = train(eager=True, **kw)
         params = cap["model"].state_dict()
@@ -2754,8 +2864,9 @@ def run_captured(torch, mdt, graphs, train, train_step, names, dev):
         worst = max(float((v - own[k]).abs().max() / own[k].abs().max().clamp_min(1e-30))
                     for k, v in params.items())
         loss_rel = max(abs(a - b) / abs(b) for a, b in zip(cap["losses"], ref["losses"]))
-        atomics = []
+        atomics, gaps = [], ({}, {})
         if not bits:
+            gaps = same_params_grad_gaps(torch, cap, ref, train_step)
             # Name the library ops of one eager step that have no
             # deterministic implementation (PyTorch warns for each).
             import warnings
@@ -2770,20 +2881,39 @@ def run_captured(torch, mdt, graphs, train, train_step, names, dev):
                     torch.use_deterministic_algorithms(False)
             atomics = sorted({str(w.message).split(" does not have")[0] for w in caught
                               if "deterministic" in str(w.message)})
+        grad_rel, eager_rel = (max(g.values(), default=0.0) for g in gaps)
+        parted = sorted(n for n, g in gaps[0].items() if g > 0)
+        first_rel = abs(cap["losses"][0] - ref["losses"][0]) / abs(ref["losses"][0])
         print(f"captured {name}: {cfg['steps']} steps, losses {cap['losses']} (eager "
               f"{ref['losses']}); " + ("losses and parameters bit-equal to eager" if bits else
-                                      f"losses within {loss_rel:.3e}, parameters within {worst:.3e} "
-                                      f"relative of eager; library ops with atomics: {atomics}"))
-        check(bits or (atomics and worst <= CAPTURED_NET_LIMIT and loss_rel <= CAPTURED_NET_LIMIT),
-              f"captured {name} parts from eager: losses {loss_rel:.3e}, parameters {worst:.3e}, "
-              f"ops with atomics {atomics}")
+                                      f"losses within {loss_rel:.3e} (the first {first_rel:.3e}), "
+                                      f"parameters within {worst:.3e} relative of eager; gradients "
+                                      f"from the same parameters within {grad_rel:.3e} in "
+                                      f"{len(parted)} leaves {parted[:6]} (eager against eager "
+                                      f"{eager_rel:.3e}); library ops with atomics: {atomics}"))
+        check(bits or (atomics and first_rel <= CAPTURED_NET_LIMIT
+                       and grad_rel <= max(CAPTURED_NET_LIMIT, CAPTURED_NOISE * eager_rel)),
+              f"captured {name} parts from eager: first loss {first_rel:.3e}, gradients from the "
+              f"same parameters {grad_rel:.3e} (eager against eager {eager_rel:.3e}), ops with "
+              f"atomics {atomics}")
         held[name] = cap["kernels"]
-        print(f"captured {name}: graph holds {cap['kernels']}, AdamW values a step "
+        print(f"captured {name}: graph holds {cap['kernels']}, values a step "
               f"{cap['step'].values}; capture {cap['capture_s']:.2f} s "
               f"({graphs.WARMUP} warm-up steps included)")
         n_values = sum(p.numel() for p in cap["model"].parameters())
-        check(cap["kernels"].get("adamw") == 1 and cap["step"].values == {"adamw": n_values},
-              f"captured {name}: the AdamW update is not one launch over {n_values} values")
+        check(cap["kernels"].get("adamw") == 1,
+              f"captured {name}: the AdamW update is not one launch a step")
+        if arch == "resnet3d":
+            # Every DCN layer on the 3D column pair, one launch each way.
+            cols = {"gathermm3d_cols_fwd": DCN_LAYERS, "gathermm3d_cols_bwd": DCN_LAYERS}
+            check(cap["kernels"] == {**cols, "adamw": 1},
+                  f"captured {name}: graph holds {cap['kernels']}, want {cols} and one AdamW")
+        want = {"adamw": n_values}
+        cols = col_values(torch, ref["model"], ref["batch"][0])
+        if cols:
+            want["gathermm3d_cols_fwd"] = cols
+        check(cap["step"].values == want,
+              f"captured {name}: values a step {cap['step'].values}, want {want}")
         step, (x, y) = cap["step"], ref["batch"]
         # Host clock: the trainer's own steps 2-N.
         eager = step_times(lambda: train_step(ref["model"], ref["optimizer"], x, y),
@@ -3270,6 +3400,11 @@ def main() -> int:
     del recorded
     profile_train_step(res, train_step, "DCNVideoNet")
     del res
+
+    # Phase 13: DCNResNet3d-50 at the cell r3d50-k400-train's size, every
+    # DCN layer on the 3D column pair.
+    torch.cuda.empty_cache()
+    add_main(run_resnet3d(torch, mdt, train, gm, DeformConvSpec, reset, counts, kernels))
 
     # Phases 14-16: the unfused columns path.
     torch.cuda.empty_cache()

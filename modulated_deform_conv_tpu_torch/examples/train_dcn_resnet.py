@@ -1,10 +1,12 @@
-"""End-to-end training recipe: DCNResNet or DCNVideoNet on synthetic data.
+"""End-to-end training recipe: DCNResNet, DCNVideoNet or DCNResNet3d on
+synthetic data.
 
 Counterpart of the JAX package's examples/train_dcn_resnet.py: the DCN
 backbone (DCNv2 Pack blocks in stages c3-c5, whose forward and backward
 run the general gather kernels on a CUDA device; with `--arch video` the
 3D video network, whose 3D DCN layers run the 3D gather kernels on clips
-of `--frames` frames), AdamW with optax's defaults (lr 1e-3, weight decay
+of `--frames` frames; with `--arch resnet3d` the 3D ResNet-50 of
+`DCNResNet3d` on such clips), AdamW with optax's defaults (lr 1e-3, weight decay
 1e-4: torch's default decay is 1e-2), softmax cross-entropy on one fixed
 batch made from a numpy seed, a check that the loss falls, and a
 checkpoint round trip.
@@ -19,7 +21,7 @@ over its devices; that branch runs eagerly.
 
     python -m modulated_deform_conv_tpu_torch.examples.train_dcn_resnet \\
         [--steps 10] [--batch 8] [--width 8] [--classes 10] [--size 32] \\
-        [--arch resnet|video] [--frames 16] [--device cuda] [--eager]
+        [--arch resnet|video|resnet3d] [--frames 16] [--device cuda] [--eager]
 
 Runs on the card unless `--device cpu` is given.
 """
@@ -37,10 +39,14 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from ..models import DCNResNet, DCNVideoNet
+from ..models import DCNResNet, DCNResNet3d, DCNVideoNet
 from ..ops.cuda.adamw import AdamW
 from ..utils import graphs, profiling
 from ..utils.checkpoint import restore_checkpoint, save_checkpoint
+
+
+# --arch -> the network it trains.
+ARCHS = {"resnet": DCNResNet, "video": DCNVideoNet, "resnet3d": DCNResNet3d}
 
 
 def make_optimizer(model: nn.Module) -> torch.optim.Optimizer:
@@ -118,8 +124,8 @@ def train(steps: int = 10, batch: int = 8, width: int = 8,
           eager: bool = False, dtype: torch.dtype = torch.float32) -> dict:
     """Take `steps` AdamW steps of DCNResNet-50 on one synthetic batch of
     `batch` size x size images (arch "resnet"), or of DCNVideoNet at its
-    default blocks on `batch` clips of `frames` x size x size (arch
-    "video"), parameters and batch in `dtype`; the checkpoint goes under
+    default blocks (arch "video") or DCNResNet3d-50 (arch "resnet3d") on
+    `batch` clips of `frames` x size x size, parameters and batch in `dtype`; the checkpoint goes under
     `ckpt_dir`, or a temporary directory.
 
     On a CUDA device the step is captured once (its warm-up steps undone
@@ -140,8 +146,8 @@ def train(steps: int = 10, batch: int = 8, width: int = 8,
     in a synchronise on a CUDA device), the capture's time (None when
     eager), the kernels the graph holds, the checkpoint directory, and the
     trained model, its optimizer and the batch (x, y)."""
-    if arch not in ("resnet", "video"):
-        raise ValueError(f"arch must be 'resnet' or 'video', got {arch!r}")
+    if arch not in ARCHS:
+        raise ValueError(f"arch must be one of {sorted(ARCHS)}, got {arch!r}")
     dev = torch.device(device)
     world = _world()
     rank = dist.get_rank() if world > 1 else 0
@@ -153,8 +159,8 @@ def train(steps: int = 10, batch: int = 8, width: int = 8,
     if captured and dp:
         raise ValueError(f"a captured data-parallel step on {world} ranks "
                          "is not supported: pass eager=True")
-    net, clip = ((DCNResNet, (size, size)) if arch == "resnet"
-                 else (DCNVideoNet, (frames, size, size)))
+    net = ARCHS[arch]
+    clip = (size, size) if arch == "resnet" else (frames, size, size)
     torch.manual_seed(0)
     model = net(num_classes=classes, width=width, device=dev, dtype=dtype)
     rng = np.random.default_rng(0)
@@ -183,7 +189,8 @@ def train(steps: int = 10, batch: int = 8, width: int = 8,
         del init
         capture_s, kernels = step_fn.capture_s, step_fn.kernels
         log(f"captured the step in {capture_s:.2f} s (warm-up included); "
-            f"kernels in the graph: {kernels}; values updated a step: "
+            f"kernels in the graph: {kernels}; values a step (the update's, "
+            f"the 3D columns'): "
             f"{step_fn.values}")
 
     losses, step_s = [], []
@@ -234,7 +241,7 @@ def main(argv=None) -> None:
     ap.add_argument("--width", type=int, default=8)
     ap.add_argument("--classes", type=int, default=10)
     ap.add_argument("--size", type=int, default=32)
-    ap.add_argument("--arch", choices=("resnet", "video"), default="resnet")
+    ap.add_argument("--arch", choices=tuple(ARCHS), default="resnet")
     ap.add_argument("--frames", type=int, default=16)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--eager", action="store_true",

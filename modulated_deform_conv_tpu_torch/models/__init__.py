@@ -1,5 +1,5 @@
 from .backbone import (ConvBN, ConvBN3d, DCN3dBottleneck, DCNBottleneck,
-                       DCNResNet, DCNStage, DCNVideoNet)
+                       DCNResNet, DCNResNet3d, DCNStage, DCNVideoNet)
 from .modules import (DeformConv2d, DeformConv2dPack, DeformConv3d,
                       DeformConv3dPack, ModulatedDeformConv2d,
                       ModulatedDeformConv2dPack, ModulatedDeformConv3d,
@@ -12,6 +12,6 @@ __all__ = [
     "ModulatedDeformConv2dPack", "DeformConv3d", "ModulatedDeformConv3d",
     "DeformConv3dPack", "ModulatedDeformConv3dPack", "ConvBN",
     "DCNBottleneck", "DCNStage", "DCNResNet", "ConvBN3d", "DCN3dBottleneck",
-    "DCNVideoNet", "flax_to_state_dict", "load_flax_params",
+    "DCNVideoNet", "DCNResNet3d", "flax_to_state_dict", "load_flax_params",
     "state_dict_to_flax", "validate_against_module",
 ]

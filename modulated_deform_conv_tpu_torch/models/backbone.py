@@ -1,5 +1,5 @@
-"""DCN backbones: ResNet bottleneck stages with DCNv2 in c3-c5, and the
-small video network with 3D DCNv2 in its deeper stages.
+"""DCN backbones: ResNet bottleneck stages with DCNv2 in c3-c5, 2D and 3D,
+and the small video network with 3D DCNv2 in its deeper stages.
 
 Counterparts of the JAX package's flax classes in models/backbone.py
 (`ConvBN`, `DCNBottleneck`, `DCNStage`, `DCNResNet`; `ConvBN3d`,
@@ -19,6 +19,12 @@ VALID (`MaxPool3d` without padding).  models/torch_compat.py carries flax
 parameters over; submodule names follow flax's where flax names them
 (`stem`, `c2`..`c5`, `block<i>`, `s<i>b<j>`, `dcn`, `conv2`, `proj`,
 `fc`).
+
+`DCNResNet3d` has no JAX counterpart: the 3D ResNet of Hara et al. 2018
+(arXiv:1711.09577) with DCNv2 placed as in `DCNResNet` (arXiv:1811.11168
+§4), built from the same stages with 3D bottlenecks.  With the program's
+spans on (`utils/profiling.py::tracing`) its stem and stages are the spans
+"mdc.model.stem" and "mdc.model.c2" .. "mdc.model.c5".
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils import profiling
 from .modules import ModulatedDeformConv2dPack, ModulatedDeformConv3dPack
 
 
@@ -114,22 +121,48 @@ class DCNBottleneck(nn.Module):
 
 class DCNStage(nn.Sequential):
     """`blocks` bottlenecks (one ResNet stage), the first with `stride`,
-    named block0, block1, ...; the mesh fields go to every block."""
+    named block0, block1, ...: `DCNBottleneck`s, each given the mesh
+    fields, or with `ndim=3` `DCN3dBottleneck`s, which take no mesh."""
 
     def __init__(self, blocks: int, in_channels: int, channels: int,
                  out_channels: int, deformable_groups: int = 1,
                  stride: int = 1, deformable: bool = True,
                  impl: str = "auto", *, mesh=None, max_offset: float = 0.0,
                  batch_axis="data", spatial_axis="space", device="cuda",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, ndim: int = 2):
         super().__init__()
+        if ndim == 2:
+            block = DCNBottleneck
+            shard = dict(mesh=mesh, max_offset=max_offset,
+                         batch_axis=batch_axis, spatial_axis=spatial_axis)
+        elif ndim == 3 and mesh is None:
+            block, shard = DCN3dBottleneck, {}
+        else:
+            raise ValueError(f"a stage is 2D, or 3D without a mesh; got "
+                             f"ndim={ndim}, mesh={mesh}")
         for i in range(blocks):
-            self.add_module(f"block{i}", DCNBottleneck(
+            self.add_module(f"block{i}", block(
                 in_channels if i == 0 else out_channels, channels,
-                out_channels, deformable_groups, stride if i == 0 else 1,
-                deformable, impl, mesh=mesh, max_offset=max_offset,
-                batch_axis=batch_axis, spatial_axis=spatial_axis,
-                device=device, dtype=dtype))
+                out_channels, deformable_groups,
+                stride=stride if i == 0 else 1, deformable=deformable,
+                impl=impl, device=device, dtype=dtype, **shard))
+
+
+def _add_resnet_stages(net: nn.Module, depth: int, width: int,
+                       deformable_groups: int, impl: str, ndim: int,
+                       factory: dict) -> int:
+    """Stages c2-c5 of a ResNet of `depth` on `net`: width * 2**i channels
+    inside, four times that out, DCN in c3-c5, the first block of c3-c5 at
+    stride 2.  Returns c5's channels."""
+    cin = width
+    for i, n in enumerate(DCNResNet.BLOCKS[depth]):
+        cout = width * 4 * 2 ** i
+        net.add_module(f"c{i + 2}", DCNStage(
+            n, cin, width * 2 ** i, cout, deformable_groups,
+            stride=1 if i == 0 else 2, deformable=i >= 1, impl=impl,
+            ndim=ndim, **factory))
+        cin = cout
+    return cin
 
 
 class DCNResNet(nn.Module):
@@ -149,19 +182,12 @@ class DCNResNet(nn.Module):
             raise ValueError(f"depth must be one of {sorted(self.BLOCKS)}, "
                              f"got {depth}")
         factory = dict(device=device, dtype=dtype)
-        w = width
         self.features_only = features_only
         # stem: 7x7/2 conv + 3x3/2 max pool
-        self.stem = ConvBN(3, w, 7, 2, **factory)
+        self.stem = ConvBN(3, width, 7, 2, **factory)
         self.pool = nn.MaxPool2d(3, 2, 1)
-        cin = w
-        for i, n in enumerate(self.BLOCKS[depth]):
-            cout = w * 4 * 2 ** i
-            self.add_module(f"c{i + 2}", DCNStage(
-                n, cin, w * 2 ** i, cout, deformable_groups,
-                stride=1 if i == 0 else 2, deformable=i >= 1, impl=impl,
-                **factory))
-            cin = cout
+        cin = _add_resnet_stages(self, depth, width, deformable_groups, impl,
+                                 2, factory)
         self.fc = None if features_only else nn.Linear(cin, num_classes,
                                                        **factory)
 
@@ -177,11 +203,11 @@ class DCNResNet(nn.Module):
 
 
 class ConvBN3d(nn.Module):
-    """1x1x1 or 3x3x3 conv (no bias, pad k//2) + GroupNorm(min(32, C)) +
-    optional ReLU, NCTHW."""
+    """k x k x k conv (no bias, pad k//2) at `stride` (an int, or one per
+    axis (T, H, W)) + GroupNorm(min(32, C)) + optional ReLU, NCTHW."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int = 1,
-                 stride: int = 1, relu: bool = True, *, device="cuda",
+                 stride=1, relu: bool = True, *, device="cuda",
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         factory = dict(device=device, dtype=dtype)
@@ -199,27 +225,29 @@ class ConvBN3d(nn.Module):
 class DCN3dBottleneck(nn.Module):
     """3D bottleneck whose 3x3x3 conv is a modulated 3D DCN Pack module
     (zero-init offsets + sigmoid mask), or a plain 3x3x3 ConvBN3d when
-    `deformable=False`; stride 1."""
+    `deformable=False`.  `stride` is the 3x3x3 conv's, and the strided 1x1x1
+    projection's, which is there where the channels or the stride change
+    (Hara et al.'s shortcut type B)."""
 
     def __init__(self, in_channels: int, channels: int, out_channels: int,
                  deformable_groups: int = 1, deformable: bool = True,
-                 impl: str = "auto", *, device="cuda",
+                 impl: str = "auto", stride: int = 1, *, device="cuda",
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         factory = dict(device=device, dtype=dtype)
         self.conv1 = ConvBN3d(in_channels, channels, 1, **factory)
         if deformable:
             self.dcn = ModulatedDeformConv3dPack(
-                channels, channels, 3, padding=1,
+                channels, channels, 3, stride=stride, padding=1,
                 deformable_groups=deformable_groups, impl=impl,
                 zero_init_offset=True, sigmoid_mask=True, **factory)
         else:
-            self.conv2 = ConvBN3d(channels, channels, 3, **factory)
+            self.conv2 = ConvBN3d(channels, channels, 3, stride, **factory)
         self.conv3 = ConvBN3d(channels, out_channels, 1, relu=False,
                               **factory)
-        self.proj = (ConvBN3d(in_channels, out_channels, 1, relu=False,
-                              **factory)
-                     if in_channels != out_channels else None)
+        self.proj = (ConvBN3d(in_channels, out_channels, 1, stride,
+                              relu=False, **factory)
+                     if in_channels != out_channels or stride != 1 else None)
 
     def forward(self, x):
         y = self.conv1(x)
@@ -262,4 +290,37 @@ class DCNVideoNet(nn.Module):
                 y = getattr(self, f"s{i}b{j}")(y)
             if i < len(self.blocks) - 1:
                 y = self.pool(y)
+        return self.fc(y.mean((2, 3, 4)))
+
+
+class DCNResNet3d(nn.Module):
+    """3D ResNet (Hara et al. 2018, arXiv:1711.09577: the 3D ResNet-50 of
+    its Kinetics-400 table) with modulated 3D DCN in stages c3-c5, placed as
+    `DCNResNet` places it.  A 7x7x7 stem at stride (1, 2, 2) and a 3x3x3 /
+    2 max pool, stages c2-c5 of `DCNResNet.BLOCKS[depth]` bottlenecks (the
+    first of c3-c5 at stride 2 in T, H and W, on its 3x3x3 conv and its
+    projection), the mean over (T, H, W) and `fc`.  GroupNorm(min(32, C))
+    stands in for BatchNorm3d.  NCTHW in (T = frames), class logits out."""
+
+    def __init__(self, num_classes: int = 400, depth: int = 50,
+                 width: int = 64, deformable_groups: int = 1,
+                 impl: str = "auto", *, device="cuda",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if depth not in DCNResNet.BLOCKS:
+            raise ValueError(f"depth must be one of "
+                             f"{sorted(DCNResNet.BLOCKS)}, got {depth}")
+        factory = dict(device=device, dtype=dtype)
+        self.stem = ConvBN3d(3, width, 7, (1, 2, 2), **factory)
+        self.pool = nn.MaxPool3d(3, 2, 1)
+        cin = _add_resnet_stages(self, depth, width, deformable_groups, impl,
+                                 3, factory)
+        self.fc = nn.Linear(cin, num_classes, **factory)
+
+    def forward(self, x):
+        with profiling.span("mdc.model.stem", x):
+            y = self.pool(self.stem(x))
+        for name in ("c2", "c3", "c4", "c5"):
+            with profiling.span(f"mdc.model.{name}", x):
+                y = getattr(self, name)(y)
         return self.fc(y.mean((2, 3, 4)))

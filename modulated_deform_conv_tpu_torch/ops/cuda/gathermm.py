@@ -580,7 +580,8 @@ def gathermm3d_cols_fwd(x, offset, mask, spec: DeformConvSpec,
     """The deformable columns (3D), as `gathermm_cols_fwd`.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel or
-    raise.  Inputs: as `gathermm_cols_fwd`'s."""
+    raise.  Inputs: as `gathermm_cols_fwd`'s.  Counts its launches
+    (`launches`) and the column values they wrote (`values`)."""
     if x.device.type == "cpu":
         lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin)
         return gathermm3d_cols_reference(x, offset, mask, spec, precision,
@@ -589,10 +590,12 @@ def gathermm3d_cols_fwd(x, offset, mask, spec: DeformConvSpec,
                      out_sizes=out_sizes, gate_bounds=gate_bounds,
                      block_origin=block_origin)
     gathermm3d_cols_fwd.launches += 1
+    gathermm3d_cols_fwd.values += cols.numel()
     return cols
 
 
 gathermm3d_cols_fwd.launches = 0
+gathermm3d_cols_fwd.values = 0
 
 
 def _cols_bwd(name, x, offset, mask, gcols, spec, precision, needs,

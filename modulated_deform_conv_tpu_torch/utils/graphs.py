@@ -37,8 +37,10 @@ Three hazards of capturing the port's kernels:
 The kernel wrappers' `launches` counts run in Python, so they move in
 the warm-up and once at the capture, never on a replay:
 `CapturedStep.kernels` holds the counts the capture added, the kernels the
-graph holds, and `CapturedStep.values` the AdamW update's count of the
-values it updated (ops/cuda/adamw.py).
+graph holds, and `CapturedStep.values` the counts of values of the
+wrappers that keep one: the AdamW update's values updated
+(ops/cuda/adamw.py), the 3D column forward's column values written
+(ops/cuda/gathermm.py).
 
 `debug_check_bounds` cannot read its check on the host inside a capture.
 There the op records the check on the device instead (ops/bounds.py, into
@@ -106,7 +108,7 @@ def _check_outputs(out) -> None:
 def _launch_counts() -> dict:
     """Every kernel wrapper of the main path (the twelve kernels and the
     optimizer's update), by kernel name: each counts its `launches`, and
-    the update also the `values` it updated."""
+    the update and the 3D column forward also their `values`."""
     from ..ops.cuda import adamw, gathermm, shiftblend
     wrappers = {n: getattr(gathermm, n, None) or getattr(shiftblend, n)
                 for n in lib.KERNELS}
@@ -124,8 +126,8 @@ class CapturedStep:
     Attributes: `inputs` (the static inputs), `outputs` (the static
     outputs, in the structure the function returned), `kernels` (launches
     of each hand-written kernel the graph holds), `values` (the values
-    each kernel that counts them updates a replay: the AdamW update's
-    engagement check), `bounds` (the
+    each kernel that counts them handles a replay: the AdamW update's and
+    the 3D column forward's engagement check), `bounds` (the
     `debug_check_bounds` checks captured), `capture_s` (the warm-up and
     the capture, on the host clock), `record` (the spans' `StepRecord`,
     None where the spans were off at the capture)."""

@@ -31,6 +31,9 @@ line (and writes it to `--out`).  The metrics, per step or request:
   optimizer_ms     mean "mdc.train.optimizer" a replay, (c) (training)
   launch_ms        mean host "mdc.step.replay" a step, (c)
   replay_idle_ms   device idle inside "mdc.step.replay" a step, (d)
+
+and `stage_ms`: the mean "mdc.model.<stage>" span a replay, by stage, (c),
+where the model marks its stages (DCNResNet3d: stem, c2 .. c5).
 """
 import argparse
 import json
@@ -92,6 +95,18 @@ def per_replay(spans):
 
 def mean(xs):
     return statistics.fmean(xs) if xs else None
+
+
+STAGE = "mdc.model."
+
+
+def stage_ms(reps) -> dict:
+    """{stage: mean ms a replay} of the model's stage spans ("mdc.model.*")
+    over the replays `reps` ({name: summed ms}, as `per_replay` gives); a
+    replay without a stage's span counts 0 for it."""
+    names = sorted({k for r in reps for k in r if k.startswith(STAGE)})
+    return {k[len(STAGE):]: mean([r.get(k, 0.0) for r in reps])
+            for k in names}
 
 
 def floor_of_a_mark(dev) -> dict:
@@ -233,7 +248,8 @@ def measure(name: str, seed: int, pairs: int, pair_s: float) -> dict:
         cost["on_over_off"] = (statistics.median(cost["on"])
                                / statistics.median(cost["off"]))
     return {"workload": name, "seed": seed, "steps": [c["steps"], d["steps"]],
-            "metrics": metrics, "layers_ms": layers, "checks": checks,
+            "metrics": metrics, "stage_ms": stage_ms(reps),
+            "layers_ms": layers, "checks": checks,
             "clock": clock, "cost": cost, "peak_mem_gib": peak / 2 ** 30,
             "floor": floor_of_a_mark(dev.dev)}
 
