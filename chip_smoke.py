@@ -87,12 +87,19 @@ rules), which every launch check reads:
    events, device time and the host's time to issue one call, and each op
    step's chain-differenced time (calibrate's and autotune's timer) beside
    its device time; each network's graph holds one launch of the AdamW
-   update over every parameter value.
+   update over every parameter value, and one launch of each GroupNorm
+   kernel a norm over the values its norms hold.
 12. the trainer's AdamW update (run_adamw; csrc/adamw.cu) on DCNResNet-50's
    187 leaves in float32 and bfloat16: the kernel against its plain
    version after two steps, one launch a step, and its captured,
    chain-differenced time beside its memory bound, torch's foreach AdamW
    (the path it replaced) and torch's fused AdamW (the library anchor).
+13. GroupNorm with its ReLU and residual add (run_groupnorm;
+   csrc/groupnorm.cu) at every norm of the benchmark's three cells
+   (DCNResNet-50 at B=8 and B=1, DCNResNet3d-50 at B=32): the kernels
+   against torch's GroupNorm, add and ReLU, and their captured,
+   chain-differenced time, forward and forward with backward, beside
+   torch's (the path they replaced) and their memory bound.
 
 It builds the twelve kernels (shift-blend and gather, forward and
 backward, 2D and 3D; the gather's columns forward and backward, 2D and
@@ -2817,6 +2824,7 @@ def run_captured(torch, mdt, graphs, train, train_step, names, dev):
     kernels are inside the graphs between them.  Replays count no launch,
     so the kernel table's `launches` are untouched."""
     import hashlib
+    from modulated_deform_conv_tpu_torch.ops.cuda import groupnorm as gn
     t_phase = time.time()
     sha = lambda t: hashlib.sha256(  # noqa: E731
         t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
@@ -2903,12 +2911,21 @@ def run_captured(torch, mdt, graphs, train, train_step, names, dev):
         n_values = sum(p.numel() for p in cap["model"].parameters())
         check(cap["kernels"].get("adamw") == 1,
               f"captured {name}: the AdamW update is not one launch a step")
+        # Every norm on the GroupNorm pair, one launch each way.
+        norms = gn.norm_calls(type(ref["model"])(
+            num_classes=cfg["classes"], width=cfg["width"], device="meta"),
+            tuple(ref["batch"][0].shape))
+        gn_launches = {"groupnorm_fwd": len(norms), "groupnorm_bwd": len(norms)}
+        check(all(cap["kernels"].get(k) == v for k, v in gn_launches.items()),
+              f"captured {name}: graph holds {cap['kernels']}, want {gn_launches}")
         if arch == "resnet3d":
             # Every DCN layer on the 3D column pair, one launch each way.
             cols = {"gathermm3d_cols_fwd": DCN_LAYERS, "gathermm3d_cols_bwd": DCN_LAYERS}
-            check(cap["kernels"] == {**cols, "adamw": 1},
-                  f"captured {name}: graph holds {cap['kernels']}, want {cols} and one AdamW")
-        want = {"adamw": n_values}
+            check(cap["kernels"] == {**cols, **gn_launches, "adamw": 1},
+                  f"captured {name}: graph holds {cap['kernels']}, want {cols}, "
+                  f"{gn_launches} and one AdamW")
+        want = {"adamw": n_values,
+                "groupnorm_fwd": sum(math.prod(s) for s, *_ in norms)}
         cols = col_values(torch, ref["model"], ref["batch"][0])
         if cols:
             want["gathermm3d_cols_fwd"] = cols
@@ -3020,6 +3037,109 @@ def run_adamw(torch, mdt, aw, graphs, dev):
     return out
 
 
+# GroupNorm with its epilogue: the kernels' forward against torch's
+# GroupNorm (+ identity) + ReLU in float32, max|d| / max|torch|, and their
+# backward against their plain version in float64 from the kernels' own y
+# (torch's y may take another sign where it rounds to about 0, and flip
+# the ReLU's mask there), dx over the scale of its largest term, rstd
+# |gamma| |dy|: sums in float32 in other orders.
+GROUPNORM_LIMIT = 1e-4
+# (label, network, input of the cell, timed backward too)
+GROUPNORM_CELLS = (
+    ("DCNResNet-50 B=8", lambda mdt: mdt.DCNResNet(device="meta"), (8, 3, 224, 224), True),
+    ("DCNResNet3d-50 B=32", lambda mdt: mdt.DCNResNet3d(device="meta"), (32, 3, 16, 112, 112),
+     True),
+    ("DCNResNet-50 B=1", lambda mdt: mdt.DCNResNet(device="meta"), (1, 3, 224, 224), False))
+
+
+def run_groupnorm(torch, mdt, graphs, dev):
+    """The GroupNorm phase.  Per cell (GROUPNORM_CELLS), at each distinct
+    layer of its 40 norms with the layer's residual add and ReLU, float32:
+    the kernels against torch's GroupNorm + add + ReLU forward and their
+    plain version backward (GROUPNORM_LIMIT), then the device time (`graphs.time_chain`) of the forward and of the
+    forward with the backward, the kernels' and torch's, beside the bound:
+    x (and the identity) read and y written once forward; dy, x (y with
+    the ReLU) read and dx (and d_identity) written once backward, at 3.35
+    TB/s.  Sums over the cell's 40 layers."""
+    import torch.nn.functional as F
+    from modulated_deform_conv_tpu_torch.ops.cuda import groupnorm as gn
+    t_phase = time.time()
+    out = {}
+
+    def torch_op(x, G, w, b, idt, relu):
+        y = F.group_norm(x, G, w, b, 1e-6)
+        y = y if idt is None else y + idt
+        return F.relu(y) if relu else y
+
+    def fused_op(x, G, w, b, idt, relu):
+        return gn.group_norm_act(x, G, w, b, 1e-6, idt, relu)
+
+    for label, make, shape, backward in GROUPNORM_CELLS:
+        layers = gn.norm_calls(make(mdt), shape)
+        check(len(layers) == 40, f"{label}: {len(layers)} norms, want 40")
+        sums = {k: 0.0 for k in ("fused_fwd_ms", "torch_fwd_ms", "fused_step_ms",
+                                 "torch_step_ms", "bound_fwd_ms", "bound_step_ms")}
+        rows, worst = [], 0.0
+        for key in sorted(set(layers)):
+            n = layers.count(key)
+            xs, G, ident, relu = key
+            gen = torch.Generator(device=dev).manual_seed(len(rows))
+            t = lambda *sz: torch.randn(sz, generator=gen, device=dev)  # noqa: E731
+            leaves = [t(*xs) * 1.5 + 0.3, t(xs[1]), t(xs[1]), t(*xs) if ident else None]
+            leaves = [None if v is None else v.requires_grad_(True) for v in leaves]
+            dy = t(*xs)
+            live = [v for v in leaves if v is not None]
+            row = {"shape": list(xs), "groups": G, "identity": ident, "relu": relu, "count": n}
+            x_, w_, b_ = (v.detach() for v in leaves[:3])
+            idt_ = leaves[3].detach() if ident else None
+            y, mean, rstd = gn.groupnorm_fwd(x_, G, w_, b_, 1e-6, idt_, relu)
+            errs = {"y": rel_err(y, torch_op(x_, G, w_, b_, idt_, relu))}
+            if backward:
+                got = gn.groupnorm_bwd(dy, x_, y, mean, rstd, w_, G, relu, ident)
+                want = gn.group_norm_backward_reference(
+                    dy.double(), x_.double(), y, w_.double(), G, 1e-6, relu, ident)
+                scale = float(rstd.max()) * float(w_.abs().max()) * float(dy.abs().max())
+                errs["dx"] = float((got[0].double() - want[0]).abs().max()) / scale
+                errs.update((k, rel_err(a, b)) for k, a, b in zip(("dw", "db", "did"), got[1:],
+                                                                 want[1:]) if a is not None)
+            row["rel_err"] = errs
+            worst = max(worst, *errs.values())
+            fwd_bytes = (2 + ident) * math.prod(xs) * 4
+            bwd_bytes = (3 + relu + ident) * math.prod(xs) * 4
+            row["bound_fwd_ms"] = fwd_bytes / HBM_BYTES_PER_S * 1e3
+            row["bound_step_ms"] = (fwd_bytes + bwd_bytes) / HBM_BYTES_PER_S * 1e3
+            for name, op in (("fused", fused_op), ("torch", torch_op)):
+                with torch.no_grad():
+                    row[f"{name}_fwd_ms"] = graphs.time_chain(
+                        lambda *a, op=op: (op(a[0], G, a[1], a[2], a[3] if ident else None, relu),),
+                        *[v.detach() for v in live])["ms"]
+                if backward:
+                    def step(*a, op=op):
+                        y = op(a[0], G, a[1], a[2], a[3] if ident else None, relu)
+                        return torch.autograd.grad(y, a, dy)
+                    row[f"{name}_step_ms"] = graphs.time_chain(step, *live)["ms"]
+            for k in sums:
+                if k in row:
+                    sums[k] += n * row[k]
+            rows.append(row)
+            del leaves, live, dy, x_, w_, b_, idt_, y, mean, rstd
+            torch.cuda.empty_cache()
+        check(worst <= GROUPNORM_LIMIT,
+              f"{label}: GroupNorm kernels off torch by {worst:.3e} (limit {GROUPNORM_LIMIT})")
+        out[label] = {"layers": rows, "max_rel_err": worst,
+                      **{k: v for k, v in sums.items() if v}}
+        fmt = lambda k: f"{sums[k]:.4f}" if sums[k] else "-"  # noqa: E731
+        print(f"GroupNorm {label}, 40 layers float32: forward kernel {fmt('fused_fwd_ms')} ms, "
+              f"torch {fmt('torch_fwd_ms')} ms, bound {fmt('bound_fwd_ms')} ms; forward + "
+              f"backward kernels {fmt('fused_step_ms')} ms, torch {fmt('torch_step_ms')} ms, "
+              f"bound {fmt('bound_step_ms')} ms; max rel err against torch {worst:.3e}")
+        for r in rows:
+            print(f"  {r['shape']} G={r['groups']} id={r['identity']} relu={r['relu']} x{r['count']}: "
+                  + ", ".join(f"{k} {r[k]:.4f}" for k in r if k.endswith("_ms")))
+    print(f"GroupNorm phase: {time.time() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     t_start = time.time()
     import torch
@@ -3080,10 +3200,10 @@ def main() -> int:
     def counts():
         return {n: fn.launches for n, (fn, _) in kernels.items()}
 
-    # Phase 2: build the twelve kernels, the AdamW update and calibrate's
-    # FMA probe from the sources, in parallel.
+    # Phase 2: build the twelve kernels, the AdamW update, the GroupNorm
+    # pair and calibrate's FMA probe from the sources, in parallel.
     t0 = time.time()
-    logs = lib.build(lib.KERNELS + lib.PROBES + lib.OPTIMIZERS, verbose=True)
+    logs = lib.build(lib.KERNELS + lib.PROBES + lib.OPTIMIZERS + lib.NORMS, verbose=True)
     print(f"build: {time.time() - t0:.1f} s for {sorted(logs) or 'nothing (cached)'}")
     for name, log in logs.items():
         for line in log.splitlines():
@@ -3457,6 +3577,10 @@ def main() -> int:
     # timed beside torch's foreach and fused AdamW.
     torch.cuda.empty_cache()
     adamw_times = run_adamw(torch, mdt, aw, graphs, dev)
+    # Phase 26: GroupNorm with its epilogue, against torch's and timed
+    # beside it at every norm of the three cells.
+    torch.cuda.empty_cache()
+    groupnorm_times = run_groupnorm(torch, mdt, graphs, dev)
 
     # Phase 17: the kernel table.  The 2D column kernels' row is config 5's
     # c4 layer, the 3D one the 3D columns case; `launches` sums every
@@ -3518,7 +3642,7 @@ def main() -> int:
                       "both_kernels3d_ms": r3["cross"], "dcn_videonet_step_ms": video_ms,
                       "columns_path_ms": r5["times"], "calibration": calibration,
                       "autotune_cfg5_c4": tuned, "bf16": bf16, "captured": captured,
-                      "adamw": adamw_times}))
+                      "adamw": adamw_times, "groupnorm": groupnorm_times}))
     print(f"chip_smoke total: {time.time() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.cuda.groupnorm import group_norm_act
 from ..utils import profiling
 from .modules import ModulatedDeformConv2dPack, ModulatedDeformConv3dPack
 
@@ -43,11 +44,19 @@ def _promote(x: torch.Tensor, param: torch.Tensor) -> torch.Tensor:
     return x.to(torch.promote_types(x.dtype, param.dtype))
 
 
+def _norm_act(y: torch.Tensor, norm: nn.GroupNorm, identity, relu: bool):
+    """act(norm(y) [+ identity]) as one op (ops/cuda/groupnorm.py)."""
+    return group_norm_act(y, norm.num_groups, norm.weight, norm.bias,
+                          norm.eps, identity, relu)
+
+
 class ConvBN(nn.Module):
-    """kxk conv (no bias, pad k//2) + GroupNorm(min(32, C)) + optional
-    ReLU.  With `mesh`, on the rank's shard of the (batch, spatial) split:
-    the conv with a halo exchange, the norm with the whole sample's
-    statistics (parallel/sharding.py)."""
+    """kxk conv (no bias, pad k//2) + GroupNorm(min(32, C)) [+ identity]
+    + optional ReLU.  Without `mesh` the norm and its epilogue are one op
+    (ops/cuda/groupnorm.py: one kernel each way on the card).  With `mesh`,
+    on the rank's shard of the (batch, spatial) split: the conv with a halo
+    exchange, the norm with the whole sample's statistics
+    (parallel/sharding.py), then the add and the ReLU."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int = 1,
                  stride: int = 1, relu: bool = True, *, mesh=None,
@@ -63,19 +72,19 @@ class ConvBN(nn.Module):
         self.mesh, self.batch_axis = mesh, batch_axis
         self.spatial_axis = spatial_axis
 
-    def forward(self, x):
+    def forward(self, x, identity=None):
         x = _promote(x, self.conv.weight)
         if self.mesh is None:
-            y = self.norm(self.conv(x))
-        else:
-            from ..parallel import sharding
-            c = self.conv
-            y = sharding.sharded_conv(x, c.weight, None, c.stride, c.padding,
-                                      c.dilation, self.mesh, self.batch_axis,
-                                      self.spatial_axis)
-            y = sharding.sharded_group_norm(y, self.norm, self.mesh,
-                                            self.batch_axis,
-                                            self.spatial_axis)
+            return _norm_act(self.conv(x), self.norm, identity, self.relu)
+        from ..parallel import sharding
+        c = self.conv
+        y = sharding.sharded_conv(x, c.weight, None, c.stride, c.padding,
+                                  c.dilation, self.mesh, self.batch_axis,
+                                  self.spatial_axis)
+        y = sharding.sharded_group_norm(y, self.norm, self.mesh,
+                                        self.batch_axis, self.spatial_axis)
+        if identity is not None:
+            y = y + identity
         return F.relu(y) if self.relu else y
 
 
@@ -105,18 +114,18 @@ class DCNBottleneck(nn.Module):
         else:
             self.conv2 = ConvBN(channels, channels, 3, stride, **shard,
                                 **factory)
-        self.conv3 = ConvBN(channels, out_channels, 1, relu=False, **shard,
-                            **factory)
+        # conv3's norm takes the residual add and the block's ReLU.
+        self.conv3 = ConvBN(channels, out_channels, 1, **shard, **factory)
         self.proj = (ConvBN(in_channels, out_channels, 1, stride, relu=False,
                             **shard, **factory)
                      if in_channels != out_channels or stride != 1 else None)
 
     def forward(self, x):
         y = self.conv1(x)
-        y = self.dcn(y) if hasattr(self, "dcn") else self.conv2(y)
-        y = self.conv3(F.relu(y))
+        # conv2 applies its ReLU; the DCN branch's comes here.
+        y = F.relu(self.dcn(y)) if hasattr(self, "dcn") else self.conv2(y)
         identity = x if self.proj is None else self.proj(x)
-        return F.relu(y + identity)
+        return self.conv3(y, identity)
 
 
 class DCNStage(nn.Sequential):
@@ -204,7 +213,8 @@ class DCNResNet(nn.Module):
 
 class ConvBN3d(nn.Module):
     """k x k x k conv (no bias, pad k//2) at `stride` (an int, or one per
-    axis (T, H, W)) + GroupNorm(min(32, C)) + optional ReLU, NCTHW."""
+    axis (T, H, W)) + GroupNorm(min(32, C)) [+ identity] + optional ReLU,
+    NCTHW; the norm and its epilogue as one op, as in `ConvBN`."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int = 1,
                  stride=1, relu: bool = True, *, device="cuda",
@@ -217,9 +227,9 @@ class ConvBN3d(nn.Module):
                                  eps=1e-6, **factory)
         self.relu = relu
 
-    def forward(self, x):
-        y = self.norm(self.conv(_promote(x, self.conv.weight)))
-        return F.relu(y) if self.relu else y
+    def forward(self, x, identity=None):
+        return _norm_act(self.conv(_promote(x, self.conv.weight)), self.norm,
+                         identity, self.relu)
 
 
 class DCN3dBottleneck(nn.Module):
@@ -243,18 +253,18 @@ class DCN3dBottleneck(nn.Module):
                 zero_init_offset=True, sigmoid_mask=True, **factory)
         else:
             self.conv2 = ConvBN3d(channels, channels, 3, stride, **factory)
-        self.conv3 = ConvBN3d(channels, out_channels, 1, relu=False,
-                              **factory)
+        # conv3's norm takes the residual add and the block's ReLU.
+        self.conv3 = ConvBN3d(channels, out_channels, 1, **factory)
         self.proj = (ConvBN3d(in_channels, out_channels, 1, stride,
                               relu=False, **factory)
                      if in_channels != out_channels or stride != 1 else None)
 
     def forward(self, x):
         y = self.conv1(x)
-        y = self.dcn(y) if hasattr(self, "dcn") else self.conv2(y)
-        y = self.conv3(F.relu(y))
+        # conv2 applies its ReLU; the DCN branch's comes here.
+        y = F.relu(self.dcn(y)) if hasattr(self, "dcn") else self.conv2(y)
         identity = x if self.proj is None else self.proj(x)
-        return F.relu(y + identity)
+        return self.conv3(y, identity)
 
 
 class DCNVideoNet(nn.Module):

@@ -32,6 +32,9 @@ PROBES = ("calibrate_fma", "trace_mark")
 # Kernels of the main path that are no port of a TPU kernel either: the
 # trainer's AdamW update (adamw.py), built at its first use.
 OPTIMIZERS = ("adamw",)
+# And the backbone's GroupNorm with its ReLU and residual add
+# (groupnorm.py), built at its first use.
+NORMS = ("groupnorm",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -333,11 +336,13 @@ def bwd_buffers(x, offset, mask, weight, spec, P: int, needs,
     return gx, goff, gmask, gwt, gcols, xt, part, splits
 
 
-def launch(name: str, x: torch.Tensor, tensors, ints, floats=()) -> None:
-    """Launch kernel `name` on x's device and current stream: the C entry
-    takes the tensors' pointers, the ints, the floats, then the stream.
-    Raise with the CUDA error if the launch was refused."""
-    fn = kernel(name)
+def launch(name: str, x: torch.Tensor, tensors, ints, floats=(),
+           entry: Optional[str] = None) -> None:
+    """Launch kernel `name` (its C entry `entry`, default `name`) on x's
+    device and current stream: the C entry takes the tensors' pointers, the
+    ints, the floats, then the stream.  Raise with the CUDA error if the
+    launch was refused."""
+    fn = kernel(name, entry)
     # Every pointer and the stream as c_void_p: an undeclared argument
     # would pass as a 32-bit int and cut the pointer.
     fn.argtypes = ([ctypes.c_void_p] * len(tensors)
@@ -348,5 +353,5 @@ def launch(name: str, x: torch.Tensor, tensors, ints, floats=()) -> None:
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(*ptrs, *ints, *floats, stream)
     if err:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"{entry or name}: kernel launch failed with CUDA "
+                           f"error {err}")

@@ -40,7 +40,8 @@ the warm-up and once at the capture, never on a replay:
 graph holds, and `CapturedStep.values` the counts of values of the
 wrappers that keep one: the AdamW update's values updated
 (ops/cuda/adamw.py), the 3D column forward's column values written
-(ops/cuda/gathermm.py).
+(ops/cuda/gathermm.py), the GroupNorm forward's values normalised
+(ops/cuda/groupnorm.py).
 
 `debug_check_bounds` cannot read its check on the host inside a capture.
 There the op records the check on the device instead (ops/bounds.py, into
@@ -106,13 +107,16 @@ def _check_outputs(out) -> None:
 
 
 def _launch_counts() -> dict:
-    """Every kernel wrapper of the main path (the twelve kernels and the
-    optimizer's update), by kernel name: each counts its `launches`, and
-    the update and the 3D column forward also their `values`."""
-    from ..ops.cuda import adamw, gathermm, shiftblend
+    """Every kernel wrapper of the main path (the twelve kernels, the
+    optimizer's update and the GroupNorm pair), by name: each counts its
+    `launches`, and the update, the 3D column forward and the GroupNorm
+    forward also their `values`."""
+    from ..ops.cuda import adamw, gathermm, groupnorm, shiftblend
     wrappers = {n: getattr(gathermm, n, None) or getattr(shiftblend, n)
                 for n in lib.KERNELS}
     wrappers.update((n, getattr(adamw, n)) for n in lib.OPTIMIZERS)
+    wrappers.update((n, getattr(groupnorm, n))
+                    for n in ("groupnorm_fwd", "groupnorm_bwd"))
     return wrappers
 
 
@@ -126,11 +130,11 @@ class CapturedStep:
     Attributes: `inputs` (the static inputs), `outputs` (the static
     outputs, in the structure the function returned), `kernels` (launches
     of each hand-written kernel the graph holds), `values` (the values
-    each kernel that counts them handles a replay: the AdamW update's and
-    the 3D column forward's engagement check), `bounds` (the
-    `debug_check_bounds` checks captured), `capture_s` (the warm-up and
-    the capture, on the host clock), `record` (the spans' `StepRecord`,
-    None where the spans were off at the capture)."""
+    each kernel that counts them handles a replay: the AdamW update's, the
+    3D column forward's and the GroupNorm forward's engagement check),
+    `bounds` (the `debug_check_bounds` checks captured), `capture_s` (the
+    warm-up and the capture, on the host clock), `record` (the spans'
+    `StepRecord`, None where the spans were off at the capture)."""
 
     def __init__(self, graph, inputs, outputs, kernels, bounds, capture_s,
                  record=None, values=None):

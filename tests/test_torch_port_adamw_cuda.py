@@ -197,7 +197,9 @@ def test_captured_train_step_runs_the_kernel_alone(dev):
     step = res["step"]
     total = sum(p.numel() for p in res["model"].parameters())
     assert res["kernels"]["adamw"] == 1
-    assert step.values == {"adamw": total}
+    # The GroupNorm forward counts its values too: the 40 norms' at batch
+    # 2, width 8, 32 x 32 (groupnorm.norm_calls).
+    assert step.values == {"adamw": total, "groupnorm_fwd": 52_736}
     x, y = res["batch"]
     step(x, y)
     torch.cuda.synchronize(dev)

@@ -13,10 +13,10 @@ Marked `cuda`: each test skips without an NVIDIA GPU.  Imports no JAX:
   under the column tests' limits (max|kernel - plain| / max|plain|:
   float32 1e-5, tensorfloat32 5e-3);
 * `train_step` of DCNResNet3d captured (`graphs.capture`): 13 launches of
-  each 3D column kernel and one AdamW launch a step, over the column
-  values and parameters the shapes give (`CapturedStep.kernels`,
-  `.values`), no fused 3D kernel, and replays whose loss is finite and
-  falls.
+  each 3D column kernel, one AdamW launch and 40 of each GroupNorm kernel
+  a step, over the column values, parameters and normalised values the
+  shapes give (`CapturedStep.kernels`, `.values`), no fused 3D kernel,
+  and replays whose loss is finite and falls.
 """
 import math
 
@@ -123,12 +123,14 @@ def test_captured_train_step_runs_the_3d_columns(dev):
     y = torch.randint(0, 400, (B,), generator=g, device=dev)
     step = graphs.capture(lambda a, b: train_step(net, opt, a, b), x, y)
     assert step.kernels == {"gathermm3d_cols_fwd": 13,
-                            "gathermm3d_cols_bwd": 13, "adamw": 1}
+                            "gathermm3d_cols_bwd": 13, "adamw": 1,
+                            "groupnorm_fwd": 40, "groupnorm_bwd": 40}
     cols = sum(n * C * 27 * B * math.prod(_out_sizes(S, s))
                for C, S, s, n in LAYERS)
     assert cols == 498_106_368
     assert step.values == {"gathermm3d_cols_fwd": cols,
-                           "adamw": 57_463_756}
+                           "adamw": 57_463_756,
+                           "groupnorm_fwd": 524_140_544}
     # The capture's warm-up trained on this batch already; each replay
     # trains on it again.
     losses = [step.read(step(x, y)) for _ in range(2)]
