@@ -83,7 +83,8 @@ rules), which every launch check reads:
    eager; DCNResNet-50, DCNVideoNet and DCNResNet3d-50 (B=32) trained
    captured and eager from the same parameters, equal; the kernels each
    graph holds (all twelve among them; DCNResNet3d-50's 13 + 13 3D column
-   launches over the column values its layer shapes give); every step eager against captured on the host clock, CUDA
+   launches, and each network's column launches over the column values
+   its layer shapes give); every step eager against captured on the host clock, CUDA
    events, device time and the host's time to issue one call, and each op
    step's chain-differenced time (calibrate's and autotune's timer) beside
    its device time; each network's graph holds one launch of the AdamW
@@ -104,7 +105,7 @@ rules), which every launch check reads:
 It builds the twelve kernels (shift-blend and gather, forward and
 backward, 2D and 3D; the gather's columns forward and backward, 2D and
 3D) from `modulated_deform_conv_tpu_torch/csrc/`, checks with the launch
-counters that each path went through its kernels, holds each kernel
+table (`lib.counts`) that each path went through its kernels, holds each kernel
 against its plain PyTorch version in every precision mode (at configs 2-5,
 on small edge cases, and on the inputs and output cotangents that the DCN
 layers of both networks saw at their first and last step), holds the
@@ -447,6 +448,14 @@ def launched(c):
     return {n: v for n, v in c.items() if v}
 
 
+def entry_of(fn, ndim):
+    """The C entry the kernel wrapper `fn` launches at rank `ndim`, as the
+    launch table names it: "gathermm3d_fwd" for gathermm.fused_fwd in 3D,
+    "shiftblend_bwd" for shiftblend.bwd in 2D."""
+    family = fn.__module__.rsplit(".", 1)[1] + ("3d" if ndim == 3 else "")
+    return f"{family}_{fn.__name__.removeprefix('fused_')}"
+
+
 def auto_pair(x, spec, O, bound=None):
     """The kernel pair "auto" takes for input x on the card, as the device
     profile of x's card decides (utils/device.py): "shiftblend" or
@@ -468,19 +477,22 @@ def current_profile_of(x):
 
 
 def col_values(torch, model, x):
-    """The column values one forward of `model` on x has the 3D column
-    forward write, from the shapes of each 3D DCN layer that "auto" sends
-    to the column pair: C x taps x B x the output grid."""
-    total, hooks = [0], []
+    """The column values one forward of `model` on x has the column forward
+    write, by C entry ("gathermm_cols_fwd", "gathermm3d_cols_fwd"), from
+    the shapes of each DCN layer that "auto" sends to the column pair: C x
+    taps x B x the output grid."""
+    total, hooks = {}, []
 
     def hook(mod, inputs, out):
         xin = inputs[0]
-        if auto_pair(xin, mod._spec(), mod.weight.shape[0]) == "gathermm3d_cols":
+        pair = auto_pair(xin, mod._spec(), mod.weight.shape[0], mod.offset_bound)
+        if pair.endswith("_cols"):
             grid = out.shape[:1] + out.shape[2:]
-            total[0] += xin.shape[1] * math.prod(mod.kernel_size) * math.prod(grid)
+            total[f"{pair}_fwd"] = (total.get(f"{pair}_fwd", 0) + xin.shape[1]
+                                    * math.prod(mod.kernel_size) * math.prod(grid))
 
     for m in model.modules():
-        if getattr(m, "_ndim", None) == 3 and hasattr(m, "_spec"):
+        if hasattr(m, "_spec"):
             hooks.append(m.register_forward_hook(hook))
     try:
         with torch.no_grad():
@@ -488,7 +500,7 @@ def col_values(torch, model, x):
     finally:
         for h in hooks:
             h.remove()
-    return total[0]
+    return total
 
 
 def recorded_pairs(recorded, steps, kernels):
@@ -624,7 +636,7 @@ def check_recorded(torch, recorded, layers, pair, label):
                           f"{'out' if n == 'out' else 'grad_' + n}: rel err {e:.3e}")
                 worst[prec] = max(errs.values())
             print(f"{label} step {rec['step']} {rec['name']} x {tuple(xs.shape)} "
-                  f"stride {sspec.stride[0]} max|off| {max_off:.3g}: {fwd.__name__} + bwd vs "
+                  f"stride {sspec.stride[0]} max|off| {max_off:.3g}: {entry_of(fwd, sspec.ndim)} + bwd vs "
                   "plain, worst rel err " + " ".join(f"{p} {e:.2e}" for p, e in worst.items()))
     print(f"{label} layer checks: peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
@@ -671,9 +683,8 @@ def check_recorded_cols(torch, recorded, gm, label, batch=2):
         for rec in recorded:
             xs, offs, masks = (t[:batch].contiguous() for t in rec["ins"][:3])
             sspec = rec["spec"]
-            d = "3d" if sspec.ndim == 3 else ""
-            fwd = getattr(gm, f"gathermm{d}_cols_fwd")
-            bwd = getattr(gm, f"gathermm{d}_cols_bwd")
+            fwd, bwd = gm.cols_fwd, gm.cols_bwd
+            names = (entry_of(fwd, sspec.ndim), entry_of(bwd, sspec.ndim))
             worst = {}
             for prec, limit in LIMITS.items():
                 got = fwd(xs, offs, masks, sspec, prec)
@@ -686,10 +697,10 @@ def check_recorded_cols(torch, recorded, gm, label, batch=2):
                     if r is not None]
                 worst[prec] = max(errs)
                 check(worst[prec] <= limit, f"{label} step {rec['step']} {rec['name']} {prec}: "
-                      f"{fwd.__name__} / {bwd.__name__} vs plain, rel err {worst[prec]:.3e}")
+                      f"{names[0]} / {names[1]} vs plain, rel err {worst[prec]:.3e}")
                 del gcols
             print(f"{label} step {rec['step']} {rec['name']} x {tuple(xs.shape)} (first {batch} "
-                  f"samples): {fwd.__name__} + {bwd.__name__} vs plain, worst rel err "
+                  f"samples): {names[0]} + {names[1]} vs plain, worst rel err "
                   + " ".join(f"{p} {e:.2e}" for p, e in worst.items()))
 
 
@@ -733,12 +744,13 @@ def time_recorded(torch, recorded, fwd, label, bwd=None):
                 for key, v in (("ms", ms), ("device_ms", device_ms), ("bound_ms", bound_ms)):
                     total[kind][key] += v
                 print(f"{label} {rec['name']} x {tuple(xs.shape)} stride {rec['spec'].stride[0]}: "
-                      f"{fn.__name__} {ms:.4f} ms (device {device_ms:.4f} ms), bound {bound_ms:.4f} ms "
+                      f"{entry_of(fn, rec['spec'].ndim)} {ms:.4f} ms (device {device_ms:.4f} ms), bound {bound_ms:.4f} ms "
                       f"({bound_by}; {w[kind][1] / 1e9:.1f} GFLOP); peak {peak_gb:.2f} GB above its "
                       "inputs")
+    nd = recorded[0]["spec"].ndim
     for kind, fn in kinds.items():
-        prev = PREV_STEP_MS.get(f"{label} {fn.__name__}")
-        print(f"{label}: {fn.__name__} summed over its layers {total[kind]['ms']:.4f} ms, device "
+        prev = PREV_STEP_MS.get(f"{label} {entry_of(fn, nd)}")
+        print(f"{label}: {entry_of(fn, nd)} summed over its layers {total[kind]['ms']:.4f} ms, device "
               f"{total[kind]['device_ms']:.4f} ms, summed bound {total[kind]['bound_ms']:.4f} ms"
               + ("" if prev is None else f" (previous release: {prev} ms of device time)"))
     return total
@@ -778,7 +790,7 @@ def time_routes(torch, sb, dev):
             ms = {}
             for route, halo in (("halo", True), ("xt", False)):
                 def run(halo=halo):
-                    return sb._fwd("shiftblend_fwd", *ins, spec, MAIN_PRECISION, BOUND, halo=halo)
+                    return sb.fwd(*ins, spec, MAIN_PRECISION, BOUND, halo=halo)
                 e = rel_err(run(), want)
                 check(e <= LIMITS[MAIN_PRECISION], f"shiftblend_fwd {route} route at {label}: rel err {e:.3e}")
                 ms[route] = time_ms(run)
@@ -1320,7 +1332,7 @@ def cols_fwd_routes(torch, gm, label, spec, ins, key):
                              x.shape[1]).route
     same_as_prev = {}
     for prec in LIMITS:
-        got = {r: gm._cols_fwd(name, x, off, mask, spec, prec, route=r) for r in ("plane", "gather")}
+        got = {r: gm.cols_fwd(x, off, mask, spec, prec, route=r) for r in ("plane", "gather")}
         check(torch.equal(got["plane"], got["gather"]), f"{label} {name} {prec}: the routes differ")
         digest = hashlib.sha256(got[route].view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
         same_as_prev[prec] = digest == PREV_COLS_FWD_DIGESTS[key][
@@ -1356,7 +1368,7 @@ def columns_case(torch, gm, label, spec, ins, op, reset, counts, pair, fused_pai
     B, O = x.shape[0], w.shape[0]
     OS = spec.out_sizes(x.shape[2:])
     P, K = math.prod(OS), spec.tap_count
-    fam = fwd.__name__[:-4]
+    fam = entry_of(fwd, spec.ndim)[:-4]
     with torch.no_grad():
         reset()
         out = op(ins, impl="auto")
@@ -1441,8 +1453,8 @@ def columns_case(torch, gm, label, spec, ins, op, reset, counts, pair, fused_pai
         cg = cols.view(g, wg.shape[2], -1)
         go = gout.transpose(0, 1).reshape(g, Og, -1).to(cols.dtype).contiguous()
         t["cols_fwd"] = time_ms(lambda: fwd(x, off, mask, spec, MAIN_PRECISION))
-        t["cols_fwd_gather_route"] = time_ms(lambda: gm._cols_fwd(
-            f"{fam}_fwd", x, off, mask, spec, MAIN_PRECISION, route="gather"))
+        t["cols_fwd_gather_route"] = time_ms(lambda: gm.cols_fwd(
+            x, off, mask, spec, MAIN_PRECISION, route="gather"))
         split = kernel_split(device_time_by_kernel(lambda: fwd(x, off, mask, spec, MAIN_PRECISION)))
         rows[f"{fam}_fwd"].update(split_ms=split, device_ms=sum(split.values()) if split else None,
                                   gather_route_ms=t["cols_fwd_gather_route"])
@@ -1517,18 +1529,18 @@ def cols_fwd_c3(torch, gm, label, spec, ins):
     x, off, mask = ins[:3]
     cols_fwd_routes(torch, gm, label, spec, ins, "c3")
     with torch.no_grad():
-        cols = gm.gathermm_cols_fwd(x, off, mask, spec, MAIN_PRECISION)
+        cols = gm.cols_fwd(x, off, mask, spec, MAIN_PRECISION)
         e = rel_err(cols, gm.gathermm_cols_reference(x, off, mask, spec, MAIN_PRECISION))
         check(e <= LIMITS[MAIN_PRECISION], f"{label} gathermm_cols_fwd vs plain: {e:.3e}")
-        t = {"cols_fwd": time_ms(lambda: gm.gathermm_cols_fwd(x, off, mask, spec, MAIN_PRECISION)),
-             "cols_fwd_gather_route": time_ms(lambda: gm._cols_fwd(
-                 "gathermm_cols_fwd", x, off, mask, spec, MAIN_PRECISION, route="gather"))}
+        t = {"cols_fwd": time_ms(lambda: gm.cols_fwd(x, off, mask, spec, MAIN_PRECISION)),
+             "cols_fwd_gather_route": time_ms(lambda: gm.cols_fwd(
+                 x, off, mask, spec, MAIN_PRECISION, route="gather"))}
         t["cols_fwd_bound"], by = bound_of(*cols_work(ins, cols.numel(), cols.element_size())["fwd"],
                                            "float32")
         gfn, gins = grid_sample_columns(torch, x, off, mask, spec)
         t["cols_fwd_grid_sample"] = time_ms(lambda: gfn(*gins))
         split = kernel_split(device_time_by_kernel(
-            lambda: gm.gathermm_cols_fwd(x, off, mask, spec, MAIN_PRECISION)))
+            lambda: gm.cols_fwd(x, off, mask, spec, MAIN_PRECISION)))
     print(f"{label} gathermm_cols_fwd, called directly: {t['cols_fwd']:.4f} ms on events (gather route "
           f"{t['cols_fwd_gather_route']:.4f} ms), bound {t['cols_fwd_bound']:.4f} ms ({by}), grid_sample "
           f"{t['cols_fwd_grid_sample']:.4f} ms; vs plain {e:.3e}; "
@@ -1604,7 +1616,7 @@ def run_columns(torch, mdt, gm, reset, counts, dev):
 
             with torch.no_grad():
                 t = {"op_fwd": time_ms(lambda: op5(ins, impl="auto")),
-                     "gathermm_fwd": time_ms(lambda: gm.gathermm_fwd(*ins, spec, MAIN_PRECISION)),
+                     "gathermm_fwd": time_ms(lambda: gm.fused_fwd(*ins, spec, MAIN_PRECISION)),
                      "columns_path_op_fwd": time_ms(
                          lambda: gm.deform_conv_cols(*ins, spec, MAIN_PRECISION))}
             t["gathermm_fwd_bound"], bound_by = bound_of(
@@ -1625,7 +1637,7 @@ def run_columns(torch, mdt, gm, reset, counts, dev):
         else:
             launches, res["rows"][layer], t = columns_case(
                 torch, gm, label, spec, ins, op5, reset, counts,
-                (gm.gathermm_cols_fwd, gm.gathermm_cols_bwd), (gm.gathermm_fwd, gm.gathermm_bwd),
+                (gm.cols_fwd, gm.cols_bwd), (gm.fused_fwd, gm.fused_bwd),
                 dense2, {"c3": PREV_MS_C3, "c5": PREV_MS_C5}.get(layer, PREV_MS), key=layer)
             fl, sl = launches["fwd"], launches["step"]
             if layer == "c3":
@@ -1660,8 +1672,8 @@ def run_columns(torch, mdt, gm, reset, counts, dev):
     label3 = f"3D columns (B={c['B']}, {c['C']} ch, {c['S']}, g={g3}, dg=1)"
     launches3, rows3, t3 = columns_case(
         torch, gm, label3, spec3, ins3, op3, reset, counts,
-        (gm.gathermm3d_cols_fwd, gm.gathermm3d_cols_bwd),
-        (gm.gathermm3d_fwd, gm.gathermm3d_bwd), dense3, key="3d")
+        (gm.cols_fwd, gm.cols_bwd),
+        (gm.fused_fwd, gm.fused_bwd), dense3, key="3d")
     res["rows"]["3d"], res["times"]["cols3d"] = rows3, t3
     res["launches"]["cols3d"] = launches3
     x3 = ins3[0]
@@ -1689,8 +1701,7 @@ def run_columns(torch, mdt, gm, reset, counts, dev):
     gen = torch.Generator(device=dev).manual_seed(5)
     for sspec, ins, gout in small_cases_cols(torch, dev):
         x, off, mask, w, b = ins
-        fwd, bwd = ((gm.gathermm_cols_fwd, gm.gathermm_cols_bwd) if sspec.ndim == 2 else
-                    (gm.gathermm3d_cols_fwd, gm.gathermm3d_cols_bwd))
+        fwd, bwd = gm.cols_fwd, gm.cols_bwd
         with torch.no_grad():
             for prec, limit in LIMITS.items():
                 got = fwd(x, off, mask, sspec, prec)
@@ -1761,11 +1772,10 @@ def unsharded_digests(torch, gm, sb, dev):
     spec3, ins3 = cfg3d_inputs(torch, dev, "cfg3")
     spec4, ins4 = cfg3d_inputs(torch, dev, "cfg4")
     ins4 = tuple(None if t is None else t[:1].contiguous() for t in ins4)
-    fused = [("shiftblend", sb.shiftblend_fwd, sb.shiftblend_bwd, spec2, ins2, (BOUND,)),
-             ("gathermm", gm.gathermm_fwd, gm.gathermm_bwd, spec2, ins2, ()),
-             ("gathermm3d", gm.gathermm3d_fwd, gm.gathermm3d_bwd, spec3, ins3, ()),
-             ("shiftblend3d", sb.shiftblend3d_fwd, sb.shiftblend3d_bwd, spec4, ins4,
-              (BOUND3D,))]
+    fused = [("shiftblend", sb.fwd, sb.bwd, spec2, ins2, (BOUND,)),
+             ("gathermm", gm.fused_fwd, gm.fused_bwd, spec2, ins2, ()),
+             ("gathermm3d", gm.fused_fwd, gm.fused_bwd, spec3, ins3, ()),
+             ("shiftblend3d", sb.fwd, sb.bwd, spec4, ins4, (BOUND3D,))]
     spec5 = DeformConvSpec.make(2, 3, 1, 1, 1, 1, 1, modulated=True)
     spec_c3, ins_c3 = cols3d_inputs(torch, dev)
     cols = [("gathermm_cols", spec5, cfg5_inputs(torch, dev, "c4")),
@@ -1779,11 +1789,10 @@ def unsharded_digests(torch, gm, sb, dev):
                 bwd(x, off, mask, w, cot(y.shape), spec, prec, *ext))
             del y
         for fam, spec, (x, off, mask, _, _) in cols:
-            fwd, bwd = getattr(gm, f"{fam}_fwd"), getattr(gm, f"{fam}_bwd")
-            c = fwd(x, off, mask, spec, prec)
+            c = gm.cols_fwd(x, off, mask, spec, prec)
             out.setdefault(f"{fam}_fwd", {})[prec] = digest(c)
             out.setdefault(f"{fam}_bwd", {})[prec] = digest(
-                bwd(x, off, mask, cot(c.shape, c.dtype), spec, prec))
+                gm.cols_bwd(x, off, mask, cot(c.shape, c.dtype), spec, prec))
             del c
     torch.cuda.synchronize()
     return out
@@ -1839,8 +1848,8 @@ def lead_kernel_checks(torch, sb, label, spec, leaves, shards, coords, sh):
     local, placement, gates = sh.block_args(spec, shards, coords, tuple(xb.shape[2:]))
     OS = tuple(off_l.shape[2:])
     fam = "shiftblend" if spec.ndim == 2 else "shiftblend3d"
-    fwd, bwd = getattr(sb, f"{fam}_fwd"), getattr(sb, f"{fam}_bwd")
-    fwd_ref, bwd_ref = getattr(sb, f"{fam}_fwd_reference"), getattr(sb, f"{fam}_bwd_reference")
+    fwd, bwd = sb.fwd, sb.bwd
+    fwd_ref, bwd_ref = sb.shiftblend_fwd_reference, sb.shiftblend_bwd_reference
     blk = (OS, gates, placement)
     g = torch.Generator(device=xb.device).manual_seed(3)
     cot = torch.randn((xb.shape[0], w.shape[0]) + OS, generator=g, device=xb.device)
@@ -1852,7 +1861,7 @@ def lead_kernel_checks(torch, sb, label, spec, leaves, shards, coords, sh):
         abs_errs = [float((got - want).abs().max())]
         if spec.ndim == 2:
             for route in (True, False):
-                got = sb._fwd("shiftblend_fwd", *args, *blk, halo=route)
+                got = sb.fwd(*args, *blk, halo=route)
                 errs["out " + ("halo" if route else "xt") + " route"] = rel_err(got, want)
         del got, want
         bargs = (xb, off_l, mask_l, w, cot, local, prec, SHARD_MAX_OFFSET)
@@ -2130,14 +2139,13 @@ def run_sharded(torch, sh, sb, reset, counts, dev):
             local, placement, gates = sh.block_args(spec, plan.shards, mid, tuple(xb.shape[2:]))
             blk = (tuple(off_l.shape[2:]), gates, placement)
             cot = torch.randn((xb.shape[0], w_l.shape[0]) + blk[0], device=dev)
-            sbf, gmf = ("shiftblend", "gathermm") if nd == 2 else ("shiftblend3d", "gathermm3d")
             fb = (xb, off_l, mask_l, w_l, b_l, local, MAIN_PRECISION)
             bb = (xb, off_l, mask_l, w_l, cot, local, MAIN_PRECISION)
             for key, fn, args in (
-                    ("lead_fwd_ms", getattr(sb, f"{sbf}_fwd"), fb + (SHARD_MAX_OFFSET, *blk)),
-                    ("lead_bwd_ms", getattr(sb, f"{sbf}_bwd"), bb + (SHARD_MAX_OFFSET, (True,) * 4, *blk)),
-                    ("gather_fwd_ms", getattr(gm, f"{gmf}_fwd"), fb + blk),
-                    ("gather_bwd_ms", getattr(gm, f"{gmf}_bwd"), bb + ((True,) * 4, *blk))):
+                    ("lead_fwd_ms", sb.fwd, fb + (SHARD_MAX_OFFSET, *blk)),
+                    ("lead_bwd_ms", sb.bwd, bb + (SHARD_MAX_OFFSET, (True,) * 4, *blk)),
+                    ("gather_fwd_ms", gm.fused_fwd, fb + blk),
+                    ("gather_bwd_ms", gm.fused_bwd, bb + ((True,) * 4, *blk))):
                 times[key] = timer_ms(torch, prof, dev, lambda: fn(*args), f"{label} {key}")
             print(f"sharded {label}: shard {mid} kernels alone (Timer): lead mode forward "
                   f"{times['lead_fwd_ms']:.4f} / backward {times['lead_bwd_ms']:.4f} ms, gather "
@@ -2195,7 +2203,7 @@ def run_sharded(torch, sh, sb, reset, counts, dev):
             folded = (off_l + delta.repeat(off_l.shape[1] // nd).reshape(
                 (1, -1) + (1,) * nd)).contiguous()
             OS = tuple(off_l.shape[2:])
-            fwd = getattr(gm, cols_fwd[0])
+            fwd = gm.cols_fwd
             t_p = time_ms(lambda: fwd(xb, off_l, mask_l, local, MAIN_PRECISION, OS, gates,
                                       placement))
             t_f = time_ms(lambda: fwd(xb, folded, mask_l, local, MAIN_PRECISION, OS, gates))
@@ -2622,7 +2630,7 @@ def run_autotune(torch, gm, dev):
     x, off, mask = cfg5_inputs(torch, dev, "c4")[:3]
 
     def fn():
-        return gm.gathermm_cols_fwd(x, off, mask, spec, MAIN_PRECISION)
+        return gm.cols_fwd(x, off, mask, spec, MAIN_PRECISION)
     digests = {}
     with torch.no_grad():
         for v in autotune.DEFAULT_VARIANTS:
@@ -2926,9 +2934,7 @@ def run_captured(torch, mdt, graphs, train, train_step, names, dev):
                   f"{gn_launches} and one AdamW")
         want = {"adamw": n_values,
                 "groupnorm_fwd": sum(math.prod(s) for s, *_ in norms)}
-        cols = col_values(torch, ref["model"], ref["batch"][0])
-        if cols:
-            want["gathermm3d_cols_fwd"] = cols
+        want.update(col_values(torch, ref["model"], ref["batch"][0]))
         check(cap["step"].values == want,
               f"captured {name}: values a step {cap['step'].values}, want {want}")
         step, (x, y) = cap["step"], ref["batch"]
@@ -2968,6 +2974,7 @@ def run_adamw(torch, mdt, aw, graphs, dev):
     differenced) for the kernel, torch's foreach AdamW and torch's fused
     AdamW (both capturable), beside the bound: p, g, m and v read once and
     p, m and v written once at 3.35 TB/s."""
+    from modulated_deform_conv_tpu_torch.ops.cuda import lib
     t_phase = time.time()
     shapes = [tuple(p.shape) for p in mdt.DCNResNet(
         num_classes=RESNET["classes"], width=RESNET["width"], device="meta").parameters()]
@@ -2985,16 +2992,19 @@ def run_adamw(torch, mdt, aw, graphs, dev):
         kern = [t.clone().requires_grad_() for t in start]
         plain = [t.to("cpu", copy=True).requires_grad_() for t in start]
         opts = (makers["kernel"](kern), aw.AdamW(plain, **ADAMW_KW))
-        launches, values = aw.adamw.launches, aw.adamw.values
+        before = lib.counts()
         for g in grads:
             for p, q, gi in zip(kern, plain, g):
                 p.grad, q.grad = gi, gi.cpu()
             for opt in opts:
                 opt.step()
         torch.cuda.synchronize()
-        check((aw.adamw.launches - launches, aw.adamw.values - values) == (2, 2 * total),
-              f"AdamW {dtype}: {aw.adamw.launches - launches} launches, "
-              f"{aw.adamw.values - values} values over 2 steps, want 2 and {2 * total}")
+        after = lib.counts()
+        launches = (after.launches - before.launches)["adamw"]
+        values = (after.values - before.values)["adamw"]
+        check((launches, values) == (2, 2 * total),
+              f"AdamW {dtype}: {launches} launches, {values} values over 2 steps, want 2 "
+              f"and {2 * total}")
         tol = 2 * ADAMW_TOL[str(dtype)]
         worst = max(float(((a.detach().cpu().double() - b.detach().double()).abs()
                            - tol * (b.detach().double().abs() + ADAMW_KW["lr"])).max())
@@ -3177,33 +3187,37 @@ def main() -> int:
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     dev = torch.device("cuda")
     # family -> (forward, its plain version, backward, its plain version)
-    families = {"shiftblend": (sb.shiftblend_fwd, sb.shiftblend_fwd_reference,
-                               sb.shiftblend_bwd, sb.shiftblend_bwd_reference),
-                "gathermm": (gm.gathermm_fwd, gm.gathermm_fwd_reference,
-                             gm.gathermm_bwd, gm.gathermm_bwd_reference)}
-    families3d = {"shiftblend3d": (sb.shiftblend3d_fwd, sb.shiftblend3d_fwd_reference,
-                                   sb.shiftblend3d_bwd, sb.shiftblend3d_bwd_reference),
-                  "gathermm3d": (gm.gathermm3d_fwd, gm.gathermm3d_fwd_reference,
-                                 gm.gathermm3d_bwd, gm.gathermm3d_bwd_reference)}
+    families = {"shiftblend": (sb.fwd, sb.shiftblend_fwd_reference,
+                               sb.bwd, sb.shiftblend_bwd_reference),
+                "gathermm": (gm.fused_fwd, gm.gathermm_fwd_reference,
+                             gm.fused_bwd, gm.gathermm_bwd_reference)}
+    families3d = {"shiftblend3d": (sb.fwd, sb.shiftblend_fwd_reference,
+                                   sb.bwd, sb.shiftblend_bwd_reference),
+                  "gathermm3d": (gm.fused_fwd, gm.gathermm_fwd_reference,
+                                 gm.fused_bwd, gm.gathermm_bwd_reference)}
     kernels = {}
     for fam, (fwd, fwd_ref, bwd, bwd_ref) in {**families, **families3d}.items():
         kernels[f"{fam}_fwd"] = (fwd, fwd_ref)
         kernels[f"{fam}_bwd"] = (bwd, bwd_ref)
     for fam in ("gathermm_cols", "gathermm3d_cols"):
-        kernels[f"{fam}_fwd"] = (getattr(gm, f"{fam}_fwd"), gm.gathermm_cols_reference)
-        kernels[f"{fam}_bwd"] = (getattr(gm, f"{fam}_bwd"), gm.gathermm_cols_bwd_reference)
+        kernels[f"{fam}_fwd"] = (gm.cols_fwd, gm.gathermm_cols_reference)
+        kernels[f"{fam}_bwd"] = (gm.cols_bwd, gm.gathermm_cols_bwd_reference)
+    # The launch table at the last reset: counts() gives each kernel's
+    # launches since.
+    base = lib.counts().launches
 
     def reset():
-        for fn, _ in kernels.values():
-            fn.launches = 0
+        nonlocal base
+        base = lib.counts().launches
 
     def counts():
-        return {n: fn.launches for n, (fn, _) in kernels.items()}
+        now = lib.counts().launches
+        return {n: now[n] - base[n] for n in kernels}
 
     # Phase 2: build the twelve kernels, the AdamW update, the GroupNorm
     # pair and calibrate's FMA probe from the sources, in parallel.
     t0 = time.time()
-    logs = lib.build(lib.KERNELS + lib.PROBES + lib.OPTIMIZERS + lib.NORMS, verbose=True)
+    logs = lib.build(lib.sources(), verbose=True)
     print(f"build: {time.time() - t0:.1f} s for {sorted(logs) or 'nothing (cached)'}")
     for name, log in logs.items():
         for line in log.splitlines():
@@ -3470,7 +3484,7 @@ def main() -> int:
     check_recorded(torch, recorded, DCN_LAYERS, families["gathermm"], "DCNResNet")
     if net_launches["gathermm_cols_fwd"]:
         check_recorded_cols(torch, recorded, gm, "DCNResNet-50")
-    resnet_fwd = time_recorded(torch, recorded, gm.gathermm_fwd, "DCNResNet-50")["fwd"]
+    resnet_fwd = time_recorded(torch, recorded, gm.fused_fwd, "DCNResNet-50")["fwd"]
     results["gathermm_fwd"].update(resnet50_layers_ms=resnet_fwd["ms"],
                                    resnet50_layers_device_ms=resnet_fwd["device_ms"],
                                    resnet50_layers_bound_ms=resnet_fwd["bound_ms"])
@@ -3507,8 +3521,8 @@ def main() -> int:
     check_recorded(torch, recorded, VIDEO_DCN_LAYERS, families3d["gathermm3d"], "DCNVideoNet")
     if video_launches["gathermm3d_cols_fwd"]:
         check_recorded_cols(torch, recorded, gm, "DCNVideoNet")
-    video_dcn = time_recorded(torch, recorded, gm.gathermm3d_fwd, "DCNVideoNet",
-                              bwd=gm.gathermm3d_bwd)
+    video_dcn = time_recorded(torch, recorded, gm.fused_fwd, "DCNVideoNet",
+                              bwd=gm.fused_bwd)
     print("DCNVideoNet: its DCN calls a step (forward and backward of each layer) "
           f"{sum(t['ms'] for t in video_dcn.values()):.4f} ms on events, "
           f"{sum(t['device_ms'] for t in video_dcn.values()):.4f} ms device, against a bound of "

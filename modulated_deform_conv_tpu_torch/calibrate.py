@@ -479,7 +479,7 @@ def calibrate(device="cuda", quick: bool = False, repeat: int = 1,
         raise RuntimeError("calibrate measures a CUDA card; none is "
                            f"available as {device}")
     from .ops.cuda import lib
-    lib.build(lib.KERNELS + lib.PROBES)
+    lib.build(lib.sources())
     kind = device_kind(device)
     with torch.cuda.device(device):
         measured = {

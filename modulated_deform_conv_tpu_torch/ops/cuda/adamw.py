@@ -117,8 +117,8 @@ def adamw(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
     raise: one launch for the leaves of each type, a few where they
     outnumber the kernel's table.  `done` is the launches' arrival counter,
     one int32 that is 0 between launches, owned by the caller (`AdamW`
-    keeps one a device) and required on CUDA.  Counts its launches
-    (`launches`) and the values it updated (`values`)."""
+    keeps one a device) and required on CUDA.  Each launch counts the
+    values it updates in the launch table (`lib.counts`)."""
     if not params:
         return
     if params[0].device.type == "cpu":
@@ -138,13 +138,8 @@ def adamw(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
                 [[t.data_ptr() for t in leaf] + [leaf[0].numel()]
                  for leaf in part], dtype=torch.int64)
             lib.launch("adamw", done, [table, done],
-                       [len(part), lib.IO_CODES[dtype]], floats)
-            adamw.launches += 1
-    adamw.values += sum(p.numel() for p in params)
-
-
-adamw.launches = 0
-adamw.values = 0
+                       [len(part), lib.IO_CODES[dtype]], floats,
+                       values=sum(leaf[0].numel() for leaf in part))
 
 
 def _scalar_dtype() -> torch.dtype:

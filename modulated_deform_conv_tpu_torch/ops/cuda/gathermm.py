@@ -1,8 +1,9 @@
-"""General-offset kernels: the fused pair `gathermm_fwd` / `gathermm_bwd`
-(2D, csrc/gathermm_fwd.cu, csrc/gathermm_bwd.cu) and `gathermm3d_fwd` /
-`gathermm3d_bwd` (3D, csrc/gathermm3d_*.cu), and the column pair
-`gathermm_cols_fwd` / `gathermm_cols_bwd` (csrc/gathermm_cols_*.cu) and
-`gathermm3d_cols_fwd` / `gathermm3d_cols_bwd` (csrc/gathermm3d_cols_*.cu).
+"""General-offset kernels: the fused pair `fused_fwd` / `fused_bwd`
+(kernels `gathermm_fwd` / `gathermm_bwd` in 2D, csrc/gathermm_*.cu, and
+`gathermm3d_fwd` / `gathermm3d_bwd` in 3D, csrc/gathermm3d_*.cu), and the
+column pair `cols_fwd` / `cols_bwd` (kernels `gathermm_cols_*` in 2D,
+`gathermm3d_cols_*` in 3D), each wrapper taking the kernel of its spec's
+rank.
 
 Counterparts of the JAX package's `ops/pallas/gathermm.py`: its fused pair
 (kernels `_fwd_fused_kernel` and `_bwd_fused_kernel`, joined by the custom
@@ -22,7 +23,7 @@ version (`*_reference`, one for both ranks) on CPU tensors only.  Every
 wrapper also takes the JAX package's sharded-block mode (`_prep(gates)`,
 gathermm.py:374-405): `out_sizes`, an output grid given rather than derived
 from x, and `gate_bounds`, a per-dim (lo, hi) tap gate in place of the open
-interval (-1, S_d), with -1 <= lo < hi <= S_d (lib.gates checks it).
+interval (-1, S_d), with -1 <= lo < hi <= S_d (lib.block_floats checks it).
 Corners outside the block still count zero.
 `_GathermmFwd` joins the fused pair as one differentiable op, and
 `_GathermmCols` the column pair; `_ColumnsGemm` is the columns path's
@@ -264,8 +265,24 @@ def _geometry(x, weight, spec: DeformConvSpec, out_sizes=None):
             *spec.padding, *spec.dilation)
 
 
-def _fwd(name, x, offset, mask, weight, bias, spec, precision, out_sizes,
-         gate_bounds, block_origin):
+def fused_fwd(x, offset, mask, weight, bias, spec: DeformConvSpec,
+              precision: str = "tensorfloat32", out_sizes=None,
+              gate_bounds=None, block_origin=None) -> torch.Tensor:
+    """General-offset DCN forward, (B, O, *OS) of x's type, on the output
+    grid `out_sizes` (None: derived from x) with the tap gate `gate_bounds`
+    (None: the open interval (-1, S_d)): the kernel `gathermm_fwd` (2D) or
+    `gathermm3d_fwd` (3D), as the spec's rank.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel or
+    raise.  Inputs: x, offset and mask float32 or bfloat16 (one type,
+    which the result has), weight and bias float32 or bfloat16,
+    contiguous, on one device."""
+    floats = lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin)
+    if x.device.type == "cpu":
+        return gathermm_fwd_reference(x, offset, mask, weight, bias, spec,
+                                      precision, out_sizes, gate_bounds,
+                                      block_origin)
+    name = "gathermm_fwd" if spec.ndim == 2 else "gathermm3d_fwd"
     lib.check_inputs(name, x, offset, mask, weight, bias, spec, out_sizes)
     reason = ineligible_reason(x, spec, out_sizes)
     if reason is not None:
@@ -278,57 +295,8 @@ def _fwd(name, x, offset, mask, weight, bias, spec, precision, out_sizes,
                          lib.as_f32(bias), out, xt, part),
                (*_geometry(x, weight, spec, out_sizes), splits,
                 lib.PRECISION_CODES[precision], lib.IO_CODES[x.dtype]),
-               lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin))
+               floats)
     return out
-
-
-def gathermm_fwd(x, offset, mask, weight, bias, spec: DeformConvSpec,
-                 precision: str = "tensorfloat32", out_sizes=None,
-                 gate_bounds=None, block_origin=None) -> torch.Tensor:
-    """General-offset 2D DCN forward, (B, O, OH, OW) of x's type, on the
-    output grid `out_sizes` (None: derived from x) with the tap gate
-    `gate_bounds` (None: the open interval (-1, S_d)).
-
-    CPU tensors run the plain version; CUDA tensors launch the kernel or
-    raise.  Inputs: x, offset and mask float32 or bfloat16 (one type,
-    which the result has), weight and bias float32 or bfloat16,
-    contiguous, on one device."""
-    if x.device.type == "cpu":
-        lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin)
-        return gathermm_fwd_reference(x, offset, mask, weight, bias, spec,
-                                      precision, out_sizes, gate_bounds,
-                                      block_origin)
-    out = _fwd("gathermm_fwd", x, offset, mask, weight, bias, spec,
-               precision, out_sizes, gate_bounds, block_origin)
-    gathermm_fwd.launches += 1
-    return out
-
-
-gathermm_fwd.launches = 0
-
-
-def gathermm3d_fwd(x, offset, mask, weight, bias, spec: DeformConvSpec,
-                   precision: str = "tensorfloat32", out_sizes=None,
-                   gate_bounds=None, block_origin=None) -> torch.Tensor:
-    """General-offset 3D DCN forward, (B, O, OD, OH, OW) of x's type, as
-    `gathermm_fwd`.
-
-    CPU tensors run the plain version; CUDA tensors launch the kernel or
-    raise.  Inputs: x, offset and mask float32 or bfloat16 (one type,
-    which the result has), weight and bias float32 or bfloat16,
-    contiguous, on one device."""
-    if x.device.type == "cpu":
-        lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin)
-        return gathermm3d_fwd_reference(x, offset, mask, weight, bias, spec,
-                                        precision, out_sizes, gate_bounds,
-                                        block_origin)
-    out = _fwd("gathermm3d_fwd", x, offset, mask, weight, bias, spec,
-               precision, out_sizes, gate_bounds, block_origin)
-    gathermm3d_fwd.launches += 1
-    return out
-
-
-gathermm3d_fwd.launches = 0
 
 
 def gathermm_bwd_reference(x, offset, mask, weight, grad_out,
@@ -346,13 +314,23 @@ def gathermm_bwd_reference(x, offset, mask, weight, grad_out,
     return lib.cast_grads(grads, (x, offset, mask, weight))
 
 
-# The plain versions take either rank.
-gathermm3d_fwd_reference = gathermm_fwd_reference
-gathermm3d_bwd_reference = gathermm_bwd_reference
+def fused_bwd(x, offset, mask, weight, grad_out, spec: DeformConvSpec,
+              precision: str = "tensorfloat32", needs=(True,) * 4,
+              out_sizes=None, gate_bounds=None, block_origin=None):
+    """General-offset DCN backward without the bias, the kernel
+    `gathermm_bwd` (2D) or `gathermm3d_bwd` (3D): (grad_x, grad_offset,
+    grad_mask, grad_weight), each in its input's type, each None where
+    `needs` says it is not wanted (grad_mask also without a mask).
 
-
-def _bwd(name, x, offset, mask, weight, grad_out, spec, precision, needs,
-         out_sizes, gate_bounds, block_origin):
+    CPU tensors run the plain version; CUDA tensors launch the kernel or
+    raise.  Inputs: as `fused_fwd`'s, grad_out of x's type."""
+    floats = lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin)
+    if x.device.type == "cpu":
+        grads = gathermm_bwd_reference(x, offset, mask, weight, grad_out,
+                                       spec, precision, out_sizes,
+                                       gate_bounds, block_origin)
+        return tuple(g if n else None for g, n in zip(grads, needs))
+    name = "gathermm_bwd" if spec.ndim == 2 else "gathermm3d_bwd"
     lib.check_inputs(name, x, offset, mask, weight, None, spec, out_sizes)
     reason = ineligible_reason(x, spec, out_sizes)
     if reason is not None:
@@ -382,57 +360,10 @@ def _bwd(name, x, offset, mask, weight, grad_out, spec, precision, needs,
         gmask, gwt), (*_geometry(x, weight, spec, out_sizes),
                *(() if b_step is None else (b_step,)), splits,
                lib.PRECISION_CODES[precision], lib.IO_CODES[x.dtype]),
-        lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin))
+        floats)
     gw = (None if gwt is None else
           lib.ungrouped_weight(gwt, weight.shape).to(weight.dtype))
     return gx, goff, gmask, gw
-
-
-def gathermm_bwd(x, offset, mask, weight, grad_out, spec: DeformConvSpec,
-                 precision: str = "tensorfloat32", needs=(True,) * 4,
-                 out_sizes=None, gate_bounds=None, block_origin=None):
-    """General-offset 2D DCN backward without the bias: (grad_x,
-    grad_offset, grad_mask, grad_weight), each in its input's type, each
-    None where `needs` says it is not wanted (grad_mask also without a
-    mask).
-
-    CPU tensors run the plain version; CUDA tensors launch the kernel or
-    raise.  Inputs: as `gathermm_fwd`'s, grad_out of x's type."""
-    if x.device.type == "cpu":
-        lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin)
-        grads = gathermm_bwd_reference(x, offset, mask, weight, grad_out,
-                                       spec, precision, out_sizes,
-                                       gate_bounds, block_origin)
-        return tuple(g if n else None for g, n in zip(grads, needs))
-    grads = _bwd("gathermm_bwd", x, offset, mask, weight, grad_out, spec,
-                 precision, needs, out_sizes, gate_bounds, block_origin)
-    gathermm_bwd.launches += 1
-    return grads
-
-
-gathermm_bwd.launches = 0
-
-
-def gathermm3d_bwd(x, offset, mask, weight, grad_out, spec: DeformConvSpec,
-                   precision: str = "tensorfloat32", needs=(True,) * 4,
-                   out_sizes=None, gate_bounds=None, block_origin=None):
-    """General-offset 3D DCN backward without the bias, as `gathermm_bwd`.
-
-    CPU tensors run the plain version; CUDA tensors launch the kernel or
-    raise.  Inputs: as `gathermm_fwd`'s, grad_out of x's type."""
-    if x.device.type == "cpu":
-        lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin)
-        grads = gathermm3d_bwd_reference(x, offset, mask, weight, grad_out,
-                                         spec, precision, out_sizes,
-                                         gate_bounds, block_origin)
-        return tuple(g if n else None for g, n in zip(grads, needs))
-    grads = _bwd("gathermm3d_bwd", x, offset, mask, weight, grad_out, spec,
-                 precision, needs, out_sizes, gate_bounds, block_origin)
-    gathermm3d_bwd.launches += 1
-    return grads
-
-
-gathermm3d_bwd.launches = 0
 
 
 class _GathermmFwd(torch.autograd.Function):
@@ -451,17 +382,15 @@ class _GathermmFwd(torch.autograd.Function):
         ctx.spec, ctx.precision = spec, precision
         ctx.out_sizes, ctx.gate_bounds = out_sizes, gate_bounds
         ctx.block_origin = block_origin
-        fwd = gathermm_fwd if spec.ndim == 2 else gathermm3d_fwd
-        return fwd(x, offset, mask, weight, bias, spec, precision, out_sizes,
-                   gate_bounds, block_origin)
+        return fused_fwd(x, offset, mask, weight, bias, spec, precision,
+                         out_sizes, gate_bounds, block_origin)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, grad_out):
         x, offset, mask, weight = ctx.saved_tensors
         needs = ctx.needs_input_grad
-        bwd = gathermm_bwd if ctx.spec.ndim == 2 else gathermm3d_bwd
-        gx, goff, gmask, gw = bwd(
+        gx, goff, gmask, gw = fused_bwd(
             x, offset, mask, weight, grad_out.contiguous(), ctx.spec,
             ctx.precision, needs[:4], ctx.out_sizes, ctx.gate_bounds,
             ctx.block_origin)
@@ -511,10 +440,6 @@ def gathermm_cols_bwd_reference(x, offset, mask, gcols, spec: DeformConvSpec,
     return tuple(None if t is None else next(grads) for t in ins)
 
 
-gathermm3d_cols_reference = gathermm_cols_reference
-gathermm3d_cols_bwd_reference = gathermm_cols_bwd_reference
-
-
 def _cols_geometry(x, spec: DeformConvSpec, out_sizes=None):
     """The column kernels' int arguments: B, C, *S, *OS, dg, *kernel,
     *stride, *padding, *dilation."""
@@ -531,10 +456,26 @@ def _cols_check(name, x, offset, mask, spec, out_sizes=None):
         raise NotImplementedError(f"{name}: K * B * P must stay below 2^31")
 
 
-def _cols_fwd(name, x, offset, mask, spec, precision, route=None,
-              out_sizes=None, gate_bounds=None, block_origin=None):
-    """Launch a column forward kernel.  `route` ("plane" or "gather")
-    forces one, None for cols_fwd_plan's choice."""
+def cols_fwd(x, offset, mask, spec: DeformConvSpec,
+             precision: str = "tensorfloat32", out_sizes=None,
+             gate_bounds=None, block_origin=None,
+             route: Optional[str] = None) -> torch.Tensor:
+    """The deformable columns of the unfused path, (C * K, B * P) with row
+    c * K + k and column b * P + p: float32, bf16 in "bfloat16" (the
+    mode's type, whatever x's), on the output grid `out_sizes` with the tap
+    gate `gate_bounds` (None: the defaults); the kernel
+    `gathermm_cols_fwd` (2D) or `gathermm3d_cols_fwd` (3D), which counts
+    the column values it writes.  `route` ("plane" or "gather") forces the
+    kernel's route, None for cols_fwd_plan's choice.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel or
+    raise.  Inputs: x, offset and mask float32 or bfloat16 (one type),
+    contiguous, on one device."""
+    floats = lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin)
+    if x.device.type == "cpu":
+        return gathermm_cols_reference(x, offset, mask, spec, precision,
+                                       out_sizes, gate_bounds, block_origin)
+    name = "gathermm_cols_fwd" if spec.ndim == 2 else "gathermm3d_cols_fwd"
     _cols_check(name, x, offset, mask, spec, out_sizes)
     OS = lib.out_grid(x, spec, out_sizes)
     plan = cols_fwd_plan(spec, x.shape[2:], OS, x.shape[0], x.shape[1],
@@ -544,62 +485,29 @@ def _cols_fwd(name, x, offset, mask, spec, precision, route=None,
                        dtype=_cols_dtype(precision), device=x.device)
     lib.launch(name, x, (x, offset, mask, cols), (
         *_cols_geometry(x, spec, OS), *plan.ints(),
-        lib.PRECISION_CODES[precision], lib.IO_CODES[x.dtype]),
-        lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin))
+        lib.PRECISION_CODES[precision], lib.IO_CODES[x.dtype]), floats,
+        values=cols.numel())
     return cols
 
 
-def gathermm_cols_fwd(x, offset, mask, spec: DeformConvSpec,
-                      precision: str = "tensorfloat32", out_sizes=None,
-                      gate_bounds=None, block_origin=None) -> torch.Tensor:
-    """The deformable columns (2D) of the unfused path, (C * K, B * P) with
-    row c * K + k and column b * P + p: float32, bf16 in "bfloat16" (the
-    mode's type, whatever x's), on the output grid `out_sizes` with the tap
-    gate `gate_bounds` (None: the defaults).
+def cols_bwd(x, offset, mask, gcols, spec: DeformConvSpec,
+             precision: str = "tensorfloat32", needs=(True,) * 3,
+             out_sizes=None, gate_bounds=None, block_origin=None):
+    """The VJP of the columns for the cotangent gcols (the columns' layout
+    and dtype), the kernel `gathermm_cols_bwd` (2D) or
+    `gathermm3d_cols_bwd` (3D): (grad_x, grad_offset, grad_mask), each in
+    its input's type, each None where `needs` says it is not wanted
+    (grad_mask also without a mask).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel or
-    raise.  Inputs: x, offset and mask float32 or bfloat16 (one type),
-    contiguous, on one device."""
+    raise.  Inputs: as `cols_fwd`'s."""
+    floats = lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin)
     if x.device.type == "cpu":
-        lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin)
-        return gathermm_cols_reference(x, offset, mask, spec, precision,
-                                       out_sizes, gate_bounds, block_origin)
-    cols = _cols_fwd("gathermm_cols_fwd", x, offset, mask, spec, precision,
-                     out_sizes=out_sizes, gate_bounds=gate_bounds,
-                     block_origin=block_origin)
-    gathermm_cols_fwd.launches += 1
-    return cols
-
-
-gathermm_cols_fwd.launches = 0
-
-
-def gathermm3d_cols_fwd(x, offset, mask, spec: DeformConvSpec,
-                        precision: str = "tensorfloat32", out_sizes=None,
-                        gate_bounds=None, block_origin=None) -> torch.Tensor:
-    """The deformable columns (3D), as `gathermm_cols_fwd`.
-
-    CPU tensors run the plain version; CUDA tensors launch the kernel or
-    raise.  Inputs: as `gathermm_cols_fwd`'s.  Counts its launches
-    (`launches`) and the column values they wrote (`values`)."""
-    if x.device.type == "cpu":
-        lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin)
-        return gathermm3d_cols_reference(x, offset, mask, spec, precision,
-                                         out_sizes, gate_bounds, block_origin)
-    cols = _cols_fwd("gathermm3d_cols_fwd", x, offset, mask, spec, precision,
-                     out_sizes=out_sizes, gate_bounds=gate_bounds,
-                     block_origin=block_origin)
-    gathermm3d_cols_fwd.launches += 1
-    gathermm3d_cols_fwd.values += cols.numel()
-    return cols
-
-
-gathermm3d_cols_fwd.launches = 0
-gathermm3d_cols_fwd.values = 0
-
-
-def _cols_bwd(name, x, offset, mask, gcols, spec, precision, needs,
-              out_sizes=None, gate_bounds=None, block_origin=None):
+        grads = gathermm_cols_bwd_reference(x, offset, mask, gcols, spec,
+                                            precision, out_sizes,
+                                            gate_bounds, block_origin)
+        return tuple(g if n else None for g, n in zip(grads, needs))
+    name = "gathermm_cols_bwd" if spec.ndim == 2 else "gathermm3d_cols_bwd"
     _cols_check(name, x, offset, mask, spec, out_sizes)
     OS = lib.out_grid(x, spec, out_sizes)
     want = (x.shape[1] * spec.tap_count, x.shape[0] * math.prod(OS))
@@ -637,56 +545,8 @@ def _cols_bwd(name, x, offset, mask, gcols, spec, precision, needs,
         goff, gmask), (*_cols_geometry(x, spec, OS),
                        *plan.tile[3 - spec.ndim:],
                        lib.PRECISION_CODES[precision],
-                       lib.IO_CODES[x.dtype]),
-        lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin))
+                       lib.IO_CODES[x.dtype]), floats)
     return gx, goff, gmask
-
-
-def gathermm_cols_bwd(x, offset, mask, gcols, spec: DeformConvSpec,
-                      precision: str = "tensorfloat32", needs=(True,) * 3,
-                      out_sizes=None, gate_bounds=None, block_origin=None):
-    """The VJP of the 2D columns for the cotangent gcols (the columns'
-    layout and dtype): (grad_x, grad_offset, grad_mask), each in its
-    input's type, each None where `needs` says it is not wanted (grad_mask
-    also without a mask).
-
-    CPU tensors run the plain version; CUDA tensors launch the kernel or
-    raise.  Inputs: as `gathermm_cols_fwd`'s."""
-    if x.device.type == "cpu":
-        lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin)
-        grads = gathermm_cols_bwd_reference(x, offset, mask, gcols, spec,
-                                            precision, out_sizes,
-                                            gate_bounds, block_origin)
-        return tuple(g if n else None for g, n in zip(grads, needs))
-    grads = _cols_bwd("gathermm_cols_bwd", x, offset, mask, gcols, spec,
-                      precision, needs, out_sizes, gate_bounds, block_origin)
-    gathermm_cols_bwd.launches += 1
-    return grads
-
-
-gathermm_cols_bwd.launches = 0
-
-
-def gathermm3d_cols_bwd(x, offset, mask, gcols, spec: DeformConvSpec,
-                        precision: str = "tensorfloat32", needs=(True,) * 3,
-                        out_sizes=None, gate_bounds=None, block_origin=None):
-    """The VJP of the 3D columns, as `gathermm_cols_bwd`.
-
-    CPU tensors run the plain version; CUDA tensors launch the kernel or
-    raise.  Inputs: as `gathermm_cols_fwd`'s."""
-    if x.device.type == "cpu":
-        lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin)
-        grads = gathermm3d_cols_bwd_reference(x, offset, mask, gcols, spec,
-                                              precision, out_sizes,
-                                              gate_bounds, block_origin)
-        return tuple(g if n else None for g, n in zip(grads, needs))
-    grads = _cols_bwd("gathermm3d_cols_bwd", x, offset, mask, gcols, spec,
-                      precision, needs, out_sizes, gate_bounds, block_origin)
-    gathermm3d_cols_bwd.launches += 1
-    return grads
-
-
-gathermm3d_cols_bwd.launches = 0
 
 
 class _GathermmCols(torch.autograd.Function):
@@ -702,18 +562,17 @@ class _GathermmCols(torch.autograd.Function):
         ctx.spec, ctx.precision = spec, precision
         ctx.out_sizes, ctx.gate_bounds = out_sizes, gate_bounds
         ctx.block_origin = block_origin
-        fwd = gathermm_cols_fwd if spec.ndim == 2 else gathermm3d_cols_fwd
-        return fwd(x, offset, mask, spec, precision, out_sizes, gate_bounds,
-        block_origin)
+        return cols_fwd(x, offset, mask, spec, precision, out_sizes,
+                        gate_bounds, block_origin)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, gcols):
         x, offset, mask = ctx.saved_tensors
-        bwd = gathermm_cols_bwd if ctx.spec.ndim == 2 else gathermm3d_cols_bwd
-        gx, goff, gmask = bwd(x, offset, mask, gcols.contiguous(), ctx.spec,
-                              ctx.precision, ctx.needs_input_grad[:3],
-                              ctx.out_sizes, ctx.gate_bounds, ctx.block_origin)
+        gx, goff, gmask = cols_bwd(x, offset, mask, gcols.contiguous(),
+                                   ctx.spec, ctx.precision,
+                                   ctx.needs_input_grad[:3], ctx.out_sizes,
+                                   ctx.gate_bounds, ctx.block_origin)
         return gx, goff, gmask, None, None, None, None, None
 
 

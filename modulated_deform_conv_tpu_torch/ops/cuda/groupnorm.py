@@ -221,7 +221,7 @@ def groupnorm_fwd(x, num_groups: int, weight, bias, eps: float,
     `group_norm_reference` rounded to float32 (y to x's type), on CUDA
     tensors only (weight and bias float32).  `route` forces
     the plan (k, slice, chunk) for tests and timing; None takes `plan`'s.
-    Counts its launches and the values it normalised (`values`)."""
+    Counts the values it normalises in the launch table (`lib.counts`)."""
     _check("groupnorm_fwd", x, num_groups, (weight, bias), (identity,))
     N, C, S, L = _groups_shape(x, num_groups)
     k, sl, chunk = route or plan(N, num_groups, L, x.element_size(), 1,
@@ -232,14 +232,8 @@ def groupnorm_fwd(x, num_groups: int, weight, bias, eps: float,
     lib.launch("groupnorm", x, [x, weight, bias, identity, y, stats[0],
                                 stats[1]],
                [N, C, S, num_groups, int(relu), lib.IO_CODES[x.dtype], k, sl,
-                chunk], [eps], entry="groupnorm_fwd")
-    groupnorm_fwd.launches += 1
-    groupnorm_fwd.values += x.numel()
+                chunk], [eps], entry="groupnorm_fwd", values=x.numel())
     return y, stats[0], stats[1]
-
-
-groupnorm_fwd.launches = 0
-groupnorm_fwd.values = 0
 
 
 def groupnorm_bwd(dy, x, y, mean, rstd, weight, num_groups: int,
@@ -248,8 +242,7 @@ def groupnorm_bwd(dy, x, y, mean, rstd, weight, num_groups: int,
     """The backward kernel and its parameters' sum: (dx, dgamma, dbeta,
     d_identity or None), those of `group_norm_backward_reference` in
     float32, on CUDA tensors only (weight float32; y read only with the ReLU).
-    `route` as in `groupnorm_fwd`.  Counts its launches of the fused
-    kernel."""
+    `route` as in `groupnorm_fwd`."""
     if relu and y is None:
         raise ValueError("groupnorm_bwd: the ReLU's backward reads y")
     _check("groupnorm_bwd", x, num_groups, (weight,),
@@ -270,11 +263,7 @@ def groupnorm_bwd(dy, x, y, mean, rstd, weight, num_groups: int,
                                 weight, dx, did, part, grads[0], grads[1]],
                [N, C, S, num_groups, lib.IO_CODES[x.dtype], k, sl, chunk],
                entry="groupnorm_bwd")
-    groupnorm_bwd.launches += 1
     return dx, grads[0], grads[1], did
-
-
-groupnorm_bwd.launches = 0
 
 
 class _GroupNormAct(torch.autograd.Function):

@@ -5,9 +5,13 @@ by `nvcc` into `build/lib<name>-<hash>.so` at the repository root (the hash
 covers the sources and flags, so an edited source builds anew) and loaded
 with ctypes.  `build()` starts one `nvcc` per source, all at once.  Nothing
 here runs at import: the package imports on machines without CUDA.
+
+`launch` keeps the launch table: every launch it makes, by C entry, and
+the values of the launches whose callers count them.  `counts` reads it.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import math
@@ -15,7 +19,7 @@ import os
 import pathlib
 import shutil
 import subprocess
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, NamedTuple, Optional
 
 import torch
 
@@ -25,16 +29,6 @@ KERNELS = ("gathermm_fwd", "shiftblend_fwd", "gathermm_bwd", "shiftblend_bwd",
            "gathermm3d_fwd", "shiftblend3d_fwd", "gathermm3d_bwd",
            "shiftblend3d_bwd", "gathermm_cols_fwd", "gathermm_cols_bwd",
            "gathermm3d_cols_fwd", "gathermm3d_cols_bwd")
-# Measurement kernels that are no port of a TPU kernel: calibrate.py's FMA
-# rate, and the marks of the program's spans (utils/profiling.py), each
-# built at its first use.
-PROBES = ("calibrate_fma", "trace_mark")
-# Kernels of the main path that are no port of a TPU kernel either: the
-# trainer's AdamW update (adamw.py), built at its first use.
-OPTIMIZERS = ("adamw",)
-# And the backbone's GroupNorm with its ReLU and residual add
-# (groupnorm.py), built at its first use.
-NORMS = ("groupnorm",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -46,6 +40,31 @@ PRECISIONS = tuple(PRECISION_CODES)
 IO_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _FUNCS: Dict[str, object] = {}
+_LAUNCHES: collections.Counter = collections.Counter()
+_VALUES: collections.Counter = collections.Counter()
+
+
+class Counts(NamedTuple):
+    """A snapshot of the launch table, by C entry: the launches, and the
+    values of the launches whose callers count them (the AdamW update's
+    values updated, the column forward's column values written, the
+    GroupNorm forward's values normalised).  One snapshot subtracted from
+    a later one gives what ran between them."""
+    launches: collections.Counter
+    values: collections.Counter
+
+
+def counts() -> Counts:
+    """The launch table as it stands."""
+    return Counts(collections.Counter(_LAUNCHES),
+                  collections.Counter(_VALUES))
+
+
+def sources() -> tuple:
+    """The name of every kernel source, `csrc/<name>.cu`: the KERNELS, the
+    ports of the TPU kernels, and those that port none (the AdamW update,
+    GroupNorm, calibrate.py's FMA probe, the spans' marks)."""
+    return tuple(sorted(f.stem for f in CSRC.glob("*.cu")))
 
 
 def _nvcc() -> str:
@@ -337,11 +356,13 @@ def bwd_buffers(x, offset, mask, weight, spec, P: int, needs,
 
 
 def launch(name: str, x: torch.Tensor, tensors, ints, floats=(),
-           entry: Optional[str] = None) -> None:
+           entry: Optional[str] = None,
+           values: Optional[int] = None) -> None:
     """Launch kernel `name` (its C entry `entry`, default `name`) on x's
     device and current stream: the C entry takes the tensors' pointers, the
     ints, the floats, then the stream.  Raise with the CUDA error if the
-    launch was refused."""
+    launch was refused; else count it in the launch table under its C
+    entry, with `values` (None: the caller counts none)."""
     fn = kernel(name, entry)
     # Every pointer and the stream as c_void_p: an undeclared argument
     # would pass as a 32-bit int and cut the pointer.
@@ -352,6 +373,10 @@ def launch(name: str, x: torch.Tensor, tensors, ints, floats=(),
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(*ptrs, *ints, *floats, stream)
+    entry = entry or name
     if err:
-        raise RuntimeError(f"{entry or name}: kernel launch failed with CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"{entry}: kernel launch failed with CUDA error "
+                           f"{err}")
+    _LAUNCHES[entry] += 1
+    if values is not None:
+        _VALUES[entry] += values

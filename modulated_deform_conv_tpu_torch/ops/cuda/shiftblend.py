@@ -1,6 +1,7 @@
-"""Bounded-offset kernels: `shiftblend_fwd` / `shiftblend_bwd` (2D,
-csrc/shiftblend_fwd.cu, csrc/shiftblend_bwd.cu) and `shiftblend3d_fwd` /
-`shiftblend3d_bwd` (3D, csrc/shiftblend3d_*.cu).
+"""Bounded-offset kernels: the wrappers `fwd` / `bwd`, each taking the
+kernel of its spec's rank, `shiftblend_fwd` / `shiftblend_bwd` in 2D
+(csrc/shiftblend_fwd.cu, csrc/shiftblend_bwd.cu) and `shiftblend3d_fwd` /
+`shiftblend3d_bwd` in 3D (csrc/shiftblend3d_*.cu).
 
 Counterparts of the JAX package's `ops/pallas/shiftblend.py`
 (`deform_conv_shift`, joined by the custom VJP `shift_conv`): in 2D its
@@ -283,10 +284,26 @@ def halo_route(S) -> bool:
     return math.prod(S) >= _HALO_MIN_POSITIONS
 
 
-def _fwd(name, x, offset, mask, weight, bias, spec, precision, offset_bound,
-         out_sizes=None, gate_bounds=None, block_origin=None, halo=None):
-    """Launch a forward kernel.  `halo` (2D only) picks the route, None
-    for halo_route's choice."""
+def fwd(x, offset, mask, weight, bias, spec: DeformConvSpec, precision: str,
+        offset_bound, out_sizes=None, gate_bounds=None, block_origin=None,
+        halo=None) -> torch.Tensor:
+    """Bounded-offset DCN forward, (B, O, *OS) of x's type: OS = S, or on a
+    lead-mode block (`out_sizes`, `gate_bounds`, `block_origin` as
+    `sharding.block_args` gives them) its output grid; the kernel
+    `shiftblend_fwd` (2D) or `shiftblend3d_fwd` (3D, the whole volume or
+    block in one launch).  `halo` (2D only) forces the 2D kernel's route,
+    None for halo_route's choice.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel or
+    raise.  Inputs: x, offset and mask float32 or bfloat16 (one type,
+    which the result has), weight and bias float32 or bfloat16,
+    contiguous, on one device."""
+    floats = lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin)
+    if x.device.type == "cpu":
+        return shiftblend_fwd_reference(x, offset, mask, weight, bias, spec,
+                                        precision, offset_bound, out_sizes,
+                                        gate_bounds, block_origin)
+    name = "shiftblend_fwd" if spec.ndim == 2 else "shiftblend3d_fwd"
     lib.check_inputs(name, x, offset, mask, weight, bias, spec, out_sizes)
     reason = _launch_reason(x, spec, offset_bound, out_sizes, block_origin)
     if reason is not None:
@@ -302,58 +319,8 @@ def _fwd(name, x, offset, mask, weight, bias, spec, precision, offset_bound,
                          lib.as_f32(bias), out, xt, part),
                (*_geometry(x, weight, spec, offset_bound, out_sizes), *route,
                 splits, lib.PRECISION_CODES[precision],
-                lib.IO_CODES[x.dtype]),
-               lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin))
+                lib.IO_CODES[x.dtype]), floats)
     return out
-
-
-def shiftblend_fwd(x, offset, mask, weight, bias, spec: DeformConvSpec,
-                   precision: str, offset_bound, out_sizes=None,
-                   gate_bounds=None, block_origin=None) -> torch.Tensor:
-    """Bounded-offset 2D DCN forward, (B, O, OH, OW) of x's type: OH, OW =
-    H, W, or on a lead-mode block (`out_sizes`, `gate_bounds`,
-    `block_origin` as `sharding.block_args` gives them) its output grid.
-
-    CPU tensors run the plain version; CUDA tensors launch the kernel or
-    raise.  Inputs: x, offset and mask float32 or bfloat16 (one type,
-    which the result has), weight and bias float32 or bfloat16,
-    contiguous, on one device."""
-    if x.device.type == "cpu":
-        lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin)
-        return shiftblend_fwd_reference(x, offset, mask, weight, bias, spec,
-                                        precision, offset_bound, out_sizes,
-                                        gate_bounds, block_origin)
-    out = _fwd("shiftblend_fwd", x, offset, mask, weight, bias, spec,
-               precision, offset_bound, out_sizes, gate_bounds, block_origin)
-    shiftblend_fwd.launches += 1
-    return out
-
-
-shiftblend_fwd.launches = 0
-
-
-def shiftblend3d_fwd(x, offset, mask, weight, bias, spec: DeformConvSpec,
-                     precision: str, offset_bound, out_sizes=None,
-                     gate_bounds=None, block_origin=None) -> torch.Tensor:
-    """Bounded-offset 3D DCN forward, (B, O, OD, OH, OW) of x's type, the
-    whole volume (or lead-mode block) in one launch, as `shiftblend_fwd`.
-
-    CPU tensors run the plain version; CUDA tensors launch the kernel or
-    raise.  Inputs: x, offset and mask float32 or bfloat16 (one type,
-    which the result has), weight and bias float32 or bfloat16,
-    contiguous, on one device."""
-    if x.device.type == "cpu":
-        lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin)
-        return shiftblend3d_fwd_reference(x, offset, mask, weight, bias, spec,
-                                          precision, offset_bound, out_sizes,
-                                          gate_bounds, block_origin)
-    out = _fwd("shiftblend3d_fwd", x, offset, mask, weight, bias, spec,
-               precision, offset_bound, out_sizes, gate_bounds, block_origin)
-    shiftblend3d_fwd.launches += 1
-    return out
-
-
-shiftblend3d_fwd.launches = 0
 
 
 def shiftblend_bwd_reference(x, offset, mask, weight, grad_out,
@@ -373,13 +340,24 @@ def shiftblend_bwd_reference(x, offset, mask, weight, grad_out,
     return lib.cast_grads(grads, (x, offset, mask, weight))
 
 
-# The plain versions take either rank.
-shiftblend3d_fwd_reference = shiftblend_fwd_reference
-shiftblend3d_bwd_reference = shiftblend_bwd_reference
+def bwd(x, offset, mask, weight, grad_out, spec: DeformConvSpec,
+        precision: str, offset_bound, needs=(True,) * 4, out_sizes=None,
+        gate_bounds=None, block_origin=None):
+    """Bounded-offset DCN backward without the bias, the kernel
+    `shiftblend_bwd` (2D) or `shiftblend3d_bwd` (3D): (grad_x,
+    grad_offset, grad_mask, grad_weight), each in its input's type, each
+    None where `needs` says it is not wanted (grad_mask also without a
+    mask); on a lead-mode block as `fwd`, grad_x over the whole block.
 
-
-def _bwd(name, x, offset, mask, weight, grad_out, spec, precision,
-         offset_bound, needs, out_sizes, gate_bounds, block_origin):
+    CPU tensors run the plain version; CUDA tensors launch the kernel or
+    raise.  Inputs: as `fwd`'s, grad_out of x's type."""
+    floats = lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin)
+    if x.device.type == "cpu":
+        grads = shiftblend_bwd_reference(x, offset, mask, weight, grad_out,
+                                         spec, precision, offset_bound,
+                                         out_sizes, gate_bounds, block_origin)
+        return tuple(g if n else None for g, n in zip(grads, needs))
+    name = "shiftblend_bwd" if spec.ndim == 2 else "shiftblend3d_bwd"
     lib.check_inputs(name, x, offset, mask, weight, None, spec, out_sizes)
     reason = _launch_reason(x, spec, offset_bound, out_sizes, block_origin)
     if reason is not None:
@@ -399,63 +377,10 @@ def _bwd(name, x, offset, mask, weight, grad_out, spec, precision,
         gwt), (
         *_geometry(x, weight, spec, offset_bound, out_sizes),
         *(() if b_step is None else (b_step,)), splits,
-        lib.PRECISION_CODES[precision], lib.IO_CODES[x.dtype]),
-        lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin))
+        lib.PRECISION_CODES[precision], lib.IO_CODES[x.dtype]), floats)
     gw = (None if gwt is None else
           lib.ungrouped_weight(gwt, weight.shape).to(weight.dtype))
     return gx, goff, gmask, gw
-
-
-def shiftblend_bwd(x, offset, mask, weight, grad_out, spec: DeformConvSpec,
-                   precision: str, offset_bound, needs=(True,) * 4,
-                   out_sizes=None, gate_bounds=None, block_origin=None):
-    """Bounded-offset 2D DCN backward without the bias: (grad_x,
-    grad_offset, grad_mask, grad_weight), each in its input's type, each
-    None where `needs` says it is not wanted (grad_mask also without a
-    mask); on a lead-mode block as `shiftblend_fwd`, grad_x over the whole
-    block.
-
-    CPU tensors run the plain version; CUDA tensors launch the kernel or
-    raise.  Inputs: as `shiftblend_fwd`'s, grad_out of x's type."""
-    if x.device.type == "cpu":
-        lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin)
-        grads = shiftblend_bwd_reference(x, offset, mask, weight, grad_out,
-                                         spec, precision, offset_bound,
-                                         out_sizes, gate_bounds, block_origin)
-        return tuple(g if n else None for g, n in zip(grads, needs))
-    grads = _bwd("shiftblend_bwd", x, offset, mask, weight, grad_out, spec,
-                 precision, offset_bound, needs, out_sizes, gate_bounds,
-                 block_origin)
-    shiftblend_bwd.launches += 1
-    return grads
-
-
-shiftblend_bwd.launches = 0
-
-
-def shiftblend3d_bwd(x, offset, mask, weight, grad_out, spec: DeformConvSpec,
-                     precision: str, offset_bound, needs=(True,) * 4,
-                     out_sizes=None, gate_bounds=None, block_origin=None):
-    """Bounded-offset 3D DCN backward without the bias, as
-    `shiftblend_bwd`.
-
-    CPU tensors run the plain version; CUDA tensors launch the kernel or
-    raise.  Inputs: as `shiftblend_fwd`'s, grad_out of x's type."""
-    if x.device.type == "cpu":
-        lib.block_floats(spec, x.shape[2:], gate_bounds, block_origin)
-        grads = shiftblend3d_bwd_reference(x, offset, mask, weight, grad_out,
-                                           spec, precision, offset_bound,
-                                           out_sizes, gate_bounds,
-                                           block_origin)
-        return tuple(g if n else None for g, n in zip(grads, needs))
-    grads = _bwd("shiftblend3d_bwd", x, offset, mask, weight, grad_out, spec,
-                 precision, offset_bound, needs, out_sizes, gate_bounds,
-                 block_origin)
-    shiftblend3d_bwd.launches += 1
-    return grads
-
-
-shiftblend3d_bwd.launches = 0
 
 
 class _ShiftblendFwd(torch.autograd.Function):
@@ -475,7 +400,6 @@ class _ShiftblendFwd(torch.autograd.Function):
         ctx.spec, ctx.precision, ctx.offset_bound = (spec, precision,
                                                      offset_bound)
         ctx.block = (out_sizes, gate_bounds, block_origin)
-        fwd = shiftblend_fwd if spec.ndim == 2 else shiftblend3d_fwd
         return fwd(x, offset, mask, weight, bias, spec, precision,
                    offset_bound, *ctx.block)
 
@@ -484,7 +408,6 @@ class _ShiftblendFwd(torch.autograd.Function):
     def backward(ctx, grad_out):
         x, offset, mask, weight = ctx.saved_tensors
         needs = ctx.needs_input_grad
-        bwd = shiftblend_bwd if ctx.spec.ndim == 2 else shiftblend3d_bwd
         gx, goff, gmask, gw = bwd(
             x, offset, mask, weight, grad_out.contiguous(), ctx.spec,
             ctx.precision, ctx.offset_bound, needs[:4], *ctx.block)

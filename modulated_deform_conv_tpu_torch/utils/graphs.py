@@ -34,14 +34,13 @@ Three hazards of capturing the port's kernels:
   addresses on every replay.  New shapes need a new capture: a step
   refuses an input whose shape, type or device is not its capture's.
 
-The kernel wrappers' `launches` counts run in Python, so they move in
-the warm-up and once at the capture, never on a replay:
-`CapturedStep.kernels` holds the counts the capture added, the kernels the
-graph holds, and `CapturedStep.values` the counts of values of the
-wrappers that keep one: the AdamW update's values updated
-(ops/cuda/adamw.py), the 3D column forward's column values written
-(ops/cuda/gathermm.py), the GroupNorm forward's values normalised
-(ops/cuda/groupnorm.py).
+The launch table (ops/cuda/lib.py, `counts`) counts in Python, so it
+moves in the warm-up and once at the capture, never on a replay:
+`CapturedStep.kernels` holds the launches the capture added, by C entry,
+the kernels the graph holds, and `CapturedStep.values` the values of the
+launches that count them: the AdamW update's values updated, the column
+forward's column values written, the GroupNorm forward's values
+normalised.
 
 `debug_check_bounds` cannot read its check on the host inside a capture.
 There the op records the check on the device instead (ops/bounds.py, into
@@ -106,20 +105,6 @@ def _check_outputs(out) -> None:
                     f"tensors (or None), got {type(out).__name__}")
 
 
-def _launch_counts() -> dict:
-    """Every kernel wrapper of the main path (the twelve kernels, the
-    optimizer's update and the GroupNorm pair), by name: each counts its
-    `launches`, and the update, the 3D column forward and the GroupNorm
-    forward also their `values`."""
-    from ..ops.cuda import adamw, gathermm, groupnorm, shiftblend
-    wrappers = {n: getattr(gathermm, n, None) or getattr(shiftblend, n)
-                for n in lib.KERNELS}
-    wrappers.update((n, getattr(adamw, n)) for n in lib.OPTIMIZERS)
-    wrappers.update((n, getattr(groupnorm, n))
-                    for n in ("groupnorm_fwd", "groupnorm_bwd"))
-    return wrappers
-
-
 class CapturedStep:
     """A step captured as a CUDA graph.  `step(*inputs)` copies each input
     into the static input of its position (`copy_`), replays the graph and
@@ -131,7 +116,7 @@ class CapturedStep:
     outputs, in the structure the function returned), `kernels` (launches
     of each hand-written kernel the graph holds), `values` (the values
     each kernel that counts them handles a replay: the AdamW update's, the
-    3D column forward's and the GroupNorm forward's engagement check),
+    column forward's and the GroupNorm forward's engagement check),
     `bounds` (the `debug_check_bounds` checks captured), `capture_s` (the
     warm-up and the capture, on the host clock), `record` (the spans'
     `StepRecord`, None where the spans were off at the capture)."""
@@ -231,9 +216,7 @@ def capture(fn: Callable, *inputs: torch.Tensor) -> CapturedStep:
     torch.cuda.synchronize(device)
 
     graph = torch.cuda.CUDAGraph()
-    wrappers = _launch_counts()
-    before = {n: f.launches for n, f in wrappers.items()}
-    values = {n: f.values for n, f in wrappers.items() if hasattr(f, "values")}
+    before = lib.counts()
     bounds = bounds_check.BoundsRecord()
     record = (profiling.StepRecord(device, profiling.marks(device) - marks)
               if traced else None)
@@ -255,13 +238,12 @@ def capture(fn: Callable, *inputs: torch.Tensor) -> CapturedStep:
             f"the capture made {record.slots} marks against its warm-up's "
             f"{record.width}, or left spans open: "
             f"{[sp.name for sp in record.open]}")
-    kernels = {n: f.launches - before[n] for n, f in wrappers.items()
-               if f.launches != before[n]}
-    values = {n: wrappers[n].values - v for n, v in values.items()
-              if wrappers[n].values != v}
+    after = lib.counts()
     torch.cuda.synchronize(device)
-    return CapturedStep(graph, static, out, kernels, bounds,
-                        time.perf_counter() - t0, record, values)
+    return CapturedStep(graph, static, out,
+                        dict(after.launches - before.launches), bounds,
+                        time.perf_counter() - t0, record,
+                        dict(after.values - before.values))
 
 
 # ---- the chain timer --------------------------------------------------------

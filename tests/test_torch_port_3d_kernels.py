@@ -15,7 +15,7 @@ of the JAX op at precision "float32", its Pallas kernels in interpret mode:
 * an unbounded 5 x 5 x 5 kernel through the port's impl="cuda" (the gather
   pair) against JAX's impl="xla", offsets U[-2, 2].
 
-The plain versions (`shiftblend3d_bwd_reference`, `gathermm3d_bwd_reference`)
+The plain versions (`shiftblend_bwd_reference`, `gathermm_bwd_reference`)
 are also held against the same JAX gradients on their own.  Each JAX result
 is computed once per file (the loop path takes ~45 s in interpret mode).
 Tolerance: forward rtol = atol = 2e-5; each gradient (x, offset, mask,
@@ -141,10 +141,10 @@ def test_shiftblend3d_matches_jax_loop_path():
     out, grads = _port(arrs, cot, "shiftblend", 0.5)
     np.testing.assert_allclose(out, want_out, rtol=2e-5, atol=2e-5)
     _assert_close(grads, want)
-    _assert_close(_reference_grads(sb.shiftblend3d_bwd_reference, arrs, cot,
+    _assert_close(_reference_grads(sb.shiftblend_bwd_reference, arrs, cot,
                                    0.5), want)
     # The dropped corners matter: the unbounded op differs.
-    full = _reference_grads(gm.gathermm3d_bwd_reference, arrs, cot)
+    full = _reference_grads(gm.gathermm_bwd_reference, arrs, cot)
     assert not np.allclose(full["offset"], want["offset"], atol=1e-3)
 
 
@@ -156,7 +156,7 @@ def test_gathermm3d_matches_jax_planar():
     out, grads = _port(arrs, cot, "cuda", None)
     np.testing.assert_allclose(out, want_out, rtol=2e-5, atol=2e-5)
     _assert_close(grads, want)
-    _assert_close(_reference_grads(gm.gathermm3d_bwd_reference, arrs, cot),
+    _assert_close(_reference_grads(gm.gathermm_bwd_reference, arrs, cot),
                   want)
 
 

@@ -14,8 +14,9 @@ wrapper runs its plain version.
   load, and at a step (a sparse gradient);
 * the kernel path's checks, on meta tensors: the types, layouts and step
   counts the kernel does not take raise before any launch;
-* the trainer's optimizer is this one, and the compiled step counts its
-  launches and values.
+* the trainer's optimizer is this one, and the kernel path counts its
+  launches and values in the launch table (`lib.counts`, which the
+  compiled step reads), the C side stubbed (tests/torch_launch_stub.py).
 
 The card's side is tests/test_torch_port_adamw_cuda.py.  This file
 imports no JAX.
@@ -30,7 +31,8 @@ from modulated_deform_conv_tpu_torch.examples.train_dcn_resnet import (
     make_optimizer)
 from modulated_deform_conv_tpu_torch.ops.cuda import adamw
 from modulated_deform_conv_tpu_torch.ops.cuda import lib
-from modulated_deform_conv_tpu_torch.utils import graphs
+
+from torch_launch_stub import stub_c_side
 
 STEPS, LR = 5, 1e-3
 # The most an update moves a value in the first steps: lr |m^| / sqrt(v^)
@@ -248,22 +250,32 @@ def test_kernel_path_refuses_before_launch(case, error):
     leaves = _bad_leaves(case)
     done = (None if case == "no_counter"
             else torch.zeros((), dtype=torch.int32, device="meta"))
-    before = adamw.adamw.launches
+    before = lib.counts()
     with pytest.raises(error, match="adamw"):
         adamw.adamw(*leaves, lr=LR, beta1=0.9, beta2=0.999, eps=1e-8,
                     weight_decay=1e-4, done=done)
-    assert adamw.adamw.launches == before
+    assert lib.counts() == before
 
 
-def test_update_is_a_counted_main_path_kernel():
-    assert "adamw" in lib.OPTIMIZERS and "adamw" not in lib.KERNELS
-    wrappers = graphs._launch_counts()
-    assert wrappers["adamw"] is adamw.adamw
-    assert set(wrappers) == set(lib.KERNELS) | {"adamw", "groupnorm_fwd",
-                                                "groupnorm_bwd"}
+def test_update_is_a_counted_main_path_kernel(monkeypatch):
+    # The launch table's keys are C entries: the twelve ports of TPU
+    # kernels, and the kernels of the sources that port none.
+    assert set(lib.sources()) == set(lib.KERNELS) | {
+        "adamw", "groupnorm", "calibrate_fma", "trace_mark"}
     # The plain version counts nothing: a launch is the kernel's.
     p = torch.zeros(5, requires_grad=True)
     p.grad = torch.ones(5)
-    before = (adamw.adamw.launches, adamw.adamw.values)
+    before = lib.counts()
     adamw.AdamW([p]).step()
-    assert (adamw.adamw.launches, adamw.adamw.values) == before
+    assert lib.counts() == before
+    # The kernel path: one launch a type of leaf, each counting its
+    # leaves' values, under the entry "adamw".
+    stub_c_side(monkeypatch, returns={"adamw_max_leaves": 64})
+    leaves = [a + b + c for a, b, c in zip(
+        _meta_leaves(n=5), _meta_leaves(n=3), _meta_leaves(torch.bfloat16, 4))]
+    adamw.adamw(*leaves, lr=LR, beta1=0.9, beta2=0.999, eps=1e-8,
+                weight_decay=1e-4,
+                done=torch.zeros((), dtype=torch.int32, device="meta"))
+    after = lib.counts()
+    assert after.launches - before.launches == {"adamw": 2}
+    assert after.values - before.values == {"adamw": 12}

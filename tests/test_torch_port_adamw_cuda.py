@@ -98,7 +98,7 @@ def test_kernel_matches_plain_and_torch(dev, dtype, layout):
     opts = (adamw.AdamW(kern, lr=LR, weight_decay=WD, capturable=True),
             adamw.AdamW(plain, lr=LR, weight_decay=WD),
             torch.optim.AdamW(lib_, lr=LR, weight_decay=WD, capturable=True))
-    before = (adamw.adamw.launches, adamw.adamw.values)
+    before = lib.counts()
     for k in range(STEPS):
         grads = _values(shapes, dtype, 100 + k)
         for leaves in (kern, plain, lib_):
@@ -111,8 +111,9 @@ def test_kernel_matches_plain_and_torch(dev, dtype, layout):
             opt.step()
     torch.cuda.synchronize(dev)
     total = sum(math.prod(s) for s in shapes)
-    assert (adamw.adamw.launches - before[0],
-            adamw.adamw.values - before[1]) == (STEPS, STEPS * total)
+    after = lib.counts()
+    assert ((after.launches - before.launches)["adamw"],
+            (after.values - before.values)["adamw"]) == (STEPS, STEPS * total)
     tol = STEPS * TOL[dtype]
     f32_torch = STEPS * TORCH_F32_UPDATE if dtype == torch.float32 else 0.0
     for a, b, c in zip(kern, plain, lib_):
@@ -180,12 +181,12 @@ def test_launches_a_step(dev, case):
         q.grad = torch.randn(q.shape).to(q.dtype)
         p.grad = q.grad.to(dev)
     opt = adamw.AdamW(leaves, lr=LR, weight_decay=WD, capturable=True)
-    before = adamw.adamw.launches
+    before = lib.counts().launches
     opt.step()
     adamw.AdamW(plain, lr=LR, weight_decay=WD).step()
     torch.cuda.synchronize(dev)
     want = {"resnet50": 1, "two_types": 2, "many_leaves": 2}[case]
-    assert adamw.adamw.launches - before == want
+    assert lib.counts().launches - before == {"adamw": want}
     for p, q in zip(leaves, plain):
         _close(p.detach(), q.detach(), TOL[p.dtype], TOL[p.dtype] * UPDATE)
         assert float(opt.state[p]["step"]) == 1
@@ -230,10 +231,10 @@ def test_refuses_what_the_kernel_does_not_take(dev, case, error):
             adamw.AdamW([p.requires_grad_()], capturable=False)
         return
     step = torch.zeros((), device="cpu" if case == "step_on_host" else dev)
-    before = adamw.adamw.launches
+    before = lib.counts()
     with pytest.raises(error, match="adamw"):
         adamw.adamw([p], [g], [torch.zeros_like(g)], [torch.zeros_like(g)],
                      [step], lr=LR, beta1=0.9, beta2=0.999, eps=1e-8,
                      weight_decay=WD,
                      done=torch.zeros((), dtype=torch.int32, device=dev))
-    assert adamw.adamw.launches == before
+    assert lib.counts() == before

@@ -16,11 +16,11 @@ import torch_bf16_cases as bc
 @pytest.mark.parametrize("mode", list(bc.MODES))
 def test_columns3d_bf16_matches_jax(mode, monkeypatch):
     calls = []
-    for fn in ("gathermm3d_cols_fwd", "gathermm3d_cols_bwd"):
+    for fn in ("cols_fwd", "cols_bwd"):
         orig = getattr(gm, fn)
         monkeypatch.setattr(gm, fn, lambda *a, _f=orig, _n=fn, **k: (
-            calls.append(_n), _f(*a, **k))[1])
+            calls.append((_n, a[0].ndim - 2)), _f(*a, **k))[1])
     got = bc.port_result("cols3d", mode, "cuda")
-    assert calls == ["gathermm3d_cols_fwd", "gathermm3d_cols_bwd"]
+    assert calls == [("cols_fwd", 3), ("cols_bwd", 3)]
     bc.assert_matches("cols3d", mode, got,
                       bc.jax_result("cols3d", mode, "pallas"))

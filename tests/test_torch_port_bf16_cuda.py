@@ -77,12 +77,8 @@ def _same(native, upcast, inputs):
             i, int((n != u.to(t.dtype)).sum()))
 
 
-def _fused(nd, bounded):
-    if bounded:
-        return ((sb.shiftblend_fwd, sb.shiftblend_bwd) if nd == 2
-                else (sb.shiftblend3d_fwd, sb.shiftblend3d_bwd))
-    return ((gm.gathermm_fwd, gm.gathermm_bwd) if nd == 2
-            else (gm.gathermm3d_fwd, gm.gathermm3d_bwd))
+def _fused(bounded):
+    return (sb.fwd, sb.bwd) if bounded else (gm.fused_fwd, gm.fused_bwd)
 
 
 # (B, C, O, S, k, stride, pad, dil, g, dg, offscale, bound): the gather
@@ -107,9 +103,11 @@ FUSED = [
 def test_fused_kernels_bf16_bits(dev, case, precision, wtype):
     spec, (x, off, mask, w, b, cot) = _case(dev, *case[:-1], wtype=wtype)
     bound = case[-1]
-    fwd, bwd = _fused(spec.ndim, bound is not None)
+    fwd, bwd = _fused(bound is not None)
     extra = () if bound is None else (bound,)
-    f0, b0 = fwd.launches, bwd.launches
+    family = (("gathermm" if bound is None else "shiftblend")
+              + ("" if spec.ndim == 2 else "3d"))
+    before = lib.counts().launches
     out = fwd(x, off, mask, w, b, spec, precision, *extra)
     up = fwd(x.float(), off.float(), mask.float(), w.float(), b.float(),
              spec, precision, *extra)
@@ -118,7 +116,8 @@ def test_fused_kernels_bf16_bits(dev, case, precision, wtype):
     ups = bwd(x.float(), off.float(), mask.float(), w.float(), cot.float(),
               spec, precision, *extra)
     _same(grads, ups, (x, off, mask, w))
-    assert (fwd.launches - f0, bwd.launches - b0) == (2, 2)
+    assert lib.counts().launches - before == {f"{family}_fwd": 2,
+                                              f"{family}_bwd": 2}
 
 
 @pytest.mark.parametrize("precision", MODES)
@@ -129,10 +128,9 @@ def test_shiftblend_fwd_both_routes_bf16_bits(dev, hw, precision):
     spec, (x, off, mask, w, b, _) = _case(dev, 2, 24, 16, hw, 3, 1, 1, 1, 1,
                                           3, 1.3)
     for halo in (True, False):
-        got = sb._fwd("shiftblend_fwd", x, off, mask, w, b, spec, precision,
-                      1.0, halo=halo)
-        up = sb._fwd("shiftblend_fwd", x.float(), off.float(), mask.float(),
-                     w, b, spec, precision, 1.0, halo=halo)
+        got = sb.fwd(x, off, mask, w, b, spec, precision, 1.0, halo=halo)
+        up = sb.fwd(x.float(), off.float(), mask.float(), w, b, spec,
+                    precision, 1.0, halo=halo)
         _same([got], [up], [x])
 
 
@@ -157,12 +155,10 @@ COLUMNS = [
 @pytest.mark.parametrize("case", COLUMNS)
 def test_column_kernels_bf16_bits(dev, case, precision, route):
     spec, (x, off, mask, _, _, _) = _case(dev, *case)
-    nd = spec.ndim
-    name = "gathermm_cols_fwd" if nd == 2 else "gathermm3d_cols_fwd"
-    bwd = gm.gathermm_cols_bwd if nd == 2 else gm.gathermm3d_cols_bwd
-    cols = gm._cols_fwd(name, x, off, mask, spec, precision, route=route)
-    up = gm._cols_fwd(name, x.float(), off.float(), mask.float(), spec,
-                      precision, route=route)
+    bwd = gm.cols_bwd
+    cols = gm.cols_fwd(x, off, mask, spec, precision, route=route)
+    up = gm.cols_fwd(x.float(), off.float(), mask.float(), spec, precision,
+                     route=route)
     assert cols.dtype == gm._cols_dtype(precision)
     assert torch.equal(cols, up)
     g = torch.Generator(device=dev).manual_seed(3)
@@ -252,14 +248,14 @@ def test_wrappers_refuse_other_types(dev):
     spec, (x, off, mask, w, b, _) = _case(dev, 1, 16, 8, (8, 8), 3, 1, 1, 1,
                                           1, 1, 1.0)
     with pytest.raises(TypeError):
-        gm.gathermm_fwd(x, off.float(), mask, w, b, spec, "float32")
+        gm.fused_fwd(x, off.float(), mask, w, b, spec, "float32")
     with pytest.raises(TypeError):
-        gm.gathermm_fwd(x.half(), off.half(), mask.half(), w, b, spec,
-                        "float32")
+        gm.fused_fwd(x.half(), off.half(), mask.half(), w, b, spec,
+                     "float32")
     with pytest.raises(TypeError):
-        sb.shiftblend_fwd(x, off, mask, w.half(), b, spec, "float32", 1.0)
+        sb.fwd(x, off, mask, w.half(), b, spec, "float32", 1.0)
     with pytest.raises(ValueError):
-        gm.gathermm_bwd(x, off, mask, w, torch.zeros(
+        gm.fused_bwd(x, off, mask, w, torch.zeros(
             (1, 8, 8, 8), device=dev), spec, "float32")
 
 
@@ -298,10 +294,9 @@ def test_sharded_blocks_bf16_bits(dev, nd, precision):
     against the upcast route, bit for bit."""
     S = (16, 9) if nd == 2 else (8, 8, 16)
     w, b, blocks = _blocks(dev, nd, S, 2, 2, 1.0)
-    fwd, bwd = _fused(nd, False)
-    sfwd, sbwd = _fused(nd, True)
-    cfwd = gm.gathermm_cols_fwd if nd == 2 else gm.gathermm3d_cols_fwd
-    cbwd = gm.gathermm_cols_bwd if nd == 2 else gm.gathermm3d_cols_bwd
+    fwd, bwd = _fused(False)
+    sfwd, sbwd = _fused(True)
+    cfwd, cbwd = gm.cols_fwd, gm.cols_bwd
     for x_ext, off, mask, local, OS, gates, placement in blocks:
         mode = (OS, gates, placement)
         xb, ob, mb = (t.to(bf16) for t in (x_ext, off, mask))

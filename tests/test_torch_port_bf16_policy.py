@@ -180,8 +180,7 @@ def test_wrappers_return_input_types(nd):
     fp32 and round once)."""
     spec, ts, cot = _inputs(nd)
     x, off, mask, w, b = (t.detach() for t in ts)
-    fwd = gm.gathermm_fwd if nd == 2 else gm.gathermm3d_fwd
-    bwd = gm.gathermm_bwd if nd == 2 else gm.gathermm3d_bwd
+    fwd, bwd = gm.fused_fwd, gm.fused_bwd
     out = fwd(x, off, mask, w, b, spec, "float32")
     up = fwd(x.float(), off.float(), mask.float(), w, b, spec, "float32")
     assert out.dtype == bf16 and torch.equal(out, up.to(bf16))

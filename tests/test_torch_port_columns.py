@@ -149,13 +149,12 @@ def test_columns_match_jax_fused_columns(name):
     want_grads = jax.jit(vjp)(jnp.asarray(cols_cot))
 
     ts = [torch.tensor(arrs[n], requires_grad=True) for n in NAMES[:3]]
-    cols = gm.gathermm_cols_fwd(*[t.detach() for t in ts], spec, "float32")
+    cols = gm.cols_fwd(*[t.detach() for t in ts], spec, "float32")
     np.testing.assert_allclose(_to_jax_layout(cols, spec, B, C).numpy(),
                                np.asarray(want), rtol=2e-5, atol=2e-5)
     gcols = torch.from_numpy(cols_cot).permute(1, 4, 2, 0, 3).reshape(
         cols.shape).contiguous()
-    bwd = gm.gathermm_cols_bwd if spec.ndim == 2 else gm.gathermm3d_cols_bwd
-    got = bwd(*[t.detach() for t in ts], gcols, spec, "float32")
+    got = gm.cols_bwd(*[t.detach() for t in ts], gcols, spec, "float32")
     _assert_grads_close(
         {n: g.numpy() for n, g in zip(NAMES, got)},
         {n: np.asarray(g) for n, g in zip(NAMES, want_grads)})
@@ -170,11 +169,10 @@ def test_columns_path_op_matches_jax(name, monkeypatch):
     five gradients."""
     spec, arrs, cot, _ = _case(name)
     calls = []
-    for fn in ("gathermm_cols_fwd", "gathermm3d_cols_fwd",
-               "gathermm_cols_bwd", "gathermm3d_cols_bwd"):
+    for fn in ("cols_fwd", "cols_bwd"):
         orig = getattr(gm, fn)
         monkeypatch.setattr(gm, fn, lambda *a, _f=orig, _n=fn, **k: (
-            calls.append(_n), _f(*a, **k))[1])
+            calls.append((_n, a[0].ndim - 2)), _f(*a, **k))[1])
     nd = spec.ndim
     op = (mdt.modulated_deform_conv2d, mdt.modulated_deform_conv3d)[nd - 2]
     jop = (jmdc.modulated_deform_conv2d, jmdc.modulated_deform_conv3d)[nd - 2]
@@ -184,8 +182,7 @@ def test_columns_path_op_matches_jax(name, monkeypatch):
     ts = [torch.tensor(arrs[n], requires_grad=True) for n in NAMES]
     out = op(*ts, **kw, impl="cuda", precision="float32")
     out.backward(torch.from_numpy(cot))
-    d = "" if nd == 2 else "3d"
-    assert calls == [f"gathermm{d}_cols_fwd", f"gathermm{d}_cols_bwd"]
+    assert calls == [("cols_fwd", nd), ("cols_bwd", nd)]
 
     want, vjp = jax.vjp(lambda *a: jop(*a, **kw, impl="pallas",
                                        precision="float32"),

@@ -19,6 +19,7 @@ import torch
 import modulated_deform_conv_tpu_torch as mdt
 from modulated_deform_conv_tpu_torch.ops import api
 from modulated_deform_conv_tpu_torch.ops.cuda import gathermm as gm
+from modulated_deform_conv_tpu_torch.ops.cuda import lib
 from modulated_deform_conv_tpu_torch.ops.cuda import shiftblend as sb
 from modulated_deform_conv_tpu_torch.utils.config import DeformConvSpec
 
@@ -81,9 +82,9 @@ BOUNDED = [
 @pytest.mark.parametrize("case", GENERAL)
 def test_gathermm_kernel_matches_plain(dev, case, precision):
     spec, args = _case(dev, *case)
-    gm.gathermm_fwd.launches = 0
-    got = gm.gathermm_fwd(*args, spec, precision)
-    assert gm.gathermm_fwd.launches == 1
+    before = lib.counts().launches
+    got = gm.fused_fwd(*args, spec, precision)
+    assert lib.counts().launches - before == {"gathermm_fwd": 1}
     want = gm.gathermm_fwd_reference(*args, spec, precision)
     assert _rel(got, want) <= LIMITS[precision]
 
@@ -92,9 +93,9 @@ def test_gathermm_kernel_matches_plain(dev, case, precision):
 @pytest.mark.parametrize("case", BOUNDED)
 def test_shiftblend_kernel_matches_plain(dev, case, precision):
     spec, args = _case(dev, *case[:-1])
-    sb.shiftblend_fwd.launches = 0
-    got = sb.shiftblend_fwd(*args, spec, precision, case[-1])
-    assert sb.shiftblend_fwd.launches == 1
+    before = lib.counts().launches
+    got = sb.fwd(*args, spec, precision, case[-1])
+    assert lib.counts().launches - before == {"shiftblend_fwd": 1}
     want = sb.shiftblend_fwd_reference(*args, spec, precision, case[-1])
     assert _rel(got, want) <= LIMITS[precision]
 
@@ -118,18 +119,18 @@ FWD_RAGGED = [
 
 def _fwd_pair(bound):
     if bound is None:
-        return gm.gathermm_fwd, gm.gathermm_fwd_reference, ()
-    return sb.shiftblend_fwd, sb.shiftblend_fwd_reference, (bound,)
+        return gm.fused_fwd, gm.gathermm_fwd_reference, (), "gathermm_fwd"
+    return sb.fwd, sb.shiftblend_fwd_reference, (bound,), "shiftblend_fwd"
 
 
 @pytest.mark.parametrize("precision", list(LIMITS))
 @pytest.mark.parametrize("case", FWD_RAGGED)
 def test_fwd_ragged_tiles_match_plain(dev, case, precision):
-    fwd, ref, extra = _fwd_pair(case[-1])
+    fwd, ref, extra, entry = _fwd_pair(case[-1])
     spec, args = _case(dev, *case[:-1])
-    fwd.launches = 0
+    before = lib.counts().launches
     got = fwd(*args, spec, precision, *extra)
-    assert fwd.launches == 1
+    assert lib.counts().launches - before == {entry: 1}
     assert _rel(got, ref(*args, spec, precision, *extra)) <= LIMITS[precision]
 
 
@@ -143,8 +144,7 @@ def test_shiftblend_fwd_both_routes_match_plain(dev, hw, precision):
                        2.5)
     want = sb.shiftblend_fwd_reference(*args, spec, precision, 2.0)
     for halo in (True, False):
-        got = sb._fwd("shiftblend_fwd", *args, spec, precision, 2.0,
-                      halo=halo)
+        got = sb.fwd(*args, spec, precision, 2.0, halo=halo)
         assert _rel(got, want) <= LIMITS[precision], halo
 
 
@@ -152,7 +152,7 @@ def test_shiftblend_fwd_both_routes_match_plain(dev, hw, precision):
 @pytest.mark.parametrize("bound", [None, 2.0])
 def test_fwd_config2_full_size(dev, bound, precision):
     """The bench's config 2: B=8, 256 -> 256, 56x56, 3x3, g = dg = 4."""
-    fwd, ref, extra = _fwd_pair(bound)
+    fwd, ref, extra, _ = _fwd_pair(bound)
     spec, args = _case(dev, 8, 256, 256, (56, 56), 3, 1, 1, 1, 4, 4, True,
                        True, 2.0)
     got = fwd(*args, spec, precision, *extra)
@@ -172,7 +172,7 @@ RESNET_LAYERS = [
 @pytest.mark.parametrize("case", RESNET_LAYERS)
 def test_fwd_resnet_layers_match_plain(dev, case, precision):
     spec, args = _case(dev, *case)
-    got = gm.gathermm_fwd(*args, spec, precision)
+    got = gm.fused_fwd(*args, spec, precision)
     want = gm.gathermm_fwd_reference(*args, spec, precision)
     assert _rel(got, want) <= LIMITS[precision]
 
@@ -182,10 +182,10 @@ def test_forward_bitwise_deterministic(dev, precision):
     """Two forward runs of each kernel give the same bits, the contraction
     split into parts (no atomics)."""
     spec, args = _case(dev, *RESNET_LAYERS[1])
-    runs = [gm.gathermm_fwd(*args, spec, precision) for _ in range(2)]
+    runs = [gm.fused_fwd(*args, spec, precision) for _ in range(2)]
     assert torch.equal(*runs)
     spec, args = _case(dev, *GENERAL[3])
-    runs = [sb.shiftblend_fwd(*args, spec, precision, 2.0) for _ in range(2)]
+    runs = [sb.fwd(*args, spec, precision, 2.0) for _ in range(2)]
     assert torch.equal(*runs)
 
 
@@ -211,9 +211,9 @@ def _check_grads(got, want, limit):
 def test_gathermm_bwd_kernel_matches_plain(dev, case, precision):
     spec, (x, off, mask, w, _) = _case(dev, *case)
     gout = _grad_out(spec, x, w)
-    gm.gathermm_bwd.launches = 0
-    got = gm.gathermm_bwd(x, off, mask, w, gout, spec, precision)
-    assert gm.gathermm_bwd.launches == 1
+    before = lib.counts().launches
+    got = gm.fused_bwd(x, off, mask, w, gout, spec, precision)
+    assert lib.counts().launches - before == {"gathermm_bwd": 1}
     want = gm.gathermm_bwd_reference(x, off, mask, w, gout, spec, precision)
     _check_grads(got, want, LIMITS[precision])
 
@@ -223,9 +223,9 @@ def test_gathermm_bwd_kernel_matches_plain(dev, case, precision):
 def test_shiftblend_bwd_kernel_matches_plain(dev, case, precision):
     spec, (x, off, mask, w, _) = _case(dev, *case[:-1])
     gout = _grad_out(spec, x, w)
-    sb.shiftblend_bwd.launches = 0
-    got = sb.shiftblend_bwd(x, off, mask, w, gout, spec, precision, case[-1])
-    assert sb.shiftblend_bwd.launches == 1
+    before = lib.counts().launches
+    got = sb.bwd(x, off, mask, w, gout, spec, precision, case[-1])
+    assert lib.counts().launches - before == {"shiftblend_bwd": 1}
     want = sb.shiftblend_bwd_reference(x, off, mask, w, gout, spec,
                                        precision, case[-1])
     _check_grads(got, want, LIMITS[precision])
@@ -236,9 +236,9 @@ def test_backward_bitwise_deterministic(dev, precision):
     """Two backward runs of each kernel give the same bits (no atomics)."""
     spec, (x, off, mask, w, _) = _case(dev, *GENERAL[3])
     gout = _grad_out(spec, x, w)
-    runs = [gm.gathermm_bwd(x, off, mask, w, gout, spec, precision)
+    runs = [gm.fused_bwd(x, off, mask, w, gout, spec, precision)
             for _ in range(2)]
-    runs += [sb.shiftblend_bwd(x, off, mask, w, gout, spec, precision, 2.0)
+    runs += [sb.bwd(x, off, mask, w, gout, spec, precision, 2.0)
              for _ in range(2)]
     for a, b in ((runs[0], runs[1]), (runs[2], runs[3])):
         assert all(torch.equal(u, v) for u, v in zip(a, b))
@@ -246,8 +246,8 @@ def test_backward_bitwise_deterministic(dev, precision):
 
 def _bwd_pair(family):
     if family == "gathermm":
-        return gm.gathermm_bwd, gm.gathermm_bwd_reference, GENERAL[0], ()
-    return sb.shiftblend_bwd, sb.shiftblend_bwd_reference, BOUNDED[0][:-1], (
+        return gm.fused_bwd, gm.gathermm_bwd_reference, GENERAL[0], ()
+    return sb.bwd, sb.shiftblend_bwd_reference, BOUNDED[0][:-1], (
         BOUNDED[0][-1],)
 
 
@@ -283,52 +283,54 @@ def test_bwd_config2_full_size(dev, family, precision):
 
 def test_auto_dispatch_and_raises(dev):
     spec, (x, off, mask, w, b) = _case(dev, *GENERAL[0])
-    sb.shiftblend_fwd.launches = gm.gathermm_fwd.launches = 0
+    before = lib.counts().launches
     with torch.no_grad():
         out = mdt.modulated_deform_conv2d(x, off, mask, w, b, 1, 1, 1, 2, 2,
                                           offset_bound=3.0)
         mdt.modulated_deform_conv2d(x, off, mask, w, b, 1, 1, 1, 2, 2)
-    assert (sb.shiftblend_fwd.launches, gm.gathermm_fwd.launches) == (1, 1)
+    launched = lib.counts().launches - before
+    assert (launched["shiftblend_fwd"], launched["gathermm_fwd"]) == (1, 1)
     ref = mdt.modulated_deform_conv2d(x, off, mask, w, b, 1, 1, 1, 2, 2,
                                       impl="torch")
     assert _rel(out, ref) <= LIMITS["tensorfloat32"]
     # The backward runs through the kernels and matches autograd of the
     # plain path, for all five inputs.
-    for bound, kernel in ((3.0, sb.shiftblend_bwd), (None, gm.gathermm_bwd)):
+    for bound, kernel in ((3.0, "shiftblend_bwd"), (None, "gathermm_bwd")):
         grads = []
         for impl in ("auto", "torch"):
             ins = [t.clone().requires_grad_(True) for t in (x, off, mask, w,
                                                             b)]
-            kernel.launches = 0
+            before = lib.counts().launches
             y = mdt.modulated_deform_conv2d(*ins, 1, 1, 1, 2, 2, impl=impl,
                                             offset_bound=bound)
             (y * y).sum().backward()
-            assert kernel.launches == (impl == "auto")
+            assert ((lib.counts().launches - before)[kernel]
+                    == (impl == "auto"))
             grads.append([t.grad for t in ins])
         for g, r in zip(*grads):
             assert _rel(g, r) <= LIMITS["tensorfloat32"]
     # gate_bounds take the gather kernel; shift-blend refuses them.
     gates = ((1.0, 15.0), (-1.0, 7.5))
-    gm.gathermm_fwd.launches = 0
+    before = lib.counts().launches
     with torch.no_grad():
         out = api._dispatch(x, off, mask, w, b, spec, "auto",
                             gate_bounds=gates)
         ref = api._dispatch(x, off, mask, w, b, spec, "torch",
                             gate_bounds=gates)
-    assert gm.gathermm_fwd.launches == 1
+    assert (lib.counts().launches - before)["gathermm_fwd"] == 1
     assert _rel(out, ref) <= LIMITS["tensorfloat32"]
     with pytest.raises(NotImplementedError, match="gate_bounds"):
         api._dispatch(x, off, mask, w, b, spec, "shiftblend",
                       offset_bound=3.0, gate_bounds=gates)
     with pytest.raises(ValueError, match="cpu"):
-        gm.gathermm_fwd(x.detach(), off.cpu(), mask, w, b, spec)
+        gm.fused_fwd(x.detach(), off.cpu(), mask, w, b, spec)
     # A 3D call launches the 3D kernel.
     x3 = torch.ones((1, 8, 4, 4, 4), device=dev)
-    gm.gathermm3d_fwd.launches = 0
+    before = lib.counts().launches
     with torch.no_grad():
         mdt.deform_conv3d(x3, torch.zeros((1, 81, 4, 4, 4), device=dev),
                           torch.ones((8, 8, 3, 3, 3), device=dev), None, 1, 1)
-    assert gm.gathermm3d_fwd.launches == 1
+    assert (lib.counts().launches - before)["gathermm3d_fwd"] == 1
 
 
 # 3D: (B, C, O, S, k, stride, pad, dil, g, dg, modulated, bias, offscale),
@@ -377,13 +379,14 @@ BOUNDED3D = [
 def test_gathermm3d_kernels_match_plain(dev, case, precision):
     spec, (x, off, mask, w, b) = _case(dev, *case)
     gout = _grad_out(spec, x, w)
-    gm.gathermm3d_fwd.launches = gm.gathermm3d_bwd.launches = 0
-    got = gm.gathermm3d_fwd(x, off, mask, w, b, spec, precision)
-    grads = gm.gathermm3d_bwd(x, off, mask, w, gout, spec, precision)
-    assert (gm.gathermm3d_fwd.launches, gm.gathermm3d_bwd.launches) == (1, 1)
-    want = gm.gathermm3d_fwd_reference(x, off, mask, w, b, spec, precision)
+    before = lib.counts().launches
+    got = gm.fused_fwd(x, off, mask, w, b, spec, precision)
+    grads = gm.fused_bwd(x, off, mask, w, gout, spec, precision)
+    assert lib.counts().launches - before == {"gathermm3d_fwd": 1,
+                                              "gathermm3d_bwd": 1}
+    want = gm.gathermm_fwd_reference(x, off, mask, w, b, spec, precision)
     assert _rel(got, want) <= LIMITS[precision]
-    _check_grads(grads, gm.gathermm3d_bwd_reference(
+    _check_grads(grads, gm.gathermm_bwd_reference(
         x, off, mask, w, gout, spec, precision), LIMITS[precision])
 
 
@@ -393,16 +396,15 @@ def test_shiftblend3d_kernels_match_plain(dev, case, precision):
     spec, (x, off, mask, w, b) = _case(dev, *case[:-1])
     bound = case[-1]
     gout = _grad_out(spec, x, w)
-    sb.shiftblend3d_fwd.launches = sb.shiftblend3d_bwd.launches = 0
-    got = sb.shiftblend3d_fwd(x, off, mask, w, b, spec, precision, bound)
-    grads = sb.shiftblend3d_bwd(x, off, mask, w, gout, spec, precision,
-                                bound)
-    assert (sb.shiftblend3d_fwd.launches,
-            sb.shiftblend3d_bwd.launches) == (1, 1)
-    want = sb.shiftblend3d_fwd_reference(x, off, mask, w, b, spec, precision,
-                                         bound)
+    before = lib.counts().launches
+    got = sb.fwd(x, off, mask, w, b, spec, precision, bound)
+    grads = sb.bwd(x, off, mask, w, gout, spec, precision, bound)
+    assert lib.counts().launches - before == {"shiftblend3d_fwd": 1,
+                                              "shiftblend3d_bwd": 1}
+    want = sb.shiftblend_fwd_reference(x, off, mask, w, b, spec, precision,
+                                       bound)
     assert _rel(got, want) <= LIMITS[precision]
-    _check_grads(grads, sb.shiftblend3d_bwd_reference(
+    _check_grads(grads, sb.shiftblend_bwd_reference(
         x, off, mask, w, gout, spec, precision, bound), LIMITS[precision])
 
 
@@ -414,15 +416,14 @@ def test_shiftblend3d_config4_full_size(dev, precision):
                                        1, 1, 1, 1, True, False, 2.0)
     spec = DeformConvSpec.make(3, 3, 1, 1, 1, 1, 1, 2, True)
     gout = _grad_out(spec, x, w)
-    got = sb.shiftblend3d_fwd(x, off, mask, w, None, spec, precision, 2.0)
-    want = sb.shiftblend3d_fwd_reference(x, off, mask, w, None, spec,
-                                         precision, 2.0)
+    got = sb.fwd(x, off, mask, w, None, spec, precision, 2.0)
+    want = sb.shiftblend_fwd_reference(x, off, mask, w, None, spec,
+                                       precision, 2.0)
     assert _rel(got, want) <= LIMITS[precision]
     del got, want
-    _check_grads(sb.shiftblend3d_bwd(x, off, mask, w, gout, spec, precision,
-                                     2.0),
-                 sb.shiftblend3d_bwd_reference(x, off, mask, w, gout, spec,
-                                               precision, 2.0),
+    _check_grads(sb.bwd(x, off, mask, w, gout, spec, precision, 2.0),
+                 sb.shiftblend_bwd_reference(x, off, mask, w, gout, spec,
+                                             precision, 2.0),
                  LIMITS[precision])
 
 
@@ -433,12 +434,12 @@ def test_gathermm3d_config3_full_size(dev, precision):
     spec, (x, off, _, w, _) = _case(dev, 2, 64, 64, (16, 32, 32), 3, 1, 1, 1,
                                     1, 1, False, False, 2.0)
     gout = _grad_out(spec, x, w)
-    got = gm.gathermm3d_fwd(x, off, None, w, None, spec, precision)
-    want = gm.gathermm3d_fwd_reference(x, off, None, w, None, spec, precision)
+    got = gm.fused_fwd(x, off, None, w, None, spec, precision)
+    want = gm.gathermm_fwd_reference(x, off, None, w, None, spec, precision)
     assert _rel(got, want) <= LIMITS[precision]
-    _check_grads(gm.gathermm3d_bwd(x, off, None, w, gout, spec, precision),
-                 gm.gathermm3d_bwd_reference(x, off, None, w, gout, spec,
-                                             precision), LIMITS[precision])
+    _check_grads(gm.fused_bwd(x, off, None, w, gout, spec, precision),
+                 gm.gathermm_bwd_reference(x, off, None, w, gout, spec,
+                                           precision), LIMITS[precision])
 
 
 # DCNVideoNet's DCN layers at B=8 (width 32, 16 x 112 x 112 clips): s1b0, 64
@@ -455,17 +456,17 @@ def test_gathermm3d_videonet_layers_match_plain(dev, case):
     spec, (x, off, mask, w, _) = _case(dev, *case)
     gout = _grad_out(spec, x, w)
     with torch.no_grad():
-        got = gm.gathermm3d_fwd(x, off, mask, w, None, spec)
-        assert _rel(got, gm.gathermm3d_fwd_reference(
+        got = gm.fused_fwd(x, off, mask, w, None, spec)
+        assert _rel(got, gm.gathermm_fwd_reference(
             x, off, mask, w, None, spec)) <= LIMITS["tensorfloat32"]
         del got
-        _check_grads(gm.gathermm3d_bwd(x, off, mask, w, gout, spec),
-                     gm.gathermm3d_bwd_reference(x, off, mask, w, gout, spec),
+        _check_grads(gm.fused_bwd(x, off, mask, w, gout, spec),
+                     gm.gathermm_bwd_reference(x, off, mask, w, gout, spec),
                      LIMITS["tensorfloat32"])
 
 
 def shiftblend3d_bwd_digest(dev, precision):
-    """SHA-256 of the four gradients of `shiftblend3d_bwd` on two BOUNDED3D
+    """SHA-256 of the four gradients of `sb.bwd` (3D) on two BOUNDED3D
     cases (dg > 1 over 2 conv groups, and a 5 x 5 x 5 kernel) with in_step
     1, so that the pull runs once per sample."""
     h = hashlib.sha256()
@@ -474,8 +475,8 @@ def shiftblend3d_bwd_digest(dev, precision):
         spec = DeformConvSpec.make(3, spec.kernel, 1, spec.padding,
                                    spec.dilation, spec.groups,
                                    spec.deformable_groups, 1, True)
-        for g in sb.shiftblend3d_bwd(x, off, mask, w, _grad_out(spec, x, w),
-                                     spec, precision, case[-1]):
+        for g in sb.bwd(x, off, mask, w, _grad_out(spec, x, w), spec,
+                        precision, case[-1]):
             h.update(g.cpu().numpy().tobytes())
     return h.hexdigest()
 
@@ -510,12 +511,11 @@ def test_backward3d_bitwise_deterministic_and_batch_chunked(dev):
         spec, (x, off, mask, w, _) = _case(dev, *case)
         spec = DeformConvSpec.make(3, 3, 1, 1, 1, 1, 1, in_step, True)
         gout = _grad_out(spec, x, w)
-        runs[in_step] = [gm.gathermm3d_bwd(x, off, mask, w, gout, spec),
-                         sb.shiftblend3d_bwd(x, off, mask, w, gout, spec,
-                                             "tensorfloat32", 2.0)]
-    again = [gm.gathermm3d_bwd(x, off, mask, w, gout, spec),
-             sb.shiftblend3d_bwd(x, off, mask, w, gout, spec,
-                                 "tensorfloat32", 2.0)]
+        runs[in_step] = [gm.fused_bwd(x, off, mask, w, gout, spec),
+                         sb.bwd(x, off, mask, w, gout, spec,
+                                "tensorfloat32", 2.0)]
+    again = [gm.fused_bwd(x, off, mask, w, gout, spec),
+             sb.bwd(x, off, mask, w, gout, spec, "tensorfloat32", 2.0)]
     for got in [again] + [runs[s] for s in (64, 2)]:
         for a, b in zip(got, runs[1]):
             assert all(torch.equal(u, v) for u, v in zip(a, b))
@@ -543,27 +543,27 @@ COLUMNS = [
 ]
 
 
-def _cols_pair(spec):
-    if spec.ndim == 2:
-        return (gm.gathermm_cols_fwd, gm.gathermm_cols_bwd)
-    return (gm.gathermm3d_cols_fwd, gm.gathermm3d_cols_bwd)
+def _cols_entries(spec):
+    """The C entries of the column pair at the spec's rank."""
+    d = "" if spec.ndim == 2 else "3d"
+    return f"gathermm{d}_cols_fwd", f"gathermm{d}_cols_bwd"
 
 
 @pytest.mark.parametrize("precision", list(LIMITS))
 @pytest.mark.parametrize("case", COLUMNS)
 def test_column_kernels_match_plain(dev, case, precision):
     spec, (x, off, mask, _, _) = _case(dev, *case)
-    fwd, bwd = _cols_pair(spec)
-    fwd.launches = bwd.launches = 0
-    got = fwd(x, off, mask, spec, precision)
+    before = lib.counts().launches
+    got = gm.cols_fwd(x, off, mask, spec, precision)
     want = gm.gathermm_cols_reference(x, off, mask, spec, precision)
     assert got.dtype == want.dtype and got.shape == want.shape
     assert _rel(got.float(), want.float()) <= LIMITS[precision]
     rng = np.random.default_rng(3)
     gcols = torch.tensor(rng.standard_normal(tuple(got.shape)),
                          dtype=got.dtype, device=dev)
-    grads = bwd(x, off, mask, gcols, spec, precision)
-    assert (fwd.launches, bwd.launches) == (1, 1)
+    grads = gm.cols_bwd(x, off, mask, gcols, spec, precision)
+    assert lib.counts().launches - before == dict.fromkeys(
+        _cols_entries(spec), 1)
     _check_grads(grads, gm.gathermm_cols_bwd_reference(
         x, off, mask, gcols, spec, precision), LIMITS[precision])
 
@@ -583,18 +583,20 @@ def test_columns_path_against_fused_pair_and_repeatable(dev, case):
     pair's on the same inputs, in "float32" even with the global TF32 flag
     on, and two backward runs give the same bits."""
     spec, ins = _case(dev, *case)
-    fwd, bwd = _cols_pair(spec)
-    fused_bwd = gm.gathermm_bwd if spec.ndim == 2 else gm.gathermm3d_bwd
+    fwd, bwd = _cols_entries(spec)
+    fused_bwd = "gathermm_bwd" if spec.ndim == 2 else "gathermm3d_bwd"
     gout = _grad_out(spec, ins[0], ins[3])
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
         runs = []
         for _ in range(2):
             leaves = [t.clone().requires_grad_(True) for t in ins]
-            fwd.launches = bwd.launches = fused_bwd.launches = 0
+            before = lib.counts().launches
             out = _op(spec, leaves, precision="float32")
             out.backward(gout)
-            assert (fwd.launches, bwd.launches, fused_bwd.launches) == (1, 1, 0)
+            launched = lib.counts().launches - before
+            assert (launched[fwd], launched[bwd], launched[fused_bwd]) == (
+                1, 1, 0)
             runs.append([out.detach()] + [t.grad for t in leaves])
         assert torch.backends.cuda.matmul.allow_tf32
     finally:
@@ -614,7 +616,7 @@ def test_column_backward_bitwise_deterministic_and_in_step_free(dev, case):
     and the spec's in_step (which batch-chunks the fused 3D backward) does
     not change them: the column kernels take the whole batch at once."""
     spec, (x, off, mask, _, _) = _case(dev, *case)
-    _, bwd = _cols_pair(spec)
+    bwd = gm.cols_bwd
     for precision in LIMITS:
         cols = gm.gathermm_cols_reference(x, off, mask, spec, precision)
         rng = np.random.default_rng(4)
@@ -668,12 +670,11 @@ def _cols_fwd_cases(dev):
 
 
 def cols_fwd_digest(dev, precision):
-    """SHA-256 of the columns `gathermm{,3d}_cols_fwd` give on every case
-    of _cols_fwd_cases."""
+    """SHA-256 of the columns `gm.cols_fwd` gives on every case of
+    _cols_fwd_cases."""
     h = hashlib.sha256()
     for spec, x, off, mask in _cols_fwd_cases(dev):
-        fwd, _ = _cols_pair(spec)
-        cols = fwd(x, off, mask, spec, precision)
+        cols = gm.cols_fwd(x, off, mask, spec, precision)
         h.update(cols.view(torch.uint8).cpu().numpy().tobytes())
     return h.hexdigest()
 
@@ -711,10 +712,6 @@ def _cols_fwd_routes(spec, x):
     return routes
 
 
-def _cols_fwd_name(spec):
-    return "gathermm_cols_fwd" if spec.ndim == 2 else "gathermm3d_cols_fwd"
-
-
 @pytest.mark.parametrize("precision", list(LIMITS))
 @pytest.mark.parametrize("case", COLUMNS + COLS_FWD_EXTRA + ["far box"])
 def test_column_fwd_routes_same_bits(dev, case, precision):
@@ -726,8 +723,8 @@ def test_column_fwd_routes_same_bits(dev, case, precision):
     routes = _cols_fwd_routes(spec, x)
     assert ("plane" in routes) == (x[0, 0].numel() <= 51200)
     want = gm.gathermm_cols_reference(x, off, mask, spec, precision)
-    got = {r: gm._cols_fwd(_cols_fwd_name(spec), x, off, mask, spec,
-                           precision, route=r) for r in routes}
+    got = {r: gm.cols_fwd(x, off, mask, spec, precision, route=r)
+           for r in routes}
     for r, cols in got.items():
         assert cols.dtype == want.dtype and cols.shape == want.shape, r
         assert _rel(cols.float(), want.float()) <= LIMITS[precision], r
@@ -741,6 +738,6 @@ def test_column_fwd_repeatable(dev, route):
     for case in (COLUMNS[2], COLS_FWD_EXTRA[0], COLUMNS[8]):
         spec, (x, off, mask, _, _) = _case(dev, *case)
         for precision in ("float32", "bfloat16"):
-            runs = [gm._cols_fwd(_cols_fwd_name(spec), x, off, mask, spec,
-                                 precision, route=route) for _ in range(2)]
+            runs = [gm.cols_fwd(x, off, mask, spec, precision, route=route)
+                    for _ in range(2)]
             assert torch.equal(*runs)

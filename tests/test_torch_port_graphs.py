@@ -10,10 +10,16 @@ the trainer's arguments around it.
   runs the step eagerly in its place;
 * a captured step refuses an input of another shape, type or device than
   its capture's (`copy_` would broadcast or cast it without a word);
-* the trainer refuses `on_step` on a captured run.
+* the trainer refuses `on_step` on a captured run;
+* a kernel's launch and its values are counted in one place, the launch
+  table of `lib.launch` (the C side stubbed: tests/torch_launch_stub.py),
+  and `capture` reads that table alone: graphs.py imports no kernel
+  module but `lib`.
 
 The card's side is tests/test_torch_port_cuda_graphs.py.
 """
+import ast
+import pathlib
 import warnings
 
 import numpy as np
@@ -23,7 +29,10 @@ import torch
 import modulated_deform_conv_tpu_torch as mdt
 from modulated_deform_conv_tpu_torch.examples.train_dcn_resnet import train
 from modulated_deform_conv_tpu_torch.ops import bounds
+from modulated_deform_conv_tpu_torch.ops.cuda import lib
 from modulated_deform_conv_tpu_torch.utils import graphs
+
+from torch_launch_stub import stub_c_side
 
 
 def _case(offscale):
@@ -133,3 +142,29 @@ def test_captured_step_refuses_inputs_unlike_its_capture():
 def test_trainer_refuses_on_step_when_captured():
     with pytest.raises(ValueError, match="eager=True"):
         train(steps=1, device="cuda", on_step=lambda step, model: None)
+
+
+def test_launches_and_values_are_counted_in_lib_alone(monkeypatch):
+    calls = stub_c_side(monkeypatch)
+    x = torch.zeros(4)
+    before = lib.counts()
+    lib.launch("gathermm_cols_fwd", x, (x,), (1,), values=12)
+    lib.launch("groupnorm", x, (x, None), (2, 3), (1e-5,),
+               entry="groupnorm_bwd")
+    after = lib.counts()
+    assert calls == ["gathermm_cols_fwd", "groupnorm_bwd"]
+    assert after.launches - before.launches == {"gathermm_cols_fwd": 1,
+                                                "groupnorm_bwd": 1}
+    assert after.values - before.values == {"gathermm_cols_fwd": 12}
+    # A launch the card refuses raises and counts nothing.
+    stub_c_side(monkeypatch, err=700)
+    with pytest.raises(RuntimeError, match="adamw: .* 700"):
+        lib.launch("adamw", x, (x,), (), values=4)
+    assert lib.counts() == after
+    # The compiled step reads the table, and knows no kernel module.
+    tree = ast.parse(pathlib.Path(graphs.__file__).read_text())
+    kernel_imports = [
+        (node.module, alias.name) for node in ast.walk(tree)
+        if isinstance(node, ast.ImportFrom) and "cuda" in (node.module or "")
+        for alias in node.names]
+    assert kernel_imports == [("ops.cuda", "lib")]

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 import modulated_deform_conv_tpu_torch as mdt
 from modulated_deform_conv_tpu_torch.models import backbone
 from modulated_deform_conv_tpu_torch.ops.cuda import groupnorm as gn
+from modulated_deform_conv_tpu_torch.ops.cuda import lib
 
 EPS = 1e-6
 # (x's shape, groups): 2D with 2 channels a group and a 5 x 7 plane, B=1
@@ -173,11 +174,9 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_count_nothing():
     with pytest.raises(ValueError, match="CUDA"):
         gn.groupnorm_bwd(x, x, x, torch.zeros(2, 4), torch.ones(2, 4), w, 4,
                          True, False)
-    before = (gn.groupnorm_fwd.launches, gn.groupnorm_fwd.values,
-              gn.groupnorm_bwd.launches)
+    before = lib.counts()
     y = gn.group_norm_act(x.requires_grad_(True), 4, w, b, EPS, relu=True)
     y.sum().backward()
-    assert before == (gn.groupnorm_fwd.launches, gn.groupnorm_fwd.values,
-                      gn.groupnorm_bwd.launches)
+    assert lib.counts() == before
     with pytest.raises(ValueError, match="affine"):
         gn.group_norm_act(x, 4, None, None, EPS)

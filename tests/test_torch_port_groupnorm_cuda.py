@@ -30,6 +30,7 @@ import modulated_deform_conv_tpu_torch as mdt
 from modulated_deform_conv_tpu_torch.examples.train_dcn_resnet import (
     make_optimizer, train_step)
 from modulated_deform_conv_tpu_torch.ops.cuda import groupnorm as gn
+from modulated_deform_conv_tpu_torch.ops.cuda import lib
 from modulated_deform_conv_tpu_torch.utils import graphs
 
 pytestmark = pytest.mark.cuda
@@ -130,10 +131,10 @@ def _check_against_plain(x, w, b, idt, dy, G, relu, route_fwd, route_bwd):
 def test_kernels_match_plain_at_the_cells_layers(dev, cell, shape, G,
                                                  identity, relu, dtype):
     ins = _inputs(shape, G, identity, dtype, dev, seed=len(shape) + G)
-    before = (gn.groupnorm_fwd.launches, gn.groupnorm_bwd.launches)
+    before = lib.counts().launches
     _check_against_plain(*ins, G, relu, None, None)
-    assert (gn.groupnorm_fwd.launches, gn.groupnorm_bwd.launches) == (
-        before[0] + 1, before[1] + 1)
+    launched = lib.counts().launches - before
+    assert (launched["groupnorm_fwd"], launched["groupnorm_bwd"]) == (1, 1)
     # The re-reading route, every pass a quarter of the slice.
     item = ins[0].element_size()
     _check_against_plain(*ins, G, relu, _forced_route(shape, G, item, 1),
@@ -231,10 +232,10 @@ def test_refuses_what_the_kernels_do_not_take(dev, case):
         w = w.double()
     else:
         G = 3
-    before = gn.groupnorm_fwd.launches
+    before = lib.counts()
     with pytest.raises(error, match="groupnorm_fwd"):
         gn.groupnorm_fwd(x, G, w, b, EPS, idt)
-    assert gn.groupnorm_fwd.launches == before
+    assert lib.counts() == before
 
 
 @pytest.mark.parametrize("case", ["float16", "identity_type",
@@ -253,10 +254,10 @@ def test_op_raises_where_the_kernels_do_not_take(dev, case):
         idt = idt[:1]
     else:
         G = 3
-    before = gn.groupnorm_fwd.launches
+    before = lib.counts()
     with pytest.raises(error, match="groupnorm_fwd"):
         gn.group_norm_act(x, G, w, b, EPS, idt, relu=True)
-    assert gn.groupnorm_fwd.launches == before
+    assert lib.counts() == before
 
 
 def test_op_in_float64_is_torchs(dev):
@@ -265,8 +266,8 @@ def test_op_in_float64_is_torchs(dev):
                           dtype=torch.float64) for _ in range(2))
     w, b = (torch.randn(8, generator=g, device=dev, dtype=torch.float64)
             for _ in range(2))
-    before = gn.groupnorm_fwd.launches
+    before = lib.counts()
     got = gn.group_norm_act(x, 4, w, b, EPS, idt, relu=True)
     want = torch.relu(torch.nn.functional.group_norm(x, 4, w, b, EPS) + idt)
     assert torch.equal(got, want)
-    assert gn.groupnorm_fwd.launches == before
+    assert lib.counts() == before

@@ -70,8 +70,7 @@ def test_shiftblend_reference_matches_pallas(bound, modulated, drops):
         off[0, 0, 1, 1] = 5.0              # tap 0, axis 0: both drop
         off[0, 3, 4, 5] = bound + 0.5      # tap 1, axis 1
         off[0, 16, 5, 6] = -5.0            # tap 8, axis 0
-    got = sb.shiftblend_fwd(*_t([x, off, mask, w, bias]), spec, "float32",
-                            bound)
+    got = sb.fwd(*_t([x, off, mask, w, bias]), spec, "float32", bound)
     jx, joff, jm, jw, jb = _j([x, off, mask, w, bias])
     want = jax.jit(lambda *a: jsb.shift_conv_fwd_only(
         *a, _jspec(spec), "float32", bound))(jx, joff, jm, jw, jb)
@@ -86,7 +85,7 @@ def test_shiftblend_reference_matches_pallas(bound, modulated, drops):
 def test_gathermm_reference_matches_pallas():
     spec, arrs = _inputs(1, 1, 8, (6, 7), 3, 1, True, 2.5)
     x, off, mask, w, bias = arrs
-    got = gm.gathermm_fwd(*_t(arrs), spec, "float32")
+    got = gm.fused_fwd(*_t(arrs), spec, "float32")
     want = jax.jit(lambda *a: jmdc.modulated_deform_conv2d(
         *a, stride=1, padding=1, impl="pallas", precision="float32"))(
         *_j(arrs))
@@ -99,9 +98,9 @@ def test_bf16_mode_rounds_operands():
     bf16 and accumulate in fp32, within bf16 error of the fp32 result."""
     spec, arrs = _inputs(2, 2, 16, (5, 6), 3, 2, True, 1.5)
     t = _t(arrs)
-    ref = gm.gathermm_fwd(*t, spec, "float32")
-    for out in (gm.gathermm_fwd(*t, spec, "bfloat16"),
-                sb.shiftblend_fwd(*t, spec, "bfloat16", 2.0)):
+    ref = gm.fused_fwd(*t, spec, "float32")
+    for out in (gm.fused_fwd(*t, spec, "bfloat16"),
+                sb.fwd(*t, spec, "bfloat16", 2.0)):
         assert not torch.equal(out, ref)
         torch.testing.assert_close(out, ref, rtol=2e-2, atol=2e-2)
 

@@ -13,7 +13,9 @@ the port's plain path:
 * the model's stage spans: none with tracing off, and with it on
   "mdc.model.stem", "mdc.model.c2" .. "mdc.model.c5", each holding its
   stage's deformable ops;
-* the 3D column forward's `values` count, which a captured step reads;
+* the column forward's values, counted in the launch table that a
+  captured step reads, in 3D and 2D (the C side stubbed:
+  tests/torch_launch_stub.py);
   tools/trace_cells.py's `stage_ms` arithmetic.
 
 The clips are 8 x 64 x 64 rather than 4 x 16 x 16: at 16 x 16, c4 and c5
@@ -39,8 +41,10 @@ from dcnbench.reference.resnet3d import MODELS
 from modulated_deform_conv_tpu_torch.examples.train_dcn_resnet import (
     make_optimizer, train, train_step)
 from modulated_deform_conv_tpu_torch.models.backbone import DCNStage
-from modulated_deform_conv_tpu_torch.ops.cuda import gathermm
-from modulated_deform_conv_tpu_torch.utils import graphs, profiling
+from modulated_deform_conv_tpu_torch.ops.cuda import gathermm, lib
+from modulated_deform_conv_tpu_torch.utils import profiling
+
+from torch_launch_stub import stub_c_side
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 CONFIG = json.loads((REPO / "dcnbench" / "configs" / "dcn-r3d50.json")
@@ -229,21 +233,34 @@ def test_stage_needs_2d_or_no_mesh():
         DCNStage(1, 8, 4, 16, ndim=3, mesh=object(), device="meta")
 
 
-def test_column_wrappers_count_values_for_the_captured_step():
-    wrappers = graphs._launch_counts()
-    for name in ("gathermm3d_cols_fwd", "adamw"):
-        assert isinstance(wrappers[name].values, int), name
-    assert wrappers["gathermm3d_cols_fwd"] is gathermm.gathermm3d_cols_fwd
+def test_column_wrappers_count_values_for_the_captured_step(monkeypatch):
     # CPU tensors take the plain version, which launches and counts
     # nothing.
-    before = gathermm.gathermm3d_cols_fwd.values
+    before = lib.counts()
     spec = mdt.ModulatedDeformConv3dPack(4, 4, 3, padding=1,
                                          device="cpu")._spec()
     x = torch.randn(1, 4, 3, 4, 4)
-    cols = gathermm.gathermm3d_cols_fwd(x, torch.zeros(1, 81, 3, 4, 4),
-                                        torch.ones(1, 27, 3, 4, 4), spec)
+    cols = gathermm.cols_fwd(x, torch.zeros(1, 81, 3, 4, 4),
+                             torch.ones(1, 27, 3, 4, 4), spec)
     assert cols.shape == (4 * 27, 48)
-    assert gathermm.gathermm3d_cols_fwd.values == before
+    assert lib.counts() == before
+    # The kernel path, on meta tensors: each launch counts the column
+    # values it writes under its rank's C entry.
+    stub_c_side(monkeypatch)
+    monkeypatch.setattr(lib, "check_inputs", lambda *a, **k: None)
+    spec2 = mdt.ModulatedDeformConv2dPack(4, 4, 3, padding=1,
+                                          device="cpu")._spec()
+    for sp, S, entry in ((spec, (3, 4, 4), "gathermm3d_cols_fwd"),
+                         (spec2, (5, 6), "gathermm_cols_fwd")):
+        nd, K = len(S), sp.tap_count
+        meta = [torch.empty((2, c) + S, device="meta")
+                for c in (4, nd * K, K)]
+        cols = gathermm.cols_fwd(*meta, sp)
+        after = lib.counts()
+        assert cols.shape == (4 * K, 2 * math.prod(S))
+        assert after.launches - before.launches == {entry: 1}
+        assert after.values - before.values == {entry: cols.numel()}
+        before = after
 
 
 def _trace_cells():

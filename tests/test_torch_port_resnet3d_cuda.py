@@ -27,7 +27,7 @@ import torch
 import modulated_deform_conv_tpu_torch as mdt
 from modulated_deform_conv_tpu_torch.examples.train_dcn_resnet import (
     make_optimizer, train_step)
-from modulated_deform_conv_tpu_torch.ops.cuda import gathermm as gm
+from modulated_deform_conv_tpu_torch.ops.cuda import lib
 from modulated_deform_conv_tpu_torch.utils import graphs
 
 pytestmark = pytest.mark.cuda
@@ -98,13 +98,13 @@ def test_dcn_layer_matches_plain(dev, layer, precision):
     runs = {}
     for impl in ("auto", "torch"):
         leaves = [a.clone().requires_grad_(True) for a in ins]
-        gm.gathermm3d_cols_fwd.launches = 0
-        gm.gathermm3d_cols_bwd.launches = 0
+        before = lib.counts().launches
         out = mdt.modulated_deform_conv3d(*leaves, None, stride, 1,
                                           impl=impl, precision=precision)
         out.backward(gout)
-        launches = (gm.gathermm3d_cols_fwd.launches,
-                    gm.gathermm3d_cols_bwd.launches)
+        launched = lib.counts().launches - before
+        launches = (launched["gathermm3d_cols_fwd"],
+                    launched["gathermm3d_cols_bwd"])
         assert launches == ((1, 1) if impl == "auto" else (0, 0))
         runs[impl] = [out.detach()] + [a.grad for a in leaves]
         del out, leaves

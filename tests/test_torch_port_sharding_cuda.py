@@ -28,6 +28,7 @@ import torch
 
 from modulated_deform_conv_tpu_torch.ops import api
 from modulated_deform_conv_tpu_torch.ops.cuda import gathermm as gm
+from modulated_deform_conv_tpu_torch.ops.cuda import lib
 from modulated_deform_conv_tpu_torch.ops.cuda import shiftblend as sb
 from modulated_deform_conv_tpu_torch.parallel import sharding as sh
 from modulated_deform_conv_tpu_torch.utils.config import DeformConvSpec
@@ -96,12 +97,9 @@ def _block(spec, ts, plan, i):
             placement)
 
 
-def _kernels(nd):
-    if nd == 2:
-        return (gm.gathermm_fwd, gm.gathermm_bwd, gm.gathermm_cols_fwd,
-                gm.gathermm_cols_bwd)
-    return (gm.gathermm3d_fwd, gm.gathermm3d_bwd, gm.gathermm3d_cols_fwd,
-            gm.gathermm3d_cols_bwd)
+# The four gather kernels' wrappers, each taking the kernel of its
+# spec's rank.
+KERNELS = (gm.fused_fwd, gm.fused_bwd, gm.cols_fwd, gm.cols_bwd)
 
 
 def _run_all(block, w, b, precision, gates, placement=None):
@@ -110,7 +108,7 @@ def _run_all(block, w, b, precision, gates, placement=None):
     (kernel, plain)."""
     x_ext, off, mask, spec, OS = block[:5]
     mode = (OS, gates, placement)
-    fwd, bwd, cfwd, cbwd = _kernels(spec.ndim)
+    fwd, bwd, cfwd, cbwd = KERNELS
     g = torch.Generator(device=x_ext.device).manual_seed(1)
     gout = torch.randn((x_ext.shape[0], w.shape[0]) + OS, generator=g,
                        device=x_ext.device)
@@ -199,7 +197,7 @@ def test_gate_invariant_raises_on_the_card(dev):
     for bad in (((-1.5, 16.0), (-1.0, 9.0)), ((-1.0, 16.5), (-1.0, 9.0)),
                 ((3.0, 3.0), (-1.0, 9.0))):
         with pytest.raises(ValueError, match="gate_bounds"):
-            gm.gathermm_fwd(x, off, mask, w, b, spec, "float32", None, bad)
+            gm.fused_fwd(x, off, mask, w, b, spec, "float32", None, bad)
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -220,7 +218,7 @@ def test_block_positions_round_as_unsharded(dev, case):
     # the halo.
     plan = _plan(spec, ts, dim, n, scale + 1.0)
     lay, sizes = {2 + dim: "space"}, {"space": n}
-    fwd, bwd = _kernels(nd)[:2]
+    fwd, bwd = KERNELS[:2]
     OS = tuple(near.shape[2:])
     gout = torch.randn((B, O) + OS, device=dev)
     y0 = fwd(x, near, mask, w, b, spec, "float32")
@@ -307,11 +305,10 @@ def _lead_blocks(dev, case, offscale):
     return spec, ts, plan, [_block(spec, ts, plan, i) for i in range(n)]
 
 
-def _lead_wrappers(nd):
-    fam = "shiftblend" if nd == 2 else "shiftblend3d"
-    return (getattr(sb, f"{fam}_fwd"), getattr(sb, f"{fam}_bwd"),
-            getattr(sb, f"{fam}_fwd_reference"),
-            getattr(sb, f"{fam}_bwd_reference"))
+# The lead mode's wrappers, each taking the kernel of its spec's rank,
+# and their plain versions.
+LEAD_WRAPPERS = (sb.fwd, sb.bwd, sb.shiftblend_fwd_reference,
+                 sb.shiftblend_bwd_reference)
 
 
 @pytest.mark.parametrize("precision", list(LIMITS))
@@ -324,7 +321,7 @@ def test_lead_kernels_match_plain_on_every_shard(dev, case, precision):
     bound = LEAD_CASES[case][-1]
     spec, ts, plan, blocks = _lead_blocks(dev, case, 1.3 * bound)
     w, b = ts[3], ts[4]
-    fwd, bwd, fwd_ref, bwd_ref = _lead_wrappers(spec.ndim)
+    fwd, bwd, fwd_ref, bwd_ref = LEAD_WRAPPERS
     for i, (x_ext, off_l, mask_l, local, OS, gates, placement) in enumerate(
             blocks):
         mode = (OS, gates, placement)
@@ -332,8 +329,7 @@ def test_lead_kernels_match_plain_on_every_shard(dev, case, precision):
         want = fwd_ref(*args, *mode)
         outs = [fwd(*args, *mode)]
         if spec.ndim == 2:
-            outs += [sb._fwd("shiftblend_fwd", *args, *mode, halo=r)
-                     for r in (True, False)]
+            outs += [sb.fwd(*args, *mode, halo=r) for r in (True, False)]
         for got in outs:
             assert got.shape == want.shape
             assert _rel(got, want) <= LIMITS[precision], i
@@ -360,7 +356,7 @@ def test_lead_mode_stitches_to_the_unsharded_op(dev, case):
                               plan.shards, bound)
     assert prefers == (C // dg <= current_profile(x).sb_lead_crossover_cg)
     impl = "auto" if prefers else "shiftblend"
-    fwd, bwd = _lead_wrappers(nd)[:2]
+    family = "shiftblend" if nd == 2 else "shiftblend3d"
     lay, sizes = {2: "space"}, {"space": n}
     outs, gx = [], torch.zeros_like(x)
     goff, gmask = torch.zeros_like(off), torch.zeros_like(mask)
@@ -370,11 +366,13 @@ def test_lead_mode_stitches_to_the_unsharded_op(dev, case):
         ins = [sh.cut_block(x, plan.shards, [i]).requires_grad_(True)] + [
             t.clone().requires_grad_(True)
             for t in (off[sl].contiguous(), mask[sl].contiguous(), w, b)]
-        f0, b0 = fwd.launches, bwd.launches
+        before = lib.counts().launches
         y = sh.shard_conv(*ins, spec, plan.shards, [i], bound, impl,
                           "float32")
         (y * y).sum().backward()
-        assert (fwd.launches - f0, bwd.launches - b0) == (1, 1)
+        launched = lib.counts().launches - before
+        assert (launched[f"{family}_fwd"], launched[f"{family}_bwd"]) == (
+            1, 1)
         outs.append(y.detach())
         goff[sl], gmask[sl] = ins[1].grad, ins[2].grad
         gw += ins[3].grad
@@ -401,7 +399,7 @@ def test_lead_backward_is_bitwise_repeatable(dev, case):
     bound = LEAD_CASES[case][-1]
     spec, ts, plan, blocks = _lead_blocks(dev, case, bound)
     x_ext, off_l, mask_l, local, OS, gates, placement = blocks[1]
-    bwd = _lead_wrappers(spec.ndim)[1]
+    bwd = LEAD_WRAPPERS[1]
     gout = torch.randn((x_ext.shape[0], ts[3].shape[0]) + OS, device=dev)
     runs = [bwd(x_ext, off_l, mask_l, ts[3], gout, local, "tensorfloat32",
                 bound, (True,) * 4, OS, gates, placement) for _ in range(2)]

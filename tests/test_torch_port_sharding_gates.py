@@ -99,19 +99,17 @@ def test_block_mode_matches_jax_pallas(name, monkeypatch):
     assert gm.jax_fuse_ok(torch.empty(ins[0].shape, device="meta"), spec, O,
                           OS) == fused
     calls = []
-    d = "" if spec.ndim == 2 else "3d"
-    kinds = ("fwd", "bwd") if fused else ("cols_fwd", "cols_bwd")
-    for kind in kinds:
-        fn = f"gathermm{d}_{kind}"
+    kinds = ("fused_fwd", "fused_bwd") if fused else ("cols_fwd", "cols_bwd")
+    for fn in kinds:
         orig = getattr(gm, fn)
         monkeypatch.setattr(gm, fn, lambda *a, _f=orig, _n=fn, **k: (
-            calls.append(_n), _f(*a, **k))[1])
+            calls.append((_n, a[0].ndim - 2)), _f(*a, **k))[1])
 
     ts = [torch.tensor(a, requires_grad=True) for a in ins]
     out = api._dispatch(*ts, spec, "cuda", "float32", out_sizes=OS,
                         gate_bounds=gates, block_origin=placement)
     out.backward(torch.from_numpy(cot))
-    assert calls == [f"gathermm{d}_{k}" for k in kinds]
+    assert calls == [(k, spec.ndim) for k in kinds]
 
     def jop(*a):
         return japi._dispatch(*a, js, "pallas", "float32", out_sizes=OS,

@@ -266,9 +266,9 @@ def test_gate_invariant_raises(gates):
     with pytest.raises(ValueError, match="gate_bounds"):
         lib.block_floats(spec, x.shape[2:], gates)
     with pytest.raises(ValueError, match="gate_bounds"):
-        gm.gathermm_fwd(x, off, mask, w, b, spec, "float32", None, gates)
+        gm.fused_fwd(x, off, mask, w, b, spec, "float32", None, gates)
     with pytest.raises(ValueError, match="gate_bounds"):
-        gm.gathermm_cols_fwd(x, off, mask, spec, "float32", None, gates)
+        gm.cols_fwd(x, off, mask, spec, "float32", None, gates)
     assert lib.block_floats(spec, x.shape[2:]) == (-1.0, 6.0, -1.0, 6.0,
                                                    0.0, 0.0, 0.0, 0.0)
     # With a placement the gate moves by the block's origin.

@@ -59,12 +59,12 @@ def main():
         lib._FUNCS.clear()
         if which == "parent":
             lib._FUNCS.update(parent)
-            def parent_launch(name, x, tensors, ints, floats=()):
+            def parent_launch(name, x, tensors, ints, floats=(), **kw):
                 ints = ints[:-1]                       # the earlier entries take no io
                 if name.startswith("shiftblend"):      # ints: *x.shape, O, *OS, ...
                     at = x.ndim + 1
                     ints, floats = ints[:at] + ints[at + x.ndim - 2:], ()
-                return launch(name, x, tensors, ints, floats)
+                return launch(name, x, tensors, ints, floats, **kw)
             lib.launch = parent_launch
         else:
             lib._FUNCS.update(mine)
@@ -91,16 +91,16 @@ def main():
     p = cs.MAIN_PRECISION
     calls = {}
     for fam, fwd, bwd, spec, (x, off, mask, w, b), ext in (
-            ("shiftblend", sb.shiftblend_fwd, sb.shiftblend_bwd, spec2, ins2, (cs.BOUND,)),
-            ("gathermm", gm.gathermm_fwd, gm.gathermm_bwd, spec2, ins2, ()),
-            ("gathermm3d", gm.gathermm3d_fwd, gm.gathermm3d_bwd, spec3, ins3, ()),
-            ("shiftblend3d", sb.shiftblend3d_fwd, sb.shiftblend3d_bwd, spec4, ins4, (cs.BOUND3D,))):
+            ("shiftblend", sb.fwd, sb.bwd, spec2, ins2, (cs.BOUND,)),
+            ("gathermm", gm.fused_fwd, gm.fused_bwd, spec2, ins2, ()),
+            ("gathermm3d", gm.fused_fwd, gm.fused_bwd, spec3, ins3, ()),
+            ("shiftblend3d", sb.fwd, sb.bwd, spec4, ins4, (cs.BOUND3D,))):
         gout = torch.randn((x.shape[0], w.shape[0]) + tuple(off.shape[2:]), device=dev)
         calls[f"{fam}_fwd"] = (lambda f=fwd, a=(x, off, mask, w, b, spec, p) + ext: f(*a))
         calls[f"{fam}_bwd"] = (lambda f=bwd, a=(x, off, mask, w, gout, spec, p) + ext: f(*a))
     for fam, spec, (x, off, mask, _, _) in (("gathermm_cols", spec5, ins5),
                                             ("gathermm3d_cols", specc, insc)):
-        fwd, bwd = getattr(gm, f"{fam}_fwd"), getattr(gm, f"{fam}_bwd")
+        fwd, bwd = gm.cols_fwd, gm.cols_bwd
         gcols = torch.randn_like(fwd(x, off, mask, spec, p))
         calls[f"{fam}_fwd"] = (lambda f=fwd, a=(x, off, mask, spec, p): f(*a))
         calls[f"{fam}_bwd"] = (lambda f=bwd, a=(x, off, mask, gcols, spec, p): f(*a))

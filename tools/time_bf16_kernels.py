@@ -59,7 +59,8 @@ def main() -> int:
         spec, ins, _, fam, extra = cases[label]
         name = row.split()[0]
         kind = name.rsplit("_", 1)[1]
-        fn = getattr(gm if fam.startswith("gathermm") else sb, name)
+        fn = next(f for f in (gm.fused_fwd, gm.fused_bwd, gm.cols_fwd, gm.cols_bwd, sb.fwd, sb.bwd)
+                  if cs.entry_of(f, spec.ndim) == name)
         up = [lib.as_f32(t) for t in ins]
         OS = tuple(ins[1].shape[2:])
         with torch.no_grad():

@@ -52,10 +52,10 @@ def main() -> int:
 
     dev = torch.device("cuda")
     spec2 = DeformConvSpec.make(2, 3, 1, 1, 1, 1, 1, modulated=True)
-    cases = [(f"cfg5 {layer}", spec2, cs.cfg5_inputs(torch, dev, layer)[:3], gm.gathermm_cols_bwd)
+    cases = [(f"cfg5 {layer}", spec2, cs.cfg5_inputs(torch, dev, layer)[:3], gm.cols_bwd)
              for layer in ("c4", "c5")]
     spec3, ins3 = cs.cols3d_inputs(torch, dev)
-    cases.append(("3D columns", spec3, ins3[:3], gm.gathermm3d_cols_bwd))
+    cases.append(("3D columns", spec3, ins3[:3], gm.cols_bwd))
     gen = torch.Generator(device=dev).manual_seed(2)
     gcols = []
     for _, spec, (x, off, mask), _ in cases:

@@ -103,7 +103,7 @@ def main() -> int:
     for label, spec, (x, off, mask) in cases:
         name = "gathermm_cols_fwd" if spec.ndim == 2 else "gathermm3d_cols_fwd"
         plan = gm.cols_fwd_plan(spec, x.shape[2:], spec.out_sizes(x.shape[2:]), x.shape[0], x.shape[1])
-        runs = {r: (lambda r=r: gm._cols_fwd(name, x, off, mask, spec, "tensorfloat32", route=r))
+        runs = {r: (lambda r=r: gm.cols_fwd(x, off, mask, spec, "tensorfloat32", route=r))
                 for r in ("plane", "gather")}
         if parent:
             runs["parent"] = lambda: parent_fwd(name, x, off, mask, spec, "tensorfloat32")
@@ -112,14 +112,14 @@ def main() -> int:
                 saved = gm._COLF_BLOCKS
                 gm._COLF_BLOCKS = int(saved * scale)
                 try:
-                    return gm._cols_fwd(name, x, off, mask, spec, "tensorfloat32", route="plane")
+                    return gm.cols_fwd(x, off, mask, spec, "tensorfloat32", route="plane")
                 finally:
                     gm._COLF_BLOCKS = saved
             runs[f"plane, {scale}x the blocks"] = more_blocks
         same = {}
         for prec in lib.PRECISIONS:
-            want = gm._cols_fwd(name, x, off, mask, spec, prec, route="gather")
-            others = {"plane": gm._cols_fwd(name, x, off, mask, spec, prec, route="plane")}
+            want = gm.cols_fwd(x, off, mask, spec, prec, route="gather")
+            others = {"plane": gm.cols_fwd(x, off, mask, spec, prec, route="plane")}
             if parent:
                 others["parent"] = parent_fwd(name, x, off, mask, spec, prec)
             same[prec] = {k: bool(torch.equal(v, want)) for k, v in others.items()}
@@ -135,8 +135,7 @@ def main() -> int:
                 f"{k} {v:.4f}" for k, v in split.items()), flush=True)
         torch.cuda.empty_cache()
     tree = lib.CSRC
-    want = {name: gm._cols_fwd("gathermm_cols_fwd" if spec.ndim == 2 else "gathermm3d_cols_fwd", x, off,
-                               mask, spec, "tensorfloat32", route="plane")
+    want = {name: gm.cols_fwd(x, off, mask, spec, "tensorfloat32", route="plane")
             for name, spec, (x, off, mask) in cases} if args.ablations else {}
     for label, edits in {**VARIANTS, **ABLATIONS}.items() if args.ablations else ():
         src = pathlib.Path(tempfile.mkdtemp(dir=lib.BUILD_DIR))
@@ -151,9 +150,8 @@ def main() -> int:
         lib.CSRC = src
         lib._FUNCS.clear()
         for name, spec, (x, off, mask) in cases:
-            name_ = "gathermm_cols_fwd" if spec.ndim == 2 else "gathermm3d_cols_fwd"
             def call():
-                return gm._cols_fwd(name_, x, off, mask, spec, "tensorfloat32", route="plane")
+                return gm.cols_fwd(x, off, mask, spec, "tensorfloat32", route="plane")
             same = bool(torch.equal(call(), want[name]))
             ms = cs.time_ms(call)
             split = cs.kernel_split(cs.device_time_by_kernel(call))
